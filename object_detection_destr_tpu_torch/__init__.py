@@ -1,0 +1,17 @@
+"""object_detection_destr_tpu_torch — the PyTorch + CUDA port of
+``object_detection_destr_tpu`` for NVIDIA Hopper (H100).
+
+The file layout mirrors the JAX package, so each module names its
+counterpart there; public layouts stay the JAX package's (NHWC images,
+cxcyhw boxes with h before w, head-packed ``(B, S, h*d)`` attention
+operands). This package imports ``torch`` and ``numpy`` and never JAX.
+
+Subpackages:
+    geometry  — box conversion and sine embeddings
+    ops       — attention, masked top-k, and the hand-written CUDA kernels
+    models    — ResNet backbone, the DESTR split transformer, weight import
+    data      — letterbox / resize canvas and the inference transform
+    infer     — DESTR post-processing and the HTTP detection service
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,199 @@
+"""Minimal HTTP serving for DESTR detection (port of
+``object_detection_destr_tpu/infer/server.py``).
+
+    python -m object_detection_destr_tpu_torch.infer.server \
+        --checkpoint_dir checkpoints --weights model_weights.npz --port 8900
+
+Protocol (stdlib only):
+    POST /predict   body = raw JPEG/PNG bytes (or JSON {"image_b64": ...})
+    -> {"boxes": [[x1,y1,x2,y2], ...] (normalized), "scores": [...],
+        "labels": [...]}
+    GET /healthz    -> {"ok": true}
+
+The model runs on the GPU unless ``--device cpu`` is given. Weights come from
+the port's ``.npz`` file (models/convert.py). Requests are letterboxed by
+default (aspect-preserving, with a pixel valid-mask; boxes are mapped back
+to the original image), or stretched with ``--no-letterbox``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import io
+import json
+import os
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from ..config import DestrConfig, resolve_device
+from ..data.loader import _letterbox_canvas, _resize_canvas
+from ..data.transforms import letterbox_infer_transform, normalize_imagenet
+from ..models.convert import load_flax_variables, load_variables_npz
+from ..models.destr.model import build_destr
+from .predict import destr_predict
+
+__all__ = ["DetectionService", "serve", "get_parser", "build_service"]
+
+
+class DetectionService:
+    """The model, its post-processing and the host preprocessing; thread-safe.
+
+    ``model`` is a DESTR in eval mode with its weights loaded; it runs on the
+    device its parameters are on. The first forward pass (and with it the
+    CUDA kernel's build) happens here, so the first request is fast.
+    """
+
+    def __init__(self, model_kind, model, image_size, score_thresh, letterbox=True):
+        if model_kind != "destr":
+            raise NotImplementedError(f"--model {model_kind}: SSD arrives with the SSD slice")
+        self.model_kind = model_kind
+        self.model = model
+        self.image_size = image_size
+        self.score_thresh = score_thresh
+        self.letterbox = letterbox
+        self.device = next(model.parameters()).device
+        self._lock = threading.Lock()
+        zeros = torch.zeros((1, image_size, image_size, 3), device=self.device)
+        ones = torch.ones((1, image_size, image_size), dtype=torch.bool, device=self.device)
+        self._predict(zeros, ones if letterbox else None)
+
+    @torch.inference_mode()
+    def _predict(self, images, pixel_valid=None) -> dict[str, np.ndarray]:
+        outputs, _ = self.model(images, valid_mask=pixel_valid)
+        dets = destr_predict(outputs, score_thresh=self.score_thresh)
+        return {k: v.cpu().numpy() for k, v in dets.items()}
+
+    def predict_image(self, image_uint8: np.ndarray) -> dict:
+        if self.letterbox:
+            canvas, fh, fw = _letterbox_canvas(image_uint8, self.image_size)
+            prep = letterbox_infer_transform(
+                torch.from_numpy(canvas[None]).to(self.device),
+                torch.tensor([[fh, fw]], dtype=torch.float32),
+                out_size=self.image_size,
+            )
+            with self._lock:
+                dets = self._predict(prep["images"], prep["pixel_valid"])
+            keep = dets["valid"][0]
+            # canvas-normalized xyxy -> original-image-normalized
+            scale = np.asarray([fw, fh, fw, fh], np.float32)
+            boxes = np.clip(dets["boxes"][0][keep] / scale, 0.0, 1.0)
+        else:
+            canvas = _resize_canvas(image_uint8, self.image_size)
+            images = normalize_imagenet(torch.from_numpy(canvas[None]).to(self.device))
+            with self._lock:
+                dets = self._predict(images)
+            keep = dets["valid"][0]
+            boxes = dets["boxes"][0][keep]
+        return {
+            "boxes": boxes.tolist(),
+            "scores": dets["scores"][0][keep].tolist(),
+            "labels": dets["labels"][0][keep].tolist(),
+        }
+
+
+def _make_handler(service: DetectionService):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"ok": True})
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/predict":
+                self._send(404, {"error": "not found"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(length)
+                ctype = self.headers.get("Content-Type", "")
+                if ctype.startswith("application/json"):
+                    payload = json.loads(body)
+                    body = base64.b64decode(payload["image_b64"])
+                from PIL import Image
+
+                image = np.asarray(
+                    Image.open(io.BytesIO(body)).convert("RGB"), dtype=np.uint8
+                )
+                self._send(200, service.predict_image(image))
+            except Exception as e:  # noqa: BLE001 — report to the client
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+
+    return Handler
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("object_detection_destr_tpu_torch serve")
+    p.add_argument("--model", choices=["destr", "ssd"], default="destr")
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    p.add_argument("--weights", type=str, default="model_weights",
+                   help="weights .npz inside --checkpoint_dir (or a path); "
+                        "'.npz' is appended when missing")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8900)
+    p.add_argument("--score_thresh", type=float, default=0.5)
+    p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--letterbox", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="aspect-preserving DESTR serving (default); "
+                        "--no-letterbox restores the square stretch")
+    p.add_argument("--hidden_dim", type=int, default=256)
+    p.add_argument("--ffn_dim", type=int, default=2048)
+    p.add_argument("--num_heads", type=int, default=8)
+    p.add_argument("--num_encoder_blocks", type=int, default=6)
+    p.add_argument("--num_decoder_blocks", type=int, default=6)
+    p.add_argument("--top_k", type=int, default=300)
+    p.add_argument("--num_cls", type=int, default=2)
+    p.add_argument("--backbone", type=str, default="resnet50")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default the GPU ('cpu' must be asked for)")
+    return p
+
+
+def build_service(args) -> DetectionService:
+    if args.model != "destr":
+        raise NotImplementedError(f"--model {args.model}: SSD arrives with the SSD slice")
+    device = resolve_device(args.device)
+    cfg = DestrConfig(
+        hidden_dim=args.hidden_dim, ffn_dim=args.ffn_dim,
+        num_heads=args.num_heads,
+        num_encoder_blocks=args.num_encoder_blocks,
+        num_decoder_blocks=args.num_decoder_blocks,
+        top_k=args.top_k, num_cls=args.num_cls, backbone=args.backbone,
+    )
+    path = os.path.join(args.checkpoint_dir, args.weights)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    model = build_destr(cfg, device)
+    load_flax_variables(model, load_variables_npz(path))
+    return DetectionService(
+        args.model, model, args.image_size or 640, args.score_thresh,
+        letterbox=args.letterbox,
+    )
+
+
+def serve(argv=None):
+    args = get_parser().parse_args(argv)
+    service = build_service(args)
+    server = ThreadingHTTPServer((args.host, args.port), _make_handler(service))
+    print(f"serving {args.model} on http://{args.host}:{args.port}", flush=True)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    serve()

@@ -1,0 +1,79 @@
+"""DESTR mini-detector: dense per-token detection seeding the decoder queries
+(port of ``object_detection_destr_tpu/models/destr/mini_detector.py``).
+
+Three 4x(3x3 conv + BatchNorm) stacks in eval mode with running statistics
+(flax BN eps 1e-5; its ``mean``/``var`` are ``running_mean``/``running_var``
+here). The cls/bbox/pos heads are the model's shared modules, passed in at
+call time so each has one set of parameters.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops.topk import masked_topk_with_recycle
+
+__all__ = ["ConvBnStack", "MiniDetector"]
+
+
+class ConvBnStack(nn.Module):
+    """4x (3x3 same conv + BatchNorm), no activation (mini_detector.py:36-55).
+    NHWC in and out; the convs run NCHW."""
+
+    def __init__(self, hidden_dim: int = 256, num_layers: int = 4):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"conv{i}", nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1))
+            self.add_module(f"bn{i}", nn.BatchNorm2d(hidden_dim, eps=1e-5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self.num_layers):
+            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
+        return x.permute(0, 2, 3, 1)
+
+
+class MiniDetector(nn.Module):
+    """Returns (selected_objects (B, k, 2C), selected_centers (B, k, 2),
+    det_output {"pred_class": (B, HW, num_cls), "pred_boxes": (B, HW, 4)})
+    (mini_detector.py:79-123)."""
+
+    def __init__(self, top_k: int, hidden_dim: int = 256):
+        super().__init__()
+        self.top_k = top_k
+        self.cls_conv = ConvBnStack(hidden_dim)
+        self.pos_conv = ConvBnStack(hidden_dim)
+        self.reg_conv = ConvBnStack(hidden_dim)
+
+    def forward(self, features, fine_pos, valid_mask, cls_embed, bbox_embed, pos_head):
+        """features/fine_pos: (B, H, W, C); valid_mask: (B, H, W) bool."""
+        b, h, w, c = features.shape
+        flat_valid = valid_mask.reshape(b, h * w)[..., None]
+
+        def mask_tokens(t):
+            return torch.where(flat_valid, t.reshape(b, h * w, c), 0.0)
+
+        cls_feats = mask_tokens(self.cls_conv(features))
+        det_class = cls_embed(cls_feats)  # (B, HW, num_cls) logits
+        pos_feats = mask_tokens(self.pos_conv(fine_pos))
+        center_offset = pos_head(pos_feats)  # (B, HW, 2)
+        reg_feats = mask_tokens(self.reg_conv(features))
+        bbox = bbox_embed(reg_feats)  # (B, HW, 4)
+        bbox = torch.cat([bbox[..., :2] + center_offset, bbox[..., 2:]], dim=-1)
+        det_boxes = torch.sigmoid(bbox)
+        det_output = {"pred_class": det_class, "pred_boxes": det_boxes}
+
+        # query selection: max sigmoid class score over valid tokens
+        scores = torch.sigmoid(det_class).amax(dim=-1)
+        k = min(self.top_k, h * w)
+        topk_idx = masked_topk_with_recycle(scores, k, flat_valid[..., 0])  # (B, k)
+
+        object_feats = torch.cat([cls_feats, reg_feats], dim=-1)  # (B, HW, 2C)
+        selected_objects = torch.gather(
+            object_feats, 1, topk_idx[..., None].expand(b, k, 2 * c)
+        )
+        centers = torch.where(flat_valid, det_boxes, 0.0)[..., :2]
+        selected_centers = torch.gather(centers, 1, topk_idx[..., None].expand(b, k, 2))
+        return selected_objects, selected_centers, det_output

@@ -1,0 +1,59 @@
+"""Attention primitives (port of ``object_detection_destr_tpu/ops/attention.py``).
+
+Batch-first ``(B, S, D)`` or pre-split ``(B, h, S, d)``. Logits and the
+softmax are float32; masked keys are set to -1e9, not -inf, so a row whose
+keys are all masked gets uniform weights instead of NaN (attention.py:31, :88).
+This is the plain path the model takes with ``use_flash_attention=False``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["NEG_INF", "scaled_dot_product_attention", "split_heads", "combine_heads"]
+
+NEG_INF = -1e9  # finite -inf stand-in: keeps softmax well-defined on full-pad rows
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, D) -> (B, h, S, D/h)."""
+    b, s, d = x.shape
+    return x.reshape(b, s, num_heads, d // num_heads).transpose(1, 2)
+
+
+def combine_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, h, S, d) -> (B, S, h*d)."""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def scaled_dot_product_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    *,
+    key_valid_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention over pre-split heads.
+
+    Args:
+        query/key: (B, h, S_q, d) / (B, h, S_k, d).
+        value: (B, h, S_k, d_v) — d_v may differ from d.
+        key_valid_mask: (B, S_k) bool, True = attendable.
+        scale: default 1/sqrt(d).
+
+    Returns:
+        (B, S_q, h*d_v) — heads merged, batch-first, in the value dtype.
+    """
+    d = query.shape[-1]
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    logits = torch.matmul(query.float(), key.float().transpose(-1, -2)) * scale
+    if key_valid_mask is not None:
+        logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs, value.float()).to(value.dtype)
+    return combine_heads(out)

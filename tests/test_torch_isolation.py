@@ -1,0 +1,39 @@
+"""The port and chip_smoke.py import no JAX, no flax, no orbax and nothing of
+the JAX package. Checked in a fresh interpreter, because this test process
+has JAX loaded already (tests/conftest.py)."""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import object_detection_destr_tpu_torch as pkg
+names = [pkg.__name__]
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+import chip_smoke
+forbidden = sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "object_detection_destr_tpu"))
+print(json.dumps({"modules": names, "forbidden": forbidden}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["forbidden"] == []
+    # every module of the slice was imported
+    for name in ("config", "ops.cuda.flash_attention", "models.destr.model",
+                 "models.convert", "infer.server", "data.transforms"):
+        assert f"object_detection_destr_tpu_torch.{name}" in result["modules"], name
