@@ -8,9 +8,12 @@ operands). This package imports ``torch`` and ``numpy`` and never JAX.
 
 Subpackages:
     geometry  — box conversion and sine embeddings
-    ops       — attention, masked top-k, and the hand-written CUDA kernels
+    ops       — attention, focal terms, the auction, masked top-k, and the
+                hand-written CUDA kernels
     models    — ResNet backbone, the DESTR split transformer, weight import
-    data      — letterbox / resize canvas and the inference transform
+    losses    — the matcher and the set criterion
+    data      — synthetic dataset, batching loader, train / inference transforms
+    train     — optimizer, train state and step, the training driver and CLI
     infer     — DESTR post-processing and the HTTP detection service
 """
 

@@ -1,4 +1,14 @@
-from .loader import _letterbox_canvas, _resize_canvas
-from .transforms import letterbox_infer_transform, normalize_imagenet
+from .datasets import SyntheticDetection, build_dataset
+from .loader import DetectionLoader, _letterbox_canvas, _resize_canvas
+from .transforms import destr_train_transform, letterbox_infer_transform, normalize_imagenet
 
-__all__ = ["_letterbox_canvas", "_resize_canvas", "letterbox_infer_transform", "normalize_imagenet"]
+__all__ = [
+    "DetectionLoader",
+    "SyntheticDetection",
+    "_letterbox_canvas",
+    "_resize_canvas",
+    "build_dataset",
+    "destr_train_transform",
+    "letterbox_infer_transform",
+    "normalize_imagenet",
+]

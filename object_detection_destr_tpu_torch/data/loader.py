@@ -1,5 +1,6 @@
-"""Canvas resize and letterbox (port of ``_resize_canvas`` and
-``_letterbox_canvas``, ``object_detection_destr_tpu/data/loader.py:29-69``).
+"""Batching host loader, canvas resize and letterbox (port of
+``object_detection_destr_tpu/data/loader.py``: ``_resize_canvas`` and
+``_letterbox_canvas`` l.29-69, ``DetectionLoader`` l.72-265).
 
 The JAX package resizes with cv2 (PIL as fallback); neither is certain to be
 installed beside the port, so the resize is ``torch.nn.functional.interpolate``
@@ -9,11 +10,16 @@ uses). cv2 rounds in fixed point, so the two differ by at most one grey level.
 
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_uint8", "_resize_canvas", "_letterbox_canvas"]
+__all__ = ["DetectionLoader", "resize_uint8", "_resize_canvas", "_letterbox_canvas"]
 
 
 def resize_uint8(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -25,7 +31,10 @@ def resize_uint8(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 
 
 def _resize_canvas(image: np.ndarray, canvas: int) -> np.ndarray:
-    """Resize HWC uint8 to (canvas, canvas, 3), stretching."""
+    """Resize HWC uint8 to (canvas, canvas, 3), stretching; an image already
+    at the canvas size is returned as it is."""
+    if image.shape[:2] == (canvas, canvas):
+        return np.array(image, dtype=np.uint8)
     return resize_uint8(image, canvas, canvas)
 
 
@@ -40,3 +49,136 @@ def _letterbox_canvas(image: np.ndarray, canvas: int):
     out = np.zeros((canvas, canvas, 3), np.uint8)
     out[:nh, :nw] = resize_uint8(image, nh, nw)
     return out, nh / canvas, nw / canvas
+
+
+class DetectionLoader:
+    """Iterate padded numpy batches (loader.py:72-265).
+
+    Batch: {"images": (B, C, C, 3) uint8, "boxes": (B, T, 4) xyxy norm,
+            "labels": (B, T) int32, "valid": (B, T) bool}
+
+    Virtual epochs of ``len(dataset) * augment_factor`` samples (index mod
+    the dataset), shuffled per epoch from ``(seed, epoch)``, ``drop_last``,
+    items fetched by a thread pool and batches made one or more ahead by a
+    prefetch thread. With ``letterbox=True`` images are aspect-preserving
+    resized and pasted top-left on a zero canvas; the batch gains
+    "content_hw": (B, 2) and boxes are in canvas coordinates.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        canvas_size: int = 672,
+        max_targets: int = 300,
+        augment_factor: int = 1,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_last: bool = True,
+        prefetch: int = 2,
+        num_workers: int = 8,
+        letterbox: bool = False,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.canvas_size = canvas_size
+        self.letterbox = letterbox
+        self.max_targets = max_targets
+        self.augment_factor = max(augment_factor, 1)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self._pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
+        self.epoch = 0
+        self._start_step = 0
+        self._step = 0
+
+    @property
+    def num_samples(self) -> int:
+        return len(self.dataset) * self.augment_factor
+
+    def __len__(self) -> int:
+        n = self.num_samples
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch, "step": self._step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.epoch = int(state["epoch"])
+        self._start_step = int(state["step"])
+        self._step = self._start_step
+
+    def _epoch_order(self) -> np.ndarray:
+        order = np.arange(self.num_samples)
+        if self.shuffle:
+            rng = np.random.default_rng((self.seed, self.epoch))
+            rng.shuffle(order)
+        return order
+
+    def _make_batch(self, idxs: np.ndarray) -> dict:
+        c, t = self.canvas_size, self.max_targets
+        b = len(idxs)
+        boxes = np.zeros((b, t, 4), np.float32)
+        labels = np.zeros((b, t), np.int32)
+        valid = np.zeros((b, t), bool)
+        fetch = lambda vi: self.dataset[int(vi) % len(self.dataset)]
+        items = list(self._pool.map(fetch, idxs)) if self._pool is not None else [fetch(i) for i in idxs]
+        images = np.zeros((b, c, c, 3), np.uint8)
+        content_hw = np.zeros((b, 2), np.float32)
+        for j, (img, bx, lb) in enumerate(items):
+            scale = np.ones(4, np.float32)
+            if self.letterbox:
+                images[j], fh, fw = _letterbox_canvas(img, c)
+                content_hw[j] = (fh, fw)
+                scale = np.asarray([fw, fh, fw, fh], np.float32)
+            else:
+                images[j] = _resize_canvas(img, c)
+            n = min(len(bx), t)
+            if n:
+                boxes[j, :n] = bx[:n] * scale if self.letterbox else bx[:n]
+                labels[j, :n] = lb[:n]
+                valid[j, :n] = True
+        batch = {"images": images, "boxes": boxes, "labels": labels, "valid": valid}
+        if self.letterbox:
+            batch["content_hw"] = content_hw
+        return batch
+
+    def __iter__(self) -> Iterator[dict]:
+        order = self._epoch_order()
+        n_batches = len(self)
+        start = self._start_step
+        self._start_step = 0
+
+        def batches():
+            for step in range(start, n_batches):
+                self._step = step + 1
+                lo = step * self.batch_size
+                yield self._make_batch(order[lo : lo + self.batch_size])
+            self.epoch += 1
+            self._step = 0
+
+        self._step = start
+        if self.prefetch <= 0:
+            yield from batches()
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+
+        def worker():
+            try:
+                for item in batches():
+                    q.put(item)
+            finally:
+                q.put(sentinel)
+
+        th = threading.Thread(target=worker, daemon=True)
+        th.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+        th.join()

@@ -1,12 +1,25 @@
-"""Inference transforms (port of ``normalize_imagenet`` and
-``letterbox_infer_transform``, ``object_detection_destr_tpu/data/transforms.py:47-51, :222-245``)."""
+"""Transforms as batched tensor ops on the images' device (port of
+``object_detection_destr_tpu/data/transforms.py``: ``normalize_imagenet``
+l.47-51, ``destr_train_transform`` l.54-173, ``letterbox_infer_transform``
+l.222-245)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "normalize_imagenet", "letterbox_infer_transform"]
+from ..geometry.boxes import flat_box_mask
+
+__all__ = [
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
+    "crop_flip",
+    "destr_train_transform",
+    "letterbox_infer_transform",
+    "normalize_imagenet",
+]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -46,3 +59,100 @@ def letterbox_infer_transform(
         frac[None, None, :] < content[:, 1, None, None]
     )
     return {"images": normalize_imagenet(x), "pixel_valid": pixel_valid}
+
+
+def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
+    """(B, in, out) resampling weights of ``jax.image.scale_and_translate``
+    with the linear (triangle) kernel and antialiasing: the kernel widens by
+    1/scale when downsampling; columns are normalized, and zero where the
+    sample falls outside the input."""
+    dev = scale.device
+    inv_scale = 1.0 / scale[:, None]
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = (torch.arange(out_size, device=dev, dtype=torch.float32) + 0.5) * inv_scale \
+        - translation[:, None] * inv_scale - 0.5  # (B, out)
+    x = torch.abs(sample_f[:, None, :] - torch.arange(in_size, device=dev, dtype=torch.float32)[None, :, None])
+    weights = torch.clamp(1.0 - x / kernel_scale[:, None], min=0.0)
+    total = weights.sum(1, keepdim=True)
+    weights = torch.where(
+        total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+        weights / torch.where(total != 0, total, 1.0), 0.0,
+    )
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[:, None, :], weights, 0.0)
+
+
+def crop_flip(
+    images: torch.Tensor,
+    boxes_xyxy: torch.Tensor,
+    labels: torch.Tensor,
+    valid: torch.Tensor,
+    area_frac: torch.Tensor,
+    log_ratio: torch.Tensor,
+    u_y: torch.Tensor,
+    u_x: torch.Tensor,
+    flip: torch.Tensor,
+    out_size: int = 640,
+) -> dict:
+    """RandomResizedCrop + horizontal flip + normalize at given draws, one
+    (B,) tensor each (transforms.py:117-173 without letterbox content).
+
+    The crop window is sampled from ``area_frac`` of the image and an aspect
+    ``exp(log_ratio)``, its size clipped to [8, side], its offset
+    ``u * (side - crop)``; it is resampled to ``out_size`` with the
+    antialiased linear kernel of ``jax.image.scale_and_translate``; boxes are
+    re-expressed in the window, clipped to [0, 1], and those that collapse
+    are dropped from ``valid``.
+    """
+    b, h, w, _ = images.shape
+    hc, wc = float(h), float(w)
+    ratio = torch.exp(log_ratio)
+    target_area = area_frac * hc * wc
+    cw = torch.clamp(torch.sqrt(target_area * ratio), 8.0, float(w))
+    ch = torch.clamp(torch.sqrt(target_area / ratio), 8.0, float(h))
+    y0 = u_y * torch.clamp(hc - ch, min=0.0)
+    x0 = u_x * torch.clamp(wc - cw, min=0.0)
+
+    wy = _weight_mat(h, out_size, out_size / ch, -y0 * out_size / ch)  # (B, H, S)
+    wx = _weight_mat(w, out_size, out_size / cw, -x0 * out_size / cw)  # (B, W, S)
+    with torch.autocast(images.device.type, enabled=False):
+        x = torch.einsum("byxc,bys->bsxc", images.float(), wy)
+        out = torch.einsum("bsxc,bxt->bstc", x, wx)
+
+    px = boxes_xyxy.float() * torch.tensor([w, h, w, h], dtype=torch.float32, device=images.device)
+    shifted = px - torch.stack([x0, y0, x0, y0], -1)[:, None, :]
+    rescaled = shifted / torch.stack([cw, ch, cw, ch], -1)[:, None, :]
+    new_boxes = torch.clamp(rescaled, 0.0, 1.0)
+    new_valid = valid & flat_box_mask(new_boxes)
+
+    flip = flip.bool()
+    out = torch.where(flip[:, None, None, None], out.flip(2), out)
+    flipped = torch.stack(
+        [1.0 - new_boxes[..., 2], new_boxes[..., 1], 1.0 - new_boxes[..., 0], new_boxes[..., 3]], -1
+    )
+    new_boxes = torch.where(flip[:, None, None], flipped, new_boxes)
+    return {"images": normalize_imagenet(out), "boxes": new_boxes, "labels": labels, "valid": new_valid}
+
+
+def destr_train_transform(
+    images: torch.Tensor,
+    boxes_xyxy: torch.Tensor,
+    labels: torch.Tensor,
+    valid: torch.Tensor,
+    generator: torch.Generator,
+    out_size: int = 640,
+    scale_range: tuple = (0.08, 1.0),
+    ratio_range: tuple = (3.0 / 4.0, 4.0 / 3.0),
+) -> dict:
+    """Batched RandomResizedCrop + hflip + normalize (transforms.py:84-173),
+    its random draws from ``generator`` (on the images' device): per image
+    the area fraction, log aspect, the two offsets and the flip. Returns
+    {"images": (B, S, S, 3) float32, "boxes", "labels", "valid"}. The
+    letterbox form (``content_hw``) is not ported yet."""
+    b = images.shape[0]
+    u = torch.rand((5, b), generator=generator, device=images.device)
+    lo_r, hi_r = math.log(ratio_range[0]), math.log(ratio_range[1])
+    area_frac = scale_range[0] + (scale_range[1] - scale_range[0]) * u[0]
+    log_ratio = lo_r + (hi_r - lo_r) * u[1]
+    return crop_flip(images, boxes_xyxy, labels, valid, area_frac, log_ratio, u[2], u[3],
+                     u[4] < 0.5, out_size)

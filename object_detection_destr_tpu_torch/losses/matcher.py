@@ -1,0 +1,69 @@
+"""DESTR matching (port of ``object_detection_destr_tpu/losses/matcher.py:38-119``).
+
+``hungarian_cost_matrix`` builds the (B, N, T) cost; ``hungarian_match``
+solves it. With ``cost_bbox == 0`` (what the training step uses: class 1,
+CIoU 1) matching goes through the fused cost + auction of
+``ops/cuda/auction.py`` (kernel #9 on CUDA tensors), as the JAX package
+routes it to its fused Pallas kernel; otherwise the cost matrix is solved by
+``ops/assignment.py::auction_assignment`` (the precomputed-cost kernel #8,
+not ported yet, so CPU tensors only).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from ..geometry.boxes import cxcyhw_to_xyxy, pairwise_ciou
+from ..ops.assignment import auction_assignment
+from ..ops.cuda.auction import hungarian_match_fused
+from ..ops.focal import focal_cost_terms
+
+__all__ = ["hungarian_cost_matrix", "hungarian_match"]
+
+
+def hungarian_cost_matrix(
+    outputs: Mapping[str, torch.Tensor],
+    targets: Mapping[str, torch.Tensor],
+    cost_class: float = 1.0,
+    cost_bbox: float = 0.0,
+    cost_ciou: float = 1.0,
+) -> torch.Tensor:
+    """(B, N, T) cost: focal pos - neg at the target's label, 1 - CIoU, and
+    with ``cost_bbox`` the raw L1 between cxcyhw predictions and xyxy
+    targets, as the reference mixes them (matcher.py:38-79)."""
+    out_prob = torch.sigmoid(outputs["pred_class"].float())
+    out_bbox = outputs["pred_boxes"].float()
+    tgt_ids = targets["labels"].long()
+    tgt_bbox = targets["boxes"].float()
+    pos, neg = focal_cost_terms(out_prob)  # (B, N, C)
+    idx = tgt_ids[:, None, :].expand(pos.shape[0], pos.shape[1], tgt_ids.shape[1])
+    cost = cost_class * (pos.gather(-1, idx) - neg.gather(-1, idx))
+    if cost_ciou:
+        cost = cost + cost_ciou * pairwise_ciou(cxcyhw_to_xyxy(out_bbox), tgt_bbox)
+    if cost_bbox:
+        l1 = (out_bbox[:, :, None, :] - tgt_bbox[:, None, :, :]).abs().sum(-1)
+        cost = cost + cost_bbox * l1
+    return cost
+
+
+def hungarian_match(
+    outputs: Mapping[str, torch.Tensor],
+    targets: Mapping[str, torch.Tensor],
+    cost_class: float = 1.0,
+    cost_bbox: float = 0.0,
+    cost_ciou: float = 1.0,
+    eps_frac: float = 0.001,
+    max_iters: int = 256,
+) -> torch.Tensor:
+    """(B, T) int64 query row per target, duplicate-free; no gradient."""
+    with torch.no_grad():
+        if cost_bbox == 0:
+            return hungarian_match_fused(
+                outputs["pred_class"], outputs["pred_boxes"], targets["boxes"],
+                targets["labels"], targets["valid"], cost_class=cost_class,
+                cost_ciou=cost_ciou, eps_frac=eps_frac, max_iters=max_iters,
+            )
+        cost = hungarian_cost_matrix(outputs, targets, cost_class, cost_bbox, cost_ciou)
+        return auction_assignment(cost, targets["valid"], eps_frac=eps_frac, max_iters=max_iters)

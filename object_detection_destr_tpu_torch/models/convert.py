@@ -8,7 +8,7 @@ state-dict key by joining with ``.`` and renaming the leaf:
     Conv kernel HWIO                 -> weight, OIHW (the stem's (7,7,3,64) too)
     LayerNorm / BatchNorm scale      -> weight
     BatchNorm batch_stats mean / var -> running_mean / running_var
-    FrozenBatchNorm's four params    -> buffers of the same names
+    FrozenBatchNorm's four params    -> parameters of the same names
     nn.Embed embedding               -> weight
 
 The weights file is that tree flattened with ``/`` keys into an ``.npz``
@@ -74,7 +74,7 @@ def state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (leaf,))
             if key in state:
                 raise ValueError(f"two flax leaves map to {key}")
-            state[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+            state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state
 
 
@@ -107,7 +107,7 @@ def flax_variables_from_state_dict(model: nn.Module) -> dict:
         node = tree[collection]
         for part in module.split("."):
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(value)
+        node[leaf] = np.array(value)  # a copy: later steps must not change it
     return tree
 
 

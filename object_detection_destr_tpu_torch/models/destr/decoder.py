@@ -5,7 +5,11 @@ and per-layer box refinement (port of
 Two attention calls per block go through the flash-attention wrapper: the
 plain self-attention branch (h heads) and one merged cross-attention call for
 both the cls and reg branches (their query sets stacked along the sequence
-axis, decoder.py:175-188). Inference only: dropout is the identity.
+axis, decoder.py:175-188). Dropout sits where the JAX blocks have it
+(decoder.py:65-92, 133-153): inside both attention calls, on the
+self-attention and pair-attention outputs, on the cross-attention output
+and the branch FFN; it is active only when a :class:`~.layers.DropoutRng`
+is passed. Shared heads run in float32 (:func:`~.layers.f32_head`).
 """
 
 from __future__ import annotations
@@ -19,27 +23,30 @@ from torch import nn
 from ...geometry.embeddings import inverse_sigmoid, sine_embed_centers
 from ...ops.attention import combine_heads, scaled_dot_product_attention, split_heads
 from ...ops.cuda.flash_attention import flash_attention_packed
-from .layers import Mlp, layer_norm
+from .layers import DropoutRng, Mlp, attention_dropout_seed, dropout, f32_head, layer_norm
 from .pair_attention import pair_self_attention
 
 __all__ = ["Decoder", "DecoderBlock", "ClsRegBranch"]
 
 
-def _single_head_attention(query, key, value, key_valid_mask, use_flash):
+def _single_head_attention(query, key, value, key_valid_mask, use_flash, rate, rng):
     """Single-head concat-QK cross attention, scale 1/sqrt(2C)."""
     if use_flash:
-        return flash_attention_packed(query, key, value, 1, key_valid_mask)
+        rate, seed = attention_dropout_seed(rate, rng)
+        return flash_attention_packed(query, key, value, 1, key_valid_mask, rate, seed)
     return scaled_dot_product_attention(
-        query[:, None], key[:, None], value[:, None], key_valid_mask=key_valid_mask
+        query[:, None], key[:, None], value[:, None], key_valid_mask=key_valid_mask,
+        dropout_rate=rate, generator=None if rng is None else rng.device,
     )
 
 
 class ClsRegBranch(nn.Module):
     """Single-head concat-QK cross attention + FFN (decoder.py:44-92)."""
 
-    def __init__(self, hidden_dim: int = 256, use_flash: bool = False):
+    def __init__(self, hidden_dim: int = 256, use_flash: bool = False, dropout: float = 0.0):
         super().__init__()
         self.use_flash = use_flash
+        self.dropout = dropout
         self.norm1 = layer_norm(hidden_dim)
         self.fc1 = nn.Linear(hidden_dim, hidden_dim * 4)
         self.fc2 = nn.Linear(hidden_dim * 4, hidden_dim)
@@ -53,20 +60,25 @@ class ClsRegBranch(nn.Module):
         value: torch.Tensor,  # (B, L, C)
         key_valid_mask: torch.Tensor,  # (B, L)
         attn_out: Optional[torch.Tensor] = None,  # precomputed by the merged call
+        rng: Optional[DropoutRng] = None,
     ) -> torch.Tensor:
+        rate = self.dropout
         if attn_out is None:
-            attn_out = _single_head_attention(query, key, value, key_valid_mask, self.use_flash)
-        x = self.norm1(inputs + attn_out)
-        x = x + self.fc2(F.relu(self.fc1(x)))
+            attn_out = _single_head_attention(query, key, value, key_valid_mask,
+                                              self.use_flash, rate, rng)
+        x = self.norm1(inputs + dropout(attn_out, rate, rng))
+        h = dropout(F.relu(self.fc1(x)), rate, rng)
+        x = x + dropout(self.fc2(h), rate, rng)
         return self.norm2(x)
 
 
 class DecoderBlock(nn.Module):
     def __init__(self, hidden_dim: int = 256, num_heads: int = 8, lambda_pair: float = 0.5,
                  pair_mode: str = "reference", pair_output_mode: str = "reference",
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout: float = 0.0):
         super().__init__()
         c = hidden_dim
+        self.dropout = dropout
         self.hidden_dim, self.num_heads = c, num_heads
         self.lambda_pair = lambda_pair
         self.pair_mode, self.pair_output_mode = pair_mode, pair_output_mode
@@ -83,8 +95,8 @@ class DecoderBlock(nn.Module):
         self.ca_k_enc = nn.Linear(c, c, bias=False)
         self.ca_k_pos = nn.Linear(c, c, bias=False)
         self.ca_v_enc = nn.Linear(c, c, bias=False)
-        self.cls_branch = ClsRegBranch(c, use_flash)
-        self.reg_branch = ClsRegBranch(c, use_flash)
+        self.cls_branch = ClsRegBranch(c, use_flash, dropout)
+        self.reg_branch = ClsRegBranch(c, use_flash, dropout)
 
     def forward(
         self,
@@ -95,8 +107,10 @@ class DecoderBlock(nn.Module):
         obj_coords: torch.Tensor,  # (B, S, 4) current boxes (pairing signal)
         obj_pos_embed: torch.Tensor,  # (B, S, C) static query pos embedding
         obj_sin_embed: torch.Tensor,  # (B, S, C) per-layer scaled sine embedding
+        rng: Optional[DropoutRng] = None,
     ) -> torch.Tensor:
         c, h2 = self.hidden_dim, self.num_heads
+        rate = self.dropout
 
         # --- (a) blended self attention over queries (decoder.py:120-153)
         q_pos = self.sa_q_pos(obj_pos_embed)
@@ -106,15 +120,20 @@ class DecoderBlock(nn.Module):
         v_m = self.sa_v_obj(obj)
         q, k, v = split_heads(q_m, h2), split_heads(k_m, h2), split_heads(v_m, h2)
         if self.use_flash:
-            o1 = flash_attention_packed(q_m, k_m, v_m, h2)
+            a_rate, seed = attention_dropout_seed(rate, rng)
+            o1 = flash_attention_packed(q_m, k_m, v_m, h2, None, a_rate, seed)
         else:
-            o1 = scaled_dot_product_attention(q, k, v)
+            o1 = scaled_dot_product_attention(
+                q, k, v, dropout_rate=rate, generator=None if rng is None else rng.device
+            )
         o2 = pair_self_attention(
             q, k, v, obj_coords,
             pair_mode=self.pair_mode, pair_output_mode=self.pair_output_mode,
         )
         lam = self.lambda_pair
-        o = lam * self.norm1(obj + o1) + (1.0 - lam) * self.norm2(obj + o2)
+        o = lam * self.norm1(obj + dropout(o1, rate, rng)) + (1.0 - lam) * self.norm2(
+            obj + dropout(o2, rate, rng)
+        )
 
         # --- (b) split cls/reg cross attention (decoder.py:155-196)
         o_cls, o_reg = o[..., :c], o[..., c:]
@@ -134,14 +153,15 @@ class DecoderBlock(nn.Module):
         if self.use_flash:
             # one call for both branches: rows are independent and the
             # branches share K and V
+            a_rate, seed = attention_dropout_seed(rate, rng)
             s = q_cls.shape[1]
             ca = flash_attention_packed(
-                torch.cat([q_cls, q_reg], dim=1), k, v2, 1, enc_valid_mask
+                torch.cat([q_cls, q_reg], dim=1), k, v2, 1, enc_valid_mask, a_rate, seed
             )
             ca_cls, ca_reg = ca[:, :s], ca[:, s:]
 
-        cls_out = self.cls_branch(o_cls, q_cls, k, v2, enc_valid_mask, attn_out=ca_cls)
-        reg_out = self.reg_branch(o_reg, q_reg, k, v2, enc_valid_mask, attn_out=ca_reg)
+        cls_out = self.cls_branch(o_cls, q_cls, k, v2, enc_valid_mask, attn_out=ca_cls, rng=rng)
+        reg_out = self.reg_branch(o_reg, q_reg, k, v2, enc_valid_mask, attn_out=ca_reg, rng=rng)
         return torch.cat([cls_out, reg_out], dim=-1)
 
 
@@ -151,7 +171,8 @@ class Decoder(nn.Module):
 
     def __init__(self, hidden_dim: int = 256, num_heads: int = 8, num_blocks: int = 6,
                  lambda_pair: float = 0.5, pair_mode: str = "reference",
-                 pair_output_mode: str = "reference", use_flash: bool = False):
+                 pair_output_mode: str = "reference", use_flash: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_blocks = num_blocks
@@ -160,7 +181,7 @@ class Decoder(nn.Module):
             self.add_module(
                 f"block{i}",
                 DecoderBlock(hidden_dim, num_heads, lambda_pair, pair_mode,
-                             pair_output_mode, use_flash),
+                             pair_output_mode, use_flash, dropout),
             )
         self.outer_norm = layer_norm(2 * hidden_dim)
 
@@ -173,6 +194,7 @@ class Decoder(nn.Module):
         obj_pos_embed: torch.Tensor,  # (B, S, C)
         selected_centers: torch.Tensor,  # (B, S, 2)
         bbox_embed: nn.Module,  # shared MLP C -> C -> 4
+        rng: Optional[DropoutRng] = None,
     ) -> torch.Tensor:
         x = selected_objects
         c = self.hidden_dim
@@ -181,12 +203,12 @@ class Decoder(nn.Module):
         for i in range(self.num_blocks):
             reg_half = x[..., c:]
             sin_embed = center_embed * self.pos_scale(reg_half)
-            tmp_bbox = bbox_embed(reg_half)
+            tmp_bbox = f32_head(bbox_embed, reg_half)
             obj_coords = torch.sigmoid(
                 torch.cat([tmp_bbox[..., :2] + centers_logit, tmp_bbox[..., 2:]], dim=-1)
             )
             tmp = getattr(self, f"block{i}")(
-                x, encoder_output, fine_pos, enc_valid_mask, obj_coords, obj_pos_embed, sin_embed,
+                x, encoder_output, fine_pos, enc_valid_mask, obj_coords, obj_pos_embed, sin_embed, rng,
             )
             x = self.outer_norm(x + tmp)
         return x

@@ -1,5 +1,6 @@
 """Shared building blocks of the DESTR transformer (port of
-``object_detection_destr_tpu/models/destr/layers.py``)."""
+``object_detection_destr_tpu/models/destr/layers.py``), and the dropout
+stream a training step hands the model."""
 
 from __future__ import annotations
 
@@ -12,7 +13,55 @@ from torch import nn
 from ...ops.attention import scaled_dot_product_attention, split_heads
 from ...ops.cuda.flash_attention import flash_attention_packed
 
-__all__ = ["Mlp", "MultiHeadAttention", "LearnedPositionEmbedding", "layer_norm"]
+__all__ = [
+    "DropoutRng",
+    "LearnedPositionEmbedding",
+    "Mlp",
+    "MultiHeadAttention",
+    "attention_dropout_seed",
+    "dropout",
+    "f32_head",
+    "layer_norm",
+]
+
+
+class DropoutRng:
+    """The dropout stream of a training run, from explicit generators: a
+    host generator draws the flash kernels' int32 seeds (no device sync) and
+    a generator on the model's device draws the elementwise dropout masks.
+    ``None`` in its place means eval: every dropout is the identity."""
+
+    def __init__(self, seed: int, device: str | torch.device = "cpu"):
+        device = torch.device(device)
+        self.host = torch.Generator().manual_seed(seed)
+        self.device = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def seed(self) -> int:
+        """A fresh int32 kernel seed (layers.py:22-33 draws one per call)."""
+        return int(torch.randint(0, 2**31 - 1, (), generator=self.host))
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept values
+    by 1 / (1 - rate); the identity without a stream or at rate 0."""
+    if rng is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng.device, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def attention_dropout_seed(rate: float, rng: Optional[DropoutRng]) -> tuple[float, Optional[int]]:
+    """(rate, seed) for the flash kernel's in-kernel dropout; (0, None) in eval."""
+    if rng is None or rate <= 0.0:
+        return 0.0, None
+    return rate, rng.seed()
+
+
+def f32_head(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Run a shared head in float32 whatever the compute dtype: the JAX
+    package keeps cls_embed, bbox_embed and pos_head in float32 (model.py:118-119)."""
+    with torch.autocast(x.device.type, enabled=False):
+        return module(x.float())
 
 
 def layer_norm(features: int) -> nn.LayerNorm:
@@ -68,10 +117,12 @@ class MultiHeadAttention(nn.Module):
     ops/attention.py computes the same function.
     """
 
-    def __init__(self, hidden_dim: int, num_heads: int, use_flash: bool = False):
+    def __init__(self, hidden_dim: int, num_heads: int, use_flash: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.dropout = dropout
         self.q_proj = nn.Linear(hidden_dim, hidden_dim)
         self.k_proj = nn.Linear(hidden_dim, hidden_dim)
         self.v_proj = nn.Linear(hidden_dim, hidden_dim)
@@ -83,14 +134,17 @@ class MultiHeadAttention(nn.Module):
         key: torch.Tensor,
         value: torch.Tensor,
         key_valid_mask: Optional[torch.Tensor] = None,
+        rng: Optional[DropoutRng] = None,
     ) -> torch.Tensor:
         q, k, v = self.q_proj(query), self.k_proj(key), self.v_proj(value)
         if self.use_flash:
-            out = flash_attention_packed(q, k, v, self.num_heads, key_valid_mask)
+            rate, seed = attention_dropout_seed(self.dropout, rng)
+            out = flash_attention_packed(q, k, v, self.num_heads, key_valid_mask, rate, seed)
         else:
             h = self.num_heads
             out = scaled_dot_product_attention(
                 split_heads(q, h), split_heads(k, h), split_heads(v, h),
-                key_valid_mask=key_valid_mask,
+                key_valid_mask=key_valid_mask, dropout_rate=self.dropout,
+                generator=None if rng is None else rng.device,
             )
         return self.out_proj(out)

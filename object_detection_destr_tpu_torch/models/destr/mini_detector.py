@@ -1,10 +1,16 @@
 """DESTR mini-detector: dense per-token detection seeding the decoder queries
 (port of ``object_detection_destr_tpu/models/destr/mini_detector.py``).
 
-Three 4x(3x3 conv + BatchNorm) stacks in eval mode with running statistics
-(flax BN eps 1e-5; its ``mean``/``var`` are ``running_mean``/``running_var``
-here). The cls/bbox/pos heads are the model's shared modules, passed in at
-call time so each has one set of parameters.
+Three 4x(3x3 conv + BatchNorm) stacks. BatchNorm follows flax
+(mini_detector.py:51-54): eps 1e-5; in eval it normalizes with the running
+statistics (``running_mean`` / ``running_var`` here, flax's ``mean`` /
+``var``); in training with the batch's float32 mean and biased variance
+(E[x^2] - E[x]^2, clipped at 0), and it updates the running statistics with
+flax's momentum 0.9 (torch's 0.1) and that same biased variance. The
+cls/bbox/pos heads are the model's shared modules, passed in at call time so
+each has one set of parameters, and run in float32. The selected queries and
+centres are detached, as the JAX package stop-gradients them
+(mini_detector.py:119-121).
 """
 
 from __future__ import annotations
@@ -13,8 +19,31 @@ import torch
 from torch import nn
 
 from ...ops.topk import masked_topk_with_recycle
+from .layers import f32_head
 
-__all__ = ["ConvBnStack", "MiniDetector"]
+__all__ = ["ConvBnStack", "MiniDetector", "batch_norm"]
+
+BN_MOMENTUM = 0.9  # flax: new = momentum * running + (1 - momentum) * batch
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` over NCHW ``x`` (statistics over N, H, W).
+
+    In training the running statistics are updated in place (without
+    autograd); the result is in ``x``'s dtype.
+    """
+    xf = x.float()
+    if train:
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+            bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
 
 
 class ConvBnStack(nn.Module):
@@ -28,10 +57,10 @@ class ConvBnStack(nn.Module):
             self.add_module(f"conv{i}", nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1))
             self.add_module(f"bn{i}", nn.BatchNorm2d(hidden_dim, eps=1e-5))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
         for i in range(self.num_layers):
-            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
+            x = batch_norm(getattr(self, f"conv{i}")(x), getattr(self, f"bn{i}"), train)
         return x.permute(0, 2, 3, 1)
 
 
@@ -47,7 +76,8 @@ class MiniDetector(nn.Module):
         self.pos_conv = ConvBnStack(hidden_dim)
         self.reg_conv = ConvBnStack(hidden_dim)
 
-    def forward(self, features, fine_pos, valid_mask, cls_embed, bbox_embed, pos_head):
+    def forward(self, features, fine_pos, valid_mask, cls_embed, bbox_embed, pos_head,
+                train: bool = False):
         """features/fine_pos: (B, H, W, C); valid_mask: (B, H, W) bool."""
         b, h, w, c = features.shape
         flat_valid = valid_mask.reshape(b, h * w)[..., None]
@@ -55,12 +85,12 @@ class MiniDetector(nn.Module):
         def mask_tokens(t):
             return torch.where(flat_valid, t.reshape(b, h * w, c), 0.0)
 
-        cls_feats = mask_tokens(self.cls_conv(features))
-        det_class = cls_embed(cls_feats)  # (B, HW, num_cls) logits
-        pos_feats = mask_tokens(self.pos_conv(fine_pos))
-        center_offset = pos_head(pos_feats)  # (B, HW, 2)
-        reg_feats = mask_tokens(self.reg_conv(features))
-        bbox = bbox_embed(reg_feats)  # (B, HW, 4)
+        cls_feats = mask_tokens(self.cls_conv(features, train))
+        det_class = f32_head(cls_embed, cls_feats)  # (B, HW, num_cls) logits
+        pos_feats = mask_tokens(self.pos_conv(fine_pos, train))
+        center_offset = f32_head(pos_head, pos_feats)  # (B, HW, 2)
+        reg_feats = mask_tokens(self.reg_conv(features, train))
+        bbox = f32_head(bbox_embed, reg_feats)  # (B, HW, 4)
         bbox = torch.cat([bbox[..., :2] + center_offset, bbox[..., 2:]], dim=-1)
         det_boxes = torch.sigmoid(bbox)
         det_output = {"pred_class": det_class, "pred_boxes": det_boxes}
@@ -68,12 +98,12 @@ class MiniDetector(nn.Module):
         # query selection: max sigmoid class score over valid tokens
         scores = torch.sigmoid(det_class).amax(dim=-1)
         k = min(self.top_k, h * w)
-        topk_idx = masked_topk_with_recycle(scores, k, flat_valid[..., 0])  # (B, k)
+        topk_idx = masked_topk_with_recycle(scores.detach(), k, flat_valid[..., 0])  # (B, k)
 
-        object_feats = torch.cat([cls_feats, reg_feats], dim=-1)  # (B, HW, 2C)
+        object_feats = torch.cat([cls_feats, reg_feats], dim=-1).detach()  # (B, HW, 2C)
         selected_objects = torch.gather(
             object_feats, 1, topk_idx[..., None].expand(b, k, 2 * c)
         )
-        centers = torch.where(flat_valid, det_boxes, 0.0)[..., :2]
+        centers = torch.where(flat_valid, det_boxes, 0.0)[..., :2].detach()
         selected_centers = torch.gather(centers, 1, topk_idx[..., None].expand(b, k, 2))
         return selected_objects, selected_centers, det_output

@@ -9,8 +9,15 @@ Forward contract (model.py:107-178):
 
 The shared heads ``cls_embed``, ``bbox_embed`` and ``pos_head`` are modules of
 this model, passed to the mini-detector and the decoder at call time, so each
-has one set of parameters as in flax. This slice serves: the forward pass is
-inference only, in float32.
+has one set of parameters as in flax, and run in float32.
+
+``compute_dtype="bfloat16"`` runs the backbone, the transformer and the
+mini-detector under ``torch.autocast(bfloat16)`` (convolutions, linears and
+the flash kernels in bfloat16, normalizations in float32), the shared heads
+in float32 and the outputs in float32, as model.py:50-53, 118-119, 173-177
+of the JAX package. ``train=True`` (or ``model.train()``) uses batch
+statistics in the mini-detector's BatchNorm and, with a
+:class:`~.layers.DropoutRng`, dropout at the JAX package's sites.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from ...geometry.embeddings import inverse_sigmoid, sine_embed_centers, sine_pos
 from ..resnet import downsample_mask, resnet50, resnet101
 from .decoder import Decoder
 from .encoder import Encoder
-from .layers import LearnedPositionEmbedding, Mlp
+from .layers import DropoutRng, LearnedPositionEmbedding, Mlp, f32_head
 from .mini_detector import MiniDetector
 
 __all__ = ["DESTR", "build_destr"]
@@ -35,11 +42,10 @@ class DESTR(nn.Module):
     def __init__(self, config: DestrConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: bfloat16 compute arrives with the "
-                "training slice; serving runs float32"
-            )
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}")
+        if cfg.remat:
+            raise NotImplementedError("remat (activation checkpointing) is not ported yet")
         if cfg.use_flash_attention not in ("auto", True, False):
             raise ValueError(f"use_flash_attention={cfg.use_flash_attention!r}")
         use_flash = cfg.use_flash_attention is not False
@@ -57,10 +63,11 @@ class DESTR(nn.Module):
         self.reduce_dim = nn.Conv2d(2048, c, 1)
         if cfg.pos_embed == "learned":
             self.pos_embedding = LearnedPositionEmbedding(num_pos_feats=c // 2)
-        self.encoder = Encoder(c, cfg.num_heads, cfg.ffn_dim, cfg.num_encoder_blocks, use_flash)
+        self.encoder = Encoder(c, cfg.num_heads, cfg.ffn_dim, cfg.num_encoder_blocks, use_flash,
+                               cfg.dropout)
         self.decoder = Decoder(
             c, cfg.num_heads, cfg.num_decoder_blocks, cfg.lambda_pair,
-            cfg.pair_mode, cfg.pair_output_mode, use_flash,
+            cfg.pair_mode, cfg.pair_output_mode, use_flash, cfg.dropout,
         )
         self.mini_detector = MiniDetector(cfg.top_k, c)
 
@@ -69,11 +76,21 @@ class DESTR(nn.Module):
         images: torch.Tensor,
         valid_mask: Optional[torch.Tensor] = None,
         train: bool = False,
+        rng: Optional[DropoutRng] = None,
     ):
-        if train or self.training:
-            raise NotImplementedError(
-                "DESTR training arrives with the training slice; call .eval() and train=False"
-            )
+        """``rng`` drives dropout in training; without it dropout is off."""
+        train = train or self.training
+        if not train:
+            rng = None
+        with torch.autocast(images.device.type, dtype=torch.bfloat16,
+                            enabled=self.config.compute_dtype == "bfloat16"):
+            model_output, det_output = self._forward(images, valid_mask, train, rng)
+        return (
+            {k: v.float() for k, v in model_output.items()},
+            {k: v.float() for k, v in det_output.items()},
+        )
+
+    def _forward(self, images, valid_mask, train, rng):
         cfg = self.config
         c = cfg.hidden_dim
         b, h_img, w_img, _ = images.shape
@@ -89,28 +106,29 @@ class DESTR(nn.Module):
             pos_map = self.pos_embedding(h, w)[None].expand(b, h, w, c)
         else:
             pos_map = sine_position_map(c5_valid, num_pos_feats=c // 2)
+        pos_map = pos_map.to(x_map.dtype)
 
         # row-major (h, w) token order, as x_map.reshape at model.py:136
         tokens = x_map.reshape(b, h * w, c)
         pos_tokens = pos_map.reshape(b, h * w, c)
         flat_valid = c5_valid.reshape(b, h * w)
 
-        enc_tokens = self.encoder(tokens, pos_tokens, flat_valid)
+        enc_tokens = self.encoder(tokens, pos_tokens, flat_valid, rng)
         # fine positional embedding: pos * encoder.pos_scale(encoder output)
         fine_pos = pos_tokens * self.encoder.pos_scale(enc_tokens)
 
         selected_objects, selected_centers, det_output = self.mini_detector(
             enc_tokens.reshape(b, h, w, c), fine_pos.reshape(b, h, w, c), c5_valid,
-            self.cls_embed, self.bbox_embed, self.pos_head,
+            self.cls_embed, self.bbox_embed, self.pos_head, train,
         )
-        obj_pos_embed = sine_embed_centers(selected_centers, d_model=c)
+        obj_pos_embed = sine_embed_centers(selected_centers, d_model=c).to(x_map.dtype)
 
         x = self.decoder(
             selected_objects, enc_tokens, flat_valid, fine_pos, obj_pos_embed,
-            selected_centers, self.bbox_embed,
+            selected_centers, self.bbox_embed, rng,
         )
-        cls_output = self.cls_embed(x[..., :c])
-        tmp = self.bbox_embed(x[..., c:])
+        cls_output = f32_head(self.cls_embed, x[..., :c])
+        tmp = f32_head(self.bbox_embed, x[..., c:])
         tmp = torch.cat([tmp[..., :2] + inverse_sigmoid(selected_centers), tmp[..., 2:]], dim=-1)
         model_output = {"pred_class": cls_output, "pred_boxes": torch.sigmoid(tmp)}
         return model_output, det_output

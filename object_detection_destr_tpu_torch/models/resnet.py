@@ -23,16 +23,20 @@ __all__ = ["ResNet", "FrozenBatchNorm", "Bottleneck", "resnet50", "resnet101", "
 
 class FrozenBatchNorm(nn.Module):
     """y = x * scale + shift with scale = weight / sqrt(var + eps) and
-    shift = bias - mean * scale, folded in float32 (resnet.py:34-55). The
-    four statistics are buffers, initialized to identity."""
+    shift = bias - mean * scale, folded in float32 and cast to the activation
+    dtype (resnet.py:34-55). The four tensors are parameters initialized to
+    identity, as they are flax params in the JAX package. They take no
+    gradient until a trainer asks for one (train/state.py does: the
+    global-norm clip counts their gradients), and the optimizer never
+    updates them (train/optim.py labels them "frozen")."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self.weight = nn.Parameter(torch.ones(features), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self.running_mean = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self.running_var = nn.Parameter(torch.ones(features), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W)."""

@@ -3,7 +3,9 @@
 Batch-first ``(B, S, D)`` or pre-split ``(B, h, S, d)``. Logits and the
 softmax are float32; masked keys are set to -1e9, not -inf, so a row whose
 keys are all masked gets uniform weights instead of NaN (attention.py:31, :88).
-This is the plain path the model takes with ``use_flash_attention=False``.
+This is the plain path the model takes with ``use_flash_attention=False``;
+its probability dropout (attention.py:90-92) draws from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ def scaled_dot_product_attention(
     *,
     key_valid_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Attention over pre-split heads.
 
@@ -44,6 +48,9 @@ def scaled_dot_product_attention(
         value: (B, h, S_k, d_v) — d_v may differ from d.
         key_valid_mask: (B, S_k) bool, True = attendable.
         scale: default 1/sqrt(d).
+        dropout_rate, generator: probability dropout (keep with probability
+            1 - rate, kept values scaled by 1 / (1 - rate)) when a generator
+            is given; none without one.
 
     Returns:
         (B, S_q, h*d_v) — heads merged, batch-first, in the value dtype.
@@ -51,9 +58,13 @@ def scaled_dot_product_attention(
     d = query.shape[-1]
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
-    logits = torch.matmul(query.float(), key.float().transpose(-1, -2)) * scale
-    if key_valid_mask is not None:
-        logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs, value.float()).to(value.dtype)
+    with torch.autocast(query.device.type, enabled=False):
+        logits = torch.matmul(query.float(), key.float().transpose(-1, -2)) * scale
+        if key_valid_mask is not None:
+            logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        if dropout_rate > 0.0 and generator is not None:
+            keep = torch.rand(probs.shape, generator=generator, device=probs.device) < 1.0 - dropout_rate
+            probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
+        out = torch.matmul(probs, value.float()).to(value.dtype)
     return combine_heads(out)

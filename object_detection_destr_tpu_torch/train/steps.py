@@ -1,0 +1,122 @@
+"""The DESTR train step (port of ``object_detection_destr_tpu/train/steps.py``:
+``_match_pair`` l.86-152, ``make_destr_train_step`` l.155-209,
+``_guard_stats`` l.212-223).
+
+One step: forward in train mode (batch-statistics BatchNorm, dropout from
+the state's stream), one matcher launch for both criteria, the two set
+criteria, backward, and the optimizer update. Loss wiring as the reference
+(train.py:160-217):
+
+    weighted = cost_class * class + cost_bbox * bbox + cost_ciou * ciou
+    loss = 0.7 * weighted(model output) + 0.3 * weighted(mini-detector output)
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..config import TrainConfig
+from ..losses.criterion import set_criterion
+from ..ops.cuda.auction import hungarian_match_fused
+from .state import TrainState
+
+__all__ = ["make_destr_train_step"]
+
+
+def _weighted(losses: dict, cfg: TrainConfig) -> torch.Tensor:
+    """reduce_dict with the --set_cost_* weights (steps.py:73-79)."""
+    return (
+        cfg.set_cost_class * losses["class"]
+        + cfg.set_cost_bbox * losses["bbox"]
+        + cfg.set_cost_ciou * losses["ciou"]
+    )
+
+
+def _destr_targets(batch: dict) -> dict:
+    return {"boxes": batch["boxes"], "labels": batch["labels"], "valid": batch["valid"]}
+
+
+def _match_pair(model_out: dict, det_out: dict, targets: dict):
+    """Matching for both criteria in ONE fused cost + auction launch
+    (steps.py:112-140): the model's top-k queries and the mini-detector's
+    HW tokens are padded to a common row count, stacked on the batch axis and
+    told apart by a per-problem row-valid mask. The matcher's inputs are
+    detached: no gradient goes through matching.
+
+    This is the path of the JAX package's fused Pallas kernel (#9), on every
+    device. (The JAX package's CPU path pads the model's cost rows with 1e6
+    instead, which widens the auction's eps about 1e5-fold there; see
+    ROADMAP.md.)"""
+    b, n1 = model_out["pred_class"].shape[:2]
+    n2 = det_out["pred_class"].shape[1]
+    n = max(n1, n2)
+
+    def pad_n(x, rows):
+        return F.pad(x.detach().float(), (0, 0, 0, n - rows))
+
+    logits = torch.cat([pad_n(model_out["pred_class"], n1), pad_n(det_out["pred_class"], n2)])
+    boxes = torch.cat([pad_n(model_out["pred_boxes"], n1), pad_n(det_out["pred_boxes"], n2)])
+    iota = torch.arange(n, device=logits.device)[None, :]
+    row_valid = torch.cat([(iota < n1).expand(b, n), (iota < n2).expand(b, n)])
+    twice = lambda t: torch.cat([t, t])
+    rows = hungarian_match_fused(
+        logits, boxes, twice(targets["boxes"].detach()), twice(targets["labels"]),
+        twice(targets["valid"]), row_valid=row_valid,
+    )
+    return rows[:b], rows[b:]
+
+
+def _bn_stats(model) -> dict[str, torch.Tensor]:
+    return {name: buf for name, buf in model.named_buffers() if name.endswith(("running_mean", "running_var"))}
+
+
+def _guard_stats(model, old_stats: dict, cfg: TrainConfig) -> None:
+    """Keep BatchNorm running statistics finite when non-finite protection
+    is on: an element that is not finite after the forward goes back to its
+    old value (steps.py:212-223)."""
+    if not cfg.skip_nonfinite_updates:
+        return
+    with torch.no_grad():
+        for name, buf in _bn_stats(model).items():
+            buf.copy_(torch.where(torch.isfinite(buf), buf, old_stats[name]))
+
+
+def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
+    """``train_step(state, batch) -> metrics``, updating ``state`` in place.
+
+    ``batch``: {"images": (B, S, S, 3) float32 normalized, "boxes": (B, T, 4)
+    xyxy, "labels": (B, T), "valid": (B, T) bool, optional "pixel_valid"}.
+    Metrics are detached device scalars (nothing is read on the host here
+    except the optimizer's finite check).
+    """
+
+    def train_step(state: TrainState, batch: dict) -> dict:
+        model = state.model
+        old_stats = (
+            {k: v.clone() for k, v in _bn_stats(model).items()} if cfg.skip_nonfinite_updates else None
+        )
+        state.optimizer.zero_grad()
+        model_out, det_out = model(batch["images"], batch.get("pixel_valid"), train=True, rng=state.rng)
+        targets = _destr_targets(batch)
+        rows_model, rows_det = _match_pair(model_out, det_out, targets)
+        l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm)
+        l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm)
+        loss_model = _weighted(l_model, cfg)
+        loss_det = _weighted(l_det, cfg)
+        loss = cfg.model_loss_weight * loss_model + cfg.det_loss_weight * loss_det
+        loss.backward()
+        _guard_stats(model, old_stats, cfg)
+        state.optimizer.step()
+        state.step += 1
+        return {
+            "loss": loss.detach(),
+            "loss_model": loss_model.detach(),
+            "loss_det": loss_det.detach(),
+            "loss_class": l_model["class"].detach(),
+            "loss_ciou": l_model["ciou"].detach(),
+        }
+
+    return train_step

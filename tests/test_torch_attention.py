@@ -85,8 +85,12 @@ def test_flash_attention_matches_pallas(name):
 def test_wrapper_rules_on_cpu():
     q, k, v, mask = _case(b=1, sq=4, sk=6, h=2, d=4, dv=4, masked_rows={}, seed=7)
     tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
-    # dropout is not on the serving path
-    with pytest.raises(NotImplementedError):
+    # attention dropout runs (Philox from a seed), and needs the seed
+    plain = flash_attention_packed(tq, tk, tv, 2, tm)
+    dropped = flash_attention_packed(tq, tk, tv, 2, tm, dropout_rate=0.5, dropout_seed=3)
+    assert dropped.shape == plain.shape and not torch.equal(dropped, plain)
+    assert torch.equal(dropped, flash_attention_packed(tq, tk, tv, 2, tm, dropout_rate=0.5, dropout_seed=3))
+    with pytest.raises(ValueError, match="seed"):
         flash_attention_packed(tq, tk, tv, 2, tm, dropout_rate=0.1)
     # the kernel wrapper itself takes only CUDA tensors and never falls back
     before = flash_attention_fwd.launches

@@ -1,0 +1,136 @@
+"""The port's fused cost + auction matcher (the plain version of CUDA kernel
+#9, ops/cuda/auction.py::hungarian_match_fused_reference) against the JAX
+package's ``hungarian_match_pallas`` in interpret mode, the way
+tests/test_assignment.py runs it: same random problems, rows compared.
+
+Rows must be equal. Both sides build the cost in float32 but from different
+libraries (XLA and PyTorch), so a near-tie can resolve the other way; a test
+whose rows differ says so and instead requires both assignments to be
+duplicate-free and within the auction's bound, T * eps, of the optimal total
+cost from ``scipy.optimize.linear_sum_assignment``.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy.optimize import linear_sum_assignment
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from object_detection_destr_tpu.losses.matcher import hungarian_cost_matrix as jax_cost  # noqa: E402
+from object_detection_destr_tpu.ops.pallas.auction import (  # noqa: E402
+    auction_assignment_pallas,
+    hungarian_match_pallas,
+)
+from object_detection_destr_tpu_torch.losses.matcher import hungarian_cost_matrix  # noqa: E402
+from object_detection_destr_tpu_torch.ops.assignment import auction_assignment  # noqa: E402
+from object_detection_destr_tpu_torch.ops.cuda.auction import (  # noqa: E402
+    fused_auction,
+    hungarian_match_fused,
+    hungarian_match_fused_reference,
+)
+
+EPS_FRAC = 0.001
+
+
+def _problem(b, n, t, c, seed, valid_frac=0.8):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(b, n, c)).astype(np.float32)
+    pb = np.stack(
+        [rng.uniform(0.2, 0.8, (b, n)), rng.uniform(0.2, 0.8, (b, n)),
+         rng.uniform(0.05, 0.4, (b, n)), rng.uniform(0.05, 0.4, (b, n))], -1
+    ).astype(np.float32)
+    raw = rng.uniform(0, 1, (b, t, 4)).astype(np.float32)
+    tb = np.stack(
+        [np.minimum(raw[..., 0], raw[..., 2]), np.minimum(raw[..., 1], raw[..., 3]),
+         np.maximum(raw[..., 0], raw[..., 2]), np.maximum(raw[..., 1], raw[..., 3])], -1,
+    )
+    lab = rng.integers(0, c, (b, t)).astype(np.int32)
+    valid = rng.uniform(size=(b, t)) < valid_frac
+    return logits, pb, tb, lab, valid
+
+
+def _check(ours, ref, cost, valid, row_valid, label):
+    """Equal rows; else a stated near-tie within the eps bound of scipy."""
+    b, n, t = cost.shape
+    for i in range(b):
+        assert len(set(ours[i].tolist())) == t, f"{label}: duplicate rows in problem {i}"
+    if np.array_equal(ours, ref):
+        return
+    print(f"{label}: rows differ at {(ours != ref).sum()} targets (near-tie); checking the total cost")
+    for i in range(b):
+        v = valid[i]
+        real = np.where(row_valid[i])[0]
+        c = cost[i][real][:, v]
+        r, col = linear_sum_assignment(c)
+        best = c[r, col].sum()
+        real_cost = np.where(row_valid[i][:, None], cost[i], 0.0)
+        rng_ = real_cost[row_valid[i]][:, v]
+        value_range = max(rng_.max() - min(rng_.min(), 0.0 if (~v).any() else rng_.min()), 1e-6)
+        bound = v.sum() * EPS_FRAC * value_range + 1e-4
+        for rows in (ours[i], ref[i]):
+            assert np.isin(rows[v], real).all()
+            assert cost[i][rows[v], np.where(v)[0]].sum() <= best + bound, label
+
+
+@pytest.mark.parametrize("n,t,c,seed", [(25, 8, 2, 0), (400, 32, 2, 1), (60, 10, 5, 2)])
+def test_fused_matcher_matches_pallas(n, t, c, seed):
+    """The cases of tests/test_assignment.py:135, with invalid columns."""
+    logits, pb, tb, lab, valid = _problem(3, n, t, c, seed)
+    ref = np.asarray(hungarian_match_pallas(*map(jnp.asarray, (logits, pb, tb, lab, valid))))
+    ours = hungarian_match_fused(*map(torch.from_numpy, (logits, pb, tb, lab, valid))).numpy()
+    cost = np.asarray(jax_cost({"pred_class": logits, "pred_boxes": pb},
+                               {"boxes": tb, "labels": lab, "valid": valid}))
+    _check(ours, ref, cost, valid, np.ones(logits.shape[:2], bool), f"n={n} t={t}")
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_row_valid_stacking_matches_pallas(seed):
+    """Two problem kinds in one call, as the train step stacks them: the
+    first half of the batch has only 14 real rows of 20 (the model's top-k
+    padded to the mini-detector's token count), every problem has invalid
+    columns, and one has none valid at all."""
+    logits, pb, tb, lab, valid = _problem(4, 20, 9, 2, seed, valid_frac=0.6)
+    valid[3] = False
+    row_valid = np.ones((4, 20), bool)
+    row_valid[:2, 14:] = False
+    args = (logits, pb, tb, lab, valid)
+    ref = np.asarray(hungarian_match_pallas(*map(jnp.asarray, args), row_valid=jnp.asarray(row_valid)))
+    ours, rounds = hungarian_match_fused_reference(*map(torch.from_numpy, args),
+                                                   row_valid=torch.from_numpy(row_valid))
+    cost = np.asarray(jax_cost({"pred_class": logits, "pred_boxes": pb},
+                               {"boxes": tb, "labels": lab, "valid": valid}))
+    _check(ours.numpy(), ref, cost, valid, row_valid, f"stacked seed={seed}")
+    assert (ours[:2][torch.from_numpy(valid[:2])] < 14).all()  # padded rows never win
+    assert rounds[3] == 0 and (rounds[:3] > 0).all()
+
+
+def test_cost_matrix_matches_jax():
+    logits, pb, tb, lab, valid = _problem(2, 30, 7, 3, 5)
+    outs = {"pred_class": logits, "pred_boxes": pb}
+    tgts = {"boxes": tb, "labels": lab, "valid": valid}
+    for cost_bbox in (0.0, 2.5):
+        ref = np.asarray(jax_cost(outs, tgts, 1.0, cost_bbox, 1.0))
+        ours = hungarian_cost_matrix({k: torch.from_numpy(v) for k, v in outs.items()},
+                                     {k: torch.from_numpy(v) for k, v in tgts.items()}, 1.0, cost_bbox, 1.0)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_precomputed_cost_auction_matches_pallas():
+    """ops/assignment.py::auction_assignment, the function of kernel #8."""
+    rng = np.random.default_rng(6)
+    cost = (rng.normal(size=(3, 37, 5)) * 2).astype(np.float32)
+    valid = np.ones((3, 5), bool)
+    valid[1, 2] = False
+    ref = np.asarray(auction_assignment_pallas(jnp.asarray(cost), jnp.asarray(valid)))
+    ours = auction_assignment(torch.from_numpy(cost), torch.from_numpy(valid)).numpy()
+    _check(ours, ref, cost, valid, np.ones((3, 37), bool), "precomputed cost")
+
+
+def test_kernel_wrapper_takes_cuda_tensors_only():
+    logits, pb, tb, lab, valid = (torch.from_numpy(a) for a in _problem(1, 10, 4, 2, 0))
+    before = fused_auction.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_auction(logits, pb, tb, lab, valid)
+    assert fused_auction.launches == before

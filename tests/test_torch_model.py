@@ -28,6 +28,7 @@ from object_detection_destr_tpu_torch.models.convert import (  # noqa: E402
     save_variables_npz,
     state_dict_from_flax,
 )
+from object_detection_destr_tpu_torch.models.destr.layers import DropoutRng  # noqa: E402
 from object_detection_destr_tpu_torch.models.destr.model import build_destr  # noqa: E402
 from object_detection_destr_tpu_torch.ops.topk import masked_topk_with_recycle  # noqa: E402
 
@@ -127,8 +128,18 @@ def test_entry_point_rules():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_destr(DestrConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_destr(DestrConfig(**TINY, compute_dtype="bfloat16"), "cpu")
-    model = build_destr(DestrConfig(**TINY), "cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1, 64, 64, 3), train=True)
+    # bfloat16 compute runs: float32 outputs, bfloat16 inside
+    bf16 = build_destr(DestrConfig(**TINY, compute_dtype="bfloat16"), "cpu")
+    with torch.no_grad():
+        out, det = bf16(torch.zeros(1, 64, 64, 3))
+    assert out["pred_class"].dtype == det["pred_boxes"].dtype == torch.float32
+    # train mode runs: dropout from an explicit stream, BatchNorm on batch
+    # statistics (the running statistics move), gradients reach the weights
+    model = build_destr(DestrConfig(**dict(TINY, dropout=0.3)), "cpu")
+    before = model.mini_detector.cls_conv.bn0.running_mean.clone()
+    out, det = model(torch.randn(2, 64, 64, 3), train=True, rng=DropoutRng(0))
+    (out["pred_class"].sum() + det["pred_boxes"].sum()).backward()
+    assert not torch.equal(model.mini_detector.cls_conv.bn0.running_mean, before)
+    assert model.encoder.block0.fc1.weight.grad is not None
+    with pytest.raises(NotImplementedError, match="remat"):
+        build_destr(DestrConfig(**TINY, remat=True), "cpu")
