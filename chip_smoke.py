@@ -1,21 +1,27 @@
-"""Drive the PyTorch port on one NVIDIA GPU: its DESTR training step and its
-serving path, and hold each hand-written CUDA kernel against its plain
-PyTorch version.
+"""Drive the PyTorch port on one NVIDIA GPU: its DESTR training step at
+hidden width 256 and 512, its L1-cost matcher and its serving path, and hold
+each hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero and prints no result):
   1. device: require CUDA, print the card's name and power limit, turn TF32
      off for matmuls and convolutions;
-  2. build: compile the three csrc/*.cu files with nvcc at once (timed);
-  3. flash attention, kernels #1 and #2 against their plain versions: the
-     training step's three call-site shapes at B=16 in float32 and bfloat16,
-     dropout 0 and 0.3, masked as on the path (forward; the kernel's own
-     keep mask, read off its output, equal to the plain Philox mask with a
-     kept share within 0.005 of 0.7; backward with dQ / dK / dV errors
-     relative to each tensor's largest value), the two Sk=7056 shapes at B=1
-     (backward), and slice 1's forward cells: all five shapes at B=1 and 16,
-     float32 and bfloat16, masked and not (device times from CUDA-graph
+  2. build: compile the four csrc/*.cu files with nvcc at once (timed); the
+     fused backward's shared-memory size as the library counts it equal to
+     its Python mirror (which plans the backward), and the plan of each call
+     site printed;
+  3. flash attention, kernels #1-#4 against their plain versions: the
+     training step's three call-site shapes at hidden 256 and at hidden 512
+     (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the path;
+     forward, the kernel's own keep mask read off its output, equal to the
+     plain Philox mask with a kept share within 0.005 of 0.7; backward by
+     the plan's kernels, #2 or the two-pass #3 + #4, with dQ / dK / dV
+     errors relative to each tensor's largest value; a fully masked batch
+     entry in the float32 dropout-0 cells of the wide cross-attention), the
+     hidden-256 sites again with the two-pass kernels held against #2 on the
+     same inputs, the Sk=7056 shapes at B=1 (backward), and slice 1's forward
+     cells plus the wide cross-attention's (device times from CUDA-graph
      replay); times of the kernels, their plain versions and
      F.scaled_dot_product_attention (a yardstick, never on the path), and
      the bound from bytes and operations;
@@ -27,22 +33,29 @@ Phases (any failure exits non-zero and prints no result):
      before its 256-round cap; rounds and bids printed; the bound from the
      inputs, the bids' value rows over a long-window L2 read rate, and the
      cost's operations;
-  5. the training path: train.train.main with the production recipe
+  5. the L1-cost matcher, kernel #8 against its plain version:
+     losses.matcher.hungarian_match(cost_bbox=2.5) on 16 problems of the
+     model's 300 queries and of the mini-detector's 400 tokens, T=300, sparse
+     and dense targets, and set_criterion(rows=None, cost_bbox=2.5): one #8
+     launch a call, rows checked as in phase 4;
+  6. the training path: train.train.main with the production recipe
      (synthetic 672px canvases, 640px, batch 16, bf16, 6+6 blocks, top_k 300,
      dropout 0.3, boxes-normalized class loss, L1 weight 2.5, clip 0.1,
      skip-non-finite 100, lr 1e-4 / 1e-5, warmup) for 4 steps: finite losses,
-     updated parameters, exactly 18 / 18 / 1 launches of #1 / #2 / #9 a step,
-     the median step time from CUDA events after the first step; then three
-     more steps of the same train step with CUDA events around its parts;
-  6. one whole train step, kernels against plain versions: B=4, float32,
-     dropout 0, the same weights and batch; the kernel run's discrete
-     choices (pairs, top-k indices, matcher rows) must be near-ties where
-     the plain run's differ and are then replayed in it; loss, gradients and
-     updated parameters compared;
-  7. serving at full width: 8 requests through build_service, 18
+     updated parameters, exactly 18 / 18 / 0 / 0 / 1 launches of #1 / #2 /
+     #3 / #4 / #9 a step, the median step time from CUDA events after the
+     first step; then three more steps of the same train step with CUDA
+     events around its parts; the same with --hidden_dim 512, 18 / 12 / 6 /
+     6 / 1 launches a step (the cross-attention's backward is two-pass);
+  7. one whole train step, kernels against plain versions: B=4, float32,
+     dropout 0, the same weights and batch, at hidden 256 and 512; the
+     kernel run's discrete choices (pairs, top-k indices, matcher rows) must
+     be near-ties where the plain run's differ and are then replayed in it;
+     loss, gradients and updated parameters compared;
+  8. serving at full width: 8 requests through build_service, 18
      forward launches each;
-  8. whole model forward, kernel against plain, discrete choices
-     (top-k, pairs) recorded and replayed as in phase 6.
+  9. whole model forward, kernel against plain, discrete choices
+     (top-k, pairs) recorded and replayed as in phase 7.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -82,6 +95,15 @@ SITES = [
     ("cross_cls_reg_7056", 600, 7056, 1, 512, 256, True),
 ]
 PATH_SITES = SITES[:3]
+# the same call sites with --hidden_dim 512: d = C / 8 and 2C / 8, and the
+# merged cross-attention's d = 2C, dv = C
+WIDE_SITES = [
+    ("encoder_self_wide", 400, 400, 8, 64, 64, True),
+    ("decoder_self_wide", 300, 300, 8, 128, 128, False),
+    ("cross_cls_reg_wide", 600, 400, 1, 1024, 512, True),
+]
+WIDE_CROSS = WIDE_SITES[2]
+WIDE_LONG = ("cross_cls_reg_wide_7056", 600, 7056, 1, 1024, 512, True)
 BLOCKS = 6  # encoder and decoder blocks of the served and trained model
 TRAIN_B = 16
 RATE = 0.3
@@ -97,6 +119,7 @@ TRAIN_ARGS = [
     "--set_cost_bbox", "2.5", "--set_cost_ciou", "1", "--grad_clip_norm", "0.1",
     "--skip_nonfinite", "100", "--log_interval", "1",
 ]
+WIDE_ARGS = ["--hidden_dim", "512"]
 
 
 def log(msg: str) -> None:
@@ -186,6 +209,27 @@ def phase_build(libraries) -> None:
                 log(f"  ptxas {lib.name}: {line.strip()}")
 
 
+def phase_plan(torch, fa) -> None:
+    """The fused backward's shared memory as its library counts it equals
+    the Python mirror that plans the backward; the plan of each call site on
+    this card."""
+    lib = fa.BWD_LIBRARY.library()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for d, dv in [(32, 32), (64, 64), (128, 128), (512, 256), (512, 512), (1024, 512)]:
+        for itemsize in (4, 2):
+            counted, mirrored = lib.odtt_flash_bwd_smem_bytes(d, dv, itemsize), fa.fused_backward_smem_bytes(d, dv, itemsize)
+            if counted != mirrored:
+                raise AssertionError(f"fused backward at d={d} dv={dv} itemsize={itemsize}: the library counts "
+                                     f"{counted} bytes of shared memory, the plan's mirror {mirrored}")
+    plans = {name: {str(dt).split(".")[-1]: fa.backward_plan(d, dv, dt, optin) for dt in (torch.float32, torch.bfloat16)}
+             for name, _, _, _, d, dv, _ in PATH_SITES + WIDE_SITES}
+    want = {name: "two_pass" if name == WIDE_CROSS[0] else "fused" for name in plans}
+    if any(set(p.values()) != {want[name]} for name, p in plans.items()):
+        raise AssertionError(f"backward plans {plans}, expected {want}")
+    log(f"plan: {optin} bytes of shared memory a block (opt-in); the fused backward's layout equals the library's "
+        f"count at 12 widths; backward by call site {plans}")
+
+
 def warm_clocks(torch) -> None:
     x = torch.randn(4096, 4096, device="cuda")
     t_end = time.perf_counter() + 1.0
@@ -194,21 +238,24 @@ def warm_clocks(torch) -> None:
         torch.cuda.synchronize()
 
 
-def bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dtype_name, backward=False):
+def bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dtype_name, kind="fwd"):
     """Least time for the work: the larger of bytes over the memory rate and
-    operations over the peak for the operand type. Forward: q, k, v (and the
-    mask) in, out and lse out, 2*Sq*Sk*(d + dv) FLOPs a head. Backward: q, k,
-    v, out, dO (and the mask) in, dQ, dK, dV out, 2*Sq*Sk*(3d + 2dv) FLOPs a
-    head (s recomputed, dp, dV, dQ, dK)."""
-    if backward:
-        nbytes = itemsize * b * (2 * sq * h * d + 2 * sk * h * d + 2 * sk * h * dv + 2 * sq * h * dv)
-        nbytes += 4 * b * h * sq  # lse in
-        flops = 2 * b * h * sq * sk * (3 * d + 2 * dv)
-    else:
-        nbytes = itemsize * b * (sq * h * d + sk * h * d + sk * h * dv + sq * h * dv)
-        nbytes += 4 * b * h * sq  # lse out
-        flops = 2 * b * h * sq * sk * (d + dv)
+    operations over the peak for the operand type. Per head, with each
+    input read once and each output written once:
+      fwd: q, k, v (and the mask) in, out and lse out; 2*Sq*Sk*(d + dv)
+           FLOPs (s, p v);
+      bwd (#2): q, k, v, out, dO, lse (and the mask) in, dQ, dK, dV out;
+           2*Sq*Sk*(3d + 2dv) FLOPs (s recomputed, dp, dV, dQ, dK);
+      dq (#3): the same inputs, dQ out; 2*Sq*Sk*(2d + dv) (s, dp, dQ);
+      dkv (#4): the same inputs, dK, dV out; 2*Sq*Sk*(2d + 2dv) (s, dp,
+           dK, dV)."""
+    q, k, v, o = b * sq * h * d, b * sk * h * d, b * sk * h * dv, b * sq * h * dv
+    grads_out, per_pair = {"fwd": (o, d + dv), "bwd": (q + k + v, 3 * d + 2 * dv),
+                           "dq": (q, 2 * d + dv), "dkv": (k + v, 2 * d + 2 * dv)}[kind]
+    ins = q + k + v + (0 if kind == "fwd" else 2 * o)  # out and dO in for the backward
+    nbytes = itemsize * (ins + grads_out) + 4 * b * h * sq  # lse out (fwd) or in
     nbytes += b * sk if masked else 0
+    flops = 2 * b * h * sq * sk * per_pair
     peak = F32_PEAK if dtype_name == "float32" else BF16_PEAK
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -236,10 +283,13 @@ def kernel_keep_mask(torch, fa, b, sq, sk, h, d, dv, dtype, rate, seed):
     return keep.permute(0, 2, 1, 3)
 
 
-def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing):
-    """One shape cell of kernels #1 (and #2) against their plain versions.
-    The plain forward runs one batch entry at a time where its (B, h, Sq, Sk)
-    scores would pass 2 GiB (no dropout there)."""
+def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing, fully_masked_entry=False):
+    """One shape cell of kernel #1 against its plain version and, with
+    ``backward``, of the backward the plan picks for the card ("plan"),
+    kernel #2 ("fused"), kernels #3 + #4 ("two_pass"), or both, then also
+    held against each other ("both"). The plain forward runs one batch
+    entry at a time where its (B, h, Sq, Sk) scores would pass 2 GiB (no
+    dropout there). ``fully_masked_entry`` masks every key of batch entry 0."""
     import torch.nn.functional as F
 
     from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
@@ -252,6 +302,8 @@ def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing)
     mask = None
     if masked:
         lengths = torch.randint(sk * 3 // 4, sk + 1, (b,), generator=gen, device="cuda")
+        if fully_masked_entry:
+            lengths[0] = 0
         mask = torch.arange(sk, device="cuda")[None, :] < lengths[:, None]
     seed = 1234 if rate else None
     chunked = b * h * sq * sk * 4 > (2 << 30)
@@ -268,7 +320,7 @@ def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing)
     out, lse = fa.flash_attention_fwd(q, k, v, h, mask, None, rate, seed)
     ref_out, ref_lse = plain()
     torch.cuda.synchronize()
-    row = dict(site=name, b=b, dtype=dname, rate=rate, masked=masked)
+    row = dict(site=name, b=b, dtype=dname, rate=rate, masked=masked, fully_masked_entry=fully_masked_entry)
     row["max_abs_err"] = (out.float() - ref_out.float()).abs().max().item()
     row["rel_err"] = _rel(out, ref_out)
     row["lse_err"] = (lse - ref_lse).abs().max().item() / max(ref_lse.abs().max().item(), 1.0)
@@ -301,39 +353,65 @@ def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing)
     row["bound_ms"], row["bound_by"] = bound_ms(b, sq, sk, h, d, dv, q.element_size(), masked, dname)
 
     if backward:
+        optin = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
+        plan = fa.backward_plan(d, dv, dtype, optin) if backward == "plan" else backward
+        row["bwd_plan"] = plan
         dout = torch.randn(b, sq, h * dv, generator=gen, device="cuda").to(dtype)
-        dq, dk, dvv = fa.flash_attention_bwd(q, k, v, h, mask, out, lse, dout, None, rate, seed)
-        ref = fa.flash_attention_packed_backward_reference(q, k, v, h, mask, out, lse, dout, None, rate, seed)
+        args = (q, k, v, h, mask, out, lse, dout, None, rate, seed)
+        runs = {}
+        if plan in ("fused", "both"):
+            runs["fused"] = fa.flash_attention_bwd(*args)
+        if plan in ("two_pass", "both"):
+            runs["two_pass"] = (fa.flash_attention_dq(*args), *fa.flash_attention_dkv(*args))
+        ref = fa.flash_attention_packed_backward_reference(*args)
         torch.cuda.synchronize()
-        row["bwd_rel_err"] = {n: _rel(g, r) for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dvv), ref)}
-        row["bwd_max_abs_err"] = max((g.float() - r.float()).abs().max().item() for g, r in zip((dq, dk, dvv), ref))
-        ok = ok and max(row["bwd_rel_err"].values()) <= BWD_TOL[dname] and all(
-            bool(torch.isfinite(g).all()) for g in (dq, dk, dvv))
-        del ref
+        row["bwd_rel_err"] = {f"{kind} {n}": _rel(g, r) for kind, grads in runs.items()
+                              for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+        row["bwd_abs_err"] = {f"{kind} {n}": (g.float() - r.float()).abs().max().item() for kind, grads in runs.items()
+                              for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+        errs = list(row["bwd_rel_err"].values())
+        if plan == "both":  # the two-pass kernels against #2 on the same inputs
+            row["two_pass_vs_fused"] = {n: _rel(g, f) for n, g, f in zip(("dq", "dk", "dv"), runs["two_pass"],
+                                                                          runs["fused"])}
+            errs += list(row["two_pass_vs_fused"].values())
+        ok = ok and max(errs) <= BWD_TOL[dname] and all(
+            bool(torch.isfinite(g).all()) for grads in runs.values() for g in grads)
+        del ref, runs
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
         doh = dout.view(b, sq, h, dv).transpose(1, 2)
 
         def library_fwd_bwd():
             F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias, dropout_p=rate).backward(doh)
 
-        row["bwd_ms"] = time_cuda(torch, lambda: fa.flash_attention_bwd(q, k, v, h, mask, out, lse, dout, None, rate, seed))
-        row["bwd_plain_ms"] = time_cuda(torch, lambda: fa.flash_attention_packed_backward_reference(
-            q, k, v, h, mask, out, lse, dout, None, rate, seed))
+        itemsize = q.element_size()
+        timed = {"bwd": (fa.flash_attention_bwd, fa.flash_attention_packed_backward_reference),
+                 "dq": (fa.flash_attention_dq, fa.flash_attention_dq_reference),
+                 "dkv": (fa.flash_attention_dkv, fa.flash_attention_dkv_reference)}
+        kinds = {"fused": ["bwd"], "two_pass": ["dq", "dkv"], "both": ["bwd", "dq", "dkv"]}[plan]
+        for kind in kinds:
+            kernel, reference = timed[kind]
+            row[f"{kind}_ms"] = time_cuda(torch, lambda: kernel(*args))
+            row[f"{kind}_plain_ms"] = time_cuda(torch, lambda: reference(*args))
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms(b, sq, sk, h, d, dv, itemsize, masked,
+                                                                       dname, kind)
         row["bwd_library_ms"] = time_cuda(torch, library_fwd_bwd)
-        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(b, sq, sk, h, d, dv, q.element_size(), masked,
-                                                           dname, backward=True)
     row["ok"] = ok
     lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-    msg = (f"flash {name:18s} B={b:<2d} {dname:8s} rate={rate} masked={int(masked)} fwd rel_err={row['rel_err']:.2e} "
-           f"lse_err={row['lse_err']:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-           f"sdpa_ms={lib} bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+    msg = (f"flash {name:23s} B={b:<2d} {dname:8s} rate={rate} masked={int(masked)}"
+           + (" (entry 0 fully masked)" if fully_masked_entry else "")
+           + f" fwd rel_err={row['rel_err']:.2e} lse_err={row['lse_err']:.2e} ms={row['ms']:.4f} "
+           f"plain_ms={row['plain_ms']:.4f} sdpa_ms={lib} bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
            + (" (device, CUDA graph)" if graph_timing else " (eager calls)"))
     if rate:
         msg += f" kernel kept={row['kept']:.5f} equal to the plain mask={row['keep_equal']}"
     if backward:
-        msg += (" | bwd rel_err " + " ".join(f"{n}={e:.2e}" for n, e in row["bwd_rel_err"].items())
-                + f" ms={row['bwd_ms']:.4f} plain_ms={row['bwd_plain_ms']:.4f} sdpa_fwd_bwd_ms="
-                f"{row['bwd_library_ms']:.4f} bound_ms={row['bwd_bound_ms']:.4f} ({row['bwd_bound_by']})")
+        msg += (f" | bwd {row['bwd_plan']} rel_err " + " ".join(f"{n}={e:.2e}" for n, e in row["bwd_rel_err"].items()))
+        if "two_pass_vs_fused" in row:
+            msg += " two-pass vs #2 " + " ".join(f"{n}={e:.2e}" for n, e in row["two_pass_vs_fused"].items())
+        for kind in kinds:
+            msg += (f" {kind}_ms={row[f'{kind}_ms']:.4f} plain_ms={row[f'{kind}_plain_ms']:.4f} "
+                    f"bound_ms={row[f'{kind}_bound_ms']:.4f} ({row[f'{kind}_bound_by']})")
+        msg += f" sdpa_fwd_bwd_ms={row['bwd_library_ms']:.4f}"
     log(msg + (" OK" if ok else " FAIL"))
     torch.cuda.empty_cache()
     return row
@@ -342,17 +420,24 @@ def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing)
 def phase_flash(torch, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for site in PATH_SITES:  # the training step's cells, forward and backward
-        for dtype in (torch.float32, torch.bfloat16):
-            for rate in (0.0, RATE):
-                rows.append(flash_cell(torch, gen, site, TRAIN_B, dtype, rate, site[-1], True, False))
-    for site in SITES[3:]:  # the dilated 1333px configuration's long keys, backward
-        rows.append(flash_cell(torch, gen, site, 1, torch.float32, 0.0, True, True, False))
+    for sites in (PATH_SITES, WIDE_SITES):  # the training step's cells at hidden 256 and 512
+        for site in sites:
+            for dtype in (torch.float32, torch.bfloat16):
+                for rate in (0.0, RATE):
+                    full = site is WIDE_CROSS and dtype is torch.float32 and not rate
+                    rows.append(flash_cell(torch, gen, site, TRAIN_B, dtype, rate, site[-1], "plan", False, full))
+    for site in PATH_SITES:  # the two-pass kernels against #2 where both run
+        rows.append(flash_cell(torch, gen, site, TRAIN_B, torch.float32, 0.0, site[-1], "both", False, site[-1]))
+        rows.append(flash_cell(torch, gen, site, TRAIN_B, torch.bfloat16, RATE, site[-1], "both", False))
+    for site in SITES[3:] + [WIDE_LONG]:  # the dilated 1333px configuration's long keys, backward
+        rows.append(flash_cell(torch, gen, site, 1, torch.float32, 0.0, True, "plan", False))
     for site in SITES:  # the forward cells of slice 1, serving's among them
         for b in (1, TRAIN_B):
             for dtype in (torch.float32, torch.bfloat16):
                 for masked in (True, False):
-                    rows.append(flash_cell(torch, gen, site, b, dtype, 0.0, masked, False, True))
+                    rows.append(flash_cell(torch, gen, site, b, dtype, 0.0, masked, None, True))
+    for dtype in (torch.float32, torch.bfloat16):  # #1 at the wide cross-attention
+        rows.append(flash_cell(torch, gen, WIDE_CROSS, TRAIN_B, dtype, 0.0, True, None, True))
     failed = [r for r in rows if not r["ok"]]
     if failed:
         raise AssertionError(f"{len(failed)} flash-attention cells out of tolerance: {failed[:2]}")
@@ -397,20 +482,16 @@ def auction_problems(torch, seed, dense):
     return [x.to("cuda") for x in (logits, boxes, tgt, labels, valid, row_valid)]
 
 
-def auction_check(torch, args, rows_k, rows_p, rounds, eps_frac=0.001, max_iters=256):
+def auction_check(cost, valid, row_valid, rows_k, rows_p, rounds, eps_frac=0.001, max_iters=256):
     """Duplicate-free rows, and per problem: equal rows, or totals within
     T*eps of each other; and, where the auction converged (fewer than
     max_iters rounds: the eps-optimality bound holds only then), within
-    T*eps of scipy's optimum. Returns (differing targets, largest
-    |total_k - total_p|, [(problem, total - optimum) of the capped ones])."""
+    T*eps of scipy's optimum. ``cost`` is the (B, T, N) negated value matrix
+    the solver saw. Returns (differing targets, largest |total_k - total_p|,
+    [(problem, total - optimum) of the capped ones])."""
     from scipy.optimize import linear_sum_assignment
 
-    from object_detection_destr_tpu_torch.ops.cuda.auction import fused_cost_inputs, matching_value_reference
-
-    logits, boxes, tgt, labels, valid, row_valid = args
-    pn, atan_p, atan_g = fused_cost_inputs(logits, boxes, tgt)
-    cost = -matching_value_reference(pn, boxes, atan_p, tgt, atan_g, labels, valid, row_valid).cpu().numpy()
-    rk, rp = rows_k.cpu().numpy(), rows_p.cpu().numpy()
+    cost, rk, rp = (x.cpu().numpy() for x in (cost, rows_k, rows_p))
     valid, row_valid = valid.cpu().numpy(), row_valid.cpu().numpy()
     differ, worst, capped = 0, 0.0, []
     for i in range(cost.shape[0]):
@@ -438,27 +519,32 @@ def auction_check(torch, args, rows_k, rows_p, rounds, eps_frac=0.001, max_iters
     return differ, worst, capped
 
 
-def auction_bound(args, bids, rate):
-    """Least time of #9's function on these inputs, (ms, "bytes" or
-    "operations"). Bytes: each input read once and the rows written once, over
-    the HBM rate, plus the real rows of each column's value row read once per
-    bid it made, over the L2 rate. Operations: the cost of every valid column
-    against every real row (AUCTION_PAIR_OPS each), plus three per real row
-    scanned by a bid, over the float32 peak. Invalid columns need neither: they
-    hold 0 on every real row, so their completion needs only row_valid."""
-    valid, row_valid = args[4], args[5]
+def auction_bound(inputs, valid, row_valid, bids, rate, pair_ops=AUCTION_PAIR_OPS):
+    """Least time of an auction kernel's function on these inputs, (ms,
+    "bytes" or "operations"). Bytes: each input tensor read once and the rows
+    written once, over the HBM rate, plus the real rows of each column's value
+    row read once per bid it made, over the L2 rate. Operations: ``pair_ops``
+    for every (valid column, real row) entry (#9: the cost and the range; #8:
+    the range), plus three per real row scanned by a bid, over the float32
+    peak. Invalid columns need neither: they hold 0 on every real row, so
+    their completion needs only row_valid."""
     b, t = valid.shape
     real = row_valid.sum(1).cpu().long()
-    io = sum(x.numel() * x.element_size() for x in args) + b * t * 4
+    io = sum(x.numel() * x.element_size() for x in inputs) + b * t * 4
     bid_rows = int((bids * real).sum())
     t_bytes = io / HBM_RATE + bid_rows * 4 / rate
-    ops = int((valid.sum(1).cpu().long() * real).sum()) * AUCTION_PAIR_OPS + 3 * bid_rows
+    ops = int((valid.sum(1).cpu().long() * real).sum()) * pair_ops + 3 * bid_rows
     t_ops = ops / F32_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_auction(torch, seed):
-    from object_detection_destr_tpu_torch.ops.cuda.auction import fused_auction, hungarian_match_fused_reference
+    from object_detection_destr_tpu_torch.ops.cuda.auction import (
+        fused_auction,
+        fused_cost_inputs,
+        hungarian_match_fused_reference,
+        matching_value_reference,
+    )
 
     rate = l2_rate(torch)
     log(f"auction: L2 read rate {rate / 1e12:.2f} TB/s (1 GiB read in one launch from 64 rows of 16 MB "
@@ -470,14 +556,17 @@ def phase_auction(torch, seed):
         torch.cuda.synchronize()
         bids = fused_auction.last_bids.cpu().long()
         rows_p, rounds_p = hungarian_match_fused_reference(*args)
-        differ, worst, capped = auction_check(torch, args, rows_k, rows_p, rounds_k.cpu())
+        logits, boxes, tgt, labels, valid, row_valid = args
+        pn, atan_p, atan_g = fused_cost_inputs(logits, boxes, tgt)
+        cost = -matching_value_reference(pn, boxes, atan_p, tgt, atan_g, labels, valid, row_valid)
+        differ, worst, capped = auction_check(cost, valid, row_valid, rows_k, rows_p, rounds_k.cpu())
         ms = time_cuda(torch, lambda: fused_auction(*args))
         plain_ms = time_cuda(torch, lambda: hungarian_match_fused_reference(*args), reps=3)
-        n_valid = args[4].sum(1).cpu()
+        n_valid = valid.sum(1).cpu()
         rounds = rounds_k.cpu().long()
         if not ((bids >= rounds) & (bids <= rounds * n_valid)).all():
             raise AssertionError(f"bid counts {bids.tolist()} do not fit rounds {rounds.tolist()}")
-        bound, bound_by = auction_bound(args, bids, rate)
+        bound, bound_by = auction_bound(args, valid, row_valid, bids, rate)
         row = dict(setting="dense" if dense else "synthetic", differ=differ, max_abs_err=worst, ms=ms, capped=capped,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, rounds=rounds.tolist(),
                    plain_rounds=rounds_p.cpu().tolist(), bids=int(bids.sum()))
@@ -490,11 +579,78 @@ def phase_auction(torch, seed):
     return rows, rate
 
 
-def recipe_train_config():
-    """The TrainConfig that the trainer builds from TRAIN_ARGS."""
+def phase_assignment(torch, kernels, seed, rate):
+    """Kernel #8 through its entry points on the card:
+    hungarian_match(cost_bbox=2.5) on 16 problems of the model's 300
+    queries, then of the mini-detector's 400 tokens, T=300, with at most 8
+    and with 150-300 valid targets; then set_criterion(rows=None,
+    cost_bbox=2.5). One #8 launch (and no other kernel) a call; rows held
+    against the plain solver on the same value matrix as in phase 4."""
+    from object_detection_destr_tpu_torch.losses.criterion import set_criterion
+    from object_detection_destr_tpu_torch.losses.matcher import hungarian_cost_matrix, hungarian_match
+    from object_detection_destr_tpu_torch.ops.assignment import batched_assignment
+    from object_detection_destr_tpu_torch.ops.cuda.auction import auction_kernel, precomputed_value, solve_auction
+
+    problems = []
+    for dense in (False, True):
+        logits, boxes, tgt, labels, valid, _ = auction_problems(torch, seed + 1, dense)
+        for n, part in ((300, slice(0, TRAIN_B)), (400, slice(TRAIN_B, 2 * TRAIN_B))):
+            outputs = {"pred_class": logits[part, :n], "pred_boxes": boxes[part, :n]}
+            targets = {"boxes": tgt[part], "labels": labels[part], "valid": valid[part]}
+            problems.append((("dense" if dense else "synthetic"), n, outputs, targets))
+
+    reset_counts(kernels)  # the L1-cost matcher's path starts here
+    results = []
+    for setting, n, outputs, targets in problems:
+        before = [k.launches for k in kernels]
+        rows_k = hungarian_match(outputs, targets, cost_bbox=2.5)
+        torch.cuda.synchronize()
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        results.append((rows_k, auction_kernel.last_rounds.cpu().long(), auction_kernel.last_bids.cpu().long(),
+                         launched))
+    losses = set_criterion(problems[0][2], problems[0][3], cost_bbox=2.5, class_norm="boxes")
+    torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]  # read just after the path
+    want = [0, 0, 0, 0, 0, len(problems) + 1]
+    if counts != want or any(r[3] != want[:5] + [1] for r in results):
+        raise AssertionError(f"#8's entry points launched #1/#2/#3/#4/#9/#8 {counts} times, not {want}")
+    if not all(math.isfinite(v.item()) for v in losses.values()):
+        raise AssertionError(f"non-finite criterion through #8: {losses}")
+
+    rows = []
+    for (setting, n, outputs, targets), (rows_k, rounds, bids, _) in zip(problems, results):
+        valid = targets["valid"]
+        cost = hungarian_cost_matrix(outputs, targets, 1.0, 2.5, 1.0)
+        value = precomputed_value(cost, valid)
+        row_valid = torch.ones(cost.shape[:2], dtype=torch.bool, device="cuda")
+        rows_p, rounds_p = solve_auction(value, valid, row_valid)
+        differ, worst, capped = auction_check(-value, valid, row_valid, rows_k, rows_p, rounds)
+        n_valid = valid.sum(1).cpu()
+        if not ((bids >= rounds) & (bids <= rounds * n_valid)).all():
+            raise AssertionError(f"bid counts {bids.tolist()} do not fit rounds {rounds.tolist()}")
+        ms = time_cuda(torch, lambda: batched_assignment(cost, valid))
+        plain_ms = time_cuda(torch, lambda: solve_auction(precomputed_value(cost, valid), valid, row_valid), reps=3)
+        bound, bound_by = auction_bound((cost, valid), valid, row_valid, bids, rate, pair_ops=2)
+        row = dict(setting=setting, n=n, differ=differ, max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by, rounds=rounds.tolist(), plain_rounds=rounds_p.cpu().tolist(),
+                   bids=int(bids.sum()), capped=capped)
+        rows.append(row)
+        log(f"assignment {setting:9s}: hungarian_match(cost_bbox=2.5), 16 problems N={n} T=300, valid targets "
+            f"{n_valid.min().item()}-{n_valid.max().item()}; one #8 launch; rows differing from plain {differ} "
+            f"(largest total gap {worst:.2e}); rounds kernel {row['rounds']} plain {row['plain_rounds']}; bids "
+            f"{row['bids']}; ms={ms:.4f} (batched_assignment: value matrix + kernel) plain_ms={plain_ms:.2f} "
+            f"bound_ms={bound:.6f} ({bound_by}); {len(capped)} stopped at the 256-round cap, total above the "
+            f"optimum by {capped} OK")
+    log(f"assignment: set_criterion(rows=None, cost_bbox=2.5) launched #8 once; losses "
+        + " ".join(f"{k}={v.item():.4f}" for k, v in losses.items()))
+    return rows, counts
+
+
+def recipe_train_config(extra=()):
+    """The TrainConfig that the trainer builds from TRAIN_ARGS (+ ``extra``)."""
     from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
 
-    return config_from_args(get_parser("destr").parse_args(TRAIN_ARGS), "destr").train
+    return config_from_args(get_parser("destr").parse_args(TRAIN_ARGS + list(extra)), "destr").train
 
 
 def reset_counts(kernels) -> None:
@@ -502,14 +658,16 @@ def reset_counts(kernels) -> None:
         k.launches = 0
 
 
-def phase_train(torch, kernels, seed):
-    """The production recipe through the trainer's entry point."""
+def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0), label="hidden 256"):
+    """The production recipe (+ ``extra`` flags) through the trainer's entry
+    point; ``per_step`` the launches of each kernel a step."""
     from object_detection_destr_tpu_torch.models.destr.model import build_destr
     from object_detection_destr_tpu_torch.train import train as train_cli
     from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
 
-    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build", "chip_smoke_train")
-    argv = TRAIN_ARGS + ["--seed", str(seed), "--log_dir", log_dir]
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build",
+                           "chip_smoke_train_" + label.replace(" ", "_"))
+    argv = TRAIN_ARGS + list(extra) + ["--seed", str(seed), "--log_dir", log_dir]
     reset_counts(kernels)  # the main path starts here
     t0 = time.perf_counter()
     result = train_cli.main(argv)
@@ -518,9 +676,9 @@ def phase_train(torch, kernels, seed):
     counts = [k.launches for k in kernels]  # read just after the main path
     state = result["state"]
     steps = state.step
-    want = [18 * steps, 18 * steps, steps]
+    want = [n * steps for n in per_step]
     if steps != TRAIN_STEPS or counts != want:
-        raise AssertionError(f"{steps} steps launched #1/#2/#9 {counts} times, not {want}")
+        raise AssertionError(f"{steps} steps launched #1/#2/#3/#4/#9/#8 {counts} times, not {want}")
     metrics = result["metrics"]
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite or missing losses: {metrics}")
@@ -540,13 +698,13 @@ def phase_train(torch, kernels, seed):
     del initial
     step_ms = result["step_ms"]
     median = statistics.median(step_ms[1:])
-    log(f"train: {steps} steps of the production recipe (B={TRAIN_B}, 640px, bf16, 6+6 blocks, top_k 300, "
-        f"dropout {RATE}) in {wall:.1f} s; launches #1/#2/#9 {counts} ({counts[0] // steps}/"
-        f"{counts[1] // steps}/{counts[2] // steps} a step); last losses "
+    log(f"train {label}: {steps} steps of the production recipe (B={TRAIN_B}, 640px, bf16, 6+6 blocks, top_k 300, "
+        f"dropout {RATE}, hidden {config.destr.hidden_dim}) in {wall:.1f} s; launches #1/#2/#3/#4/#9/#8 {counts} "
+        f"({'/'.join(str(c // steps) for c in counts)} a step); last losses "
         + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-    log(f"train: the matcher's bidding rounds in the last step (16 model problems, then 16 "
-        f"mini-detector problems): {kernels[2].last_rounds.tolist()}")
-    log(f"train: step ms (CUDA events) {', '.join(f'{t:.1f}' for t in step_ms)}; median after the first "
+    log(f"train {label}: the matcher's bidding rounds in the last step (16 model problems, then 16 "
+        f"mini-detector problems): {kernels[4].last_rounds.tolist()}")
+    log(f"train {label}: step ms (CUDA events) {', '.join(f'{t:.1f}' for t in step_ms)}; median after the first "
         f"{median:.2f} ms = {TRAIN_B / median * 1e3:.1f} images/s; driver's epoch images/s "
         f"{result['images_per_sec']:.1f}; parameters moved {moved}")
     return state, counts, median
@@ -658,16 +816,23 @@ def choices(record=None, replay=None):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the kernels' wrappers to their plain versions for one run."""
+    from object_detection_destr_tpu_torch.ops import assignment
     from object_detection_destr_tpu_torch.ops.cuda import auction, flash_attention as fa
 
-    originals = (fa.flash_attention_fwd, fa.flash_attention_bwd, auction.fused_auction)
-    fa.flash_attention_fwd = fa.flash_attention_packed_reference
-    fa.flash_attention_bwd = fa.flash_attention_packed_backward_reference
-    auction.fused_auction = auction.hungarian_match_fused_reference
+    swaps = [(fa, "flash_attention_fwd", fa.flash_attention_packed_reference),
+             (fa, "flash_attention_bwd", fa.flash_attention_packed_backward_reference),
+             (fa, "flash_attention_dq", fa.flash_attention_dq_reference),
+             (fa, "flash_attention_dkv", fa.flash_attention_dkv_reference),
+             (auction, "fused_auction", auction.hungarian_match_fused_reference),
+             (assignment, "auction_kernel", auction.solve_auction)]
+    originals = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        fa.flash_attention_fwd, fa.flash_attention_bwd, auction.fused_auction = originals
+        for (module, name, _), original in zip(swaps, originals):
+            setattr(module, name, original)
 
 
 def choice_margin(torch, kind, recorded, other):
@@ -702,16 +867,18 @@ def first_flip(torch, mine, theirs):
             for (kind, args, a), (_, _, b) in zip(mine, theirs) if not torch.equal(a, b)]
 
 
-def phase_train_compare(torch, seed, destr=None, image_size=640):
+def phase_train_compare(torch, kernels, seed, destr=None, image_size=640):
     """One whole train step at B=4, float32, dropout 0: kernels against
     plain versions, from the same weights and batch (full width unless
-    ``destr`` gives DestrConfig fields)."""
+    ``destr`` gives DestrConfig fields). Returns the kernel step's launches
+    of each kernel."""
     from object_detection_destr_tpu_torch.config import DestrConfig
     from object_detection_destr_tpu_torch.models.destr.model import build_destr
     from object_detection_destr_tpu_torch.train.state import create_destr_state
     from object_detection_destr_tpu_torch.train.steps import make_destr_train_step
 
     cfg = dataclasses.replace(recipe_train_config(), batch_size=4)
+    label = f"hidden {(destr or {}).get('hidden_dim', 256)}"
     torch.manual_seed(seed)
     model = build_destr(DestrConfig(**dict(destr or {}, dropout=0.0)), "cuda")
     randomize_(torch, model, seed)
@@ -732,17 +899,21 @@ def phase_train_compare(torch, seed, destr=None, image_size=640):
                 {k: v.clone() for k, v in model.state_dict().items()})
 
     kernel_choices, plain_choices = [], []
+    reset_counts(kernels)
     kernel = run(False, record=kernel_choices)
+    launches = [k.launches for k in kernels]
     plain = run(True, record=plain_choices)
+    if [k.launches for k in kernels] != launches:
+        raise AssertionError("the plain step launched a kernel")
     flips = first_flip(torch, kernel_choices, plain_choices)
     if flips:
-        log(f"train compare: the plain run chose otherwise at {len(flips)} discrete choices: "
+        log(f"train compare {label}: the plain run chose otherwise at {len(flips)} discrete choices: "
             + ", ".join(f"{k} (margin {m:.2e})" for k, m in flips))
         kind, margin = flips[0]  # later flips may follow from the first
         if margin >= (1.0 if kind == "rows" else 1e-4):
             raise AssertionError(f"a discrete choice differs where it is no near-tie: {flips}")
         plain = run(True, replay=kernel_choices)
-        log("train compare: plain step repeated on the kernel run's choices")
+        log(f"train compare {label}: plain step repeated on the kernel run's choices")
 
     errs = {}
     for k, v in kernel[0].items():
@@ -776,12 +947,13 @@ def phase_train_compare(torch, seed, destr=None, image_size=640):
             moved += int((dp != 0).sum())
     errs["params (abs, <= 2 lr)"] = (param_gap, 2 * cfg.lr + 1e-6)
     errs["bn stats"] = (stat_gap, 1e-4)
-    log("train compare B=4 f32, kernel vs plain: " + " ".join(f"{k}={v:.2e} (tol {t:.0e})" for k, (v, t) in errs.items())
-        + f"; update direction differs in {flipped} of {moved} moved elements")
+    log(f"train compare {label} B=4 f32, kernel vs plain: " + " ".join(f"{k}={v:.2e} (tol {t:.0e})" for k, (v, t) in errs.items())
+        + f"; update direction differs in {flipped} of {moved} moved elements; kernel step launched "
+        f"#1/#2/#3/#4/#9/#8 {launches}")
     bad = [k for k, (v, t) in errs.items() if not v <= t]
     if bad:
         raise AssertionError(f"kernel and plain train steps differ: {bad}")
-    return model
+    return launches
 
 
 def randomize_(torch, model, seed):
@@ -1040,24 +1212,33 @@ def main(argv=None) -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port package is missing beside this script: {exc}", file=sys.stderr)
         return 1
-    kernels = [fa.flash_attention_fwd, fa.flash_attention_bwd, auction.fused_auction]
+    # the kernels in the order of their counts: #1, #2, #3, #4, #9, #8
+    kernels = [fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_dq, fa.flash_attention_dkv,
+               auction.fused_auction, auction.auction_kernel]
 
     t_start = time.perf_counter()
     try:
         phase_device(torch)
-        phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, auction.LIBRARY])
+        phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, fa.TWO_PASS_LIBRARY, auction.LIBRARY])
+        phase_plan(torch, fa)
         warm_clocks(torch)
         flash_rows = phase_flash(torch, args.seed)
-        auction_rows, _ = phase_auction(torch, args.seed)
-        state, train_counts, step_ms = phase_train(torch, kernels, args.seed)
-        parts = step_parts(torch, state, train_batch(torch, TRAIN_B, args.seed), recipe_train_config())
-        log("train: where a step of make_destr_train_step goes, ms (CUDA events, median of 3) "
-            + " ".join(f"{k}={v:.2f}" for k, v in parts.items())
-            + f" rest={parts['step'] - sum(v for k, v in parts.items() if k != 'step'):.2f}")
-        del state
-        torch.cuda.empty_cache()
-        phase_train_compare(torch, args.seed)
-        torch.cuda.empty_cache()
+        auction_rows, l2 = phase_auction(torch, args.seed)
+        assign_rows, assign_counts = phase_assignment(torch, kernels, args.seed, l2)
+        runs = {}
+        for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0)),
+                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0))):
+            state, counts, step_ms = phase_train(torch, kernels, args.seed, extra, per_step_launches, label)
+            parts = step_parts(torch, state, train_batch(torch, TRAIN_B, args.seed), recipe_train_config(extra))
+            log(f"train {label}: where a step of make_destr_train_step goes, ms (CUDA events, median of 3) "
+                + " ".join(f"{k}={v:.2f}" for k, v in parts.items())
+                + f" rest={parts['step'] - sum(v for k, v in parts.items() if k != 'step'):.2f}")
+            runs[label] = (counts, step_ms)
+            del state
+            torch.cuda.empty_cache()
+        for destr in (None, {"hidden_dim": 512}):
+            phase_train_compare(torch, kernels, args.seed, destr)
+            torch.cuda.empty_cache()
         gen = torch.Generator().manual_seed(args.seed)
         images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
                   for h, w in REQUEST_SIZES]
@@ -1070,13 +1251,20 @@ def main(argv=None) -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    # a training step: 6 launches at each of the three call-site shapes,
-    # B=16, bfloat16, dropout 0.3, masked as on the path
-    path = [r for r in flash_rows for (n, *_, m) in PATH_SITES
-            if r["site"] == n and r["b"] == TRAIN_B and r["dtype"] == "bfloat16" and r["rate"] == RATE]
+    def step_rows(sites):
+        """A training step's cells: B=16, bfloat16, dropout 0.3, masked as
+        on the path, backward by the plan (6 launches at each site)."""
+        return [r for r in flash_rows for (n, *_, m) in sites
+                if r["site"] == n and r["b"] == TRAIN_B and r["dtype"] == "bfloat16" and r["rate"] == RATE
+                and r.get("bwd_plan") in ("fused", "two_pass")]
+
+    path, wide = step_rows(PATH_SITES), step_rows(WIDE_SITES)
+    wide_fused, wide_cross = wide[:2], wide[2:]
     # a request: the same sites at B=1, float32, no dropout, masked as served
     serve = [r for r in flash_rows for (n, *_, m) in PATH_SITES
              if r["site"] == n and r["b"] == 1 and r["dtype"] == "float32" and r["masked"] == m]
+    counts, step_ms = runs["hidden 256"]
+    wide_counts, wide_step_ms = runs["hidden 512"]
 
     def per_step(rows, key):
         return BLOCKS * sum(r[key] for r in rows)
@@ -1084,18 +1272,30 @@ def main(argv=None) -> int:
     def bound_by(rows, key):
         return "operations" if all(r[key] == "operations" for r in rows) else "bytes"
 
+    def abs_err(rows, kind, names=("dq", "dk", "dv")):
+        return max(r["bwd_abs_err"][f"{kind} {n}"] for r in rows for n in names)
+
+    def timed(rows, kind):
+        """ms, plain_ms, bound_ms, bound_by of a step's launches of one kernel."""
+        return {"ms": per_step(rows, f"{kind}_ms"), "plain_ms": per_step(rows, f"{kind}_plain_ms"),
+                "bound_ms": per_step(rows, f"{kind}_bound_ms"), "bound_by": bound_by(rows, f"{kind}_bound_by")}
+
     synthetic = auction_rows[0]
+    sdpa = "library_ms is SDPA forward + backward (dQ, dK and dV together)"
     entries = [
         {
             "name": "flash_attention_fwd", "route": "cuda",
             "source": f"{PKG}/csrc/flash_attention_fwd.cu",
             "replaces": "object_detection_destr_tpu/ops/pallas/flash_attention.py:592",
-            "launches": train_counts[0],
+            "launches": counts[0],
             "max_abs_err": max(r["max_abs_err"] for r in path),
             "ms": per_step(path, "ms"), "plain_ms": per_step(path, "plain_ms"),
             "bound_ms": per_step(path, "bound_ms"), "bound_by": bound_by(path, "bound_by"),
             "library_ms": per_step(path, "library_ms"),
             "per": f"train step: 18 launches (3 call sites x 6 blocks), B={TRAIN_B}, bfloat16, dropout {RATE}",
+            "hidden_512": {"launches": wide_counts[0], "max_abs_err": max(r["max_abs_err"] for r in wide),
+                           "ms": per_step(wide, "ms"), "plain_ms": per_step(wide, "plain_ms"),
+                           "bound_ms": per_step(wide, "bound_ms"), "library_ms": per_step(wide, "library_ms")},
             "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"),
                         "plain_ms": per_step(serve, "plain_ms"), "library_ms": per_step(serve, "library_ms"),
                         "bound_ms": per_step(serve, "bound_ms"),
@@ -1105,27 +1305,63 @@ def main(argv=None) -> int:
             "name": "flash_attention_bwd", "route": "cuda",
             "source": f"{PKG}/csrc/flash_attention_bwd.cu",
             "replaces": "object_detection_destr_tpu/ops/pallas/flash_attention.py:884",
-            "launches": train_counts[1],
-            "max_abs_err": max(r["bwd_max_abs_err"] for r in path),
-            "ms": per_step(path, "bwd_ms"), "plain_ms": per_step(path, "bwd_plain_ms"),
-            "bound_ms": per_step(path, "bwd_bound_ms"), "bound_by": bound_by(path, "bwd_bound_by"),
-            "library_ms": per_step(path, "bwd_library_ms"),
-            "per": f"train step: 18 launches, B={TRAIN_B}, bfloat16, dropout {RATE}; "
-                   "library_ms is SDPA forward + backward",
+            "launches": counts[1],
+            "max_abs_err": abs_err(path, "fused"),
+            **timed(path, "bwd"), "library_ms": per_step(path, "bwd_library_ms"),
+            "per": f"train step: 18 launches, B={TRAIN_B}, bfloat16, dropout {RATE}; {sdpa}",
+            "hidden_512": {"launches": wide_counts[1], "max_abs_err": abs_err(wide_fused, "fused"),
+                           **timed(wide_fused, "bwd"), "library_ms": per_step(wide_fused, "bwd_library_ms"),
+                           "per": "12 launches: encoder and decoder self-attention"},
+        },
+        {
+            "name": "flash_attention_dq", "route": "cuda",
+            "source": f"{PKG}/csrc/flash_attention_bwd_two_pass.cu",
+            "replaces": "object_detection_destr_tpu/ops/pallas/flash_attention.py:778",
+            "launches": wide_counts[2],
+            "max_abs_err": abs_err(wide_cross, "two_pass", ("dq",)),
+            **timed(wide_cross, "dq"), "library_ms": per_step(wide_cross, "bwd_library_ms"),
+            "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
+                   f"B={TRAIN_B}, bfloat16, dropout {RATE}; {sdpa}",
+        },
+        {
+            "name": "flash_attention_dkv", "route": "cuda",
+            "source": f"{PKG}/csrc/flash_attention_bwd_two_pass.cu",
+            "replaces": "object_detection_destr_tpu/ops/pallas/flash_attention.py:826",
+            "launches": wide_counts[3],
+            "max_abs_err": abs_err(wide_cross, "two_pass", ("dk", "dv")),
+            **timed(wide_cross, "dkv"), "library_ms": per_step(wide_cross, "bwd_library_ms"),
+            "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
+                   f"B={TRAIN_B}, bfloat16, dropout {RATE}; {sdpa}",
+        },
+        {
+            "name": "auction_assignment", "route": "cuda",
+            "source": f"{PKG}/csrc/auction.cu",
+            "replaces": "object_detection_destr_tpu/ops/pallas/auction.py:189",
+            "launches": assign_counts[5],
+            "max_abs_err": max(r["max_abs_err"] for r in assign_rows),
+            "ms": assign_rows[0]["ms"], "plain_ms": assign_rows[0]["plain_ms"],
+            "bound_ms": assign_rows[0]["bound_ms"], "bound_by": assign_rows[0]["bound_by"], "library_ms": None,
+            "per": "one hungarian_match(cost_bbox=2.5) call: 16 problems N=300 T=300, at most 8 valid targets; "
+                   "ms around batched_assignment (value matrix + launch); max_abs_err is the largest total-cost "
+                   "gap of a near-tie",
+            "others": [{k: r[k] for k in ("setting", "n", "ms", "plain_ms", "bound_ms", "bound_by", "bids")}
+                       for r in assign_rows[1:]],
         },
         {
             "name": "fused_auction", "route": "cuda",
             "source": f"{PKG}/csrc/auction.cu",
             "replaces": "object_detection_destr_tpu/ops/pallas/auction.py:271",
-            "launches": train_counts[2],
+            "launches": counts[4],
             "max_abs_err": max(r["max_abs_err"] for r in auction_rows),
             "ms": synthetic["ms"], "plain_ms": synthetic["plain_ms"],
             "bound_ms": synthetic["bound_ms"], "bound_by": synthetic["bound_by"], "library_ms": None,
             "per": "train step: 1 launch, 32 problems N=400 T=300, at most 8 valid targets",
             "dense": {k: auction_rows[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bids")},
+            "hidden_512": {"launches": wide_counts[4]},
         },
     ]
-    log(f"train step median ms={step_ms:.2f} ({TRAIN_B / step_ms * 1e3:.1f} images/s); kernels per step ms "
+    log(f"train step median ms: hidden 256 {step_ms:.2f} ({TRAIN_B / step_ms * 1e3:.1f} images/s), hidden 512 "
+        f"{wide_step_ms:.2f} ({TRAIN_B / wide_step_ms * 1e3:.1f} images/s); kernels per step ms "
         + " ".join(f"{e['name']}={e['ms']:.3f}" for e in entries)
         + f"; request latency median ms={latency_ms:.2f}, model forward ms={forward_ms:.2f}; "
         f"total {time.perf_counter() - t_start:.0f} s")

@@ -236,7 +236,15 @@ int dispatch(const Args& a) {
 
 extern "C" {
 
-int odtt_flash_bwd_abi_version() { return 1; }
+int odtt_flash_bwd_abi_version() { return 2; }
+
+// Bytes of dynamic shared memory a block of the kernel takes at head widths
+// d, dv and an operand itemsize of 4 (float32) or 2 (bfloat16): the Layout
+// that ops/cuda/flash_attention.py::fused_backward_smem_bytes mirrors to plan
+// the backward.
+long long odtt_flash_bwd_smem_bytes(int d, int dv_, int itemsize) {
+  return (long long)Layout(d, dv_, (size_t)itemsize).total;
+}
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v, dout, dk, dv). key_valid: (B, Sk)
 // bytes or null. lse, delta: (B, h, Sq) float32. dq: (B, Sq, h*d) float32,

@@ -19,7 +19,7 @@
 // sum and the accumulator are float32 for both float32 and bfloat16 inputs.
 //
 // What bounds it on this card: at the path's shapes (Sq, Sk of a few
-// hundred, d 32..512) a launch does 0.1-6 GFLOP on 1-30 MB of operands, so
+// hundred, d 32..1024) a launch does 0.1-6 GFLOP on 1-30 MB of operands, so
 // the time is occupancy and the latency of the per-key arithmetic on the
 // float32 CUDA cores, not bytes. What the design does about that, simply:
 //   * grid (ceil(Sq / rows), h, B) with one warp per query row, so even the
@@ -29,8 +29,9 @@
 //     the output accumulator in registers (lanes stride d and dv);
 //   * K/V tiles of 32 keys are staged once per block in dynamic shared
 //     memory and read by all of the block's rows; the cross-attention tile
-//     (d 512, dv 256, float32) is 96 KB, past the 48 KB default, so the
-//     launcher raises the block's dynamic shared-memory limit;
+//     (d 512, dv 256, float32) is 96 KB, that of a hidden-512 model (d 1024,
+//     dv 512) 192 KB, past the 48 KB default, so the launcher raises the
+//     block's dynamic shared-memory limit;
 //   * the 32 dot products of a tile are finished by one reduce-scatter
 //     (flash_common.cuh) that leaves key j's score on lane j, so the tile's
 //     max, exponentials, sum and dropout draw are one value a lane.
@@ -167,6 +168,7 @@ int dispatch(const Args& a) {
   if (widest <= 128) return launch<T, 4>(a);
   if (widest <= 256) return launch<T, 8>(a);
   if (widest <= 512) return launch<T, 16>(a);
+  if (widest <= 1024) return launch<T, 32>(a);
   return (int)cudaErrorInvalidValue;
 }
 

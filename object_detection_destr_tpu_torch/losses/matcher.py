@@ -5,8 +5,8 @@ solves it. With ``cost_bbox == 0`` (what the training step uses: class 1,
 CIoU 1) matching goes through the fused cost + auction of
 ``ops/cuda/auction.py`` (kernel #9 on CUDA tensors), as the JAX package
 routes it to its fused Pallas kernel; otherwise the cost matrix is solved by
-``ops/assignment.py::auction_assignment`` (the precomputed-cost kernel #8,
-not ported yet, so CPU tensors only).
+``ops/assignment.py::batched_assignment`` (the precomputed-cost kernel #8 on
+CUDA tensors).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Mapping
 import torch
 
 from ..geometry.boxes import cxcyhw_to_xyxy, pairwise_ciou
-from ..ops.assignment import auction_assignment
+from ..ops.assignment import batched_assignment
 from ..ops.cuda.auction import hungarian_match_fused
 from ..ops.focal import focal_cost_terms
 
@@ -66,4 +66,4 @@ def hungarian_match(
                 cost_ciou=cost_ciou, eps_frac=eps_frac, max_iters=max_iters,
             )
         cost = hungarian_cost_matrix(outputs, targets, cost_class, cost_bbox, cost_ciou)
-        return auction_assignment(cost, targets["valid"], eps_frac=eps_frac, max_iters=max_iters)
+        return batched_assignment(cost, targets["valid"], eps_frac=eps_frac, max_iters=max_iters)

@@ -1,10 +1,11 @@
-from .assignment import auction_assignment, solve_auction
+from .assignment import auction_assignment, batched_assignment, solve_auction
 from .attention import combine_heads, scaled_dot_product_attention, split_heads
 from .focal import focal_cost_terms, sigmoid_focal_loss
 from .topk import masked_topk_with_recycle
 
 __all__ = [
     "auction_assignment",
+    "batched_assignment",
     "combine_heads",
     "focal_cost_terms",
     "masked_topk_with_recycle",

@@ -1,8 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
 
-from .auction import fused_auction, hungarian_match_fused, hungarian_match_fused_reference
+from .auction import (
+    auction_kernel,
+    fused_auction,
+    hungarian_match_fused,
+    hungarian_match_fused_reference,
+    solve_auction,
+)
 from .flash_attention import (
+    backward_plan,
     flash_attention_bwd,
+    flash_attention_dkv,
+    flash_attention_dkv_reference,
+    flash_attention_dq,
+    flash_attention_dq_reference,
     flash_attention_fwd,
     flash_attention_packed,
     flash_attention_packed_backward_reference,
@@ -10,7 +21,13 @@ from .flash_attention import (
 )
 
 __all__ = [
+    "auction_kernel",
+    "backward_plan",
     "flash_attention_bwd",
+    "flash_attention_dkv",
+    "flash_attention_dkv_reference",
+    "flash_attention_dq",
+    "flash_attention_dq_reference",
     "flash_attention_fwd",
     "flash_attention_packed",
     "flash_attention_packed_backward_reference",
@@ -18,4 +35,5 @@ __all__ = [
     "fused_auction",
     "hungarian_match_fused",
     "hungarian_match_fused_reference",
+    "solve_auction",
 ]

@@ -1,19 +1,39 @@
-"""Fused DESTR matching cost + auction: the hand-written CUDA kernel
-``csrc/auction.cu``, its ctypes binding, and its plain PyTorch version.
+"""DESTR's auction matcher: the two hand-written CUDA kernels of
+``csrc/auction.cu``, their ctypes bindings, and their plain PyTorch versions.
 
-Port of ``object_detection_destr_tpu/ops/pallas/auction.py::
-hungarian_match_pallas`` (l.371) and its kernel ``_fused_kernel`` (l.271):
-the focal pos - neg class cost at each target's label plus 1 - CIoU, solved
-by the Bertsekas auction of ``_solve`` (l.71) in one launch, with a
-per-problem ``row_valid`` so problems with different real row counts (the
-model's top-k queries and the mini-detector's tokens) share the launch.
-As in the Pallas wrapper, the focal terms and the per-box atan(w / h) of the
-clipped cxcyhw forms are computed beside the kernel
-(:func:`fused_cost_inputs`), the rest of the cost inside it.
+* The fused matching cost + auction (kernel #9): port of
+  ``object_detection_destr_tpu/ops/pallas/auction.py::hungarian_match_pallas``
+  (l.371) and its kernel ``_fused_kernel`` (l.271): the focal pos - neg class
+  cost at each target's label plus 1 - CIoU, solved by the Bertsekas auction
+  of ``_solve`` (l.71) in one launch, with a per-problem ``row_valid`` so
+  problems with different real row counts (the model's top-k queries and the
+  mini-detector's tokens) share the launch. As in the Pallas wrapper, the
+  focal terms and the per-box atan(w / h) of the clipped cxcyhw forms are
+  computed beside the kernel (:func:`fused_cost_inputs`), the rest of the
+  cost inside it.
+* The auction on a precomputed cost (kernel #8): port of
+  ``auction.py::auction_assignment_pallas`` (l.207) and its kernel
+  ``_kernel`` (l.189): the same solver on the benefit matrix
+  ``where(col_valid, -cost^T, 0)`` that the wrapper builds beside it.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs
-:func:`hungarian_match_fused_reference` (the cost built elementwise in the
-kernel's operation order, then ``ops/assignment.py::solve_auction``).
+:func:`solve_auction` is the solver of both in plain PyTorch, with the
+semantics of ``_solve`` (l.71-186). Rows are queries, columns are targets;
+``value`` is the benefit matrix laid out (B, T, N) with rows that are not
+real already at -1e9. Per problem:
+
+* eps = eps_frac * max(vmax - vmin, 1e-6) over real rows and valid columns,
+  with 0 folded in when an invalid column exists (l.85-97);
+* each round every unassigned valid column bids for its best row (lowest
+  index on ties) by ``best - max(second, best - range - 1) + eps``
+  (l.105-113); a row takes the highest bid, lowest column on ties, and its
+  owner is evicted (l.115-146); rounds repeat while a valid column is
+  unassigned, at most ``max_iters``;
+* greedy completion then gives every column still without a row, in column
+  order, the first free row of highest value (l.157-185), so the result is
+  duplicate-free everywhere.
+
+A CUDA tensor launches a kernel or raises; a CPU tensor runs the plain
+version.
 """
 
 from __future__ import annotations
@@ -25,26 +45,106 @@ from typing import Optional
 import torch
 
 from ...geometry.boxes import cxcyhw_to_xyxy, xyxy_to_cxcyhw
-from ..assignment import BIG, solve_auction
 from ..focal import focal_cost_terms
 from .build import CudaLibrary
 
 __all__ = [
+    "BIG",
+    "AuctionAssignment",
     "FusedAuction",
+    "auction_kernel",
     "fused_auction",
     "fused_cost_inputs",
     "hungarian_match_fused",
     "hungarian_match_fused_reference",
     "matching_value_reference",
+    "precomputed_value",
+    "solve_auction",
 ]
+
+BIG = 1e9
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = CudaLibrary(
     "odtt_auction", "auction.cu",
-    functions={"odtt_fused_auction": (_I, [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _P])},
-    abi=("odtt_auction_abi_version", 2),
+    functions={"odtt_fused_auction": (_I, [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _P]),
+               "odtt_auction": (_I, [_P] * 6 + [_I] * 3 + [_F, _I, _P])},
+    abi=("odtt_auction_abi_version", 3),
     flags=("-fmad=false",),
 )
+
+
+def solve_auction(
+    value: torch.Tensor,
+    col_valid: torch.Tensor,
+    row_valid: torch.Tensor,
+    eps_frac: float = 0.001,
+    max_iters: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Args:
+        value: (B, T, N) float32 benefits, -1e9 on rows that are not real.
+        col_valid: (B, T) bool; row_valid: (B, N) bool.
+
+    Returns:
+        rows (B, T) int64, duplicate-free; rounds (B,) int64, the bidding
+        rounds each problem ran.
+    """
+    b, t, n = value.shape
+    dev = value.device
+    value = value.float()
+    real = row_valid[:, None, :] & col_valid[:, :, None]
+    has_inv = (~col_valid).any(1)
+    vmax = torch.where(real, value, -BIG).amax((1, 2))
+    vmin = torch.where(real, value, BIG).amin((1, 2))
+    vmax = torch.maximum(vmax, torch.where(has_inv, 0.0, -BIG))
+    vmin = torch.minimum(vmin, torch.where(has_inv, 0.0, BIG))
+    value_range = torch.clamp(vmax - vmin, min=1e-6)[:, None]  # (B, 1)
+    eps = eps_frac * value_range
+
+    prices = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    owner = torch.full((b, n), -1, dtype=torch.int64, device=dev)
+    roc = torch.full((b, t), -1, dtype=torch.int64, device=dev)
+    rounds = torch.zeros(b, dtype=torch.int64, device=dev)
+    cols = torch.arange(t, device=dev).expand(b, t)
+    for _ in range(max_iters):
+        bidding = (roc < 0) & col_valid
+        active = bidding.any(1)
+        if not bool(active.any()):
+            break
+        rounds += active
+        net = value - prices[:, None, :]
+        best_v, best_i = net.max(-1)  # first index of the maximum
+        second_v = net.scatter(-1, best_i[..., None], -BIG).amax(-1)
+        second_v = torch.maximum(second_v, best_v - value_range - 1.0)
+        bid = best_v - second_v + eps
+        bid_price = torch.where(bidding, prices.gather(1, best_i) + bid, -BIG)
+        row_bids = torch.full((b, n), -BIG, device=dev).scatter_reduce(
+            1, best_i, bid_price, "amax", include_self=True
+        )
+        got = row_bids > -BIG / 2
+        top = bidding & (bid_price == row_bids.gather(1, best_i))
+        win_col = torch.full((b, n), t, dtype=torch.int64, device=dev).scatter_reduce(
+            1, best_i, torch.where(top, cols, t), "amin", include_self=True
+        )
+        bi, ni = (got & (owner >= 0)).nonzero(as_tuple=True)
+        roc[bi, owner[bi, ni]] = -1  # evict the owners of rows that got bids
+        bi, ni = got.nonzero(as_tuple=True)
+        roc[bi, win_col[bi, ni]] = ni
+        owner = torch.where(got, win_col, owner)
+        prices = torch.where(got, row_bids, prices)
+
+    free = torch.ones((b, n), dtype=torch.bool, device=dev)
+    bi, ti = (roc >= 0).nonzero(as_tuple=True)
+    free[bi, roc[bi, ti]] = False
+    batch = torch.arange(b, device=dev)
+    for j in (roc < 0).any(0).nonzero().flatten().tolist():
+        cur = roc[:, j]
+        needs = cur < 0
+        pick = torch.where(free, value[:, j, :], -BIG).argmax(-1)
+        roc[:, j] = torch.where(needs, pick, cur)
+        free[batch[needs], pick[needs]] = False
+    return roc, rounds
+
 
 
 def fused_cost_inputs(pred_logits, pred_boxes, tgt_boxes, eps: float = 1e-6):
@@ -187,3 +287,58 @@ def hungarian_match_fused(pred_logits, pred_boxes, tgt_boxes, tgt_labels, col_va
         fn = fused_auction if pred_logits.is_cuda else hungarian_match_fused_reference
         return fn(pred_logits, pred_boxes, tgt_boxes, tgt_labels, col_valid, row_valid,
                   cost_class, cost_ciou, eps_frac, max_iters)[0]
+
+
+def precomputed_value(cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
+    """The benefit matrix of a precomputed (B, N, T) cost, (B, T, N) float32:
+    -cost^T on valid columns, 0 on invalid ones, as the Pallas wrapper
+    builds it in XLA (auction.py:232)."""
+    return torch.where(col_valid[:, :, None], -cost.float().transpose(1, 2), 0.0).contiguous()
+
+
+class AuctionAssignment:
+    """Kernel #8's wrapper: the solver of ``csrc/auction.cu`` on a given
+    (B, T, N) value matrix (:func:`precomputed_value`), one block per
+    problem, on the current stream. ``launches`` counts kernel launches and
+    nothing else; ``last_rounds`` and ``last_bids`` hold the (B,) bidding
+    rounds and the bids made over them in the last launch (read them only
+    after a synchronize)."""
+
+    library = LIBRARY
+
+    def __init__(self):
+        self.launches = 0
+        self.last_rounds: Optional[torch.Tensor] = None
+        self.last_bids: Optional[torch.Tensor] = None
+
+    def __call__(self, value, col_valid, row_valid, eps_frac: float = 0.001, max_iters: int = 256):
+        """The arguments of :func:`solve_auction`; returns (rows (B, T)
+        int64, rounds (B,) int32)."""
+        if not all(x.is_cuda and x.device == value.device for x in (value, col_valid, row_valid)):
+            raise ValueError("auction_kernel: every operand must be on one CUDA device")
+        b, t, n = value.shape
+        if value.dtype != torch.float32 or col_valid.shape != (b, t) or row_valid.shape != (b, n):
+            raise ValueError("auction_kernel takes a (B, T, N) float32 value, (B, T) and (B, N) masks")
+        if col_valid.dtype != torch.bool or row_valid.dtype != torch.bool:
+            raise TypeError("col_valid and row_valid must be bool")
+        if t > n or t == 0:
+            raise ValueError(f"auction_kernel needs 0 < T <= N, got T={t}, N={n}")
+        value, colv, rowv = value.contiguous(), col_valid.contiguous(), row_valid.contiguous()
+        dev = value.device
+        rows = torch.empty((b, t), dtype=torch.int32, device=dev)
+        rounds = torch.empty((b,), dtype=torch.int32, device=dev)
+        bids = torch.empty((b,), dtype=torch.int32, device=dev)
+        lib = self.library.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.odtt_auction(value.data_ptr(), colv.data_ptr(), rowv.data_ptr(), rows.data_ptr(),
+                                   rounds.data_ptr(), bids.data_ptr(), b, n, t, float(eps_frac),
+                                   int(max_iters), stream)
+        if err != 0:
+            raise RuntimeError(f"auction_kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        self.last_rounds, self.last_bids = rounds, bids
+        return rows.long(), rounds
+
+
+auction_kernel = AuctionAssignment()

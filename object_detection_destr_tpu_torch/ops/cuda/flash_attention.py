@@ -1,11 +1,26 @@
 """Head-packed flash attention with attention-probability dropout: the
-hand-written CUDA kernels ``csrc/flash_attention_fwd.cu`` (forward) and
-``csrc/flash_attention_bwd.cu`` (backward), their ctypes bindings, their
-plain PyTorch versions, and the ``torch.autograd.Function`` that joins them.
+hand-written CUDA kernels ``csrc/flash_attention_fwd.cu`` (forward),
+``csrc/flash_attention_bwd.cu`` (fused backward) and
+``csrc/flash_attention_bwd_two_pass.cu`` (two-pass backward: dQ, then dK /
+dV), their ctypes bindings, their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
 
 Port of ``object_detection_destr_tpu/ops/pallas/flash_attention.py::
-flash_attention_packed`` (l.1174): the forward ``_fwd_kernel_packed`` (l.592)
-and the fused backward ``_dkvq_kernel_packed`` (l.884) behind its custom VJP.
+flash_attention_packed`` (l.1174): the forward ``_fwd_kernel_packed`` (l.592),
+the fused backward ``_dkvq_kernel_packed`` (l.884) and the two-pass backward
+``_dq_kernel_packed`` (l.778) / ``_dkv_kernel_packed`` (l.826) behind its
+custom VJP.
+
+Choice of backward (:func:`backward_plan`, the rule of ``_bwd_impl_packed``
+l.1037-1041 on this card's terms): the fused kernel keeps a 32-key tile's
+float32 dK / dV accumulators in shared memory, so it runs where that layout
+fits the device's opt-in shared memory per block and its widest head
+dispatches (≤ 512); the two-pass kernels otherwise. On an H100 (227 KB a
+block) a hidden-512 DESTR runs the fused kernel for encoder (d 64) and
+decoder (d 128) self-attention and the two-pass kernels for the merged
+cross-attention (d 1024, dv 512). The TPU's rule is a VMEM budget per key
+chunk (``_pick_chunk_nk``); there the decoder self-attention of the same
+model also takes the two-pass kernels. The function is the same either way.
 
 Dropout: element (b, head, q, k) is kept iff its Philox4x32-10 bits (key
 (seed, 0), counter (q, k, b*h + head, 0); ``csrc/philox.cuh``) are
@@ -23,6 +38,7 @@ versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -33,16 +49,26 @@ from .build import CudaLibrary
 __all__ = [
     "FlashAttentionBackward",
     "FlashAttentionForward",
+    "FlashAttentionTwoPass",
+    "backward_plan",
     "dropout_threshold",
     "flash_attention_bwd",
+    "flash_attention_dkv",
+    "flash_attention_dkv_reference",
+    "flash_attention_dq",
+    "flash_attention_dq_reference",
     "flash_attention_fwd",
     "flash_attention_packed",
     "flash_attention_packed_backward_reference",
     "flash_attention_packed_reference",
+    "fused_backward_smem_bytes",
     "philox_keep_bits",
 ]
 
-_MAX_HEAD_DIM = 512
+_MAX_HEAD_DIM = 1024  # kernels #1, #3, #4; #2 is bounded by backward_plan
+_FUSED_MAX_HEAD_DIM = 512  # the widest head the fused backward dispatches
+# the fused backward's tiles (csrc/flash_common.cuh, flash_attention_bwd.cu)
+_TILE_K, _BWD_ROWS, _HEADER_BYTES = 32, 8, 32 * 4
 _FULLY_MASKED_LSE = -5e8  # below any row with a valid key; the kernels use the same bound
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
@@ -59,9 +85,44 @@ FWD_LIBRARY = CudaLibrary(
 BWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd", "flash_attention_bwd.cu",
     headers=("flash_common.cuh", "philox.cuh"),
-    functions={"odtt_flash_attention_bwd": (_I, [_P] * 10 + [_I] * 7 + [_F, _U, _U, _F, _P])},
-    abi=("odtt_flash_bwd_abi_version", 1),
+    functions={"odtt_flash_attention_bwd": (_I, [_P] * 10 + [_I] * 7 + [_F, _U, _U, _F, _P]),
+               "odtt_flash_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 3)},
+    abi=("odtt_flash_bwd_abi_version", 2),
 )
+TWO_PASS_LIBRARY = CudaLibrary(
+    "odtt_flash_attention_bwd_two_pass", "flash_attention_bwd_two_pass.cu",
+    headers=("flash_common.cuh", "philox.cuh"),
+    functions={"odtt_flash_attention_two_pass": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_F, _U, _U, _F, _P])},
+    abi=("odtt_flash_bwd_two_pass_abi_version", 1),
+)
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def fused_backward_smem_bytes(d: int, dv: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of the fused backward (#2) at head
+    widths d, dv: the ``Layout`` of ``csrc/flash_attention_bwd.cu``, which
+    the library exports as ``odtt_flash_bwd_smem_bytes``."""
+    q = _HEADER_BYTES + 2 * 4 * _BWD_ROWS * _TILE_K  # after the ds and pd rows
+    dk = q + 4 * _BWD_ROWS * (d + dv)  # after the staged q and dO rows
+    k_tile = _round16(dk + 4 * _TILE_K * (d + dv))  # after the dK, dV accumulators
+    v_tile = _round16(k_tile + itemsize * _TILE_K * d)
+    return v_tile + itemsize * _TILE_K * dv
+
+
+def backward_plan(d: int, dv: int, dtype: torch.dtype, smem_limit: Optional[int] = None) -> str:
+    """"fused" (kernel #2) where its widest head dispatches and, given a
+    device's opt-in shared memory per block ``smem_limit``, its layout fits;
+    "two_pass" (kernels #3, #4) otherwise. ``smem_limit=None`` (the plain
+    versions on the CPU) checks the width only."""
+    if max(d, dv) > _FUSED_MAX_HEAD_DIM:
+        return "two_pass"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if smem_limit is not None and fused_backward_smem_bytes(d, dv, itemsize) > smem_limit:
+        return "two_pass"
+    return "fused"
 
 
 def dropout_threshold(rate: float) -> int:
@@ -162,6 +223,104 @@ def flash_attention_packed_reference(
     return out, lse
 
 
+def _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out, scale,
+                    dropout_rate, dropout_seed, keep_mask):
+    """What both backward passes recompute, per head in float32 (the
+    written-out gradient of the forward, not autograd):
+
+        p = exp(s - lse), dp = keep/(1-rate) * dO v^T, delta = rowsum(dO * O)
+        ds = p * (dp - delta)          (0 at masked keys: their logit is -1e9)
+        (p = 1/Sk in a fully masked row, whose float32 lse cannot hold
+        -1e9 + log(Sk))
+
+    Returns (q, k, dO, keep/(1-rate) * p, ds, scale)."""
+    sk = key.shape[1]
+    b, sq, hd = query.shape
+    d = hd // num_heads
+    if scale is None:
+        scale = 1.0 / d**0.5
+    q, k, v = _heads(query, num_heads), _heads(key, num_heads), _heads(value, num_heads)
+    do, o = _heads(d_out, num_heads), _heads(out, num_heads)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if key_valid_mask is not None:
+        logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
+    # a fully masked row's lse, -1e9 + log(Sk), rounds to -1e9 in float32:
+    # its probabilities are the uniform 1/Sk its forward used
+    p = torch.where(lse[..., None] < _FULLY_MASKED_LSE, 1.0 / sk, torch.exp(logits - lse[..., None]))
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    keep = _dropout_keep(dropout_rate, dropout_seed, keep_mask, b, num_heads, sq, sk, query.device)
+    pd = p
+    if keep is not None:
+        inv = 1.0 / (1.0 - dropout_rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if key_valid_mask is not None:
+        ds = ds.masked_fill(~key_valid_mask[:, None, None, :], 0.0)
+    return q, k, do, pd, ds, scale
+
+
+def _packed(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return x.transpose(1, 2).reshape(like.shape).to(like.dtype)
+
+
+def _dq_of(terms, query):
+    q, k, do, pd, ds, scale = terms
+    return _packed(torch.matmul(ds, k) * scale, query)
+
+
+def _dkv_of(terms, key, value):
+    q, k, do, pd, ds, scale = terms
+    return (_packed(torch.matmul(ds.transpose(-1, -2), q) * scale, key),
+            _packed(torch.matmul(pd.transpose(-1, -2), do), value))
+
+
+def flash_attention_dq_reference(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    num_heads: int,
+    key_valid_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The dQ kernel's (#3) function in plain PyTorch: dQ = scale * ds K
+    (:func:`_backward_terms`), in the query dtype."""
+    with torch.autocast(query.device.type, enabled=False):
+        terms = _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                                scale, dropout_rate, dropout_seed, keep_mask)
+        return _dq_of(terms, query)
+
+
+def flash_attention_dkv_reference(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    num_heads: int,
+    key_valid_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dK / dV kernel's (#4) function in plain PyTorch: dK = scale *
+    ds^T Q, dV = (keep/(1-rate) * p)^T dO (:func:`_backward_terms`), in the
+    dtypes of key and value."""
+    with torch.autocast(query.device.type, enabled=False):
+        terms = _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                                scale, dropout_rate, dropout_seed, keep_mask)
+        return _dkv_of(terms, key, value)
+
+
 def flash_attention_packed_backward_reference(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -176,50 +335,15 @@ def flash_attention_packed_backward_reference(
     dropout_seed: Optional[int] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel's function in plain PyTorch, written out (not
-    autograd of the plain forward), from the forward's out and lse:
-
-        p = exp(s - lse), dp = keep/(1-rate) * dO v^T, delta = rowsum(dO * O)
-        ds = p * (dp - delta)          (0 at masked keys: their logit is -1e9)
-        (p = 1/Sk in a fully masked row, whose float32 lse cannot hold
-        -1e9 + log(Sk))
-        dQ = scale * ds K, dK = scale * ds^T Q, dV = (keep/(1-rate) * p)^T dO
-
-    Returns (dQ, dK, dV) in the dtypes of query, key and value.
-    """
-    b, sq, hd = query.shape
-    sk = key.shape[1]
-    d = hd // num_heads
-    if scale is None:
-        scale = 1.0 / d**0.5
+    """The fused backward kernel's (#2) function in plain PyTorch, from the
+    forward's out and lse: the dQ of :func:`flash_attention_dq_reference` and
+    the dK, dV of :func:`flash_attention_dkv_reference` from one computation
+    of their shared terms. Returns (dQ, dK, dV) in the dtypes of query, key
+    and value."""
     with torch.autocast(query.device.type, enabled=False):
-        q, k, v = _heads(query, num_heads), _heads(key, num_heads), _heads(value, num_heads)
-        do, o = _heads(d_out, num_heads), _heads(out, num_heads)
-        logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-        if key_valid_mask is not None:
-            logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
-        # a fully masked row's lse, -1e9 + log(Sk), rounds to -1e9 in float32:
-        # its probabilities are the uniform 1/Sk its forward used
-        p = torch.where(lse[..., None] < _FULLY_MASKED_LSE, 1.0 / sk, torch.exp(logits - lse[..., None]))
-        dp = torch.matmul(do, v.transpose(-1, -2))
-        keep = _dropout_keep(dropout_rate, dropout_seed, keep_mask, b, num_heads, sq, sk, query.device)
-        pd = p
-        if keep is not None:
-            inv = 1.0 / (1.0 - dropout_rate)
-            pd = torch.where(keep, p * inv, 0.0)
-            dp = torch.where(keep, dp * inv, 0.0)
-        delta = (do * o).sum(-1, keepdim=True)
-        ds = p * (dp - delta)
-        if key_valid_mask is not None:
-            ds = ds.masked_fill(~key_valid_mask[:, None, None, :], 0.0)
-        dq = torch.matmul(ds, k) * scale
-        dk = torch.matmul(ds.transpose(-1, -2), q) * scale
-        dv = torch.matmul(pd.transpose(-1, -2), do)
-
-    def packed(x, like):
-        return x.transpose(1, 2).reshape(like.shape).to(like.dtype)
-
-    return packed(dq, query), packed(dk, key), packed(dv, value)
+        terms = _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                                scale, dropout_rate, dropout_seed, keep_mask)
+        return (_dq_of(terms, query), *_dkv_of(terms, key, value))
 
 
 def _check(name, query, key, value, num_heads, key_valid_mask, extra=()) -> tuple[int, int, int]:
@@ -241,7 +365,7 @@ def _check(name, query, key, value, num_heads, key_valid_mask, extra=()) -> tupl
     if hd % num_heads or value.shape[2] % num_heads:
         raise ValueError(f"feature widths {hd}, {value.shape[2]} not divisible by {num_heads} heads")
     if hd // num_heads > _MAX_HEAD_DIM or value.shape[2] // num_heads > _MAX_HEAD_DIM:
-        raise ValueError(f"head widths above {_MAX_HEAD_DIM} are not supported")
+        raise ValueError(f"head widths above {_MAX_HEAD_DIM} are not supported by the CUDA kernels")
     if min(sq, key.shape[1]) == 0:
         raise ValueError("empty query or key sequence")
     if key_valid_mask is not None and (
@@ -300,10 +424,53 @@ class FlashAttentionForward:
         return out, lse
 
 
+def _backward_operands(name, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                       scale, dropout_rate, dropout_seed):
+    """Checks a backward kernel's operands; returns (b, sq, sk, d, dv, scale,
+    (seed, threshold, inv_keep), delta) with delta = rowsum(dO * O) per head,
+    (B, h, Sq) float32, computed beside the kernels as _delta_packed (l.973)
+    computes it."""
+    b, sq, hd = _check(name, query, key, value, num_heads, key_valid_mask, extra=(out, d_out, lse))
+    sk, hdv = key.shape[1], value.shape[-1]
+    d, dv = hd // num_heads, hdv // num_heads
+    if scale is None:
+        scale = 1.0 / d**0.5
+    if out.shape != (b, sq, hdv) or d_out.shape != (b, sq, hdv) or out.dtype != query.dtype \
+            or d_out.dtype != query.dtype:
+        raise ValueError("out and d_out must be (B, Sq, h*dv) in the input dtype")
+    if lse.shape != (b, num_heads, sq) or lse.dtype != torch.float32:
+        raise ValueError("lse must be (B, h, Sq) float32")
+    dropout = _dropout_args(dropout_rate, dropout_seed)
+    delta = (d_out.float() * out.float()).view(b, sq, num_heads, dv).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()  # (B, h, Sq)
+    return b, sq, sk, d, dv, float(scale), dropout, delta
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def _plan(d: int, dv: int, dtype: torch.dtype, device: torch.device, fused: Optional[bool]) -> str:
+    """The backward to run: ``fused`` None follows :func:`backward_plan` (with
+    the device's opt-in shared memory per block on CUDA); True where the
+    fused kernel cannot run raises, as ``_bwd_impl_packed`` does."""
+    limit = _smem_optin(device.index if device.index is not None else torch.cuda.current_device()) \
+        if device.type == "cuda" else None
+    plan = backward_plan(d, dv, dtype, limit)
+    if fused and plan != "fused":
+        raise ValueError(f"fused backward requested but it cannot run at head widths d={d}, dv={dv} "
+                         f"({dtype}, {limit} bytes of shared memory a block)")
+    if fused is None:
+        return plan
+    return "fused" if fused else "two_pass"
+
+
 class FlashAttentionBackward:
-    """The backward kernel's wrapper: dQ, dK, dV in one launch. Computes
-    delta = rowsum(dO * O) per head beside the kernel, zeroes the float32 dQ
-    buffer the kernel adds into and casts it to the query dtype after.
+    """The fused backward kernel's (#2) wrapper: dQ, dK, dV in one launch.
+    Computes delta beside the kernel, zeroes the float32 dQ buffer the kernel
+    adds into and casts it to the query dtype after. Raises where
+    :func:`backward_plan` says the kernel does not fit the device.
     ``launches`` counts kernel launches and nothing else."""
 
     library = BWD_LIBRARY
@@ -313,21 +480,11 @@ class FlashAttentionBackward:
 
     def __call__(self, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
                  scale=None, dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
-        b, sq, hd = _check("flash_attention_bwd", query, key, value, num_heads, key_valid_mask,
-                           extra=(out, d_out, lse))
-        sk, hdv = key.shape[1], value.shape[-1]
-        d, dv = hd // num_heads, hdv // num_heads
-        if scale is None:
-            scale = 1.0 / d**0.5
-        if out.shape != (b, sq, hdv) or d_out.shape != (b, sq, hdv) or out.dtype != query.dtype \
-                or d_out.dtype != query.dtype:
-            raise ValueError("out and d_out must be (B, Sq, h*dv) in the input dtype")
-        if lse.shape != (b, num_heads, sq) or lse.dtype != torch.float32:
-            raise ValueError("lse must be (B, h, Sq) float32")
-        seed, threshold, inv_keep = _dropout_args(dropout_rate, dropout_seed)
-        delta = (d_out.float() * out.float()).view(b, sq, num_heads, dv).sum(-1)
-        delta = delta.transpose(1, 2).contiguous()  # (B, h, Sq)
-        dq = torch.zeros((b, sq, hd), dtype=torch.float32, device=query.device)
+        b, sq, sk, d, dv, scale, (seed, threshold, inv_keep), delta = _backward_operands(
+            "flash_attention_bwd", query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+            scale, dropout_rate, dropout_seed)
+        _plan(d, dv, query.dtype, query.device, True)
+        dq = torch.zeros(query.shape, dtype=torch.float32, device=query.device)
         dk = torch.empty_like(key)
         dvv = torch.empty_like(value)
         lib = self.library.library()
@@ -338,7 +495,7 @@ class FlashAttentionBackward:
                 key_valid_mask.data_ptr() if key_valid_mask is not None else None,
                 d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dvv.data_ptr(), _DTYPE_CODES[query.dtype],
-                b, sq, sk, num_heads, d, dv, float(scale), seed, threshold, inv_keep, stream,
+                b, sq, sk, num_heads, d, dv, scale, seed, threshold, inv_keep, stream,
             )
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
@@ -346,16 +503,66 @@ class FlashAttentionBackward:
         return dq.to(query.dtype), dk, dvv
 
 
+def _packed_strides(x: torch.Tensor, width: int) -> tuple[int, int, int]:
+    """(batch, head, row) element strides of a contiguous (B, S, h*width)."""
+    return x.stride(0), width, x.stride(1)
+
+
+class FlashAttentionTwoPass:
+    """The wrapper of one pass of the two-pass backward: ``dq=True`` kernel
+    #3 (returns dQ), ``dq=False`` kernel #4 (returns dK, dV). Each computes
+    delta beside its kernel and writes its gradients once, in the input
+    dtype. The kernels take (batch, head, row) strides; this wrapper passes
+    those of the head-packed (B, S, h*d) layout. ``launches`` counts kernel
+    launches and nothing else."""
+
+    library = TWO_PASS_LIBRARY
+
+    def __init__(self, dq: bool):
+        self.dq = dq
+        self.launches = 0
+
+    def __call__(self, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                 scale=None, dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+        name = "flash_attention_dq" if self.dq else "flash_attention_dkv"
+        b, sq, sk, d, dv, scale, (seed, threshold, inv_keep), delta = _backward_operands(
+            name, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+            scale, dropout_rate, dropout_seed)
+        strides = (ctypes.c_longlong * 12)(
+            *_packed_strides(query, d), *_packed_strides(key, d), *_packed_strides(value, dv),
+            *_packed_strides(d_out, dv))
+        if self.dq:
+            dq, dk, dvv = torch.empty_like(query), None, None
+        else:
+            dq, dk, dvv = None, torch.empty_like(key), torch.empty_like(value)
+        lib = self.library.library()
+        with torch.cuda.device(query.device):
+            stream = torch.cuda.current_stream(query.device).cuda_stream
+            err = lib.odtt_flash_attention_two_pass(
+                int(self.dq), *(None if t is None else t.data_ptr() for t in (
+                    query, key, value, key_valid_mask, d_out, lse, delta, dq, dk, dvv)),
+                strides, _DTYPE_CODES[query.dtype],
+                b, sq, sk, num_heads, d, dv, scale, seed, threshold, inv_keep, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        self.launches += 1
+        return dq if self.dq else (dk, dvv)
+
+
 flash_attention_fwd = FlashAttentionForward()
 flash_attention_bwd = FlashAttentionBackward()
+flash_attention_dq = FlashAttentionTwoPass(dq=True)
+flash_attention_dkv = FlashAttentionTwoPass(dq=False)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward kernel #1 and backward kernel #2 as one differentiable op
-    (the custom VJP of flash_attention.py:1201-1220)."""
+    """Forward kernel #1 and the backward of :func:`_plan` (kernel #2, or
+    kernels #3 and #4) as one differentiable op (the custom VJP of
+    flash_attention.py:1201-1220)."""
 
     @staticmethod
-    def forward(ctx, query, key, value, num_heads, key_valid_mask, scale, rate, seed, keep_mask):
+    def forward(ctx, query, key, value, num_heads, key_valid_mask, scale, rate, seed, keep_mask, fused):
         if query.is_cuda:
             if keep_mask is not None:
                 raise ValueError("the CUDA kernels draw their own Philox keep mask")
@@ -366,23 +573,29 @@ class _FlashAttention(torch.autograd.Function):
                 query, key, value, num_heads, key_valid_mask, scale, rate, seed, keep_mask
             )
         ctx.save_for_backward(query, key, value, key_valid_mask, out, lse, keep_mask)
-        ctx.params = (num_heads, scale, rate, seed)
+        ctx.params = (num_heads, scale, rate, seed, fused)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         query, key, value, key_valid_mask, out, lse, keep_mask = ctx.saved_tensors
-        num_heads, scale, rate, seed = ctx.params
+        num_heads, scale, rate, seed, fused = ctx.params
         d_out = d_out.contiguous().to(query.dtype)
+        d, dv = query.shape[-1] // num_heads, value.shape[-1] // num_heads
+        plan = _plan(d, dv, query.dtype, query.device, fused)
+        args = (query, key, value, num_heads, key_valid_mask, out, lse, d_out, scale, rate, seed)
         if query.is_cuda:
-            dq, dk, dv = flash_attention_bwd(query, key, value, num_heads, key_valid_mask,
-                                             out, lse, d_out, scale, rate, seed)
+            if plan == "fused":
+                dq, dk, dv = flash_attention_bwd(*args)
+            else:
+                dq = flash_attention_dq(*args)
+                dk, dv = flash_attention_dkv(*args)
+        elif plan == "fused":
+            dq, dk, dv = flash_attention_packed_backward_reference(*args, keep_mask)
         else:
-            dq, dk, dv = flash_attention_packed_backward_reference(
-                query, key, value, num_heads, key_valid_mask, out, lse, d_out, scale,
-                rate, seed, keep_mask,
-            )
-        return dq, dk, dv, None, None, None, None, None, None
+            dq = flash_attention_dq_reference(*args, keep_mask)
+            dk, dv = flash_attention_dkv_reference(*args, keep_mask)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_packed(
@@ -395,12 +608,16 @@ def flash_attention_packed(
     dropout_seed: Optional[int] = None,
     scale: Optional[float] = None,
     keep_mask: Optional[torch.Tensor] = None,
+    fused: Optional[bool] = None,
 ) -> torch.Tensor:
     """Head-packed fused masked attention with dropout, differentiable,
     (B, Sq, h*dv) in the input dtype.
 
-    CUDA operands go through kernels #1 and #2; CPU operands through their
-    plain versions. ``keep_mask`` (CPU only) replaces the Philox draw.
+    CUDA operands go through kernel #1 forward and kernel #2 or kernels #3
+    and #4 backward; CPU operands through their plain versions. ``fused``
+    picks the backward as ``_bwd_impl_packed(fused=...)`` does: None by
+    :func:`backward_plan`, True the fused one (raising where it cannot run),
+    False the two-pass one. ``keep_mask`` (CPU only) replaces the Philox draw.
     """
     if dropout_rate <= 0.0:
         dropout_seed, keep_mask = None, None
@@ -408,5 +625,5 @@ def flash_attention_packed(
         return _FlashAttention.apply(
             query.contiguous(), key.contiguous(), value.contiguous(), num_heads,
             None if key_valid_mask is None else key_valid_mask.contiguous(),
-            scale, float(dropout_rate), dropout_seed, keep_mask,
+            scale, float(dropout_rate), dropout_seed, keep_mask, fused,
         )

@@ -1,7 +1,16 @@
-"""The port's fused cost + auction matcher (the plain version of CUDA kernel
-#9, ops/cuda/auction.py::hungarian_match_fused_reference) against the JAX
-package's ``hungarian_match_pallas`` in interpret mode, the way
-tests/test_assignment.py runs it: same random problems, rows compared.
+"""The port's auction matchers against the JAX package's, the way
+tests/test_assignment.py runs them: same random problems, rows compared.
+
+* the fused cost + auction (the plain version of CUDA kernel #9,
+  ops/cuda/auction.py::hungarian_match_fused_reference) against
+  ``hungarian_match_pallas`` in interpret mode;
+* the auction on a precomputed cost (the plain version of kernel #8,
+  ``solve_auction`` on ``precomputed_value``) against
+  ``auction_assignment_pallas`` in interpret mode, and the port's
+  ``ops.batched_assignment`` / ``ops.auction_assignment`` against the JAX
+  package's functions of the same names; then the entry points that reach
+  it: ``hungarian_match(cost_bbox=2.5)`` and ``set_criterion(rows=None,
+  cost_bbox=2.5)``.
 
 Rows must be equal. Both sides build the cost in float32 but from different
 libraries (XLA and PyTorch), so a near-tie can resolve the other way; a test
@@ -18,14 +27,20 @@ from scipy.optimize import linear_sum_assignment
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from object_detection_destr_tpu.losses.criterion import set_criterion as jax_set_criterion  # noqa: E402
 from object_detection_destr_tpu.losses.matcher import hungarian_cost_matrix as jax_cost  # noqa: E402
+from object_detection_destr_tpu.losses.matcher import hungarian_match as jax_hungarian_match  # noqa: E402
+from object_detection_destr_tpu.ops import auction_assignment as jax_auction_assignment  # noqa: E402
+from object_detection_destr_tpu.ops import batched_assignment as jax_batched_assignment  # noqa: E402
 from object_detection_destr_tpu.ops.pallas.auction import (  # noqa: E402
     auction_assignment_pallas,
     hungarian_match_pallas,
 )
-from object_detection_destr_tpu_torch.losses.matcher import hungarian_cost_matrix  # noqa: E402
-from object_detection_destr_tpu_torch.ops.assignment import auction_assignment  # noqa: E402
+from object_detection_destr_tpu_torch.losses.criterion import set_criterion  # noqa: E402
+from object_detection_destr_tpu_torch.losses.matcher import hungarian_cost_matrix, hungarian_match  # noqa: E402
+from object_detection_destr_tpu_torch.ops import auction_assignment, batched_assignment  # noqa: E402
 from object_detection_destr_tpu_torch.ops.cuda.auction import (  # noqa: E402
+    auction_kernel,
     fused_auction,
     hungarian_match_fused,
     hungarian_match_fused_reference,
@@ -118,14 +133,72 @@ def test_cost_matrix_matches_jax():
 
 
 def test_precomputed_cost_auction_matches_pallas():
-    """ops/assignment.py::auction_assignment, the function of kernel #8."""
+    """ops/assignment.py::batched_assignment, the function of kernel #8."""
     rng = np.random.default_rng(6)
     cost = (rng.normal(size=(3, 37, 5)) * 2).astype(np.float32)
     valid = np.ones((3, 5), bool)
     valid[1, 2] = False
     ref = np.asarray(auction_assignment_pallas(jnp.asarray(cost), jnp.asarray(valid)))
-    ours = auction_assignment(torch.from_numpy(cost), torch.from_numpy(valid)).numpy()
+    ours = batched_assignment(torch.from_numpy(cost), torch.from_numpy(valid)).numpy()
     _check(ours, ref, cost, valid, np.ones((3, 37), bool), "precomputed cost")
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_assignment_names_match_jax(seed):
+    """``batched_assignment`` solves a (B, N, M) batch and
+    ``auction_assignment`` one (N, M) problem, in the port as in the JAX
+    package: the same costs give the same rows (both sides negate the same
+    float32 costs and run the same auction, so no near-tie can differ)."""
+    rng = np.random.default_rng(seed)
+    cost = rng.uniform(-2, 2, (3, 40, 12)).astype(np.float32)
+    valid = rng.uniform(size=(3, 12)) < 0.75
+    ref = np.asarray(jax_batched_assignment(jnp.asarray(cost), jnp.asarray(valid)))
+    ours = batched_assignment(torch.from_numpy(cost), torch.from_numpy(valid))
+    assert ours.shape == (3, 12) and ours.dtype == torch.int64
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    for i in range(3):
+        ref1 = np.asarray(jax_auction_assignment(jnp.asarray(cost[i]), jnp.asarray(valid[i])))
+        ours1 = auction_assignment(torch.from_numpy(cost[i]), torch.from_numpy(valid[i]))
+        assert ours1.shape == (12,)
+        np.testing.assert_array_equal(ours1.numpy(), ref1)
+
+
+def _outputs_targets(seed, b=3, n=30, t=9, c=3):
+    logits, pb, tb, lab, valid = _problem(b, n, t, c, seed, valid_frac=0.7)
+    valid[-1] = False  # an image with no targets
+    outs = {"pred_class": logits, "pred_boxes": pb}
+    tgts = {"boxes": tb, "labels": lab, "valid": valid}
+    return outs, tgts
+
+
+@pytest.mark.parametrize("seed", [9, 10])
+def test_hungarian_match_with_l1_cost_matches_jax(seed):
+    """``hungarian_match(cost_bbox=2.5)`` goes through the cost matrix and
+    #8's function on both sides (the JAX package's CPU path is
+    ``batched_assignment``). The costs come from XLA and from PyTorch, so a
+    near-tie may resolve the other way: rows equal, or both within the
+    auction's bound of scipy's optimum (``_check``)."""
+    outs, tgts = _outputs_targets(seed)
+    ref = np.asarray(jax_hungarian_match({k: jnp.asarray(v) for k, v in outs.items()},
+                                         {k: jnp.asarray(v) for k, v in tgts.items()}, cost_bbox=2.5))
+    ours = hungarian_match({k: torch.from_numpy(v) for k, v in outs.items()},
+                           {k: torch.from_numpy(v) for k, v in tgts.items()}, cost_bbox=2.5).numpy()
+    cost = np.asarray(jax_cost(outs, tgts, 1.0, 2.5, 1.0))
+    _check(ours, ref, cost, tgts["valid"], np.ones(outs["pred_class"].shape[:2], bool), f"l1 seed={seed}")
+
+
+def test_set_criterion_matches_jax_through_the_l1_matcher():
+    """``set_criterion(rows=None, cost_bbox=2.5)``: the criterion matches by
+    itself through #8's function. Losses within 1e-5 of JAX's, the tolerance
+    of tests/test_torch_criterion.py."""
+    outs, tgts = _outputs_targets(11)
+    ref = jax_set_criterion({k: jnp.asarray(v) for k, v in outs.items()},
+                            {k: jnp.asarray(v) for k, v in tgts.items()}, cost_bbox=2.5, class_norm="boxes")
+    ours = set_criterion({k: torch.from_numpy(v) for k, v in outs.items()},
+                         {k: torch.from_numpy(v) for k, v in tgts.items()}, cost_bbox=2.5, class_norm="boxes")
+    for k in ("class", "bbox", "ciou"):
+        r = float(ref[k])
+        assert abs(float(ours[k]) - r) <= 1e-5 * max(abs(r), 1e-3), (k, float(ours[k]), r)
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():
@@ -134,3 +207,11 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         fused_auction(logits, pb, tb, lab, valid)
     assert fused_auction.launches == before
+
+
+def test_precomputed_kernel_wrapper_takes_cuda_tensors_only():
+    valid = torch.ones(1, 4, dtype=torch.bool)
+    before = auction_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        auction_kernel(torch.zeros(1, 4, 10), valid, torch.ones(1, 10, dtype=torch.bool))
+    assert auction_kernel.launches == before
