@@ -1,6 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: its DESTR training step at
-hidden width 256 and 512, its L1-cost matcher and its serving path, and hold
-each hand-written CUDA kernel against its plain PyTorch version.
+hidden width 256 and 512, its validation sweep, checkpoints, resume and
+evaluator, its head-major flash-attention API, its L1-cost matcher and its
+serving path, and hold each hand-written CUDA kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -25,6 +27,15 @@ Phases (any failure exits non-zero and prints no result):
      replay); times of the kernels, their plain versions and
      F.scaled_dot_product_attention (a yardstick, never on the path), and
      the bound from bytes and operations;
+  3a. the head-major (B, h, S, d) kernels #5 (forward), #6 (dQ) and #7
+     (dK / dV) against their plain versions at the call-site shapes of both
+     widths (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the
+     path) and at Sk=7056 (B=1), each bit-equal to #1 / #3 / #4 on the same
+     logical inputs in the packed layout; times beside the plain versions,
+     SDPA (which takes this layout) and the bound;
+  3b. the head-major public API, flash_attention and
+     flash_attention_trainable, on (B, S, h, d) views at those shapes:
+     exactly one #5 launch a call and one #6 and #7 a backward;
   4. fused cost + auction, kernel #9 against its plain version: 32 problems
      of N=400 rows and T=300 columns as the training step stacks them, with
      at most 8 valid targets (the synthetic recipe) and with 150-300 (dense);
@@ -41,12 +52,22 @@ Phases (any failure exits non-zero and prints no result):
   6. the training path: train.train.main with the production recipe
      (synthetic 672px canvases, 640px, batch 16, bf16, 6+6 blocks, top_k 300,
      dropout 0.3, boxes-normalized class loss, L1 weight 2.5, clip 0.1,
-     skip-non-finite 100, lr 1e-4 / 1e-5, warmup) for 4 steps: finite losses,
+     skip-non-finite 100, lr 1e-4 / 1e-5, warmup) for 4 steps, with an empty
+     validation split and its _last checkpoint in a temporary directory: finite losses,
      updated parameters, exactly 18 / 18 / 0 / 0 / 1 launches of #1 / #2 /
      #3 / #4 / #9 a step, the median step time from CUDA events after the
      first step; then three more steps of the same train step with CUDA
      events around its parts; the same with --hidden_dim 512, 18 / 12 / 6 /
      6 / 1 launches a step (the cross-attention's backward is two-pass);
+  6b. the validation path: train.train.main with the production recipe, a
+     32-image validation split, --ema_decay 0.999, --coco_eval and
+     checkpoints for 4 steps: exactly 18 / 18 / 0 / 0 / 1 launches of #1 /
+     #2 / #3 / #4 / #9 a step and 18 of #1 and 1 of #9 a validation batch
+     (live and EMA sweeps, 2 batches each); smoke, smoke_ema and smoke_last
+     written; infer.evaluate.main on smoke reproduces the driver's mAP within
+     1e-6; a resume from smoke_last runs steps 5-8; the eval step's time a
+     batch, the sweep's images/s, the EMA update and a checkpoint's size and
+     write time;
   7. one whole train step, kernels against plain versions: B=4, float32,
      dropout 0, the same weights and batch, at hidden 256 and 512; the
      kernel run's discrete choices (pairs, top-k indices, matcher rows) must
@@ -72,6 +93,8 @@ import os
 import statistics
 import subprocess
 import sys
+import shutil
+import tempfile
 import threading
 import time
 import traceback
@@ -444,6 +467,150 @@ def phase_flash(torch, seed):
     return rows
 
 
+def unpacked_cell(torch, gen, site, b, dtype, rate):
+    """One (B, h, S, d) cell: kernel #5 against its plain version and #6 / #7
+    (``flash_attention_unpacked_dq`` / ``_dkv``) against theirs, each also
+    against the packed kernels (#1, #3, #4) on the same logical inputs
+    transposed to (B, S, h*d): the same launches on other strides, so out,
+    lse, dQ, dK and dV must be bit-equal. Masked as on the path."""
+    import torch.nn.functional as F
+
+    from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+
+    name, sq, sk, h, d, dv, masked = site
+    dname = str(dtype).split(".")[-1]
+    q = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, h, sk, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, h, sk, dv, generator=gen, device="cuda").to(dtype)
+    dout = torch.randn(b, h, sq, dv, generator=gen, device="cuda").to(dtype)
+    mask = None
+    if masked:
+        lengths = torch.randint(sk * 3 // 4, sk + 1, (b,), generator=gen, device="cuda")
+        mask = torch.arange(sk, device="cuda")[None, :] < lengths[:, None]
+    seed = 4321 if rate else None
+    out, lse = fa.flash_attention_unpacked_fwd(q, k, v, mask, None, rate, seed)
+    args = (q, k, v, mask, out, lse, dout, None, rate, seed)
+    grads = (fa.flash_attention_unpacked_dq(*args), *fa.flash_attention_unpacked_dkv(*args))
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, mask, None, rate, seed)
+    ref_grads = (fa.flash_attention_unpacked_dq_reference(*args), *fa.flash_attention_unpacked_dkv_reference(*args))
+    pk = lambda x: x.transpose(1, 2).reshape(b, x.shape[2], -1).contiguous()
+    p_out, p_lse = fa.flash_attention_fwd(pk(q), pk(k), pk(v), h, mask, None, rate, seed)
+    p_args = (pk(q), pk(k), pk(v), h, mask, p_out, p_lse, pk(dout), None, rate, seed)
+    p_grads = (fa.flash_attention_dq(*p_args), *fa.flash_attention_dkv(*p_args))
+    torch.cuda.synchronize()
+    row = dict(site=name, b=b, dtype=dname, rate=rate, masked=masked)
+    row["max_abs_err"] = (out.float() - ref_out.float()).abs().max().item()
+    row["rel_err"] = _rel(out, ref_out)
+    row["lse_err"] = (lse - ref_lse).abs().max().item() / max(ref_lse.abs().max().item(), 1.0)
+    row["bwd_rel_err"] = {n: _rel(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+    row["bwd_abs_err"] = {n: (g.float() - r.float()).abs().max().item()
+                          for n, g, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+    unpack = lambda x, like: x.view(b, like.shape[2], h, -1).transpose(1, 2)
+    row["equal_to_packed"] = {
+        "out": torch.equal(out, unpack(p_out, out)), "lse": torch.equal(lse, p_lse),
+        **{n: torch.equal(g, unpack(pg, g)) for n, g, pg in zip(("dq", "dk", "dv"), grads, p_grads)}}
+    ok = (row["rel_err"] <= TOL[dname] and row["lse_err"] <= TOL[dname] and max(row["bwd_rel_err"].values())
+          <= BWD_TOL[dname] and all(row["equal_to_packed"].values())
+          and all(bool(torch.isfinite(t).all()) for t in (out, *grads)))
+    del ref_out, ref_lse, ref_grads, p_out, p_lse, p_args, p_grads
+    bias = None
+    if mask is not None:
+        bias = torch.zeros(b, 1, 1, sk, device="cuda", dtype=dtype)
+        bias.masked_fill_(~mask[:, None, None, :], -1e9)
+    itemsize = q.element_size()
+    row["ms"] = time_cuda(torch, lambda: fa.flash_attention_unpacked_fwd(q, k, v, mask, None, rate, seed))
+    row["plain_ms"] = time_cuda(torch, lambda: fa.flash_attention_reference(q, k, v, mask, None, rate, seed))
+    row["library_ms"] = time_cuda(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                                                dropout_p=rate))
+    row["bound_ms"], row["bound_by"] = bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dname)
+    timed = {"dq": (fa.flash_attention_unpacked_dq, fa.flash_attention_unpacked_dq_reference),
+             "dkv": (fa.flash_attention_unpacked_dkv, fa.flash_attention_unpacked_dkv_reference)}
+    for kind, (kernel, reference) in timed.items():
+        row[f"{kind}_ms"] = time_cuda(torch, lambda: kernel(*args))
+        row[f"{kind}_plain_ms"] = time_cuda(torch, lambda: reference(*args))
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dname,
+                                                                   kind)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    row["bwd_library_ms"] = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=bias, dropout_p=rate).backward(dout))
+    row["ok"] = ok
+    log(f"unpacked {name:23s} B={b:<2d} {dname:8s} rate={rate} masked={int(masked)} #5 rel_err={row['rel_err']:.2e} "
+        f"lse_err={row['lse_err']:.2e} " + " ".join(f"#{6 if n == 'dq' else 7} {n}={e:.2e}"
+                                                    for n, e in row["bwd_rel_err"].items())
+        + f"; bit-equal to #1/#3/#4 on the packed layout {row['equal_to_packed']}; ms #5={row['ms']:.4f} "
+        f"#6={row['dq_ms']:.4f} #7={row['dkv_ms']:.4f} plain_ms {row['plain_ms']:.4f} / {row['dq_plain_ms']:.4f} / "
+        f"{row['dkv_plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} sdpa_fwd_bwd_ms={row['bwd_library_ms']:.4f} "
+        f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) / {row['dq_bound_ms']:.4f} / {row['dkv_bound_ms']:.4f} "
+        f"(eager calls)" + (" OK" if ok else " FAIL"))
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_unpacked(torch, seed):
+    """Kernels #5-#7 at every call-site shape of both widths in (B, h, S, d)
+    layout (B=16, float32 and bfloat16, dropout 0 and 0.3), and at the
+    dilated 1333px encoder's Sk = 7056 (B=1, float32)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    rows = []
+    for site in PATH_SITES + WIDE_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, RATE):
+                rows.append(unpacked_cell(torch, gen, site, TRAIN_B, dtype, rate))
+    rows.append(unpacked_cell(torch, gen, SITES[3], 1, torch.float32, 0.0))
+    failed = [r for r in rows if not r["ok"]]
+    if failed:
+        raise AssertionError(f"{len(failed)} unpacked flash-attention cells out of tolerance: {failed[:2]}")
+    return rows
+
+
+def phase_unpacked_api(torch, kernels, seed):
+    """The head-major public API, the path of #5-#7: at each call-site shape
+    of both widths (B=16, bfloat16, dropout 0.3), ``flash_attention`` once
+    and ``flash_attention_trainable`` forward and backward once, on
+    (B, S, h, d) tensors viewed as (B, h, S, d), as a caller holding the
+    modules' layout passes them. One #5 launch a call, one #6 and one #7 a
+    backward, nothing else; the outputs and gradients equal the kernels'
+    own on contiguous copies."""
+    from object_detection_destr_tpu_torch.ops import flash_attention, flash_attention_trainable
+    from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    sites = PATH_SITES + WIDE_SITES
+    cases = []
+    for name, sq, sk, h, d, dv, masked in sites:
+        view = lambda s, w: torch.randn(TRAIN_B, s, h, w, generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        q, k, v, dout = view(sq, d), view(sk, d), view(sk, dv), view(sq, dv)
+        lengths = torch.randint(sk * 3 // 4, sk + 1, (TRAIN_B,), generator=gen, device="cuda")
+        mask = torch.arange(sk, device="cuda")[None, :] < lengths[:, None] if masked else None
+        cases.append((q, k, v, dout, mask))
+    reset_counts(kernels)  # the head-major API's path starts here
+    results = []
+    for q, k, v, dout, mask in cases:
+        out_fwd = flash_attention(q, k, v, mask, 77, RATE)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_trainable(*leaves, mask, 77, RATE)
+        out.backward(dout)
+        results.append((out_fwd, out.detach(), [t.grad for t in leaves]))
+    torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]  # read just after the path
+    n = len(sites)
+    want = [0, 0, 0, 0, 0, 0, 2 * n, n, n]
+    if counts != want:
+        raise AssertionError(f"the head-major API launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
+    for (q, k, v, dout, mask), (out_fwd, out, grads) in zip(cases, results):
+        c = [t.contiguous() for t in (q, k, v, dout)]
+        ref, lse = fa.flash_attention_unpacked_fwd(c[0], c[1], c[2], mask, None, RATE, 77)
+        args = (c[0], c[1], c[2], mask, ref, lse, c[3], None, RATE, 77)
+        ref_grads = (fa.flash_attention_unpacked_dq(*args), *fa.flash_attention_unpacked_dkv(*args))
+        if not (torch.equal(out_fwd, ref) and torch.equal(out, ref)
+                and all(torch.equal(g, r) for g, r in zip(grads, ref_grads))):
+            raise AssertionError("the head-major API on strided views differs from the kernels on copies")
+    log(f"unpacked API: flash_attention + flash_attention_trainable (forward, backward) at {n} call-site shapes, "
+        f"B={TRAIN_B}, bf16, dropout {RATE}, (B, S, h, d) views: launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}; "
+        f"outputs and gradients bit-equal to the kernels on contiguous copies OK")
+    return counts
+
+
 def l2_rate(torch) -> float:
     """Bytes/s of reads served by the 50 MB L2: one reduction reads 64 rows of
     4 Mi float32 (1 GiB in one launch, so launch and tail are a small share
@@ -611,9 +778,9 @@ def phase_assignment(torch, kernels, seed, rate):
     losses = set_criterion(problems[0][2], problems[0][3], cost_bbox=2.5, class_norm="boxes")
     torch.cuda.synchronize()
     counts = [k.launches for k in kernels]  # read just after the path
-    want = [0, 0, 0, 0, 0, len(problems) + 1]
-    if counts != want or any(r[3] != want[:5] + [1] for r in results):
-        raise AssertionError(f"#8's entry points launched #1/#2/#3/#4/#9/#8 {counts} times, not {want}")
+    want = [0, 0, 0, 0, 0, len(problems) + 1, 0, 0, 0]
+    if counts != want or any(r[3] != want[:5] + [1, 0, 0, 0] for r in results):
+        raise AssertionError(f"#8's entry points launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
     if not all(math.isfinite(v.item()) for v in losses.values()):
         raise AssertionError(f"non-finite criterion through #8: {losses}")
 
@@ -648,9 +815,7 @@ def phase_assignment(torch, kernels, seed, rate):
 
 def recipe_train_config(extra=()):
     """The TrainConfig that the trainer builds from TRAIN_ARGS (+ ``extra``)."""
-    from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
-
-    return config_from_args(get_parser("destr").parse_args(TRAIN_ARGS + list(extra)), "destr").train
+    return recipe_config(extra).train
 
 
 def reset_counts(kernels) -> None:
@@ -658,27 +823,30 @@ def reset_counts(kernels) -> None:
         k.launches = 0
 
 
-def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0), label="hidden 256"):
+def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0, 0, 0), label="hidden 256"):
     """The production recipe (+ ``extra`` flags) through the trainer's entry
-    point; ``per_step`` the launches of each kernel a step."""
+    point, with an empty validation split (phase 8 validates); ``per_step``
+    the launches of each kernel a step."""
     from object_detection_destr_tpu_torch.models.destr.model import build_destr
     from object_detection_destr_tpu_torch.train import train as train_cli
     from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
 
     log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build",
                            "chip_smoke_train_" + label.replace(" ", "_"))
-    argv = TRAIN_ARGS + list(extra) + ["--seed", str(seed), "--log_dir", log_dir]
-    reset_counts(kernels)  # the main path starts here
-    t0 = time.perf_counter()
-    result = train_cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = [k.launches for k in kernels]  # read just after the main path
+    with tempfile.TemporaryDirectory() as checkpoints:
+        argv = TRAIN_ARGS + list(extra) + ["--seed", str(seed), "--log_dir", log_dir, "--num_valid_samples", "0",
+                                           "--checkpoint_dir", checkpoints]
+        reset_counts(kernels)  # the main path starts here
+        t0 = time.perf_counter()
+        result = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]  # read just after the main path
     state = result["state"]
     steps = state.step
     want = [n * steps for n in per_step]
     if steps != TRAIN_STEPS or counts != want:
-        raise AssertionError(f"{steps} steps launched #1/#2/#3/#4/#9/#8 {counts} times, not {want}")
+        raise AssertionError(f"{steps} steps launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
     metrics = result["metrics"]
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite or missing losses: {metrics}")
@@ -699,7 +867,8 @@ def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0), l
     step_ms = result["step_ms"]
     median = statistics.median(step_ms[1:])
     log(f"train {label}: {steps} steps of the production recipe (B={TRAIN_B}, 640px, bf16, 6+6 blocks, top_k 300, "
-        f"dropout {RATE}, hidden {config.destr.hidden_dim}) in {wall:.1f} s; launches #1/#2/#3/#4/#9/#8 {counts} "
+        f"dropout {RATE}, hidden {config.destr.hidden_dim}) in {wall:.1f} s (with a _last checkpoint); launches "
+        f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} "
         f"({'/'.join(str(c // steps) for c in counts)} a step); last losses "
         + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     log(f"train {label}: the matcher's bidding rounds in the last step (16 model problems, then 16 "
@@ -949,11 +1118,134 @@ def phase_train_compare(torch, kernels, seed, destr=None, image_size=640):
     errs["bn stats"] = (stat_gap, 1e-4)
     log(f"train compare {label} B=4 f32, kernel vs plain: " + " ".join(f"{k}={v:.2e} (tol {t:.0e})" for k, (v, t) in errs.items())
         + f"; update direction differs in {flipped} of {moved} moved elements; kernel step launched "
-        f"#1/#2/#3/#4/#9/#8 {launches}")
+        f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {launches}")
     bad = [k for k, (v, t) in errs.items() if not v <= t]
     if bad:
         raise AssertionError(f"kernel and plain train steps differ: {bad}")
     return launches
+
+
+VALID_SAMPLES = 32  # two validation batches
+
+
+def phase_validation(torch, kernels, seed):
+    """The validation path through the trainer's and the evaluator's entry
+    points: the production recipe with a 32-image validation split, the
+    parameter EMA, COCO AP and checkpoints, for one epoch of 4 steps; then
+    ``infer.evaluate.main`` on the best checkpoint; then a resume from
+    ``_last`` for one more epoch. Returns the launches of the training run
+    and what was timed."""
+    from object_detection_destr_tpu_torch.infer import evaluate
+    from object_detection_destr_tpu_torch.losses.metrics import CocoAveragePrecision, MeanAveragePrecision
+    from object_detection_destr_tpu_torch.train import train as train_cli
+    from object_detection_destr_tpu_torch.train.checkpoint import save_checkpoint
+    from object_detection_destr_tpu_torch.train.driver import _eval_batch, _make_ema, _make_loaders
+    from object_detection_destr_tpu_torch.train.steps import make_destr_eval_step
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        base = TRAIN_ARGS + ["--seed", str(seed), "--num_valid_samples", str(VALID_SAMPLES), "--checkpoint_dir", ckpt,
+                             "--log_dir", os.path.join(ckpt, "runs")]
+        argv = base + ["--ema_decay", "0.999", "--coco_eval", "--save_as", "smoke"]
+        reset_counts(kernels)  # the validation path starts here
+        t0 = time.perf_counter()
+        result = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]  # read just after the path
+        state, history = result["state"], result["history"]
+        batches = 2 * (VALID_SAMPLES // TRAIN_B)  # the live and the EMA sweep
+        want = [18 * TRAIN_STEPS + 18 * batches, 18 * TRAIN_STEPS, 0, 0, TRAIN_STEPS + batches, 0, 0, 0, 0]
+        if state.step != TRAIN_STEPS or counts != want:
+            raise AssertionError(f"{state.step} steps and {batches} validation batches launched "
+                                 f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
+        files = sorted(f for f in os.listdir(ckpt) if f.startswith("smoke"))
+        if files != ["smoke", "smoke_ema", "smoke_last"]:
+            raise AssertionError(f"checkpoints {files}, not smoke, smoke_ema and smoke_last")
+        record = history[0]
+        scalars = [record["mAP"], record["coco_mAP"], record["ema_mAP"], record["ema_coco_mAP"],
+                   *record["valid"].values(), *record["valid_ema"].values()]
+        if not all(math.isfinite(v) for v in scalars):
+            raise AssertionError(f"non-finite validation scalars: {record}")
+
+        # the evaluator on the best checkpoint, before anything can overwrite it
+        before = kernels[0].launches
+        evaluated = evaluate.main(base + ["--resume_from", "smoke"])
+        eval_launches = kernels[0].launches - before
+        if abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != VALID_SAMPLES:
+            raise AssertionError(f"evaluate: map {evaluated['map']} over {evaluated['n_images']} images, the "
+                                 f"driver's epoch-0 mAP {record['mAP']}")
+
+        # where a validation batch goes (the host loader, the transform, the
+        # eval step, the metrics), the EMA update and a checkpoint
+        config = recipe_config(["--num_valid_samples", str(VALID_SAMPLES)])
+        _, valid_loader = _make_loaders(config, 672, "destr")
+        t0 = time.perf_counter()
+        raws = list(valid_loader)  # the letterboxed host batches of one sweep
+        loader_s = time.perf_counter() - t0
+        transform_ms = time_cuda(torch, lambda: _eval_batch(raws[0], torch.device("cuda"), 672, 640))
+        batch = _eval_batch(raws[0], torch.device("cuda"), 672, 640)
+        eval_step = make_destr_eval_step(config.train)
+        val_batch_ms = time_cuda(torch, lambda: eval_step(state, batch))
+        outputs, _ = eval_step(state, batch)
+        targets = {k: batch[k] for k in ("boxes", "labels", "valid")}
+        metric, coco = MeanAveragePrecision(1, num_pred=300), CocoAveragePrecision(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(metric.init_state(), outputs, targets)
+        map_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        coco.update(outputs, targets)
+        coco_ms = (time.perf_counter() - t0) * 1e3
+        init, update = _make_ema(0.999)
+        ema = init(state.model)
+        ema_ms = time_cuda(torch, lambda: update(ema, state.model))
+        del ema
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt, "timed", state, {"epoch": 1, "step": 0}, 1.0)
+        save_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        n_params = sum(p.numel() for p in state.model.parameters())
+        del state, result
+        torch.cuda.empty_cache()
+
+        # resume from _last: the step counter and the loader go on
+        resumed = train_cli.main(base + ["--save_as", "smoke", "--resume", "--resume_from", "smoke_last",
+                                         "--epochs", "1"])
+        torch.cuda.synchronize()
+        if resumed["state"].step != 2 * TRAIN_STEPS or resumed["history"][-1]["step"] != 2 * TRAIN_STEPS:
+            raise AssertionError(f"the resumed run ended at step {resumed['state'].step}, not {2 * TRAIN_STEPS}")
+        del resumed
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    sweep_s = record["seconds"]
+    timing = {"val_batch_ms": val_batch_ms, "val_images_per_sec": VALID_SAMPLES / sweep_s[0],
+              "sweep_seconds": sweep_s, "ema_update_ms": ema_ms, "checkpoint_mb": size_mb,
+              "checkpoint_save_s": save_s, "eval_launches": eval_launches, "loader_s": loader_s,
+              "transform_ms": transform_ms, "map_update_ms": map_ms, "coco_update_ms": coco_ms}
+    log(f"validation: {TRAIN_STEPS} steps and {VALID_SAMPLES} validation images (live and EMA sweeps) through "
+        f"train.main in {wall:.1f} s; launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}; checkpoints {files}; epoch 0 "
+        f"mAP={record['mAP']:.6f} coco_mAP={record['coco_mAP']:.6f} ema_mAP={record['ema_mAP']:.6f} "
+        f"ema_coco_mAP={record['ema_coco_mAP']:.6f} valid {record['valid']} valid_ema {record['valid_ema']}")
+    log(f"validation: infer.evaluate on smoke: map={evaluated['map']:.6f} (driver {record['mAP']:.6f}) "
+        f"coco_map={evaluated['coco_map']:.6f}, #1 launched {eval_launches} times; resume from smoke_last went on "
+        f"from step {TRAIN_STEPS} to {2 * TRAIN_STEPS} OK")
+    log(f"validation: eval step ms a batch of {TRAIN_B}={val_batch_ms:.2f} (CUDA events, eager); sweep seconds "
+        f"{', '.join(f'{t:.2f}' for t in sweep_s)} (host clock, loader + transform + step + metrics) = "
+        f"{timing['val_images_per_sec']:.1f} images/s; by part: the host loader {loader_s:.2f} s for "
+        f"{VALID_SAMPLES} letterboxed images (host clock), the eval transform {transform_ms:.2f} ms a batch "
+        f"(copy and resample, CUDA events), the mAP update {map_ms:.2f} ms and the COCO update {coco_ms:.2f} ms a "
+        f"batch (host clock, device work and the copies to the host inside); EMA update ms={ema_ms:.3f} "
+        f"({n_params / 1e6:.1f} M parameters); checkpoint "
+        f"{size_mb:.1f} MB written in {save_s:.2f} s")
+    return counts, timing
+
+
+def recipe_config(extra=()):
+    """The Config that the trainer builds from TRAIN_ARGS (+ ``extra``)."""
+    from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
+
+    return config_from_args(get_parser("destr").parse_args(TRAIN_ARGS + list(extra)), "destr")
 
 
 def randomize_(torch, model, seed):
@@ -1212,9 +1504,10 @@ def main(argv=None) -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port package is missing beside this script: {exc}", file=sys.stderr)
         return 1
-    # the kernels in the order of their counts: #1, #2, #3, #4, #9, #8
+    # the kernels in the order of their counts: #1, #2, #3, #4, #9, #8, #5, #6, #7
     kernels = [fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_dq, fa.flash_attention_dkv,
-               auction.fused_auction, auction.auction_kernel]
+               auction.fused_auction, auction.auction_kernel, fa.flash_attention_unpacked_fwd,
+               fa.flash_attention_unpacked_dq, fa.flash_attention_unpacked_dkv]
 
     t_start = time.perf_counter()
     try:
@@ -1223,11 +1516,13 @@ def main(argv=None) -> int:
         phase_plan(torch, fa)
         warm_clocks(torch)
         flash_rows = phase_flash(torch, args.seed)
+        unpacked_rows = phase_unpacked(torch, args.seed)
+        api_counts = phase_unpacked_api(torch, kernels, args.seed)
         auction_rows, l2 = phase_auction(torch, args.seed)
         assign_rows, assign_counts = phase_assignment(torch, kernels, args.seed, l2)
         runs = {}
-        for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0)),
-                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0))):
+        for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0, 0, 0, 0)),
+                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0, 0, 0, 0))):
             state, counts, step_ms = phase_train(torch, kernels, args.seed, extra, per_step_launches, label)
             parts = step_parts(torch, state, train_batch(torch, TRAIN_B, args.seed), recipe_train_config(extra))
             log(f"train {label}: where a step of make_destr_train_step goes, ms (CUDA events, median of 3) "
@@ -1236,6 +1531,8 @@ def main(argv=None) -> int:
             runs[label] = (counts, step_ms)
             del state
             torch.cuda.empty_cache()
+        val_counts, val_timing = phase_validation(torch, kernels, args.seed)
+        torch.cuda.empty_cache()
         for destr in (None, {"hidden_dim": 512}):
             phase_train_compare(torch, kernels, args.seed, destr)
             torch.cuda.empty_cache()
@@ -1282,6 +1579,16 @@ def main(argv=None) -> int:
 
     synthetic = auction_rows[0]
     sdpa = "library_ms is SDPA forward + backward (dQ, dK and dV together)"
+
+    def unpacked_rows_of(rows, sites):
+        names = [site[0] for site in sites]
+        return [r for r in rows if r["site"] in names and r["b"] == TRAIN_B and r["dtype"] == "bfloat16"
+                and r["rate"] == RATE]
+
+    def sums(rows, prefix):
+        """ms, plain_ms, bound_ms, bound_by of one launch at each row's shape."""
+        return {"ms": sum(r[prefix + "ms"] for r in rows), "plain_ms": sum(r[prefix + "plain_ms"] for r in rows),
+                "bound_ms": sum(r[prefix + "bound_ms"] for r in rows), "bound_by": bound_by(rows, prefix + "bound_by")}
     entries = [
         {
             "name": "flash_attention_fwd", "route": "cuda",
@@ -1296,6 +1603,7 @@ def main(argv=None) -> int:
             "hidden_512": {"launches": wide_counts[0], "max_abs_err": max(r["max_abs_err"] for r in wide),
                            "ms": per_step(wide, "ms"), "plain_ms": per_step(wide, "plain_ms"),
                            "bound_ms": per_step(wide, "bound_ms"), "library_ms": per_step(wide, "library_ms")},
+            "validation": {"launches": val_counts[0], "per": "4 train steps and 4 validation batches, 18 each"},
             "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"),
                         "plain_ms": per_step(serve, "plain_ms"), "library_ms": per_step(serve, "library_ms"),
                         "bound_ms": per_step(serve, "bound_ms"),
@@ -1358,12 +1666,42 @@ def main(argv=None) -> int:
             "per": "train step: 1 launch, 32 problems N=400 T=300, at most 8 valid targets",
             "dense": {k: auction_rows[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bids")},
             "hidden_512": {"launches": wide_counts[4]},
+            "validation": {"launches": val_counts[4], "per": "4 train steps and 4 validation batches"},
         },
     ]
+    # the head-major kernels: one launch at each hidden-256 call-site shape
+    # (B=16, bfloat16, dropout 0.3), hidden 512 beside; launches from the
+    # public API's run (phase 3b)
+    api_path, api_wide = unpacked_rows_of(unpacked_rows, PATH_SITES), unpacked_rows_of(unpacked_rows, WIDE_SITES)
+    per = "one launch at each of the 3 hidden-256 call-site shapes, (B, h, S, d), B=16, bfloat16, dropout 0.3"
+    entries.append({
+        "name": "flash_attention_unpacked_fwd", "route": "cuda",
+        "source": f"{PKG}/csrc/flash_attention_fwd.cu",
+        "replaces": "object_detection_destr_tpu/ops/pallas/flash_attention.py:151",
+        "launches": api_counts[6],
+        "max_abs_err": max(r["max_abs_err"] for r in unpacked_rows),
+        **sums(api_path, ""), "library_ms": sum(r["library_ms"] for r in api_path),
+        "per": per + "; library_ms is SDPA forward",
+        "hidden_512": {**sums(api_wide, ""), "library_ms": sum(r["library_ms"] for r in api_wide)},
+    })
+    for index, kind, names, replaces in ((7, "dq", ("dq",), 344), (8, "dkv", ("dk", "dv"), 385)):
+        entries.append({
+            "name": f"flash_attention_unpacked_{kind}", "route": "cuda",
+            "source": f"{PKG}/csrc/flash_attention_bwd_two_pass.cu",
+            "replaces": f"object_detection_destr_tpu/ops/pallas/flash_attention.py:{replaces}",
+            "launches": api_counts[index],
+            "max_abs_err": max(r["bwd_abs_err"][n] for r in unpacked_rows for n in names),
+            **sums(api_path, kind + "_"), "library_ms": sum(r["bwd_library_ms"] for r in api_path),
+            "per": per + f"; {sdpa}",
+            "hidden_512": {**sums(api_wide, kind + "_"), "library_ms": sum(r["bwd_library_ms"] for r in api_wide)},
+        })
     log(f"train step median ms: hidden 256 {step_ms:.2f} ({TRAIN_B / step_ms * 1e3:.1f} images/s), hidden 512 "
         f"{wide_step_ms:.2f} ({TRAIN_B / wide_step_ms * 1e3:.1f} images/s); kernels per step ms "
         + " ".join(f"{e['name']}={e['ms']:.3f}" for e in entries)
-        + f"; request latency median ms={latency_ms:.2f}, model forward ms={forward_ms:.2f}; "
+        + f"; request latency median ms={latency_ms:.2f}, model forward ms={forward_ms:.2f}; validation "
+        f"eval step ms a batch={val_timing['val_batch_ms']:.2f}, {val_timing['val_images_per_sec']:.1f} images/s a "
+        f"sweep, EMA update ms={val_timing['ema_update_ms']:.3f}, checkpoint {val_timing['checkpoint_mb']:.1f} MB in "
+        f"{val_timing['checkpoint_save_s']:.2f} s; "
         f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

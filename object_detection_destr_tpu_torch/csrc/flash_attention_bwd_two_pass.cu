@@ -7,7 +7,10 @@
 //   object_detection_destr_tpu/ops/pallas/flash_attention.py::_dq_kernel_packed
 //   (l.778, pallas_call l.1124) and ::_dkv_kernel_packed (l.826, pallas_call
 //   l.1152), which _bwd_impl_packed (l.1015) takes when the fused backward
-//   does not fit (l.1037-1041).
+//   does not fit (l.1037-1041), and, launched with head-major (B, h, S, d)
+//   strides, ::_dq_kernel (l.344, pallas_call l.478) and ::_dkv_kernel
+//   (l.385, pallas_call l.501), the backward of flash_attention_trainable
+//   (_bwd_impl l.438, always two-pass).
 // The function is that of flash_attention_bwd.cu (kernel #2), split in two:
 //   p_ij  = exp(s_ij - lse_i)   (1/Sk where lse_i < -5e8: a fully masked row)
 //   dp_ij = keep_ij / (1 - rate) * <dO_i, v_j>
@@ -16,7 +19,8 @@
 //   dK_j  = scale * sum_i ds_ij q_i;  dV_j = sum_i keep_ij / (1 - rate) p_ij dO_i
 //                                                          (dkv kernel)
 // delta_i = <dO_i, O_i> comes from the wrapper, as _delta_packed (l.973)
-// computes it outside the Pallas kernels.
+// computes it outside the Pallas kernels (the unpacked Pallas kernels
+// recompute it per tile; the value is the same).
 //
 // Why two passes on this card: #2 keeps a 32-key tile's float32 dK / dV
 // accumulators in shared memory beside its K / V tile. At the cross-attention
@@ -49,14 +53,6 @@ using namespace flash;
 
 constexpr int kWarps = 8;  // rows (dq) or keys (dkv) of a block
 constexpr float kFullyMaskedLse = -5e8f;  // below any row with a valid key
-
-// Element strides of one operand: batch, head, row (the feature stride is 1).
-struct Strides {
-  long long b, h, s;
-  __device__ long off(int bi, int hh, int row) const {
-    return (long)(bi * b + hh * h + row * s);
-  }
-};
 
 struct Params {
   const void *q, *k, *v, *dout;
@@ -239,15 +235,6 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_dkv_kernel(Params a) {
     if (e < a.d) dk[koff + e] = from_f32<T>(dk_acc[i]);
     if (e < a.dv_) dv[voff + e] = from_f32<T>(dv_acc[i]);
   }
-}
-
-// 16-byte tile loads need the base, every row start and every head and batch
-// offset on a 16-byte boundary.
-template <typename T>
-bool aligned16_strided(const void* base, int width, const Strides& s) {
-  const long long bytes = sizeof(T);
-  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && (width * bytes) % 16 == 0 &&
-         (s.b * bytes) % 16 == 0 && (s.h * bytes) % 16 == 0 && (s.s * bytes) % 16 == 0;
 }
 
 template <typename T, int P>

@@ -1,19 +1,24 @@
-// Masked multi-head flash-attention forward on head-packed operands, with
-// attention-probability dropout, for Hopper (sm_90a). CUDA C++ with a plain
-// C interface, loaded with ctypes by
+// Masked multi-head flash-attention forward with attention-probability
+// dropout, for Hopper (sm_90a), on operands given by their (batch, head, row)
+// element strides. CUDA C++ with a plain C interface, loaded with ctypes by
 // object_detection_destr_tpu_torch/ops/cuda/flash_attention.py.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 //   object_detection_destr_tpu/ops/pallas/flash_attention.py::_fwd_kernel_packed
 //   (l.592, launched by _fwd_impl_packed l.750, public entry
-//   flash_attention_packed l.1174).
+//   flash_attention_packed l.1174), launched with head-packed strides, and
+//   ::_fwd_kernel (l.151, launched by _fwd_impl l.250, public entries
+//   flash_attention l.307 and flash_attention_trainable l.531), launched with
+//   head-major strides.
 // It computes the same function, not the same blocks:
-//   q (B, Sq, h*d), k (B, Sk, h*d), v (B, Sk, h*dv), key_valid (B, Sk) or none
+//   q (B, Sq, h*d) or (B, h, Sq, d), k and v alike with Sk rows (widths d and
+//   dv), key_valid (B, Sk) or none, out laid out as q with width dv
 //   p_ij = softmax_j(s_ij),  s_ij = scale * <q_i, k_j> (valid key) or -1e9 (masked)
-//   out[b, i, hh*dv:(hh+1)*dv] = sum_j keep_ij / (1 - rate) * p_ij * v[b, j, hh]
-//   lse[b, hh, i] = logsumexp_j(s_ij)          (float32, of the undropped p)
+//   out[b, hh, i] = sum_j keep_ij / (1 - rate) * p_ij * v[b, hh, j]
+//   lse[b, hh, i] = logsumexp_j(s_ij)          (float32, (B, h, Sq), of the undropped p)
 // keep_ij comes from philox.cuh as a function of (seed, b*h + hh, i, j) only,
-// so the backward kernel regenerates it; rate 0 keeps everything. Keys past
+// so the backward kernels regenerate it and both layouts of one logical
+// input draw the same mask; rate 0 keeps everything. Keys past
 // Sk (the ragged end of the last tile) are left out entirely, so a fully
 // masked row averages over the Sk real keys only. Logits, the online max and
 // sum and the accumulator are float32 for both float32 and bfloat16 inputs.
@@ -52,9 +57,9 @@ template <typename T, int P>
 __global__ void __launch_bounds__(256) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint8_t* __restrict__ key_valid, T* __restrict__ out,
-    float* __restrict__ lse, int sq, int sk, int num_heads, int d, int dv,
-    float scale, uint32_t seed, uint32_t drop_threshold, float inv_keep,
-    bool vec_k, bool vec_v) {
+    float* __restrict__ lse, Strides sq_, Strides sk_, Strides sv_, Strides so_,
+    int sq, int sk, int num_heads, int d, int dv, float scale, uint32_t seed,
+    uint32_t drop_threshold, float inv_keep, bool vec_k, bool vec_v) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* key_state = reinterpret_cast<int*>(smem);  // 1 valid, 0 masked, -1 past Sk
   T* k_tile = reinterpret_cast<T*>(smem + kHeaderBytes);  // (kTileK, d)
@@ -67,16 +72,15 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   const int hh = blockIdx.y;
   const int b = blockIdx.z;
   const bool active = row < sq;
-  const long hd = (long)num_heads * d;
-  const long hdv = (long)num_heads * dv;
   const uint32_t bh = (uint32_t)(b * num_heads + hh);
+  const long qoff = sq_.off(b, hh, active ? row : 0);
 
   float qreg[P];
   float acc[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int e = lane + kWarp * i;
-    qreg[i] = (active && e < d) ? to_f32(q[((long)b * sq + row) * hd + hh * d + e]) : 0.f;
+    qreg[i] = (active && e < d) ? to_f32(q[qoff + e]) : 0.f;
     acc[i] = 0.f;
   }
   float m_run = -INFINITY;  // running max of the row's logits
@@ -85,8 +89,8 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   for (int t0 = 0; t0 < sk; t0 += kTileK) {
     __syncthreads();  // the previous tile is no longer read
     const int rows_left = sk - t0;
-    load_tile(k_tile, k + ((long)b * sk + t0) * hd + hh * d, rows_left, d, hd, vec_k);
-    load_tile(v_tile, v + ((long)b * sk + t0) * hdv + hh * dv, rows_left, dv, hdv, vec_v);
+    load_tile(k_tile, k + sk_.off(b, hh, t0), rows_left, d, (long)sk_.s, vec_k);
+    load_tile(v_tile, v + sv_.off(b, hh, t0), rows_left, dv, (long)sv_.s, vec_v);
     if (threadIdx.x < kTileK) {
       const int key = t0 + threadIdx.x;
       key_state[threadIdx.x] =
@@ -125,10 +129,11 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
 
   if (!active) return;
   const float inv_l = 1.f / l_run;
+  const long ooff = so_.off(b, hh, row);
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int e = lane + kWarp * i;
-    if (e < dv) out[((long)b * sq + row) * hdv + hh * dv + e] = from_f32<T>(acc[i] * inv_l);
+    if (e < dv) out[ooff + e] = from_f32<T>(acc[i] * inv_l);
   }
   if (lane == 0) lse[((long)b * num_heads + hh) * sq + row] = m_run + logf(l_run);
 }
@@ -136,6 +141,7 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
 struct Args {
   const void *q, *k, *v, *key_valid;
   void *out, *lse;
+  Strides sq_, sk_, sv_, so_;  // q, k, v, out
   int b, sq, sk, num_heads, d, dv;
   float scale;
   uint32_t seed, drop_threshold;
@@ -154,9 +160,9 @@ int launch(const Args& a) {
   flash_fwd_kernel<T, P><<<grid, rows * kWarp, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const uint8_t*>(a.key_valid), static_cast<T*>(a.out),
-      static_cast<float*>(a.lse), a.sq, a.sk, a.num_heads, a.d, a.dv, a.scale, a.seed,
-      a.drop_threshold, a.inv_keep, aligned16<T>(a.k, a.d, a.num_heads),
-      aligned16<T>(a.v, a.dv, a.num_heads));
+      static_cast<float*>(a.lse), a.sq_, a.sk_, a.sv_, a.so_, a.sq, a.sk, a.num_heads, a.d,
+      a.dv, a.scale, a.seed, a.drop_threshold, a.inv_keep, aligned16_strided<T>(a.k, a.d, a.sk_),
+      aligned16_strided<T>(a.v, a.dv, a.sv_));
   return (int)cudaGetLastError();
 }
 
@@ -176,21 +182,26 @@ int dispatch(const Args& a) {
 
 extern "C" {
 
-int odtt_flash_fwd_abi_version() { return 2; }
+int odtt_flash_fwd_abi_version() { return 3; }
 
 // dtype: 0 float32, 1 bfloat16. key_valid: (B, Sk) bytes or null.
+// strides: 12 element strides, (batch, head, row) of q, k, v and out, in
+// that order (the feature stride is 1). lse: (B, h, Sq) float32, contiguous.
 // drop_threshold 0 disables dropout; otherwise keep iff the element's Philox
 // bits >= drop_threshold and scale kept probabilities by inv_keep.
 // Returns cudaGetLastError() after the launch (0 on success).
 int odtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const void* key_valid, void* out, void* lse,
-                             int dtype, int b, int sq, int sk, int num_heads,
-                             int d, int dv, float scale, unsigned int seed,
+                             const long long* strides, int dtype, int b, int sq, int sk,
+                             int num_heads, int d, int dv, float scale, unsigned int seed,
                              unsigned int drop_threshold, float inv_keep, void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || num_heads <= 0 || d <= 0 || dv <= 0)
+  if (b <= 0 || sq <= 0 || sk <= 0 || num_heads <= 0 || d <= 0 || dv <= 0 || strides == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, key_valid, out, lse, b, sq, sk, num_heads, d, dv, scale,
-               seed, drop_threshold, inv_keep, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, key_valid, out, lse,
+               Strides{strides[0], strides[1], strides[2]}, Strides{strides[3], strides[4], strides[5]},
+               Strides{strides[6], strides[7], strides[8]}, Strides{strides[9], strides[10], strides[11]},
+               b, sq, sk, num_heads, d, dv, scale, seed, drop_threshold, inv_keep,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch<float>(a);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;

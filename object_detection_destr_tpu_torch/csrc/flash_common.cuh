@@ -101,4 +101,24 @@ bool aligned16(const void* base, int width, int num_heads) {
          ((long)width * num_heads * sizeof(T)) % 16 == 0;
 }
 
+// Element strides of one operand: batch, head, row (the feature stride is
+// 1). The head-packed (B, S, h*d) layout has (S*h*d, d, h*d), the head-major
+// (B, h, S, d) one (h*S*d, S*d, d); a view of either with its own strides
+// works as well.
+struct Strides {
+  long long b, h, s;
+  __device__ long off(int bi, int hh, int row) const {
+    return (long)(bi * b + hh * h + row * s);
+  }
+};
+
+// The same condition for an operand with its own strides: the base, every
+// row start and every head and batch offset on a 16-byte boundary.
+template <typename T>
+bool aligned16_strided(const void* base, int width, const Strides& s) {
+  const long long bytes = sizeof(T);
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && (width * bytes) % 16 == 0 &&
+         (s.b * bytes) % 16 == 0 && (s.h * bytes) % 16 == 0 && (s.s * bytes) % 16 == 0;
+}
+
 }  // namespace flash

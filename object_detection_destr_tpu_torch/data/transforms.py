@@ -1,11 +1,12 @@
 """Transforms as batched tensor ops on the images' device (port of
 ``object_detection_destr_tpu/data/transforms.py``: ``normalize_imagenet``
-l.47-51, ``destr_train_transform`` l.54-173, ``letterbox_infer_transform``
-l.222-245)."""
+l.47-51, ``destr_train_transform`` l.54-173, ``destr_eval_transform``
+l.176-219, ``letterbox_infer_transform`` l.222-245)."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +17,7 @@ __all__ = [
     "IMAGENET_MEAN",
     "IMAGENET_STD",
     "crop_flip",
+    "destr_eval_transform",
     "destr_train_transform",
     "letterbox_infer_transform",
     "normalize_imagenet",
@@ -82,6 +84,28 @@ def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor, translation: t
     return torch.where(inside[:, None, :], weights, 0.0)
 
 
+def _resize_crop(images: torch.Tensor, y0, x0, ch, cw, out_size: int) -> torch.Tensor:
+    """Resample each image's window [y0, y0+ch) x [x0, x0+cw) ((B,) tensors,
+    pixels) to (out_size, out_size): ``_resize_crop`` (transforms.py:54-69),
+    the separable antialiased linear weights of ``scale_and_translate``."""
+    _, h, w, _ = images.shape
+    wy = _weight_mat(h, out_size, out_size / ch, -y0 * out_size / ch)  # (B, H, S)
+    wx = _weight_mat(w, out_size, out_size / cw, -x0 * out_size / cw)  # (B, W, S)
+    with torch.autocast(images.device.type, enabled=False):
+        x = torch.einsum("byxc,bys->bsxc", images.float(), wy)
+        return torch.einsum("bsxc,bxt->bstc", x, wx)
+
+
+def _crop_boxes(boxes_xyxy, valid, y0, x0, ch, cw, h: int, w: int):
+    """Normalized xyxy boxes re-expressed in each pixel window, clipped to
+    [0, 1]; boxes that collapse leave ``valid`` (transforms.py:72-81)."""
+    px = boxes_xyxy.float() * torch.tensor([w, h, w, h], dtype=torch.float32, device=boxes_xyxy.device)
+    shifted = px - torch.stack([x0, y0, x0, y0], -1)[:, None, :]
+    rescaled = shifted / torch.stack([cw, ch, cw, ch], -1)[:, None, :]
+    clipped = torch.clamp(rescaled, 0.0, 1.0)
+    return clipped, valid & flat_box_mask(clipped)
+
+
 def crop_flip(
     images: torch.Tensor,
     boxes_xyxy: torch.Tensor,
@@ -113,17 +137,8 @@ def crop_flip(
     y0 = u_y * torch.clamp(hc - ch, min=0.0)
     x0 = u_x * torch.clamp(wc - cw, min=0.0)
 
-    wy = _weight_mat(h, out_size, out_size / ch, -y0 * out_size / ch)  # (B, H, S)
-    wx = _weight_mat(w, out_size, out_size / cw, -x0 * out_size / cw)  # (B, W, S)
-    with torch.autocast(images.device.type, enabled=False):
-        x = torch.einsum("byxc,bys->bsxc", images.float(), wy)
-        out = torch.einsum("bsxc,bxt->bstc", x, wx)
-
-    px = boxes_xyxy.float() * torch.tensor([w, h, w, h], dtype=torch.float32, device=images.device)
-    shifted = px - torch.stack([x0, y0, x0, y0], -1)[:, None, :]
-    rescaled = shifted / torch.stack([cw, ch, cw, ch], -1)[:, None, :]
-    new_boxes = torch.clamp(rescaled, 0.0, 1.0)
-    new_valid = valid & flat_box_mask(new_boxes)
+    out = _resize_crop(images, y0, x0, ch, cw, out_size)
+    new_boxes, new_valid = _crop_boxes(boxes_xyxy, valid, y0, x0, ch, cw, h, w)
 
     flip = flip.bool()
     out = torch.where(flip[:, None, None, None], out.flip(2), out)
@@ -156,3 +171,31 @@ def destr_train_transform(
     log_ratio = lo_r + (hi_r - lo_r) * u[1]
     return crop_flip(images, boxes_xyxy, labels, valid, area_frac, log_ratio, u[2], u[3],
                      u[4] < 0.5, out_size)
+
+
+def destr_eval_transform(
+    images: torch.Tensor,
+    boxes_xyxy: torch.Tensor,
+    labels: torch.Tensor,
+    valid: torch.Tensor,
+    content_hw: Optional[torch.Tensor] = None,
+    resize_to: int = 672,
+    out_size: int = 640,
+) -> dict:
+    """Resize shorter-side-to-``resize_to`` + center-crop ``out_size``
+    (transforms.py:176-219): per image the centred square window of side
+    ``out_size / resize_to * min(hc, wc)`` over the content (the letterbox
+    loader's ``content_hw`` fractions; the whole canvas without them),
+    resampled to ``out_size``, boxes re-expressed in it. The window lies
+    inside the content, so no pixel mask is needed. Returns {"images": (B, S,
+    S, 3) normalized float32, "boxes", "labels", "valid"}."""
+    b, h, w, _ = images.shape
+    if content_hw is None:
+        content_hw = torch.ones((b, 2), dtype=torch.float32, device=images.device)
+    content = content_hw.to(device=images.device, dtype=torch.float32)
+    hc, wc = content[:, 0] * h, content[:, 1] * w
+    side = torch.minimum(hc, wc) * out_size / resize_to
+    y0, x0 = (hc - side) / 2.0, (wc - side) / 2.0
+    out = _resize_crop(images, y0, x0, side, side, out_size)
+    new_boxes, new_valid = _crop_boxes(boxes_xyxy, valid, y0, x0, side, side, h, w)
+    return {"images": normalize_imagenet(out), "boxes": new_boxes, "labels": labels, "valid": new_valid}

@@ -1,0 +1,154 @@
+"""Standalone DESTR evaluation (port of
+``object_detection_destr_tpu/infer/evaluate.py``: ``_batch_diagnostics``
+l.44-78, ``evaluate_destr`` l.81-160, ``main`` l.251-270).
+
+Evaluates a saved checkpoint on the validation split of the trainer's
+configuration without training: the reference 11-point mAP and COCO AP, and
+diagnostics that tell the three ways a detector can score zero apart —
+classification confidence (does any query become argmax-foreground, the
+reference metric's selection rule), score ranking (do sigmoid scores order
+objects above clutter) and the localization ceiling (for each ground truth,
+the best IoU over all predictions).
+
+Usage (the trainer's flags, geometry included; the GPU unless ``--device
+cpu``)::
+
+    python -m object_detection_destr_tpu_torch.infer.evaluate \\
+        --resume_from model_weights_last --checkpoint_dir checkpoints \\
+        --dataset synthetic --synthetic_size 672 --num_valid_samples 256 \\
+        --image_size 640 --batch_size 8 --top_k 300 [--no-letterbox_eval]
+
+Prints one JSON line with metrics and diagnostics. ``--model ssd`` raises
+``NotImplementedError`` until the SSD slice.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..geometry.boxes import cxcyhw_to_xyxy, pairwise_iou
+from ..losses.metrics import CocoAveragePrecision, MeanAveragePrecision
+from ..models.destr.model import build_destr
+from ..train.arg_parser import config_from_args, get_parser
+from ..train.checkpoint import restore_for_inference
+from ..train.driver import _eval_batch, _make_loaders
+
+__all__ = ["evaluate_destr", "main"]
+
+
+def _batch_diagnostics(outputs: dict, targets: dict) -> dict:
+    """Host-side per-batch prediction statistics (small arrays, numpy)."""
+    logits = np.asarray(outputs["pred_class"], np.float32)  # (B, N, C)
+    pred_xyxy = cxcyhw_to_xyxy(torch.as_tensor(np.asarray(outputs["pred_boxes"], np.float32)))
+    gt = torch.as_tensor(np.asarray(targets["boxes"], np.float32))
+    gt_valid = np.asarray(targets["valid"], bool)
+
+    sig0 = 1.0 / (1.0 + np.exp(-logits[..., 0]))  # (B, N) class-0 sigmoid
+    argmax0 = logits.argmax(-1) == 0  # the reference metric's selection rule
+
+    iou = pairwise_iou(pred_xyxy, gt).numpy()  # (B, N, T)
+    best_iou_per_gt = iou.max(axis=1)  # (B, T)
+    # the IoU of the top-scoring prediction with its best valid ground truth,
+    # per image, over the images that have one
+    top_pred = sig0.argmax(-1)  # (B,)
+    top_iou = iou[np.arange(iou.shape[0]), top_pred]  # (B, T)
+    img_has_gt = gt_valid.any(-1)  # (B,)
+    top_iou_best = np.where(gt_valid, top_iou, -1.0).max(-1)  # (B,)
+
+    sel = gt_valid
+    return {
+        "n_gt": int(sel.sum()),
+        "sum_best_iou": float(best_iou_per_gt[sel].sum()),
+        "n_gt_localized": int((best_iou_per_gt[sel] >= 0.5).sum()),
+        "sum_top_iou": float(top_iou_best[img_has_gt].sum()),
+        "n_img_with_gt": int(img_has_gt.sum()),
+        "n_images": int(logits.shape[0]),
+        "n_img_with_argmax0": int(argmax0.any(-1).sum()),
+        "n_pred_argmax0": int(argmax0.sum()),
+        "n_pred": int(argmax0.size),
+        "sum_max_sig0": float(sig0.max(-1).sum()),
+        "max_sig0": float(sig0.max()),  # aggregated as a max downstream
+    }
+
+
+@torch.no_grad()
+def evaluate_destr(config, checkpoint_name: str, device: str | torch.device | None = None) -> dict:
+    """Run the whole validation sweep for ``checkpoint_name`` (the model's
+    forward in eval mode, as the driver's eval step runs it); returns the
+    metric dict."""
+    device = resolve_device(device)
+    cfg_t = config.train
+    canvas = int(cfg_t.image_size * 672 / 640)
+    _, valid_loader = _make_loaders(config, canvas, "destr")
+    model = build_destr(config.destr, device)
+    model.load_state_dict(restore_for_inference(cfg_t.checkpoint_dir, checkpoint_name))
+
+    metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
+    coco = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1))
+    m_state = metric.init_state()
+    totals: dict = {}
+    for raw in valid_loader:
+        batch = _eval_batch(raw, device, canvas, cfg_t.image_size)
+        outputs, _ = model(batch["images"], batch.get("pixel_valid"))
+        targets = {"boxes": batch["boxes"], "labels": batch["labels"], "valid": batch["valid"]}
+        m_state = metric.update(m_state, outputs, targets)
+        coco.update(outputs, targets)
+        d = _batch_diagnostics({k: v.cpu().numpy() for k, v in outputs.items()},
+                               {k: v.cpu().numpy() for k, v in targets.items()})
+        for k, v in d.items():
+            if k == "max_sig0":  # the dataset's max, not a sum
+                totals[k] = max(totals.get(k, 0.0), v)
+            else:
+                totals[k] = totals.get(k, 0.0 if isinstance(v, float) else 0) + v
+
+    if not totals:
+        raise RuntimeError(
+            "empty validation split: the loader yielded zero batches "
+            f"(num_valid_samples={config.data.num_valid_samples}, batch_size={cfg_t.batch_size})"
+        )
+    n_gt = max(totals.get("n_gt", 0), 1)
+    n_img = max(totals.get("n_images", 0), 1)
+    return {
+        "checkpoint": checkpoint_name,
+        "letterbox_eval": bool(cfg_t.letterbox_eval or cfg_t.letterbox),
+        "map": metric.compute(m_state),
+        "coco_map": coco.compute(),
+        # localization ceiling: best-possible recall at IoU 0.5 over all predictions
+        "gt_localized_frac": totals.get("n_gt_localized", 0) / n_gt,
+        "mean_best_iou_per_gt": totals.get("sum_best_iou", 0.0) / n_gt,
+        # mean over images with ground truth of the top-scoring prediction's best IoU
+        "mean_top_pred_iou": totals.get("sum_top_iou", 0.0) / max(totals.get("n_img_with_gt", 0), 1),
+        # the reference metric's selection rule: argmax(softmax) == class 0
+        "img_with_argmax_fg_frac": totals.get("n_img_with_argmax0", 0) / n_img,
+        "pred_argmax_fg_frac": totals.get("n_pred_argmax0", 0) / max(totals.get("n_pred", 0), 1),
+        # score calibration
+        "mean_image_max_score": totals.get("sum_max_sig0", 0.0) / n_img,
+        "max_score": totals.get("max_sig0", 0.0),
+        "n_gt": int(totals.get("n_gt", 0)),
+        "n_images": int(totals.get("n_images", 0)),
+    }
+
+
+def main(argv=None) -> dict:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    kind = "destr"
+    if "--model" in argv:  # pre-parse: the model decides the flag set
+        i = argv.index("--model")
+        kind = argv[i + 1]
+        del argv[i : i + 2]
+    if kind != "destr":
+        raise NotImplementedError(f"--model {kind}: only DESTR evaluation is ported yet")
+    args = get_parser(kind).parse_args(argv)
+    config = config_from_args(args, kind)
+    result = evaluate_destr(config, args.resume_from, device=args.device)
+    print(json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in result.items()}), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

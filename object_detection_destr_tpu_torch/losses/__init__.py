@@ -1,4 +1,6 @@
 from .criterion import set_criterion
 from .matcher import hungarian_cost_matrix, hungarian_match
+from .metrics import CocoAveragePrecision, MeanAveragePrecision
 
-__all__ = ["hungarian_cost_matrix", "hungarian_match", "set_criterion"]
+__all__ = ["CocoAveragePrecision", "MeanAveragePrecision", "hungarian_cost_matrix", "hungarian_match",
+           "set_criterion"]

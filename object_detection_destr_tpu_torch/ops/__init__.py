@@ -1,5 +1,6 @@
 from .assignment import auction_assignment, batched_assignment, solve_auction
 from .attention import combine_heads, scaled_dot_product_attention, split_heads
+from .cuda.flash_attention import flash_attention, flash_attention_packed, flash_attention_trainable
 from .focal import focal_cost_terms, sigmoid_focal_loss
 from .topk import masked_topk_with_recycle
 
@@ -7,6 +8,9 @@ __all__ = [
     "auction_assignment",
     "batched_assignment",
     "combine_heads",
+    "flash_attention",
+    "flash_attention_packed",
+    "flash_attention_trainable",
     "focal_cost_terms",
     "masked_topk_with_recycle",
     "scaled_dot_product_attention",

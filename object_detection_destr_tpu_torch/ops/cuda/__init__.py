@@ -1,4 +1,7 @@
-"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+The head-major public ``flash_attention`` is exported by ``ops`` and not
+here: the name is this package's submodule ``flash_attention``."""
 
 from .auction import (
     auction_kernel,
@@ -18,6 +21,13 @@ from .flash_attention import (
     flash_attention_packed,
     flash_attention_packed_backward_reference,
     flash_attention_packed_reference,
+    flash_attention_reference,
+    flash_attention_trainable,
+    flash_attention_unpacked_dkv,
+    flash_attention_unpacked_dkv_reference,
+    flash_attention_unpacked_dq,
+    flash_attention_unpacked_dq_reference,
+    flash_attention_unpacked_fwd,
 )
 
 __all__ = [
@@ -32,6 +42,13 @@ __all__ = [
     "flash_attention_packed",
     "flash_attention_packed_backward_reference",
     "flash_attention_packed_reference",
+    "flash_attention_reference",
+    "flash_attention_trainable",
+    "flash_attention_unpacked_dkv",
+    "flash_attention_unpacked_dkv_reference",
+    "flash_attention_unpacked_dq",
+    "flash_attention_unpacked_dq_reference",
+    "flash_attention_unpacked_fwd",
     "fused_auction",
     "hungarian_match_fused",
     "hungarian_match_fused_reference",

@@ -1,15 +1,26 @@
-"""Head-packed flash attention with attention-probability dropout: the
-hand-written CUDA kernels ``csrc/flash_attention_fwd.cu`` (forward),
+"""Flash attention with attention-probability dropout: the hand-written
+CUDA kernels ``csrc/flash_attention_fwd.cu`` (forward),
 ``csrc/flash_attention_bwd.cu`` (fused backward) and
 ``csrc/flash_attention_bwd_two_pass.cu`` (two-pass backward: dQ, then dK /
 dV), their ctypes bindings, their plain PyTorch versions, and the
-``torch.autograd.Function`` that joins them.
+``torch.autograd.Function`` s that join them, for two layouts of the
+operands.
 
-Port of ``object_detection_destr_tpu/ops/pallas/flash_attention.py::
-flash_attention_packed`` (l.1174): the forward ``_fwd_kernel_packed`` (l.592),
-the fused backward ``_dkvq_kernel_packed`` (l.884) and the two-pass backward
-``_dq_kernel_packed`` (l.778) / ``_dkv_kernel_packed`` (l.826) behind its
-custom VJP.
+Port of ``object_detection_destr_tpu/ops/pallas/flash_attention.py``:
+
+* head-packed ``(B, S, h*d)``, ``flash_attention_packed`` (l.1174): the
+  forward ``_fwd_kernel_packed`` (l.592, kernel #1), the fused backward
+  ``_dkvq_kernel_packed`` (l.884, #2) and the two-pass backward
+  ``_dq_kernel_packed`` (l.778, #3) / ``_dkv_kernel_packed`` (l.826, #4)
+  behind its custom VJP;
+* head-major ``(B, h, S, d)``, ``flash_attention`` (l.307, forward only) and
+  ``flash_attention_trainable`` (l.531): the forward ``_fwd_kernel`` (l.151,
+  #5) and the two-pass backward ``_dq_kernel`` (l.344, #6) /
+  ``_dkv_kernel`` (l.385, #7). The CUDA kernels take each operand's (batch,
+  head, row) strides, so #5 is the forward kernel and #6 / #7 the two-pass
+  kernels launched with head-major strides, each through a wrapper of its
+  own with its own launch count. The head-major backward is always two-pass,
+  as ``_bwd_impl`` (l.438) is.
 
 Choice of backward (:func:`backward_plan`, the rule of ``_bwd_impl_packed``
 l.1037-1041 on this card's terms): the fused kernel keeps a 32-key tile's
@@ -29,7 +40,13 @@ kept probabilities are scaled by ``1 / (1 - rate)``. The logsumexp is that of
 the undropped probabilities. The TPU's own PRNG bits are not reproduced; the
 plain version draws the same Philox bits as the kernels, or takes an explicit
 ``(B, h, Sq, Sk)`` keep mask (the CPU tests feed it the JAX package's
-``dropout_keep_mask``).
+``dropout_keep_mask``). The counter holds ``b*h + head`` in both layouts, so
+one logical input draws one keep mask whichever layout carries it.
+
+A fully masked row (every key masked) averages over the Sk real keys in
+every kernel and plain version here, as ``ops/attention.py`` does. The
+Pallas kernels average over the keys padded up to their 128-key tile as well
+(ROADMAP.md, notes on the JAX package); no model input has such a row.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor runs the plain
 versions.
@@ -52,6 +69,7 @@ __all__ = [
     "FlashAttentionTwoPass",
     "backward_plan",
     "dropout_threshold",
+    "flash_attention",
     "flash_attention_bwd",
     "flash_attention_dkv",
     "flash_attention_dkv_reference",
@@ -61,6 +79,13 @@ __all__ = [
     "flash_attention_packed",
     "flash_attention_packed_backward_reference",
     "flash_attention_packed_reference",
+    "flash_attention_reference",
+    "flash_attention_trainable",
+    "flash_attention_unpacked_dkv",
+    "flash_attention_unpacked_dkv_reference",
+    "flash_attention_unpacked_dq",
+    "flash_attention_unpacked_dq_reference",
+    "flash_attention_unpacked_fwd",
     "fused_backward_smem_bytes",
     "philox_keep_bits",
 ]
@@ -79,8 +104,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 FWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_fwd", "flash_attention_fwd.cu",
     headers=("flash_common.cuh", "philox.cuh"),
-    functions={"odtt_flash_attention_fwd": (_I, [_P] * 6 + [_I] * 7 + [_F, _U, _U, _F, _P])},
-    abi=("odtt_flash_fwd_abi_version", 2),
+    functions={"odtt_flash_attention_fwd": (_I, [_P] * 7 + [_I] * 7 + [_F, _U, _U, _F, _P])},
+    abi=("odtt_flash_fwd_abi_version", 3),
 )
 BWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd", "flash_attention_bwd.cu",
@@ -180,6 +205,26 @@ def _dropout_keep(rate, seed, keep_mask, b, h, sq, sk, device) -> Optional[torch
     return _keep_mask(int(seed), rate, b, h, sq, sk, device)
 
 
+def _scale_of(scale: Optional[float], d: int) -> float:
+    return 1.0 / d**0.5 if scale is None else scale
+
+
+def _attention(q, k, v, key_valid_mask, scale, dropout_rate, dropout_seed, keep_mask):
+    """The forward on head-major float32 (B, h, S, d) operands: out (B, h, Sq,
+    dv) float32 and lse (B, h, Sq)."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale  # (B, h, Sq, Sk) f32
+    if key_valid_mask is not None:
+        logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1)
+    keep = _dropout_keep(dropout_rate, dropout_seed, keep_mask, b, h, sq, sk, q.device)
+    if keep is not None:
+        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
+    return torch.matmul(probs, v), lse
+
+
 def flash_attention_packed_reference(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -191,7 +236,7 @@ def flash_attention_packed_reference(
     dropout_seed: Optional[int] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel's function in plain PyTorch.
+    """The forward kernel's (#1) function in plain PyTorch.
 
     Args:
         query: (B, Sq, h*d); key: (B, Sk, h*d); value: (B, Sk, h*dv).
@@ -204,29 +249,39 @@ def flash_attention_packed_reference(
         undropped probabilities).
     """
     b, sq, hd = query.shape
-    sk, hdv = key.shape[1], value.shape[-1]
-    d = hd // num_heads
-    if scale is None:
-        scale = 1.0 / d**0.5
+    hdv = value.shape[-1]
+    scale = _scale_of(scale, hd // num_heads)
     with torch.autocast(query.device.type, enabled=False):
-        q, k, v = _heads(query, num_heads), _heads(key, num_heads), _heads(value, num_heads)
-        logits = torch.matmul(q, k.transpose(-1, -2)) * scale  # (B, h, Sq, Sk) f32
-        if key_valid_mask is not None:
-            logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
-        lse = torch.logsumexp(logits, dim=-1)
-        probs = torch.softmax(logits, dim=-1)
-        keep = _dropout_keep(dropout_rate, dropout_seed, keep_mask, b, num_heads, sq, sk, query.device)
-        if keep is not None:
-            probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
-        out = torch.matmul(probs, v)
+        out, lse = _attention(_heads(query, num_heads), _heads(key, num_heads), _heads(value, num_heads),
+                              key_valid_mask, scale, dropout_rate, dropout_seed, keep_mask)
     out = out.transpose(1, 2).reshape(b, sq, hdv).to(query.dtype)
     return out, lse
 
 
-def _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out, scale,
-                    dropout_rate, dropout_seed, keep_mask):
-    """What both backward passes recompute, per head in float32 (the
-    written-out gradient of the forward, not autograd):
+def flash_attention_reference(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    key_valid_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The head-major forward kernel's (#5) function in plain PyTorch: that
+    of :func:`flash_attention_packed_reference` on query (B, h, Sq, d), key
+    (B, h, Sk, d) and value (B, h, Sk, dv). Returns out (B, h, Sq, dv) in the
+    query dtype and lse (B, h, Sq) float32."""
+    scale = _scale_of(scale, query.shape[-1])
+    with torch.autocast(query.device.type, enabled=False):
+        out, lse = _attention(query.float(), key.float(), value.float(), key_valid_mask, scale,
+                              dropout_rate, dropout_seed, keep_mask)
+    return out.to(query.dtype), lse
+
+
+def _backward_terms(q, k, v, do, o, key_valid_mask, lse, scale, dropout_rate, dropout_seed, keep_mask):
+    """What both backward passes recompute, on head-major float32 operands
+    (the written-out gradient of the forward, not autograd):
 
         p = exp(s - lse), dp = keep/(1-rate) * dO v^T, delta = rowsum(dO * O)
         ds = p * (dp - delta)          (0 at masked keys: their logit is -1e9)
@@ -234,13 +289,8 @@ def _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_ou
         -1e9 + log(Sk))
 
     Returns (q, k, dO, keep/(1-rate) * p, ds, scale)."""
-    sk = key.shape[1]
-    b, sq, hd = query.shape
-    d = hd // num_heads
-    if scale is None:
-        scale = 1.0 / d**0.5
-    q, k, v = _heads(query, num_heads), _heads(key, num_heads), _heads(value, num_heads)
-    do, o = _heads(d_out, num_heads), _heads(out, num_heads)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if key_valid_mask is not None:
         logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
@@ -248,7 +298,7 @@ def _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_ou
     # its probabilities are the uniform 1/Sk its forward used
     p = torch.where(lse[..., None] < _FULLY_MASKED_LSE, 1.0 / sk, torch.exp(logits - lse[..., None]))
     dp = torch.matmul(do, v.transpose(-1, -2))
-    keep = _dropout_keep(dropout_rate, dropout_seed, keep_mask, b, num_heads, sq, sk, query.device)
+    keep = _dropout_keep(dropout_rate, dropout_seed, keep_mask, b, h, sq, sk, q.device)
     pd = p
     if keep is not None:
         inv = 1.0 / (1.0 - dropout_rate)
@@ -261,19 +311,33 @@ def _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_ou
     return q, k, do, pd, ds, scale
 
 
+def _packed_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out, scale,
+                  dropout_rate, dropout_seed, keep_mask):
+    h = num_heads
+    return _backward_terms(_heads(query, h), _heads(key, h), _heads(value, h), _heads(d_out, h),
+                           _heads(out, h), key_valid_mask, lse, _scale_of(scale, query.shape[-1] // h),
+                           dropout_rate, dropout_seed, keep_mask)
+
+
+def _unpacked_terms(query, key, value, key_valid_mask, out, lse, d_out, scale,
+                    dropout_rate, dropout_seed, keep_mask):
+    return _backward_terms(query.float(), key.float(), value.float(), d_out.float(), out.float(),
+                           key_valid_mask, lse, _scale_of(scale, query.shape[-1]),
+                           dropout_rate, dropout_seed, keep_mask)
+
+
 def _packed(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(like.shape).to(like.dtype)
 
 
-def _dq_of(terms, query):
+def _dq_heads(terms) -> torch.Tensor:
     q, k, do, pd, ds, scale = terms
-    return _packed(torch.matmul(ds, k) * scale, query)
+    return torch.matmul(ds, k) * scale
 
 
-def _dkv_of(terms, key, value):
+def _dkv_heads(terms) -> tuple[torch.Tensor, torch.Tensor]:
     q, k, do, pd, ds, scale = terms
-    return (_packed(torch.matmul(ds.transpose(-1, -2), q) * scale, key),
-            _packed(torch.matmul(pd.transpose(-1, -2), do), value))
+    return torch.matmul(ds.transpose(-1, -2), q) * scale, torch.matmul(pd.transpose(-1, -2), do)
 
 
 def flash_attention_dq_reference(
@@ -293,9 +357,9 @@ def flash_attention_dq_reference(
     """The dQ kernel's (#3) function in plain PyTorch: dQ = scale * ds K
     (:func:`_backward_terms`), in the query dtype."""
     with torch.autocast(query.device.type, enabled=False):
-        terms = _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
-                                scale, dropout_rate, dropout_seed, keep_mask)
-        return _dq_of(terms, query)
+        terms = _packed_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                              scale, dropout_rate, dropout_seed, keep_mask)
+        return _packed(_dq_heads(terms), query)
 
 
 def flash_attention_dkv_reference(
@@ -316,9 +380,10 @@ def flash_attention_dkv_reference(
     ds^T Q, dV = (keep/(1-rate) * p)^T dO (:func:`_backward_terms`), in the
     dtypes of key and value."""
     with torch.autocast(query.device.type, enabled=False):
-        terms = _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
-                                scale, dropout_rate, dropout_seed, keep_mask)
-        return _dkv_of(terms, key, value)
+        terms = _packed_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                              scale, dropout_rate, dropout_seed, keep_mask)
+        dk, dv = _dkv_heads(terms)
+        return _packed(dk, key), _packed(dv, value)
 
 
 def flash_attention_packed_backward_reference(
@@ -341,12 +406,60 @@ def flash_attention_packed_backward_reference(
     of their shared terms. Returns (dQ, dK, dV) in the dtypes of query, key
     and value."""
     with torch.autocast(query.device.type, enabled=False):
-        terms = _backward_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+        terms = _packed_terms(query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+                              scale, dropout_rate, dropout_seed, keep_mask)
+        dk, dv = _dkv_heads(terms)
+        return _packed(_dq_heads(terms), query), _packed(dk, key), _packed(dv, value)
+
+
+def flash_attention_unpacked_dq_reference(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    key_valid_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The head-major dQ kernel's (#6) function in plain PyTorch: that of
+    :func:`flash_attention_dq_reference` on (B, h, S, d) operands; dQ in the
+    query dtype."""
+    with torch.autocast(query.device.type, enabled=False):
+        terms = _unpacked_terms(query, key, value, key_valid_mask, out, lse, d_out,
                                 scale, dropout_rate, dropout_seed, keep_mask)
-        return (_dq_of(terms, query), *_dkv_of(terms, key, value))
+        return _dq_heads(terms).to(query.dtype)
 
 
-def _check(name, query, key, value, num_heads, key_valid_mask, extra=()) -> tuple[int, int, int]:
+def flash_attention_unpacked_dkv_reference(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    key_valid_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The head-major dK / dV kernel's (#7) function in plain PyTorch: that
+    of :func:`flash_attention_dkv_reference` on (B, h, S, d) operands; dK in
+    the key dtype, dV in the value dtype."""
+    with torch.autocast(query.device.type, enabled=False):
+        terms = _unpacked_terms(query, key, value, key_valid_mask, out, lse, d_out,
+                                scale, dropout_rate, dropout_seed, keep_mask)
+        dk, dv = _dkv_heads(terms)
+        return dk.to(key.dtype), dv.to(value.dtype)
+
+
+def _check_device_dtype(name, query, key, value, key_valid_mask, extra) -> list[torch.Tensor]:
+    """Every operand on one CUDA device, q / k / v float32 or bfloat16 alike;
+    returns the operands."""
     tensors = [query, key, value, *extra] + ([key_valid_mask] if key_valid_mask is not None else [])
     if not all(t.is_cuda and t.device == query.device for t in tensors):
         raise ValueError(f"{name}: every operand must be on one CUDA device")
@@ -355,6 +468,11 @@ def _check(name, query, key, value, num_heads, key_valid_mask, extra=()) -> tupl
             f"{name} takes float32 or bfloat16 q/k/v of one dtype, got "
             f"{query.dtype}/{key.dtype}/{value.dtype}"
         )
+    return tensors
+
+
+def _check(name, query, key, value, num_heads, key_valid_mask, extra=()) -> tuple[int, int, int]:
+    tensors = _check_device_dtype(name, query, key, value, key_valid_mask, extra)
     if query.dim() != 3 or key.dim() != 3 or value.dim() != 3:
         raise ValueError("q, k, v must be (B, S, h*d)")
     b, sq, hd = query.shape
@@ -388,38 +506,102 @@ def _dropout_args(rate: float, seed: Optional[int]) -> tuple[int, int, float]:
     return int(seed) & _MASK32, dropout_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def _check_unpacked(name, query, key, value, key_valid_mask, extra=()) -> tuple[int, ...]:
+    """The head-major kernels' operand checks; returns (b, h, sq, sk, d, dv).
+    q, k, v (and ``extra``) may be views with their own strides, as long as
+    the last dimension is contiguous and no two elements share an address."""
+    tensors = _check_device_dtype(name, query, key, value, key_valid_mask, extra)
+    if query.dim() != 4 or key.dim() != 4 or value.dim() != 4:
+        raise ValueError("q, k, v must be (B, h, S, d)")
+    b, h, sq, d = query.shape
+    sk, dv = key.shape[2], value.shape[3]
+    if tuple(key.shape) != (b, h, sk, d) or tuple(value.shape[:3]) != (b, h, sk):
+        raise ValueError(
+            f"shape mismatch: q {tuple(query.shape)}, k {tuple(key.shape)}, v {tuple(value.shape)}"
+        )
+    if max(d, dv) > _MAX_HEAD_DIM:
+        raise ValueError(f"head widths above {_MAX_HEAD_DIM} are not supported by the CUDA kernels")
+    if min(sq, sk) == 0:
+        raise ValueError("empty query or key sequence")
+    if key_valid_mask is not None and (
+        key_valid_mask.dtype != torch.bool or tuple(key_valid_mask.shape) != (b, sk)
+        or not key_valid_mask.is_contiguous()
+    ):
+        raise ValueError("key_valid_mask must be a contiguous (B, Sk) bool tensor")
+    for t in tensors[:3] + [t for t in extra if t.dim() == 4]:
+        if t.stride(-1) != 1 or any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)):
+            raise ValueError(f"{name} operands need a contiguous last dimension and no broadcast axis")
+    return b, h, sq, sk, d, dv
+
+
+def _packed_strides(x: torch.Tensor, width: int) -> tuple[int, int, int]:
+    """(batch, head, row) element strides of a contiguous (B, S, h*width)."""
+    return x.stride(0), width, x.stride(1)
+
+
+def _unpacked_strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, head, row) element strides of a (B, h, S, width) view."""
+    return x.stride(0), x.stride(1), x.stride(2)
+
+
+def _empty_as(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor with x's shape, dtype and strides (a kernel
+    writes a gradient with the strides of its operand)."""
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+
+
 class FlashAttentionForward:
     """The forward kernel's wrapper: checks the operands, allocates the
-    outputs and launches on the current stream. ``launches`` counts kernel
-    launches and nothing else."""
+    outputs and launches on the current stream. ``unpacked=False`` is kernel
+    #1 on head-packed (B, S, h*d) operands, ``unpacked=True`` kernel #5 on
+    head-major (B, h, S, d) operands (views with their own strides too).
+    ``launches`` counts kernel launches and nothing else."""
 
     library = FWD_LIBRARY
 
-    def __init__(self):
+    def __init__(self, unpacked: bool = False):
+        self.unpacked = unpacked
         self.launches = 0
 
-    def __call__(self, query, key, value, num_heads, key_valid_mask=None, scale=None,
-                 dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
-        """Returns out (B, Sq, h*dv) in the input dtype and lse (B, h, Sq) f32."""
-        b, sq, hd = _check("flash_attention_fwd", query, key, value, num_heads, key_valid_mask)
-        sk, hdv = key.shape[1], value.shape[-1]
-        d, dv = hd // num_heads, hdv // num_heads
-        if scale is None:
-            scale = 1.0 / d**0.5
+    def __call__(self, query, key, value, *args, **kwargs):
+        """Packed: (query, key, value, num_heads, key_valid_mask=None,
+        scale=None, dropout_rate=0.0, dropout_seed=None) -> out (B, Sq, h*dv),
+        lse (B, h, Sq). Unpacked: the same without ``num_heads`` -> out (B, h,
+        Sq, dv), lse (B, h, Sq). out is in the input dtype, lse float32."""
+        if self.unpacked:
+            return self._run(query, key, value, None, *args, **kwargs)
+        return self._run(query, key, value, *args, **kwargs)
+
+    def _run(self, query, key, value, num_heads, key_valid_mask=None, scale=None,
+             dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+        if num_heads is None:
+            name = "flash_attention_unpacked_fwd"
+            b, h, sq, sk, d, dv = _check_unpacked(name, query, key, value, key_valid_mask)
+            out = torch.empty((b, h, sq, dv), dtype=query.dtype, device=query.device)
+            strides = [*_unpacked_strides(query), *_unpacked_strides(key), *_unpacked_strides(value),
+                       *_unpacked_strides(out)]
+        else:
+            name, h = "flash_attention_fwd", num_heads
+            b, sq, hd = _check(name, query, key, value, h, key_valid_mask)
+            sk, hdv = key.shape[1], value.shape[-1]
+            d, dv = hd // h, hdv // h
+            out = torch.empty((b, sq, hdv), dtype=query.dtype, device=query.device)
+            strides = [*_packed_strides(query, d), *_packed_strides(key, d), *_packed_strides(value, dv),
+                       *_packed_strides(out, dv)]
         seed, threshold, inv_keep = _dropout_args(dropout_rate, dropout_seed)
-        out = torch.empty((b, sq, hdv), dtype=query.dtype, device=query.device)
-        lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=query.device)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=query.device)
         lib = self.library.library()
         with torch.cuda.device(query.device):
             stream = torch.cuda.current_stream(query.device).cuda_stream
             err = lib.odtt_flash_attention_fwd(
                 query.data_ptr(), key.data_ptr(), value.data_ptr(),
                 key_valid_mask.data_ptr() if key_valid_mask is not None else None,
-                out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[query.dtype],
-                b, sq, sk, num_heads, d, dv, float(scale), seed, threshold, inv_keep, stream,
+                out.data_ptr(), lse.data_ptr(), (ctypes.c_longlong * 12)(*strides),
+                _DTYPE_CODES[query.dtype], b, sq, sk, h, d, dv, float(_scale_of(scale, d)),
+                seed, threshold, inv_keep, stream,
             )
         if err != 0:
-            raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         self.launches += 1
         return out, lse
 
@@ -433,8 +615,6 @@ def _backward_operands(name, query, key, value, num_heads, key_valid_mask, out, 
     b, sq, hd = _check(name, query, key, value, num_heads, key_valid_mask, extra=(out, d_out, lse))
     sk, hdv = key.shape[1], value.shape[-1]
     d, dv = hd // num_heads, hdv // num_heads
-    if scale is None:
-        scale = 1.0 / d**0.5
     if out.shape != (b, sq, hdv) or d_out.shape != (b, sq, hdv) or out.dtype != query.dtype \
             or d_out.dtype != query.dtype:
         raise ValueError("out and d_out must be (B, Sq, h*dv) in the input dtype")
@@ -443,7 +623,23 @@ def _backward_operands(name, query, key, value, num_heads, key_valid_mask, out, 
     dropout = _dropout_args(dropout_rate, dropout_seed)
     delta = (d_out.float() * out.float()).view(b, sq, num_heads, dv).sum(-1)
     delta = delta.transpose(1, 2).contiguous()  # (B, h, Sq)
-    return b, sq, sk, d, dv, float(scale), dropout, delta
+    return b, sq, sk, d, dv, float(_scale_of(scale, d)), dropout, delta
+
+
+def _unpacked_backward_operands(name, query, key, value, key_valid_mask, out, lse, d_out,
+                                scale, dropout_rate, dropout_seed):
+    """:func:`_backward_operands` for head-major operands: returns (b, h, sq,
+    sk, d, dv, scale, (seed, threshold, inv_keep), delta)."""
+    b, h, sq, sk, d, dv = _check_unpacked(name, query, key, value, key_valid_mask,
+                                          extra=(out, d_out, lse))
+    if tuple(out.shape) != (b, h, sq, dv) or tuple(d_out.shape) != (b, h, sq, dv) \
+            or out.dtype != query.dtype or d_out.dtype != query.dtype:
+        raise ValueError("out and d_out must be (B, h, Sq, dv) in the input dtype")
+    if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous (B, h, Sq) float32 tensor")
+    dropout = _dropout_args(dropout_rate, dropout_seed)
+    delta = (d_out.float() * out.float()).sum(-1).contiguous()  # (B, h, Sq)
+    return b, h, sq, sk, d, dv, float(_scale_of(scale, d)), dropout, delta
 
 
 @functools.lru_cache(maxsize=None)
@@ -503,49 +699,65 @@ class FlashAttentionBackward:
         return dq.to(query.dtype), dk, dvv
 
 
-def _packed_strides(x: torch.Tensor, width: int) -> tuple[int, int, int]:
-    """(batch, head, row) element strides of a contiguous (B, S, h*width)."""
-    return x.stride(0), width, x.stride(1)
-
-
 class FlashAttentionTwoPass:
     """The wrapper of one pass of the two-pass backward: ``dq=True`` kernel
-    #3 (returns dQ), ``dq=False`` kernel #4 (returns dK, dV). Each computes
-    delta beside its kernel and writes its gradients once, in the input
-    dtype. The kernels take (batch, head, row) strides; this wrapper passes
-    those of the head-packed (B, S, h*d) layout. ``launches`` counts kernel
-    launches and nothing else."""
+    #3 (returns dQ), ``dq=False`` kernel #4 (returns dK, dV) on head-packed
+    (B, S, h*d) operands; with ``unpacked=True`` the same kernels as #6 and
+    #7 on head-major (B, h, S, d) operands (views with their own strides too;
+    each gradient has its operand's strides). Each computes delta beside its
+    kernel and writes its gradients once, in the input dtype. ``launches``
+    counts kernel launches and nothing else."""
 
     library = TWO_PASS_LIBRARY
 
-    def __init__(self, dq: bool):
+    def __init__(self, dq: bool, unpacked: bool = False):
         self.dq = dq
+        self.unpacked = unpacked
         self.launches = 0
 
-    def __call__(self, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
-                 scale=None, dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
-        name = "flash_attention_dq" if self.dq else "flash_attention_dkv"
-        b, sq, sk, d, dv, scale, (seed, threshold, inv_keep), delta = _backward_operands(
-            name, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
-            scale, dropout_rate, dropout_seed)
-        strides = (ctypes.c_longlong * 12)(
-            *_packed_strides(query, d), *_packed_strides(key, d), *_packed_strides(value, dv),
-            *_packed_strides(d_out, dv))
-        if self.dq:
-            dq, dk, dvv = torch.empty_like(query), None, None
+    @property
+    def name(self) -> str:
+        return "flash_attention_" + ("unpacked_" if self.unpacked else "") + ("dq" if self.dq else "dkv")
+
+    def __call__(self, query, key, value, *args, **kwargs):
+        """Packed: (query, key, value, num_heads, key_valid_mask, out, lse,
+        d_out, scale=None, dropout_rate=0.0, dropout_seed=None); unpacked: the
+        same without ``num_heads``."""
+        if self.unpacked:
+            return self._run(query, key, value, None, *args, **kwargs)
+        return self._run(query, key, value, *args, **kwargs)
+
+    def _run(self, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
+             scale=None, dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+        if num_heads is None:
+            b, h, sq, sk, d, dv, scale, dropout, delta = _unpacked_backward_operands(
+                self.name, query, key, value, key_valid_mask, out, lse, d_out,
+                scale, dropout_rate, dropout_seed)
+            strides = [*_unpacked_strides(query), *_unpacked_strides(key), *_unpacked_strides(value),
+                       *_unpacked_strides(d_out)]
         else:
-            dq, dk, dvv = None, torch.empty_like(key), torch.empty_like(value)
+            h = num_heads
+            b, sq, sk, d, dv, scale, dropout, delta = _backward_operands(
+                self.name, query, key, value, h, key_valid_mask, out, lse, d_out,
+                scale, dropout_rate, dropout_seed)
+            strides = [*_packed_strides(query, d), *_packed_strides(key, d), *_packed_strides(value, dv),
+                       *_packed_strides(d_out, dv)]
+        seed, threshold, inv_keep = dropout
+        if self.dq:
+            dq, dk, dvv = _empty_as(query), None, None
+        else:
+            dq, dk, dvv = None, _empty_as(key), _empty_as(value)
         lib = self.library.library()
         with torch.cuda.device(query.device):
             stream = torch.cuda.current_stream(query.device).cuda_stream
             err = lib.odtt_flash_attention_two_pass(
                 int(self.dq), *(None if t is None else t.data_ptr() for t in (
                     query, key, value, key_valid_mask, d_out, lse, delta, dq, dk, dvv)),
-                strides, _DTYPE_CODES[query.dtype],
-                b, sq, sk, num_heads, d, dv, scale, seed, threshold, inv_keep, stream,
+                (ctypes.c_longlong * 12)(*strides), _DTYPE_CODES[query.dtype],
+                b, sq, sk, h, d, dv, scale, seed, threshold, inv_keep, stream,
             )
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
         return dq if self.dq else (dk, dvv)
 
@@ -554,6 +766,9 @@ flash_attention_fwd = FlashAttentionForward()
 flash_attention_bwd = FlashAttentionBackward()
 flash_attention_dq = FlashAttentionTwoPass(dq=True)
 flash_attention_dkv = FlashAttentionTwoPass(dq=False)
+flash_attention_unpacked_fwd = FlashAttentionForward(unpacked=True)
+flash_attention_unpacked_dq = FlashAttentionTwoPass(dq=True, unpacked=True)
+flash_attention_unpacked_dkv = FlashAttentionTwoPass(dq=False, unpacked=True)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -627,3 +842,111 @@ def flash_attention_packed(
             None if key_valid_mask is None else key_valid_mask.contiguous(),
             scale, float(dropout_rate), dropout_seed, keep_mask, fused,
         )
+
+
+class _FlashAttentionUnpacked(torch.autograd.Function):
+    """Forward kernel #5 and the two-pass backward #6 / #7 as one
+    differentiable op (the custom VJP of flash_attention.py:530-565)."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, key_valid_mask, scale, rate, seed, keep_mask):
+        if query.is_cuda:
+            if keep_mask is not None:
+                raise ValueError("the CUDA kernels draw their own Philox keep mask")
+            out, lse = flash_attention_unpacked_fwd(query, key, value, key_valid_mask, scale, rate, seed)
+        else:
+            out, lse = flash_attention_reference(query, key, value, key_valid_mask, scale, rate, seed, keep_mask)
+        ctx.save_for_backward(query, key, value, key_valid_mask, out, lse, keep_mask)
+        ctx.params = (scale, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        query, key, value, key_valid_mask, out, lse, keep_mask = ctx.saved_tensors
+        scale, rate, seed = ctx.params
+        d_out = _last_dim_contiguous(d_out.to(query.dtype))
+        args = (query, key, value, key_valid_mask, out, lse, d_out, scale, rate, seed)
+        if query.is_cuda:
+            dq = flash_attention_unpacked_dq(*args)
+            dk, dv = flash_attention_unpacked_dkv(*args)
+        else:
+            dq = flash_attention_unpacked_dq_reference(*args, keep_mask)
+            dk, dv = flash_attention_unpacked_dkv_reference(*args, keep_mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """x itself where the head-major kernels take its strides, else a copy."""
+    if x.stride(-1) == 1 and not any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        return x
+    return x.contiguous()
+
+
+def _unpacked_operands(query, key, value, key_valid_mask, dropout_rate, dropout_seed, keep_mask):
+    if dropout_rate > 0.0 and dropout_seed is None and keep_mask is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_seed")
+    if dropout_rate <= 0.0:
+        dropout_seed, keep_mask = None, None
+    mask = None if key_valid_mask is None else key_valid_mask.contiguous()
+    seed = None if dropout_seed is None else int(dropout_seed)
+    return (*map(_last_dim_contiguous, (query, key, value)), mask, seed, keep_mask)
+
+
+def flash_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    key_valid_mask: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[int] = None,
+    dropout_rate: float = 0.0,
+    *,
+    scale: Optional[float] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused masked attention, forward only (flash_attention.py:307).
+
+    Args:
+        query: (B, h, Sq, d); key: (B, h, Sk, d); value: (B, h, Sk, dv). A
+            view whose last dimension is contiguous, such as a (B, S, h, d)
+            tensor transposed to (B, h, S, d), is read in place on CUDA.
+        key_valid_mask: (B, Sk) bool, True = attendable.
+        dropout_seed: int; required when dropout_rate > 0 (or ``keep_mask``,
+            an explicit (B, h, Sq, Sk) keep mask, CPU only).
+        scale: defaults to 1/sqrt(d).
+
+    Returns:
+        (B, h, Sq, dv) in the query dtype, without a graph: kernel #5 for
+        CUDA operands, its plain version for CPU ones.
+    """
+    q, k, v, mask, seed, keep_mask = _unpacked_operands(query, key, value, key_valid_mask, dropout_rate,
+                                                        dropout_seed, keep_mask)
+    with torch.no_grad(), torch.autocast(query.device.type, enabled=False):
+        if q.is_cuda:
+            if keep_mask is not None:
+                raise ValueError("the CUDA kernels draw their own Philox keep mask")
+            out, _ = flash_attention_unpacked_fwd(q, k, v, mask, scale, float(dropout_rate), seed)
+        else:
+            out, _ = flash_attention_reference(q, k, v, mask, scale, float(dropout_rate), seed, keep_mask)
+    return out
+
+
+def flash_attention_trainable(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    key_valid_mask: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[int] = None,
+    dropout_rate: float = 0.0,
+    *,
+    scale: Optional[float] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention` with a backward (flash_attention.py:531):
+    gradients flow to query, key and value (the two-pass kernels #6 and #7 on
+    CUDA, their plain versions on the CPU), the same keep mask regenerated
+    from the seed; the mask and the seed are constants. dQ is in the query
+    dtype, dK in the key dtype, dV in the value dtype."""
+    q, k, v, mask, seed, keep_mask = _unpacked_operands(query, key, value, key_valid_mask, dropout_rate,
+                                                        dropout_seed, keep_mask)
+    with torch.autocast(query.device.type, enabled=False):
+        return _FlashAttentionUnpacked.apply(q, k, v, mask, scale, float(dropout_rate), seed, keep_mask)

@@ -1,23 +1,38 @@
-"""The DESTR training loop (port of the training half of
-``object_detection_destr_tpu/train/driver.py::train_destr``, l.219-371).
+"""The DESTR training loop with validation, checkpoints and resume (port of
+``object_detection_destr_tpu/train/driver.py``: ``_halt_diverged``,
+``_try_save``, ``_make_ema``, ``_make_loaders`` l.84-197 and ``train_destr``
+l.219-461).
 
-Per epoch: batches from the loader, the train transform on the model's
-device (its draws from a generator seeded ``seed + 7``), one train step each,
-the running mean of the step metrics printed every ``log_interval`` steps as
-``[train step N] loss=...`` (and appended to ``log_dir/metrics.jsonl``), then
-``Perf/images_per_sec`` over the epoch. The loop halts as the JAX driver
-does when the parameters stop being finite.
+Per epoch: batches from the train loader, the train transform on the model's
+device (its draws from a generator seeded from ``(seed + 7, step)`` each
+step, as the JAX driver folds the step into its key, so a resumed run draws
+what the uninterrupted one did), one train step each and, with
+``ema_decay``, one update of the parameter EMA; the running mean of the step
+metrics every ``log_interval`` steps (``[train step N] loss=...``, and
+``log_dir/metrics.jsonl``), then ``Perf/images_per_sec``. Every
+``val_interval`` epochs and at the last one, a validation sweep (the eval
+transform, the eval step, the reference mAP and, with ``coco_eval``, COCO
+AP; tags ``Loss/valid/*``, ``Metric/mAP``, ``Metric/coco_mAP``) and with the
+EMA a second one on the EMA parameters with the live BatchNorm statistics
+(``Loss/valid_ema/*``, ``Metric/ema_mAP``, ``Metric/ema_coco_mAP``). The
+run halts before any save when the parameters stop being finite. Checkpoints
+(``train/checkpoint.py``): ``save_as`` on the lowest ``loss_model``,
+``save_as_ema`` on the lowest EMA ``loss_model``, ``save_as_last`` after
+every validated epoch and every ``save_interval`` epochs, and
+``save_as_interrupt`` on ``KeyboardInterrupt``. ``resume`` restores
+``resume_from`` and runs ``epochs`` more epochs.
 
-The validation sweep with its mAP, checkpoints and resume, parameter EMA,
-the device-resident dataset, scanned epochs, COCO evaluation, gradient
-accumulation, profiling, letterbox training, other optimizer layouts and
-multi-device training come with later slices: their flags raise
-``NotImplementedError`` here when set away from their defaults.
+The device-resident dataset, scanned epochs, gradient accumulation,
+profiling, letterbox training, other optimizer layouts and multi-device
+training come with later slices: their flags raise ``NotImplementedError``
+here when set away from their defaults.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import time
 from typing import Optional
@@ -27,21 +42,20 @@ import torch
 
 from ..config import Config, DataConfig, TrainConfig, resolve_device
 from ..data import DetectionLoader, build_dataset
-from ..data.transforms import destr_train_transform
+from ..data.transforms import destr_eval_transform, destr_train_transform
+from ..losses.metrics import CocoAveragePrecision, MeanAveragePrecision
 from ..models.destr.model import build_destr
+from .checkpoint import restore_checkpoint, save_checkpoint
 from .state import create_destr_state
-from .steps import make_destr_train_step
+from .steps import make_destr_eval_step, make_destr_train_step
 
 __all__ = ["train_destr", "MetricLogger", "StepTimer"]
 
 # (section, field) of each feature of a later slice, checked against the default
 _LATER_SLICES = [
-    ("train", "ema_decay"), ("train", "epoch_scan"), ("train", "coco_eval"),
-    ("train", "grad_accum_steps"), ("train", "profile_dir"), ("train", "letterbox"),
-    ("train", "resume"), ("train", "resume_from"), ("train", "save_as"),
-    ("train", "checkpoint_dir"), ("train", "val_interval"), ("train", "save_interval"),
-    ("train", "moment_dtype"), ("train", "rng_impl"), ("train", "num_data_shards"),
-    ("train", "letterbox_eval"), ("data", "device_cache"), ("data", "num_valid_samples"),
+    ("train", "epoch_scan"), ("train", "grad_accum_steps"), ("train", "profile_dir"),
+    ("train", "letterbox"), ("train", "moment_dtype"), ("train", "rng_impl"),
+    ("train", "num_data_shards"), ("data", "device_cache"),
 ]
 _DEFAULTS = {"train": TrainConfig(), "data": DataConfig()}
 
@@ -52,7 +66,7 @@ def _refuse_later_slices(config: Config) -> None:
         if value != getattr(_DEFAULTS[section], field):
             raise NotImplementedError(
                 f"{section}.{field}={value!r}: this feature is not ported yet "
-                "(the port trains; validation, checkpoints, EMA and the rest come later)"
+                "(the port trains, validates and checkpoints; the rest comes later)"
             )
     if config.train.opt_layout not in ("auto", "per-leaf"):
         raise NotImplementedError(f"opt_layout={config.train.opt_layout!r}: only per-leaf is ported")
@@ -141,56 +155,197 @@ class StepTimer:
         return {"seconds": dt, "steps_per_sec": steps / dt, "images_per_sec": steps * self.batch_size / dt}
 
 
-def _device_batch(raw: dict, device: torch.device, generator: torch.Generator, out_size: int) -> dict:
+def _to_device(raw: dict, device: torch.device) -> dict:
+    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in raw.items()}
+
+
+def _train_batch(raw: dict, device: torch.device, generator: torch.Generator, out_size: int) -> dict:
     """Copy the host batch to the device and run the train transform there."""
-    to = lambda a: torch.from_numpy(a).to(device, non_blocking=True)
-    return destr_train_transform(
-        to(raw["images"]), to(raw["boxes"]), to(raw["labels"]), to(raw["valid"]),
-        generator, out_size=out_size,
-    )
+    b = _to_device(raw, device)
+    return destr_train_transform(b["images"], b["boxes"], b["labels"], b["valid"], generator,
+                                 out_size=out_size)
+
+
+def _eval_batch(raw: dict, device: torch.device, resize_to: int, out_size: int) -> dict:
+    """Copy the host batch to the device and run the eval transform there
+    (over the letterboxed content where the loader gives its extents)."""
+    b = _to_device(raw, device)
+    return destr_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], b.get("content_hw"),
+                                resize_to=resize_to, out_size=out_size)
+
+
+def _aug_seed(seed: int, step: int) -> int:
+    """The train transform's seed at a step: a pure function of (seed + 7,
+    step), as ``fold_in(key(seed + 7), step)`` is in the JAX driver."""
+    return (seed + 7) * 1_000_003 + step
 
 
 def _params_finite(model) -> bool:
     return bool(torch.stack([torch.isfinite(p).all() for p in model.parameters()]).all())
 
 
-def train_destr(config: Config, device: str | torch.device | None = None) -> dict:
-    """Train DESTR on ``device`` (the GPU unless "cpu" is asked for).
+def _halt_diverged(save_as: str, epoch: int) -> None:
+    print(
+        f"FATAL: non-finite parameters after epoch {epoch} — training has diverged past the "
+        "--skip_nonfinite window (the update is applied after that many rejections in a row). "
+        f"Halting without overwriting checkpoints; resume from '{save_as}' (best) or "
+        f"'{save_as}_last' with a lower lr.",
+        flush=True,
+    )
 
-    Returns {"state", "metrics" (the last flushed means), "images_per_sec"
-    (of the last epoch), "step_ms" (per step, CUDA events; empty on the CPU)}.
+
+def _try_save(*args) -> None:
+    """Per-epoch checkpoint write that cannot kill the run: a failure costs
+    one checkpoint, the next epoch writes again. The interrupt handler saves
+    unguarded."""
+    try:
+        save_checkpoint(*args)
+    except Exception as e:  # noqa: BLE001 — deliberate catch-all at the epoch boundary
+        print(f"WARNING: checkpoint save failed ({type(e).__name__}: {e}); "
+              "continuing — next epoch will retry", flush=True)
+
+
+def _make_ema(decay: float):
+    """(init, update) for a per-step EMA of the parameters (driver.py:110-127):
+    ``init(model)`` copies them, ``update(ema, model)`` sets
+    ``ema = decay * ema + (1 - decay) * params`` in place. Parameters only:
+    BatchNorm statistics are buffers and stay live."""
+
+    def init(model) -> list[torch.Tensor]:
+        return [p.detach().clone() for p in model.parameters()]
+
+    @torch.no_grad()
+    def update(ema: list[torch.Tensor], model) -> list[torch.Tensor]:
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, [p.detach() for p in model.parameters()], alpha=1.0 - decay)
+        return ema
+
+    return init, update
+
+
+@contextlib.contextmanager
+def _parameters_swapped(model, values: list[torch.Tensor]):
+    """Run the body with ``values`` in the model's parameters (the EMA
+    sweep's ``state.replace(params=ema_params)``), the live ones back after."""
+    params = list(model.parameters())
+    live = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p, v in zip(params, values):
+            p.copy_(v)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, live):
+                p.copy_(v)
+
+
+def _make_loaders(config: Config, canvas: int, for_train_model: str = "destr"):
+    """The train and valid loaders of the JAX driver (driver.py:130-197):
+    under letterbox training or letterbox eval the synthetic set emits the
+    aspect ratios (1.0, 0.7, 1.4); the valid split's dataset seed is
+    ``seed + 10_000`` (``build_dataset``); the valid loader augments once,
+    shuffles with ``seed + 1`` and letterboxes at eval."""
+    data = config.data
+    if for_train_model != "destr":
+        raise NotImplementedError(f"the {for_train_model!r} loaders are not ported yet")
+    num_classes = 1
+    train_letterbox = config.train.letterbox
+    eval_letterbox = config.train.letterbox or config.train.letterbox_eval
+    aspects = (1.0, 0.7, 1.4) if (train_letterbox or eval_letterbox) and data.dataset == "synthetic" else (1.0,)
+    valid_split = {"widerface": "val", "coco": "val2017"}.get(data.dataset, "valid")
+    datasets = [
+        build_dataset(data.dataset, data.root, split, image_size=data.image_size, num_samples=n,
+                      num_classes=num_classes, max_items_per_img=data.max_targets, seed=config.train.seed,
+                      aspect_ratios=aspects)
+        for split, n in (("train", data.num_train_samples), (valid_split, data.num_valid_samples))
+    ]
+    common = dict(batch_size=config.train.batch_size, canvas_size=canvas, max_targets=data.max_targets)
+    train_loader = DetectionLoader(datasets[0], augment_factor=data.augment_factor, shuffle=True,
+                                   seed=config.train.seed, letterbox=train_letterbox, **common)
+    # the reference shuffles the val loader too (train.py:284-290)
+    valid_loader = DetectionLoader(datasets[1], augment_factor=1, shuffle=True, seed=config.train.seed + 1,
+                                   letterbox=eval_letterbox, **common)
+    return train_loader, valid_loader
+
+
+def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
+               coco_metric: Optional[CocoAveragePrecision], device: torch.device, resize_to: int,
+               out_size: int) -> tuple[dict, float, Optional[float], float]:
+    """One validation pass over ``loader``'s raw batches (driver.py:298-323):
+    (the means of the eval step's metrics, mAP, COCO AP or None, host
+    seconds; the last batch's metric update waits for the device)."""
+    t0 = time.perf_counter()
+    metric_state = metric.init_state()
+    if coco_metric is not None:
+        coco_metric.reset()
+    val_metrics: list = []
+    for raw in loader:
+        batch = _eval_batch(raw, device, resize_to, out_size)
+        outputs, m = eval_step(state, batch)
+        targets = {"boxes": batch["boxes"], "labels": batch["labels"], "valid": batch["valid"]}
+        metric_state = metric.update(metric_state, outputs, targets)
+        if coco_metric is not None:
+            coco_metric.update(outputs, targets)
+        val_metrics.append(m)
+    val_means = {k: float(torch.stack([m[k] for m in val_metrics]).float().mean())
+                 for k in val_metrics[0]} if val_metrics else {}
+    coco_val = coco_metric.compute() if coco_metric is not None else None
+    return val_means, metric.compute(metric_state), coco_val, time.perf_counter() - t0
+
+
+def train_destr(config: Config, device: str | torch.device | None = None) -> dict:
+    """Train and validate DESTR on ``device`` (the GPU unless "cpu" is asked
+    for).
+
+    Returns {"state", "best_val", "map" (of the last sweep), "metrics" (the
+    last flushed train means), "images_per_sec" (of the last epoch),
+    "step_ms" (per step, CUDA events; empty on the CPU), "history" (per
+    validated epoch: its scalars and the host seconds of each sweep)}.
     """
     _refuse_later_slices(config)
     device = resolve_device(device)
     cfg_t = config.train
-    data = config.data
     canvas = int(cfg_t.image_size * 672 / 640)  # reference eval geometry
-    train_ds = build_dataset(
-        data.dataset, data.root, "train", image_size=data.image_size,
-        num_samples=data.num_train_samples, num_classes=1,
-        max_items_per_img=data.max_targets, seed=cfg_t.seed,
-    )
-    loader = DetectionLoader(
-        train_ds, batch_size=cfg_t.batch_size, canvas_size=canvas,
-        max_targets=data.max_targets, augment_factor=data.augment_factor,
-        shuffle=True, seed=cfg_t.seed,
-    )
+    train_loader, valid_loader = _make_loaders(config, canvas, "destr")
     torch.manual_seed(cfg_t.seed)  # the model's initial weights
     model = build_destr(config.destr, device)
-    state = create_destr_state(model, cfg_t, steps_per_epoch=len(loader))
+    state = create_destr_state(model, cfg_t, steps_per_epoch=len(train_loader))
     train_step = make_destr_train_step(cfg_t)
-    aug_gen = torch.Generator(device=device).manual_seed(cfg_t.seed + 7)
+    eval_step = make_destr_eval_step(cfg_t)
+    metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
+    coco_metric = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1)) if cfg_t.coco_eval else None
 
     logger = MetricLogger(cfg_t.log_dir)
+    best_val = math.inf
+    if cfg_t.resume:
+        restored = restore_checkpoint(cfg_t.checkpoint_dir, cfg_t.resume_from, state)
+        train_loader.load_state_dict(restored["loader"])
+        best_val = restored["best_val"]
+    aug_gen = torch.Generator(device=device)
+    out_size = cfg_t.image_size
+
+    ema_params = None
+    if cfg_t.ema_decay:
+        ema_init, ema_update = _make_ema(cfg_t.ema_decay)
+        ema_params = ema_init(model)  # a resume seeds the EMA from the restored parameters
+        best_ema_val = math.inf
+
+    sweep = (state, valid_loader, eval_step, metric, coco_metric, device, canvas, out_size)
     timer = StepTimer(cfg_t.batch_size, device)
-    metrics, rate, means = None, {}, {}
+    metrics, rate, means, last_map, history = None, {}, {}, 0.0, []
     try:
         for epoch in range(cfg_t.epochs):
             t0 = time.time()
+            # ---- train ----
+            metrics = None
             timer.start()
-            for step_in_epoch, raw in enumerate(loader):
-                batch = _device_batch(raw, device, aug_gen, cfg_t.image_size)
+            for step_in_epoch, raw in enumerate(train_loader):
+                aug_gen.manual_seed(_aug_seed(cfg_t.seed, state.step))
+                batch = _train_batch(raw, device, aug_gen, out_size)
                 metrics = train_step(state, batch)
+                if ema_params is not None:
+                    ema_update(ema_params, model)
                 timer.step()
                 logger.accumulate(state.step, metrics)
                 if (step_in_epoch + 1) % cfg_t.log_interval == 0:
@@ -199,12 +354,60 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
             if metrics is not None:
                 rate = timer.stop()
                 logger.scalar("Perf/images_per_sec", rate["images_per_sec"], state.step)
+
+            # ---- validate ----
+            do_val = (epoch + 1) % max(cfg_t.val_interval, 1) == 0 or epoch == cfg_t.epochs - 1
+            val_model = ema_val_model = None
+            if do_val:
+                val_means, last_map, coco_val, seconds = _val_sweep(*sweep)
+                record = {"epoch": epoch, "step": state.step, "valid": val_means, "mAP": last_map,
+                          "coco_mAP": coco_val, "seconds": [seconds]}
+                for k, v in val_means.items():
+                    logger.scalar(f"Loss/valid/{k}", v, state.step)
+                logger.scalar("Metric/mAP", last_map, state.step)
+                if coco_val is not None:
+                    logger.scalar("Metric/coco_mAP", coco_val, state.step)
+                if ema_params is not None:
+                    with _parameters_swapped(model, ema_params):
+                        ema_means, ema_map, ema_coco, seconds = _val_sweep(*sweep)
+                    record.update(valid_ema=ema_means, ema_mAP=ema_map, ema_coco_mAP=ema_coco)
+                    record["seconds"].append(seconds)
+                    for k, v in ema_means.items():
+                        logger.scalar(f"Loss/valid_ema/{k}", v, state.step)
+                    logger.scalar("Metric/ema_mAP", ema_map, state.step)
+                    if ema_coco is not None:
+                        logger.scalar("Metric/ema_coco_mAP", ema_coco, state.step)
+                    ema_val_model = ema_means.get("loss_model", math.inf)
+                val_model = val_means.get("loss_model", math.inf)
+                history.append(record)
+
+            # ---- divergence halt: never checkpoint non-finite parameters
             if not _params_finite(model):
-                print(f"FATAL: non-finite parameters after epoch {epoch} — training has diverged "
-                      "past the --skip_nonfinite window. Halting.", flush=True)
+                _halt_diverged(cfg_t.save_as, epoch)
                 break
-            print(f"epoch {epoch}: {time.time() - t0:.1f}s", flush=True)
+
+            # ---- best checkpoint on the lowest model val loss (train.py:123-128)
+            if val_model is not None and val_model < best_val:
+                best_val = val_model
+                _try_save(cfg_t.checkpoint_dir, cfg_t.save_as, state, train_loader.state_dict(), best_val)
+            if ema_val_model is not None and ema_val_model < best_ema_val:
+                best_ema_val = ema_val_model
+                with _parameters_swapped(model, ema_params):
+                    _try_save(cfg_t.checkpoint_dir, cfg_t.save_as + "_ema", state, train_loader.state_dict(),
+                              best_ema_val)
+            if do_val or (epoch + 1) % max(cfg_t.save_interval, 1) == 0 or epoch == cfg_t.epochs - 1:
+                _try_save(cfg_t.checkpoint_dir, cfg_t.save_as + "_last", state, train_loader.state_dict(),
+                          best_val)
+            ema_note = f" ema_val={ema_val_model:.4f} ema_mAP={ema_map:.4f}" if ema_val_model is not None else ""
+            val_note = f" val_model={val_model:.4f} mAP={last_map:.4f}" if do_val else ""
+            print(f"epoch {epoch}: {time.time() - t0:.1f}s{val_note}{ema_note}", flush=True)
+    except KeyboardInterrupt:
+        # crash / preemption recovery: a resumable checkpoint before exiting
+        save_checkpoint(cfg_t.checkpoint_dir, cfg_t.save_as + "_interrupt", state,
+                        train_loader.state_dict(), best_val)
+        print(f"interrupted: checkpoint saved as {cfg_t.save_as}_interrupt", flush=True)
+        raise
     finally:
         logger.close()
-    return {"state": state, "metrics": means, "images_per_sec": rate.get("images_per_sec"),
-            "step_ms": timer.step_ms}
+    return {"state": state, "best_val": best_val, "map": last_map, "metrics": means,
+            "images_per_sec": rate.get("images_per_sec"), "step_ms": timer.step_ms, "history": history}

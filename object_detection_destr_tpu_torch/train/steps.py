@@ -1,6 +1,7 @@
-"""The DESTR train step (port of ``object_detection_destr_tpu/train/steps.py``:
-``_match_pair`` l.86-152, ``make_destr_train_step`` l.155-209,
-``_guard_stats`` l.212-223).
+"""The DESTR train and eval steps (port of
+``object_detection_destr_tpu/train/steps.py``: ``_match_pair`` l.86-152,
+``make_destr_train_step`` l.155-209, ``_guard_stats`` l.212-223,
+``make_destr_eval_step`` l.226-252).
 
 One step: forward in train mode (batch-statistics BatchNorm, dropout from
 the state's stream), one matcher launch for both criteria, the two set
@@ -23,7 +24,7 @@ from ..losses.criterion import set_criterion
 from ..ops.cuda.auction import hungarian_match_fused
 from .state import TrainState
 
-__all__ = ["make_destr_train_step"]
+__all__ = ["make_destr_eval_step", "make_destr_train_step"]
 
 
 def _weighted(losses: dict, cfg: TrainConfig) -> torch.Tensor:
@@ -120,3 +121,38 @@ def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict
         }
 
     return train_step
+
+
+def make_destr_eval_step(cfg: TrainConfig) -> Callable[[TrainState, dict], tuple[dict, dict]]:
+    """``eval_step(state, batch) -> (model_out, metrics)``.
+
+    The model runs in eval mode (BatchNorm running statistics, no dropout)
+    at its ``compute_dtype`` (bfloat16 by autocast, as in training), without
+    gradients; one matcher launch for both criteria, then the two set
+    criteria. Metrics: "loss_model", "loss_det" (weighted), "loss_class",
+    "loss_ciou" (of the model output), detached device scalars. The model
+    goes back to the mode it was in.
+    """
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict) -> tuple[dict, dict]:
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            model_out, det_out = model(batch["images"], batch.get("pixel_valid"), train=False)
+        finally:
+            model.train(was_training)
+        targets = _destr_targets(batch)
+        rows_model, rows_det = _match_pair(model_out, det_out, targets)
+        l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm)
+        l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm)
+        metrics = {
+            "loss_model": _weighted(l_model, cfg),
+            "loss_det": _weighted(l_det, cfg),
+            "loss_class": l_model["class"],
+            "loss_ciou": l_model["ciou"],
+        }
+        return model_out, metrics
+
+    return eval_step

@@ -37,5 +37,6 @@ def test_port_imports_no_jax():
     for name in ("config", "ops.cuda.flash_attention", "ops.cuda.auction", "ops.assignment",
                  "models.destr.model", "models.convert", "infer.server", "data.transforms",
                  "data.datasets", "data.loader", "losses.matcher", "losses.criterion",
-                 "train.optim", "train.state", "train.steps", "train.driver", "train.train"):
+                 "train.optim", "train.state", "train.steps", "train.driver", "train.train",
+                 "train.checkpoint", "losses.metrics", "infer.evaluate"):
         assert f"object_detection_destr_tpu_torch.{name}" in result["modules"], name
