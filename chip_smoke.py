@@ -9,10 +9,10 @@ PyTorch version.
 Phases (any failure exits non-zero and prints no result):
   1. device: require CUDA, print the card's name and power limit, turn TF32
      off for matmuls and convolutions;
-  2. build: compile the four csrc/*.cu files with nvcc at once (timed); the
-     fused backward's shared-memory size as the library counts it equal to
-     its Python mirror (which plans the backward), and the plan of each call
-     site printed;
+  2. build: compile the four csrc/*.cu files (and the measurement copy of
+     #2) with nvcc at once (timed); the fused backward's shared-memory size
+     as the library counts it equal to its Python mirror (which plans the
+     backward), and the plan of each call site printed;
   3. flash attention, kernels #1-#4 against their plain versions: the
      training step's three call-site shapes at hidden 256 and at hidden 512
      (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the path;
@@ -26,7 +26,14 @@ Phases (any failure exits non-zero and prints no result):
      cells plus the wide cross-attention's (device times from CUDA-graph
      replay); times of the kernels, their plain versions and
      F.scaled_dot_product_attention (a yardstick, never on the path), and
-     the bound from bytes and operations;
+     the bound from bytes and operations. bfloat16 runs #1 and #2 on the
+     tensor cores, float32 on the CUDA cores: for the bfloat16 step cells of
+     both widths, #1's and #2's device times (CUDA-graph replay) at dropout
+     0 and 0.3 side by side, beside their eager times, SDPA's and the
+     replaced CUDA-core kernels' recorded times (PERF.md; not measured
+     here); and #2's gradient errors with its hi / lo bf16 pairs and with
+     one bf16 for dS and P keep (a copy of #2 built for that measurement
+     only, with -DODTT_FLASH_BWD_ONE_BF16);
   3a. the head-major (B, h, S, d) kernels #5 (forward), #6 (dQ) and #7
      (dK / dV) against their plain versions at the call-site shapes of both
      widths (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the
@@ -78,7 +85,8 @@ Phases (any failure exits non-zero and prints no result):
   9. whole model forward, kernel against plain, discrete choices
      (top-k, pairs) recorded and replayed as in phase 7.
 
-The line before the last lists the kernels as JSON; the last line is
+The line before the last lists the kernels as JSON (#1 and #2 also with
+their device times at dropout 0 and 0.3 and #2's split errors); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -143,6 +151,17 @@ TRAIN_ARGS = [
     "--skip_nonfinite", "100", "--log_interval", "1",
 ]
 WIDE_ARGS = ["--hidden_dim", "512"]
+# eager ms a launch of the CUDA-core kernels #1 and #2 that the bfloat16
+# tensor-core kernels replaced (B=16, bfloat16, dropout 0.3), as PERF.md's
+# kernel table records them (this script on an NVIDIA H100 80GB HBM3,
+# 700.00 W): printed beside this run's times, never measured by this run and
+# never in its kernels line
+CUDA_CORE_RECORDED_MS = {
+    "fwd": {"encoder_self": 0.7182, "decoder_self": 0.5253, "cross_cls_reg": 1.3398,
+            "encoder_self_wide": 0.9167, "decoder_self_wide": 0.8280, "cross_cls_reg_wide": 6.1622},
+    "bwd": {"encoder_self": 1.3830, "decoder_self": 3.4025, "cross_cls_reg": 3.5030,
+            "encoder_self_wide": 5.6720, "decoder_self_wide": 6.8773},
+}
 
 
 def log(msg: str) -> None:
@@ -464,6 +483,102 @@ def phase_flash(torch, seed):
     failed = [r for r in rows if not r["ok"]]
     if failed:
         raise AssertionError(f"{len(failed)} flash-attention cells out of tolerance: {failed[:2]}")
+    return rows
+
+
+def phase_dropout_share(torch, seed, flash_rows):
+    """The bfloat16 step cells of the path sites at both widths (B=16,
+    masked as on the path): the tensor-core #1, and #2 where the plan runs
+    it, on the device alone (CUDA-graph replay of the wrappers' calls; #2's
+    with its delta, dQ zeroing and cast) at dropout 0 and 0.3 side by side,
+    so the Philox draws' share shows. Printed beside each kernel's eager time
+    and SDPA's from phase 3, and the CUDA-core kernels' recorded eager times.
+    Ms a launch by site."""
+    from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    rows = []
+    for name, sq, sk, h, d, dv, masked in PATH_SITES + WIDE_SITES:
+        q, k, v, dout = (torch.randn(TRAIN_B, s, h * w, generator=gen, device="cuda").to(torch.bfloat16)
+                         for s, w in ((sq, d), (sk, d), (sk, dv), (sq, dv)))
+        mask = None
+        if masked:
+            lengths = torch.randint(sk * 3 // 4, sk + 1, (TRAIN_B,), generator=gen, device="cuda")
+            mask = torch.arange(sk, device="cuda")[None, :] < lengths[:, None]
+        row = {"site": name, "fused": fa.backward_plan(d, dv, torch.bfloat16, optin) == "fused"}
+        for rate in (0.0, RATE):
+            seed_or_none = 1234 if rate else None
+            out, lse = fa.flash_attention_fwd(q, k, v, h, mask, None, rate, seed_or_none)
+            row[f"fwd_ms_{rate}"] = device_ms(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, h, mask, None, rate, seed_or_none))
+            if row["fused"]:
+                args = (q, k, v, h, mask, out, lse, dout, None, rate, seed_or_none)
+                fa.flash_attention_bwd(*args)
+                row[f"bwd_ms_{rate}"] = device_ms(torch, lambda: fa.flash_attention_bwd(*args))
+        eager = next(r for r in flash_rows if r["site"] == name and r["b"] == TRAIN_B and r["dtype"] == "bfloat16"
+                     and r["rate"] == RATE and r.get("bwd_plan") in ("fused", "two_pass"))
+        msg = (f"bf16 tensor cores {name:19s} #1 device ms rate 0 / {RATE}: {row['fwd_ms_0.0']:.4f} / "
+               f"{row[f'fwd_ms_{RATE}']:.4f} (eager {eager['ms']:.4f}, SDPA eager {eager['library_ms']:.4f}; "
+               f"CUDA-core kernel's recorded eager time {CUDA_CORE_RECORDED_MS['fwd'][name]:.4f}, not this run)")
+        if row["fused"]:
+            msg += (f"; #2 device ms rate 0 / {RATE}: {row['bwd_ms_0.0']:.4f} / {row[f'bwd_ms_{RATE}']:.4f} "
+                    f"(eager {eager['bwd_ms']:.4f}, SDPA forward + backward eager {eager['bwd_library_ms']:.4f}; "
+                    f"CUDA-core kernel's recorded eager time {CUDA_CORE_RECORDED_MS['bwd'][name]:.4f}, not this run)")
+        log(msg)
+        rows.append(row)
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def one_bf16_backward(fa):
+    """Kernel #2 built from the same source with -DODTT_FLASH_BWD_ONE_BF16,
+    under its own library name: dS and P keep reach the tensor cores as one
+    bf16 each instead of hi / lo pairs. Only :func:`phase_split` calls it,
+    to measure what the pairs buy; the port never loads this build."""
+    from object_detection_destr_tpu_torch.ops.cuda.build import CudaLibrary
+
+    lib = fa.BWD_LIBRARY
+
+    class OneBf16Backward(fa.FlashAttentionBackward):
+        library = CudaLibrary(lib.name + "_one_bf16", lib.source, headers=lib.headers, functions=lib.functions,
+                              abi=lib.abi, flags=[*lib.flags, "-DODTT_FLASH_BWD_ONE_BF16"])
+
+    return OneBf16Backward()
+
+
+def phase_split(torch, seed, one_bf16):
+    """What #2's hi / lo bf16 pairs buy: at the bfloat16 sites where the
+    plan runs #2 (B=16, dropout 0.3, masked as on the path), dQ / dK / dV
+    errors relative to the plain version's largest value with the pairs (the
+    kernel as it runs) and with one bf16 for dS and P keep (``one_bf16``,
+    the measurement build)."""
+    from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    rows = []
+    for name, sq, sk, h, d, dv, masked in PATH_SITES + WIDE_SITES:
+        if fa.backward_plan(d, dv, torch.bfloat16, optin) != "fused":
+            continue
+        q, k, v, dout = (torch.randn(TRAIN_B, s, h * w, generator=gen, device="cuda").to(torch.bfloat16)
+                         for s, w in ((sq, d), (sk, d), (sk, dv), (sq, dv)))
+        mask = None
+        if masked:
+            lengths = torch.randint(sk * 3 // 4, sk + 1, (TRAIN_B,), generator=gen, device="cuda")
+            mask = torch.arange(sk, device="cuda")[None, :] < lengths[:, None]
+        out, lse = fa.flash_attention_fwd(q, k, v, h, mask, None, RATE, 99)
+        args = (q, k, v, h, mask, out, lse, dout, None, RATE, 99)
+        ref = fa.flash_attention_packed_backward_reference(*args)
+        paired = fa.flash_attention_bwd(*args)
+        single = one_bf16(*args)
+        torch.cuda.synchronize()
+        row = {"site": name, "paired": {n: _rel(g, r) for n, g, r in zip(("dq", "dk", "dv"), paired, ref)},
+               "single": {n: _rel(g, r) for n, g, r in zip(("dq", "dk", "dv"), single, ref)}}
+        rows.append(row)
+        log(f"bf16 #2 {name:19s} rel_err with hi/lo pairs " + " ".join(f"{n}={e:.2e}" for n, e in row["paired"].items())
+            + "; with one bf16 " + " ".join(f"{n}={e:.2e}" for n, e in row["single"].items()))
     return rows
 
 
@@ -1512,10 +1627,13 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     try:
         phase_device(torch)
-        phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, fa.TWO_PASS_LIBRARY, auction.LIBRARY])
+        one_bf16 = one_bf16_backward(fa)
+        phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, fa.TWO_PASS_LIBRARY, auction.LIBRARY, one_bf16.library])
         phase_plan(torch, fa)
         warm_clocks(torch)
         flash_rows = phase_flash(torch, args.seed)
+        shares = phase_dropout_share(torch, args.seed, flash_rows)
+        split_rows = phase_split(torch, args.seed, one_bf16)
         unpacked_rows = phase_unpacked(torch, args.seed)
         api_counts = phase_unpacked_api(torch, kernels, args.seed)
         auction_rows, l2 = phase_auction(torch, args.seed)
@@ -1557,6 +1675,13 @@ def main(argv=None) -> int:
 
     path, wide = step_rows(PATH_SITES), step_rows(WIDE_SITES)
     wide_fused, wide_cross = wide[:2], wide[2:]
+    # the same step cells on the device alone (CUDA-graph replay), dropout 0 and 0.3
+    share_path = [r for r in shares if r["site"] in {s[0] for s in PATH_SITES}]
+    share_wide = [r for r in shares if r["site"] in {s[0] for s in WIDE_SITES}]
+
+    def device_rates(rows, kind):
+        rows = [r for r in rows if kind == "fwd" or r["fused"]]
+        return {f"device_ms_rate_{rate}": per_step(rows, f"{kind}_ms_{rate}") for rate in (0.0, RATE)}
     # a request: the same sites at B=1, float32, no dropout, masked as served
     serve = [r for r in flash_rows for (n, *_, m) in PATH_SITES
              if r["site"] == n and r["b"] == 1 and r["dtype"] == "float32" and r["masked"] == m]
@@ -1598,11 +1723,13 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in path),
             "ms": per_step(path, "ms"), "plain_ms": per_step(path, "plain_ms"),
             "bound_ms": per_step(path, "bound_ms"), "bound_by": bound_by(path, "bound_by"),
-            "library_ms": per_step(path, "library_ms"),
-            "per": f"train step: 18 launches (3 call sites x 6 blocks), B={TRAIN_B}, bfloat16, dropout {RATE}",
+            "library_ms": per_step(path, "library_ms"), **device_rates(share_path, "fwd"),
+            "per": f"train step: 18 launches (3 call sites x 6 blocks), B={TRAIN_B}, bfloat16 (tensor cores), "
+                   f"dropout {RATE}, eager calls; device_ms_rate_* the same launches from CUDA-graph replay",
             "hidden_512": {"launches": wide_counts[0], "max_abs_err": max(r["max_abs_err"] for r in wide),
                            "ms": per_step(wide, "ms"), "plain_ms": per_step(wide, "plain_ms"),
-                           "bound_ms": per_step(wide, "bound_ms"), "library_ms": per_step(wide, "library_ms")},
+                           "bound_ms": per_step(wide, "bound_ms"), "library_ms": per_step(wide, "library_ms"),
+                           **device_rates(share_wide, "fwd")},
             "validation": {"launches": val_counts[0], "per": "4 train steps and 4 validation batches, 18 each"},
             "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"),
                         "plain_ms": per_step(serve, "plain_ms"), "library_ms": per_step(serve, "library_ms"),
@@ -1615,11 +1742,13 @@ def main(argv=None) -> int:
             "replaces": "object_detection_destr_tpu/ops/pallas/flash_attention.py:884",
             "launches": counts[1],
             "max_abs_err": abs_err(path, "fused"),
-            **timed(path, "bwd"), "library_ms": per_step(path, "bwd_library_ms"),
-            "per": f"train step: 18 launches, B={TRAIN_B}, bfloat16, dropout {RATE}; {sdpa}",
+            **timed(path, "bwd"), "library_ms": per_step(path, "bwd_library_ms"), **device_rates(share_path, "bwd"),
+            "per": f"train step: 18 launches, B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; "
+                   f"device_ms_rate_* the same launches from CUDA-graph replay; {sdpa}",
+            "split_rel_err": {r["site"]: r for r in split_rows},
             "hidden_512": {"launches": wide_counts[1], "max_abs_err": abs_err(wide_fused, "fused"),
                            **timed(wide_fused, "bwd"), "library_ms": per_step(wide_fused, "bwd_library_ms"),
-                           "per": "12 launches: encoder and decoder self-attention"},
+                           **device_rates(share_wide, "bwd"), "per": "12 launches: encoder and decoder self-attention"},
         },
         {
             "name": "flash_attention_dq", "route": "cuda",

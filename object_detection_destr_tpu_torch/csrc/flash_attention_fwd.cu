@@ -23,10 +23,42 @@
 // masked row averages over the Sk real keys only. Logits, the online max and
 // sum and the accumulator are float32 for both float32 and bfloat16 inputs.
 //
-// What bounds it on this card: at the path's shapes (Sq, Sk of a few
-// hundred, d 32..1024) a launch does 0.1-6 GFLOP on 1-30 MB of operands, so
-// the time is occupancy and the latency of the per-key arithmetic on the
-// float32 CUDA cores, not bytes. What the design does about that, simply:
+// Two kernels compute it, chosen by the operand dtype (no fallback between
+// them: a bfloat16 call always runs the tensor-core kernel):
+//
+// bfloat16, flash_fwd_tc_kernel (FlashAttention-2's forward on Hopper's
+// tensor cores). What bounds it on this card: a launch at the path's shapes
+// (Sq, Sk 300-600, d 32..1024) needs 0.1-6 GFLOP, a few microseconds of
+// bf16 tensor-core work, on 1-30 MB of operands, so bytes bound it; the
+// CUDA-core kernel below spent 90-180x that bound on float32 FMAs and warp
+// shuffles. The design:
+//   * a block is 64 query rows of one (batch, head) and one chunk of up to
+//     128 output columns; 4 warps of 16 rows. dv 256 and 512 (the cross-
+//     attentions) are split across grid.y: each chunk recomputes S, so m, l
+//     and lse are bit-identical in every chunk and chunk 0 writes lse. Split
+//     rather than more warps a block: O stays 64 f32 registers a thread, and
+//     the one-head cross-attention gets 2-4x the blocks to fill 132 SMs;
+//   * S = Q K^T by mma.sync m16n8k16 (bf16 products are exact, f32 sums)
+//     over d in chunks of 64 columns; K chunks (and Q chunks where d > 128)
+//     stream through a 2-stage cp.async ring in dynamic shared memory, rows
+//     padded by 16 bytes against bank conflicts, so the next stage's load
+//     overlaps this one's math; for d <= 128, Q is read once into registers;
+//   * scale, the -1e9 mask and keys past Sk (-inf) on the S fragments; the
+//     online softmax on the fragments, each row reduced across its quad in
+//     2 shuffles; the keep bit drawn per fragment element from (row, key);
+//   * P keep / (1 - rate) rounded to bf16 where _fwd_kernel_packed rounds it
+//     (l.639), fed straight from the S accumulators as the A operand of
+//     P V, V read by ldmatrix.trans; O accumulates in f32 registers;
+//   * a width that is not a multiple of 16 is zero-padded in shared memory
+//     to the next 16 columns; 16-byte cp.async where every row is 16-byte
+//     aligned, element copies otherwise.
+//
+// float32, flash_fwd_kernel (the serving path, TF32 off; the tensor-core
+// path for float32 is later work). What bounds it on this card: at the
+// path's shapes (Sq, Sk of a few hundred, d 32..1024) a launch does 0.1-6
+// GFLOP on 1-30 MB of operands, so the time is occupancy and the latency of
+// the per-key arithmetic on the float32 CUDA cores, not bytes. What the
+// design does about that, simply:
 //   * grid (ceil(Sq / rows), h, B) with one warp per query row, so even the
 //     single-head cross-attention (Sq = 600) spreads over the SMs; blocks
 //     take 4 warps instead of 8 when the grid would not cover the card twice;
@@ -40,12 +72,12 @@
 //   * the 32 dot products of a tile are finished by one reduce-scatter
 //     (flash_common.cuh) that leaves key j's score on lane j, so the tile's
 //     max, exponentials, sum and dropout draw are one value a lane.
-// wgmma, TMA and a pipelined K/V ring are later work.
 
 #include <math.h>
 
 #include "flash_common.cuh"
 #include "philox.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -138,6 +170,220 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   if (lane == 0) lse[((long)b * num_heads + hh) * sq + row] = m_run + logf(l_run);
 }
 
+// ---- bfloat16 on the tensor cores
+using bf16 = __nv_bfloat16;
+constexpr int kTcRows = 64;     // query rows a block: 4 warps of 16
+constexpr int kTcThreads = 128;
+constexpr int kTcKeys = 64;     // keys a tile
+constexpr int kTcChunk = 64;    // columns of q and k a stage
+constexpr int kQKStride = kTcChunk + tc::kPad;
+constexpr int kQKSlot = kTcRows * kQKStride;  // elements of one q or k stage (kTcRows == kTcKeys)
+
+// Shared memory of the kernel, in bytes: the key states of two tiles, NQ
+// resident q chunks (or a 2-slot q ring where NQ == 0), a 2-slot k ring and
+// a 2-slot v ring of DVC columns.
+__host__ __device__ constexpr int tc_fwd_smem(int nq, int dvc) {
+  return 2 * kTcKeys * 4 + ((nq == 0 ? 2 : nq) + 2) * kQKSlot * 2 + 2 * kTcKeys * (dvc + tc::kPad) * 2;
+}
+
+// NQ: q chunks of 64 columns held for the whole launch (1 for d <= 64, 2
+// for d <= 128), or 0 to stream them beside k. DVC: output columns a block.
+template <int NQ, int DVC>
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const uint8_t* __restrict__ key_valid, bf16* __restrict__ out, float* __restrict__ lse,
+    Strides sq_, Strides sk_, Strides sv_, Strides so_, int sq, int sk, int num_heads, int d, int dv,
+    float scale, uint32_t seed, uint32_t drop_threshold, float inv_keep, int dv_chunks, bool vec) {
+  constexpr int kVStride = DVC + tc::kPad;
+  constexpr int kQSlots = NQ == 0 ? 2 : NQ;
+  constexpr int kNt = DVC / 8;  // n-tiles of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* key_state = reinterpret_cast<int*>(smem);  // [2][kTcKeys]: 1 valid, 0 masked, -1 past Sk
+  bf16* q_s = reinterpret_cast<bf16*>(smem + 2 * kTcKeys * 4);
+  bf16* k_s = q_s + kQSlots * kQKSlot;
+  bf16* v_s = k_s + 2 * kQKSlot;
+
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = blockIdx.x * kTcRows;
+  const int hh = blockIdx.y / dv_chunks, chunk = blockIdx.y - hh * dv_chunks;
+  const int b = blockIdx.z;
+  const int c0 = chunk * DVC;  // first output column of the block
+  const int dvw = min(DVC, dv - c0);
+  const uint32_t bh = (uint32_t)(b * num_heads + hh);
+  const int nq = (d + kTcChunk - 1) / kTcChunk;
+  const int steps = (sk + kTcKeys - 1) / kTcKeys * nq;
+
+  const bf16* q_blk = q + sq_.off(b, hh, r0);
+  auto load = [&](int s) {
+    const int kt = s / nq, c = s - kt * nq, key0 = kt * kTcKeys;
+    const int cw = min(kTcChunk, d - c * kTcChunk);
+    if (NQ == 0)
+      tc::load_rows<kTcThreads>(q_s + (s & 1) * kQKSlot, kQKStride, q_blk + c * kTcChunk, sq_.s, kTcRows,
+                                sq - r0, cw, vec);
+    tc::load_rows<kTcThreads>(k_s + (s & 1) * kQKSlot, kQKStride, k + sk_.off(b, hh, key0) + c * kTcChunk,
+                              sk_.s, kTcKeys, sk - key0, cw, vec);
+    if (c == 0) {
+      tc::load_rows<kTcThreads>(v_s + (kt & 1) * kTcKeys * kVStride, kVStride, v + sv_.off(b, hh, key0) + c0,
+                                sv_.s, kTcKeys, sk - key0, dvw, vec);
+      if (threadIdx.x < kTcKeys) {
+        const int key = key0 + threadIdx.x;
+        key_state[(kt & 1) * kTcKeys + threadIdx.x] =
+            key >= sk ? -1 : (key_valid == nullptr ? 1 : (key_valid[(long)b * sk + key] != 0));
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  if (NQ > 0)
+    for (int c = 0; c < nq; ++c)
+      tc::load_rows<kTcThreads>(q_s + c * kQKSlot, kQKStride, q_blk + c * kTcChunk, sq_.s, kTcRows, sq - r0,
+                                min(kTcChunk, d - c * kTcChunk), vec);
+  load(0);
+
+  uint32_t qf[NQ > 0 ? NQ * 4 : 1][4];  // resident q: A fragments of 16 columns
+  float s_acc[kTcKeys / 8][4];
+  float o_acc[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n) o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of the warp
+  float l_part[2] = {0.f, 0.f};             // this thread's share of the rows' sums
+  const int row_lo = r0 + warp * 16 + g;
+
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      load(s + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kt = s / nq, c = s - kt * nq, key0 = kt * kTcKeys;
+    const int ksteps = (min(kTcChunk, d - c * kTcChunk) + 15) / 16;
+    if (NQ > 0 && s == 0) {
+#pragma unroll
+      for (int i = 0; i < (NQ > 0 ? NQ * 4 : 0); ++i)
+        if ((i & 3) < ((min(kTcChunk, d - (i / 4) * kTcChunk) + 15) / 16))
+          tc::load_a(qf[i], q_s + (i / 4) * kQKSlot, kQKStride, warp * 16, (i & 3) * 16, lane);
+    }
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < kTcKeys / 8; ++j) s_acc[j][0] = s_acc[j][1] = s_acc[j][2] = s_acc[j][3] = 0.f;
+    }
+    // S += Q[:, chunk c] K[tile, chunk c]^T
+    const bf16* ks = k_s + (s & 1) * kQKSlot;
+#pragma unroll
+    for (int kk = 0; kk < kTcChunk / 16; ++kk) {
+      if (kk >= ksteps) break;
+      uint32_t a[4];
+      if (NQ > 0) {
+#pragma unroll
+        for (int cc = 0; cc < (NQ > 0 ? NQ : 1); ++cc)
+          if (cc == c) a[0] = qf[cc * 4 + kk][0], a[1] = qf[cc * 4 + kk][1], a[2] = qf[cc * 4 + kk][2],
+                       a[3] = qf[cc * 4 + kk][3];
+      } else {
+        tc::load_a(a, q_s + (s & 1) * kQKSlot, kQKStride, warp * 16, kk * 16, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < kTcKeys / 16; ++j) {
+        uint32_t bb[4];
+        tc::load_b_rows(bb, ks, kQKStride, j * 16, kk * 16, lane);
+        tc::mma(s_acc[2 * j], a, bb[0], bb[1]);
+        tc::mma(s_acc[2 * j + 1], a, bb[2], bb[3]);
+      }
+    }
+    if (c != nq - 1) {
+      __syncthreads();
+      continue;
+    }
+
+    // masking and the online softmax on the fragments
+    const int* state = key_state + (kt & 1) * kTcKeys;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kTcKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int st = state[8 * j + 2 * t + (e & 1)];
+        const float x = st < 0 ? -INFINITY : (st == 0 ? kMaskedLogit : s_acc[j][e] * scale);
+        s_acc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], m_new[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      m_new[i] = fmaxf(m_run[i], mx[i]);  // the tile's first key is real: finite
+      alpha[i] = expf(m_run[i] - m_new[i]);
+      m_run[i] = m_new[i];
+      l_part[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kTcKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s_acc[j][e] - m_new[e >> 1]);
+        l_part[e >> 1] += p;
+        float p_acc = p;
+        if (drop_threshold != 0u) {
+          const int row = row_lo + (e >> 1) * 8;
+          const uint32_t key = (uint32_t)(key0 + 8 * j + 2 * t + (e & 1));
+          p_acc = row < sq && philox::bits(seed, bh, (uint32_t)row, key) >= drop_threshold ? p * inv_keep : 0.f;
+        }
+        s_acc[j][e] = p_acc;
+      }
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      o_acc[n][0] *= alpha[0];
+      o_acc[n][1] *= alpha[0];
+      o_acc[n][2] *= alpha[1];
+      o_acc[n][3] *= alpha[1];
+    }
+    // O += bf16(P) V: the S accumulators of keys 16 kk.. are the A fragment
+    const bf16* vs = v_s + (kt & 1) * kTcKeys * kVStride;
+    const int keys_here = sk - key0;
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      if (kk * 16 >= keys_here) break;
+      const uint32_t a[4] = {tc::pack_bf16(s_acc[2 * kk][0], s_acc[2 * kk][1]),
+                             tc::pack_bf16(s_acc[2 * kk][2], s_acc[2 * kk][3]),
+                             tc::pack_bf16(s_acc[2 * kk + 1][0], s_acc[2 * kk + 1][1]),
+                             tc::pack_bf16(s_acc[2 * kk + 1][2], s_acc[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < kNt / 2; ++n2) {
+        if (n2 * 16 >= dvw) break;
+        uint32_t bb[4];
+        tc::load_b_cols(bb, vs, kVStride, kk * 16, n2 * 16, lane);
+        tc::mma(o_acc[2 * n2], a, bb[0], bb[1]);
+        tc::mma(o_acc[2 * n2 + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_part[i] += __shfl_xor_sync(kFull, l_part[i], 1);
+    l_part[i] += __shfl_xor_sync(kFull, l_part[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_lo + 8 * i;
+    if (row >= sq) continue;
+    const float inv_l = 1.f / l_part[i];
+    bf16* orow = out + so_.off(b, hh, row) + c0;
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < dvw) orow[col] = __float2bfloat16(o_acc[n][2 * i + e] * inv_l);
+      }
+    if (chunk == 0 && t == 0) lse[((long)b * num_heads + hh) * sq + row] = m_run[i] + logf(l_part[i]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *key_valid;
   void *out, *lse;
@@ -178,13 +424,46 @@ int dispatch(const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+template <int NQ, int DVC>
+int launch_tc(const Args& a) {
+  const int chunks = (a.dv + DVC - 1) / DVC;
+  const dim3 grid((a.sq + kTcRows - 1) / kTcRows, a.num_heads * chunks, a.b);
+  constexpr int smem = tc_fwd_smem(NQ, DVC);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<NQ, DVC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = aligned16_strided<bf16>(a.q, a.d, a.sq_) && aligned16_strided<bf16>(a.k, a.d, a.sk_) &&
+                   aligned16_strided<bf16>(a.v, a.dv, a.sv_);
+  flash_fwd_tc_kernel<NQ, DVC><<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const uint8_t*>(a.key_valid), static_cast<bf16*>(a.out), static_cast<float*>(a.lse),
+      a.sq_, a.sk_, a.sv_, a.so_, a.sq, a.sk, a.num_heads, a.d, a.dv, a.scale, a.seed, a.drop_threshold,
+      a.inv_keep, chunks, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int NQ>
+int dispatch_tc_dv(const Args& a) {
+  if (a.dv <= 32) return launch_tc<NQ, 32>(a);
+  if (a.dv <= 64) return launch_tc<NQ, 64>(a);
+  return launch_tc<NQ, 128>(a);  // dv > 128 in chunks of 128 across grid.y
+}
+
+int dispatch_tc(const Args& a) {
+  if (a.d > 1024 || a.dv > 1024) return (int)cudaErrorInvalidValue;
+  if (a.d <= 64) return dispatch_tc_dv<1>(a);
+  if (a.d <= 128) return dispatch_tc_dv<2>(a);
+  return dispatch_tc_dv<0>(a);  // q streamed in chunks of 64 columns
+}
+
 }  // namespace
 
 extern "C" {
 
-int odtt_flash_fwd_abi_version() { return 3; }
+int odtt_flash_fwd_abi_version() { return 4; }
 
-// dtype: 0 float32, 1 bfloat16. key_valid: (B, Sk) bytes or null.
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores). key_valid:
+// (B, Sk) bytes or null.
 // strides: 12 element strides, (batch, head, row) of q, k, v and out, in
 // that order (the feature stride is 1). lse: (B, h, Sq) float32, contiguous.
 // drop_threshold 0 disables dropout; otherwise keep iff the element's Philox
@@ -203,7 +482,7 @@ int odtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                b, sq, sk, num_heads, d, dv, scale, seed, drop_threshold, inv_keep,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch<float>(a);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a);
+  if (dtype == 1) return dispatch_tc(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -66,5 +66,6 @@ def scaled_dot_product_attention(
         if dropout_rate > 0.0 and generator is not None:
             keep = torch.rand(probs.shape, generator=generator, device=probs.device) < 1.0 - dropout_rate
             probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
-        out = torch.matmul(probs, value.float()).to(value.dtype)
+        # P is rounded to the value dtype before P V, as attention.py:94 does
+        out = torch.matmul(probs.to(value.dtype).float(), value.float()).to(value.dtype)
     return combine_heads(out)

@@ -92,8 +92,10 @@ __all__ = [
 
 _MAX_HEAD_DIM = 1024  # kernels #1, #3, #4; #2 is bounded by backward_plan
 _FUSED_MAX_HEAD_DIM = 512  # the widest head the fused backward dispatches
-# the fused backward's tiles (csrc/flash_common.cuh, flash_attention_bwd.cu)
+# the fused backward's tiles (csrc/flash_common.cuh, flash_attention_bwd.cu):
+# float32, and the keys a block of the bfloat16 tensor-core kernel
 _TILE_K, _BWD_ROWS, _HEADER_BYTES = 32, 8, 32 * 4
+_TC_KEYS = 32
 _FULLY_MASKED_LSE = -5e8  # below any row with a valid key; the kernels use the same bound
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
@@ -103,16 +105,16 @@ _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 FWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_fwd", "flash_attention_fwd.cu",
-    headers=("flash_common.cuh", "philox.cuh"),
+    headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
     functions={"odtt_flash_attention_fwd": (_I, [_P] * 7 + [_I] * 7 + [_F, _U, _U, _F, _P])},
-    abi=("odtt_flash_fwd_abi_version", 3),
+    abi=("odtt_flash_fwd_abi_version", 4),
 )
 BWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd", "flash_attention_bwd.cu",
-    headers=("flash_common.cuh", "philox.cuh"),
+    headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
     functions={"odtt_flash_attention_bwd": (_I, [_P] * 10 + [_I] * 7 + [_F, _U, _U, _F, _P]),
                "odtt_flash_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 3)},
-    abi=("odtt_flash_bwd_abi_version", 2),
+    abi=("odtt_flash_bwd_abi_version", 3),
 )
 TWO_PASS_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd_two_pass", "flash_attention_bwd_two_pass.cu",
@@ -126,10 +128,36 @@ def _round16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _tc_backward_smem_bytes(d: int, dv: int) -> int:
+    """``TcLayout`` of the bfloat16 tensor-core kernel: the key states, lse
+    and delta of 1 or 2 query tiles, the K and V rows of 32 keys, 1 or 2 q /
+    dO tiles, the hi / lo bf16 tiles of P keep and dS, and, where the dK / dV
+    accumulators do not fit in registers (``TcPlan``), those in float32."""
+    cw = 32 if max(d, dv) <= 32 else 64
+    jobs = 2 * (_round_up(d, cw) + _round_up(dv, cw)) // cw  # (16 keys, cw columns) of dK and dV
+    jpw = -(-jobs // 4) if jobs <= 8 else 0
+    if not jpw:
+        cw = 64
+    stages, qt = (2, 64) if jpw else (1, 32)
+    ks, vs, ps = _round_up(d, 16) + 8, _round_up(dv, 16) + 8, qt + 8
+    total = _TC_KEYS * 4 + 2 * 4 * stages * qt  # key states, lse, delta
+    total += 2 * _TC_KEYS * (ks + vs) + 2 * stages * qt * (ks + vs) + 4 * 2 * _TC_KEYS * ps
+    if not jpw:
+        total += 4 * _TC_KEYS * (_round_up(d, cw) + 8 + _round_up(dv, cw) + 8)
+    return total
+
+
 def fused_backward_smem_bytes(d: int, dv: int, itemsize: int) -> int:
     """Dynamic shared memory of one block of the fused backward (#2) at head
-    widths d, dv: the ``Layout`` of ``csrc/flash_attention_bwd.cu``, which
-    the library exports as ``odtt_flash_bwd_smem_bytes``."""
+    widths d, dv: the ``Layout`` (float32, itemsize 4) or ``TcLayout``
+    (bfloat16, itemsize 2) of ``csrc/flash_attention_bwd.cu``, which the
+    library exports as ``odtt_flash_bwd_smem_bytes``."""
+    if itemsize == 2:
+        return _tc_backward_smem_bytes(d, dv)
     q = _HEADER_BYTES + 2 * 4 * _BWD_ROWS * _TILE_K  # after the ds and pd rows
     dk = q + 4 * _BWD_ROWS * (d + dv)  # after the staged q and dO rows
     k_tile = _round16(dk + 4 * _TILE_K * (d + dv))  # after the dK, dV accumulators
@@ -209,9 +237,11 @@ def _scale_of(scale: Optional[float], d: int) -> float:
     return 1.0 / d**0.5 if scale is None else scale
 
 
-def _attention(q, k, v, key_valid_mask, scale, dropout_rate, dropout_seed, keep_mask):
+def _attention(q, k, v, key_valid_mask, scale, dropout_rate, dropout_seed, keep_mask, dtype):
     """The forward on head-major float32 (B, h, S, d) operands: out (B, h, Sq,
-    dv) float32 and lse (B, h, Sq)."""
+    dv) float32 and lse (B, h, Sq). P keep / (1 - rate) is rounded to the
+    operands' ``dtype`` before P V, where ``_fwd_kernel_packed`` (l.639) and
+    the bfloat16 kernel round it (a no-op in float32)."""
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale  # (B, h, Sq, Sk) f32
@@ -222,7 +252,7 @@ def _attention(q, k, v, key_valid_mask, scale, dropout_rate, dropout_seed, keep_
     keep = _dropout_keep(dropout_rate, dropout_seed, keep_mask, b, h, sq, sk, q.device)
     if keep is not None:
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
-    return torch.matmul(probs, v), lse
+    return torch.matmul(probs.to(dtype).float(), v), lse
 
 
 def flash_attention_packed_reference(
@@ -253,7 +283,7 @@ def flash_attention_packed_reference(
     scale = _scale_of(scale, hd // num_heads)
     with torch.autocast(query.device.type, enabled=False):
         out, lse = _attention(_heads(query, num_heads), _heads(key, num_heads), _heads(value, num_heads),
-                              key_valid_mask, scale, dropout_rate, dropout_seed, keep_mask)
+                              key_valid_mask, scale, dropout_rate, dropout_seed, keep_mask, query.dtype)
     out = out.transpose(1, 2).reshape(b, sq, hdv).to(query.dtype)
     return out, lse
 
@@ -275,7 +305,7 @@ def flash_attention_reference(
     scale = _scale_of(scale, query.shape[-1])
     with torch.autocast(query.device.type, enabled=False):
         out, lse = _attention(query.float(), key.float(), value.float(), key_valid_mask, scale,
-                              dropout_rate, dropout_seed, keep_mask)
+                              dropout_rate, dropout_seed, keep_mask, query.dtype)
     return out.to(query.dtype), lse
 
 
@@ -667,7 +697,8 @@ class FlashAttentionBackward:
     Computes delta beside the kernel, zeroes the float32 dQ buffer the kernel
     adds into and casts it to the query dtype after. Raises where
     :func:`backward_plan` says the kernel does not fit the device.
-    ``launches`` counts kernel launches and nothing else."""
+    ``launches`` counts kernel launches and nothing else. In bfloat16 the
+    kernel feeds dS and P keep to the tensor cores as hi / lo bf16 pairs."""
 
     library = BWD_LIBRARY
 

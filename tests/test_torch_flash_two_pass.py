@@ -139,7 +139,7 @@ def test_fully_masked_row_is_the_gradient_of_the_plain_forward():
     (512, 256, torch.float32, "fused"),  # the cross-attention at hidden 256: 223,360 bytes
     (512, 256, torch.bfloat16, "fused"),
     (1024, 512, torch.float32, "two_pass"),  # the cross-attention at hidden 512: 444,544 bytes
-    (1024, 512, torch.bfloat16, "two_pass"),  # 346,240 bytes
+    (1024, 512, torch.bfloat16, "two_pass"),  # 407,936 bytes
     (1024, 16, torch.bfloat16, "two_pass"),  # fits, but wider than the fused kernel dispatches
 ])
 def test_backward_plan(d, dv, dtype, plan):
@@ -150,9 +150,14 @@ def test_backward_plan(d, dv, dtype, plan):
 
 def test_fused_smem_bytes_grow_with_the_widths():
     """The mirror of the fused kernel's shared-memory layout (chip_smoke.py
-    holds it against the library's own count on the card)."""
+    holds it against the library's own count on the card): float32's
+    CUDA-core layout, and bfloat16's tensor-core layout, whose dK / dV
+    accumulators move from registers to shared memory past d + dv = 256."""
     assert fa.fused_backward_smem_bytes(512, 256, 4) == 223360
     assert fa.fused_backward_smem_bytes(512, 256, 4) <= H100_SMEM_OPTIN < fa.fused_backward_smem_bytes(512, 512, 4)
+    bf16 = [fa.fused_backward_smem_bytes(d, dv, 2) for d, dv in [(32, 32), (64, 64), (128, 128), (512, 256)]]
+    assert bf16 == [45184, 65664, 106624, 211328]
+    assert bf16[-1] <= H100_SMEM_OPTIN < fa.fused_backward_smem_bytes(512, 512, 2) == 276864
 
 
 def test_fused_true_raises_where_the_fused_backward_cannot_run():
