@@ -26,14 +26,16 @@ Phases (any failure exits non-zero and prints no result):
      cells plus the wide cross-attention's (device times from CUDA-graph
      replay); times of the kernels, their plain versions and
      F.scaled_dot_product_attention (a yardstick, never on the path), and
-     the bound from bytes and operations. bfloat16 runs #1 and #2 on the
+     the bound from bytes and operations. bfloat16 runs #1-#4 on the
      tensor cores, float32 on the CUDA cores: for the bfloat16 step cells of
-     both widths, #1's and #2's device times (CUDA-graph replay) at dropout
-     0 and 0.3 side by side, beside their eager times, SDPA's and the
-     replaced CUDA-core kernels' recorded times (PERF.md; not measured
-     here); and #2's gradient errors with its hi / lo bf16 pairs and with
-     one bf16 for dS and P keep (a copy of #2 built for that measurement
-     only, with -DODTT_FLASH_BWD_ONE_BF16);
+     both widths, the device times (CUDA-graph replay) of #1 and of #2, or
+     #3 and #4 where the plan runs them, at dropout 0 and 0.3 side by side,
+     beside their eager times, their plain versions', their bounds, SDPA's
+     and the replaced CUDA-core kernels' recorded times (PERF.md; not
+     measured here); #3's and #4's errors at both cross sites; and #2's
+     gradient errors with its hi / lo bf16 pairs and with one bf16 for dS
+     and P keep (a copy of #2 built for that measurement only, with
+     -DODTT_FLASH_BWD_ONE_BF16);
   3a. the head-major (B, h, S, d) kernels #5 (forward), #6 (dQ) and #7
      (dK / dV) against their plain versions at the call-site shapes of both
      widths (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the
@@ -85,8 +87,9 @@ Phases (any failure exits non-zero and prints no result):
   9. whole model forward, kernel against plain, discrete choices
      (top-k, pairs) recorded and replayed as in phase 7.
 
-The line before the last lists the kernels as JSON (#1 and #2 also with
-their device times at dropout 0 and 0.3 and #2's split errors); the last line is
+The line before the last lists the kernels as JSON (#1-#4 also with
+their device times at dropout 0 and 0.3, #2's split errors and #3's and
+#4's errors at both cross sites); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -151,7 +154,7 @@ TRAIN_ARGS = [
     "--skip_nonfinite", "100", "--log_interval", "1",
 ]
 WIDE_ARGS = ["--hidden_dim", "512"]
-# eager ms a launch of the CUDA-core kernels #1 and #2 that the bfloat16
+# eager ms a launch of the CUDA-core kernels #1-#4 that the bfloat16
 # tensor-core kernels replaced (B=16, bfloat16, dropout 0.3), as PERF.md's
 # kernel table records them (this script on an NVIDIA H100 80GB HBM3,
 # 700.00 W): printed beside this run's times, never measured by this run and
@@ -161,6 +164,8 @@ CUDA_CORE_RECORDED_MS = {
             "encoder_self_wide": 0.9167, "decoder_self_wide": 0.8280, "cross_cls_reg_wide": 6.1622},
     "bwd": {"encoder_self": 1.3830, "decoder_self": 3.4025, "cross_cls_reg": 3.5030,
             "encoder_self_wide": 5.6720, "decoder_self_wide": 6.8773},
+    "dq": {"cross_cls_reg_wide": 9.1328},
+    "dkv": {"cross_cls_reg_wide": 12.7446},
 }
 
 
@@ -488,12 +493,13 @@ def phase_flash(torch, seed):
 
 def phase_dropout_share(torch, seed, flash_rows):
     """The bfloat16 step cells of the path sites at both widths (B=16,
-    masked as on the path): the tensor-core #1, and #2 where the plan runs
-    it, on the device alone (CUDA-graph replay of the wrappers' calls; #2's
-    with its delta, dQ zeroing and cast) at dropout 0 and 0.3 side by side,
-    so the Philox draws' share shows. Printed beside each kernel's eager time
-    and SDPA's from phase 3, and the CUDA-core kernels' recorded eager times.
-    Ms a launch by site."""
+    masked as on the path): the tensor-core #1, and #2 or #3 and #4 as the
+    plan runs them, on the device alone (CUDA-graph replay of the wrappers'
+    calls; #2's with its delta, dQ zeroing and cast, #3's and #4's with
+    their delta) at dropout 0 and 0.3 side by side, so the Philox draws'
+    share shows. Printed beside each kernel's eager time, its plain
+    version's, its bound and SDPA's from phase 3, and the CUDA-core kernels'
+    recorded eager times. Ms a launch by site."""
     from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
@@ -512,19 +518,22 @@ def phase_dropout_share(torch, seed, flash_rows):
             out, lse = fa.flash_attention_fwd(q, k, v, h, mask, None, rate, seed_or_none)
             row[f"fwd_ms_{rate}"] = device_ms(torch, lambda: fa.flash_attention_fwd(
                 q, k, v, h, mask, None, rate, seed_or_none))
-            if row["fused"]:
-                args = (q, k, v, h, mask, out, lse, dout, None, rate, seed_or_none)
-                fa.flash_attention_bwd(*args)
-                row[f"bwd_ms_{rate}"] = device_ms(torch, lambda: fa.flash_attention_bwd(*args))
+            args = (q, k, v, h, mask, out, lse, dout, None, rate, seed_or_none)
+            for kind, kernel in ((("bwd", fa.flash_attention_bwd),) if row["fused"] else
+                                 (("dq", fa.flash_attention_dq), ("dkv", fa.flash_attention_dkv))):
+                kernel(*args)
+                row[f"{kind}_ms_{rate}"] = device_ms(torch, lambda: kernel(*args))
         eager = next(r for r in flash_rows if r["site"] == name and r["b"] == TRAIN_B and r["dtype"] == "bfloat16"
                      and r["rate"] == RATE and r.get("bwd_plan") in ("fused", "two_pass"))
         msg = (f"bf16 tensor cores {name:19s} #1 device ms rate 0 / {RATE}: {row['fwd_ms_0.0']:.4f} / "
                f"{row[f'fwd_ms_{RATE}']:.4f} (eager {eager['ms']:.4f}, SDPA eager {eager['library_ms']:.4f}; "
                f"CUDA-core kernel's recorded eager time {CUDA_CORE_RECORDED_MS['fwd'][name]:.4f}, not this run)")
-        if row["fused"]:
-            msg += (f"; #2 device ms rate 0 / {RATE}: {row['bwd_ms_0.0']:.4f} / {row[f'bwd_ms_{RATE}']:.4f} "
-                    f"(eager {eager['bwd_ms']:.4f}, SDPA forward + backward eager {eager['bwd_library_ms']:.4f}; "
-                    f"CUDA-core kernel's recorded eager time {CUDA_CORE_RECORDED_MS['bwd'][name]:.4f}, not this run)")
+        for kind, label in (("bwd", "#2"),) if row["fused"] else (("dq", "#3"), ("dkv", "#4")):
+            msg += (f"; {label} device ms rate 0 / {RATE}: {row[f'{kind}_ms_0.0']:.4f} / "
+                    f"{row[f'{kind}_ms_{RATE}']:.4f} (eager {eager[f'{kind}_ms']:.4f}, plain eager "
+                    f"{eager[f'{kind}_plain_ms']:.4f}, bound {eager[f'{kind}_bound_ms']:.4f}, SDPA forward + backward "
+                    f"eager {eager['bwd_library_ms']:.4f}; CUDA-core kernel's recorded eager time "
+                    f"{CUDA_CORE_RECORDED_MS[kind][name]:.4f}, not this run)")
         log(msg)
         rows.append(row)
         del q, k, v, dout, out, lse
@@ -1680,7 +1689,7 @@ def main(argv=None) -> int:
     share_wide = [r for r in shares if r["site"] in {s[0] for s in WIDE_SITES}]
 
     def device_rates(rows, kind):
-        rows = [r for r in rows if kind == "fwd" or r["fused"]]
+        rows = [r for r in rows if f"{kind}_ms_0.0" in r]
         return {f"device_ms_rate_{rate}": per_step(rows, f"{kind}_ms_{rate}") for rate in (0.0, RATE)}
     # a request: the same sites at B=1, float32, no dropout, masked as served
     serve = [r for r in flash_rows for (n, *_, m) in PATH_SITES
@@ -1704,6 +1713,16 @@ def main(argv=None) -> int:
 
     synthetic = auction_rows[0]
     sdpa = "library_ms is SDPA forward + backward (dQ, dK and dV together)"
+
+    def two_pass_rel_err(names):
+        """#3's or #4's gradient errors relative to the plain version's
+        largest value at both cross sites (B=16, bfloat16), by site and rate."""
+        return {f"{r['site']} rate {r['rate']}": {n: r["bwd_rel_err"][f"two_pass {n}"] for n in names}
+                for r in flash_rows if r["site"] in (WIDE_CROSS[0], PATH_SITES[2][0]) and r["b"] == TRAIN_B
+                and r["dtype"] == "bfloat16" and "two_pass dq" in r.get("bwd_rel_err", {})}
+    log("bf16 #3 / #4 errors relative to the plain version's largest value: "
+        + "; ".join(f"{k} " + " ".join(f"{n}={e:.2e}" for n, e in v.items())
+                    for k, v in two_pass_rel_err(("dq", "dk", "dv")).items()))
 
     def unpacked_rows_of(rows, sites):
         names = [site[0] for site in sites]
@@ -1757,8 +1776,10 @@ def main(argv=None) -> int:
             "launches": wide_counts[2],
             "max_abs_err": abs_err(wide_cross, "two_pass", ("dq",)),
             **timed(wide_cross, "dq"), "library_ms": per_step(wide_cross, "bwd_library_ms"),
+            **device_rates(share_wide, "dq"), "rel_err": two_pass_rel_err(("dq",)),
             "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
-                   f"B={TRAIN_B}, bfloat16, dropout {RATE}; {sdpa}",
+                   f"B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; device_ms_rate_* the "
+                   f"same launches from CUDA-graph replay; rel_err at both cross sites; {sdpa}",
         },
         {
             "name": "flash_attention_dkv", "route": "cuda",
@@ -1767,8 +1788,10 @@ def main(argv=None) -> int:
             "launches": wide_counts[3],
             "max_abs_err": abs_err(wide_cross, "two_pass", ("dk", "dv")),
             **timed(wide_cross, "dkv"), "library_ms": per_step(wide_cross, "bwd_library_ms"),
+            **device_rates(share_wide, "dkv"), "rel_err": two_pass_rel_err(("dk", "dv")),
             "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
-                   f"B={TRAIN_B}, bfloat16, dropout {RATE}; {sdpa}",
+                   f"B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; device_ms_rate_* the "
+                   f"same launches from CUDA-graph replay; rel_err at both cross sites; {sdpa}",
         },
         {
             "name": "auction_assignment", "route": "cuda",

@@ -2,7 +2,7 @@
 ``object_detection_destr_tpu/infer/server.py``).
 
     python -m object_detection_destr_tpu_torch.infer.server \
-        --checkpoint_dir checkpoints --weights model_weights.npz --port 8900
+        --checkpoint_dir checkpoints --weights model_weights --port 8900
 
 Protocol (stdlib only):
     POST /predict   body = raw JPEG/PNG bytes (or JSON {"image_b64": ...})
@@ -10,8 +10,11 @@ Protocol (stdlib only):
         "labels": [...]}
     GET /healthz    -> {"ok": true}
 
-The model runs on the GPU unless ``--device cpu`` is given. Weights come from
-the port's ``.npz`` file (models/convert.py). Requests are letterboxed by
+The model runs on the GPU unless ``--device cpu`` is given. ``--weights
+NAME`` is a checkpoint that the port's trainer wrote into ``--checkpoint_dir``
+(``--save_as``), restored as the JAX package's server restores one of its own
+trainer's; flax weights come from the port's ``.npz`` file (models/convert.py)
+when NAME ends in ``.npz`` or no checkpoint NAME exists. Requests are letterboxed by
 default (aspect-preserving, with a pixel valid-mask; boxes are mapped back
 to the original image), or stretched with ``--no-letterbox``.
 """
@@ -34,6 +37,7 @@ from ..data.loader import _letterbox_canvas, _resize_canvas
 from ..data.transforms import letterbox_infer_transform, normalize_imagenet
 from ..models.convert import load_flax_variables, load_variables_npz
 from ..models.destr.model import build_destr
+from ..train.checkpoint import restore_for_inference
 from .predict import destr_predict
 
 __all__ = ["DetectionService", "serve", "get_parser", "build_service"]
@@ -142,8 +146,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", choices=["destr", "ssd"], default="destr")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
     p.add_argument("--weights", type=str, default="model_weights",
-                   help="weights .npz inside --checkpoint_dir (or a path); "
-                        "'.npz' is appended when missing")
+                   help="a checkpoint of the trainer inside --checkpoint_dir, or "
+                        "flax weights in NAME.npz ('.npz' is appended when no "
+                        "checkpoint NAME exists)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8900)
     p.add_argument("--score_thresh", type=float, default=0.5)
@@ -165,6 +170,20 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _load_weights(model, checkpoint_dir: str, weights: str) -> None:
+    """A checkpoint of the port's trainer (``weights``, or its ``.new`` /
+    ``.old`` stage), as JAX ``build_service`` (l.198-201) restores one; the
+    ``.npz`` flax weights where ``weights`` ends in ``.npz`` or names no
+    checkpoint."""
+    if not weights.endswith(".npz"):
+        try:
+            model.load_state_dict(restore_for_inference(checkpoint_dir, weights))
+            return
+        except FileNotFoundError:
+            weights += ".npz"
+    load_flax_variables(model, load_variables_npz(os.path.join(checkpoint_dir, weights)))
+
+
 def build_service(args) -> DetectionService:
     if args.model != "destr":
         raise NotImplementedError(f"--model {args.model}: SSD arrives with the SSD slice")
@@ -176,11 +195,8 @@ def build_service(args) -> DetectionService:
         num_decoder_blocks=args.num_decoder_blocks,
         top_k=args.top_k, num_cls=args.num_cls, backbone=args.backbone,
     )
-    path = os.path.join(args.checkpoint_dir, args.weights)
-    if not path.endswith(".npz"):
-        path += ".npz"
     model = build_destr(cfg, device)
-    load_flax_variables(model, load_variables_npz(path))
+    _load_weights(model, args.checkpoint_dir, args.weights)
     return DetectionService(
         args.model, model, args.image_size or 640, args.score_thresh,
         letterbox=args.letterbox,

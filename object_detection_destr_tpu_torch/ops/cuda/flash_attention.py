@@ -118,9 +118,9 @@ BWD_LIBRARY = CudaLibrary(
 )
 TWO_PASS_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd_two_pass", "flash_attention_bwd_two_pass.cu",
-    headers=("flash_common.cuh", "philox.cuh"),
+    headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
     functions={"odtt_flash_attention_two_pass": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_F, _U, _U, _F, _P])},
-    abi=("odtt_flash_bwd_two_pass_abi_version", 1),
+    abi=("odtt_flash_bwd_two_pass_abi_version", 2),
 )
 
 
@@ -737,7 +737,8 @@ class FlashAttentionTwoPass:
     #7 on head-major (B, h, S, d) operands (views with their own strides too;
     each gradient has its operand's strides). Each computes delta beside its
     kernel and writes its gradients once, in the input dtype. ``launches``
-    counts kernel launches and nothing else."""
+    counts kernel launches and nothing else. In bfloat16 the kernels run on
+    the tensor cores and feed dS and P keep to them as hi / lo bf16 pairs."""
 
     library = TWO_PASS_LIBRARY
 

@@ -16,6 +16,17 @@ forward (dQ = dK = 0, dV = sum(dO) / Sk), checked against autograd of the
 plain forward; the Pallas kernels differ there (see
 tests/test_torch_flash_backward.py), so those entries are left out of the
 JAX comparison.
+
+bfloat16 (the plain versions the card's bf16 kernels #3, #4, #6 and #7 are
+held against): q, k, v and dO in bfloat16 through the packed pair and the
+head-major pair against ``_bwd_impl_packed(..., fused=False,
+interpret=True)`` and ``_bwd_impl``. Both sides get JAX's forward out and lse
+and one keep mask, so only the order of the float32 sums differs before each
+side rounds its gradient to bfloat16 once; the two roundings of nearly equal
+float32 values differ by at most one bf16 ulp of the element, so the
+tolerance is one bf16 ulp (2**(floor(log2 m) - 7)) of the reference's
+largest absolute value m. A fully masked batch entry is checked against the
+port's own rule (dQ = dK = 0, dV = (keep / (1 - rate) / Sk)^T dO).
 """
 
 import numpy as np
@@ -26,8 +37,11 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from object_detection_destr_tpu.ops.pallas.flash_attention import (  # noqa: E402
+    _bwd_impl,
     _bwd_impl_packed,
+    _fwd_impl,
     _fwd_impl_packed,
+    _plan,
     _plan_packed,
     dropout_keep_mask,
 )
@@ -110,6 +124,87 @@ def test_two_pass_plain_versions_match_pallas_two_pass(name, rate):
     fa.flash_attention_packed(gq, gk, gv, h, tm, dropout_rate=rate, keep_mask=keep, fused=False).backward(tdo)
     for ours, grad in zip((dq, dk, dv), (gq, gk, gv)):
         assert torch.equal(ours, grad.grad)
+
+
+BF16_CASES = {
+    # the wide cross-attention cut to size, a ragged entry, an unmasked one
+    # and a fully masked one
+    "wide_cross": dict(b=3, sq=24, sk=40, h=1, d=640, dv=320, masked_rows={0: 23, 2: 0}),
+    # encoder-like: several narrow heads, ragged key mask
+    "encoder": dict(b=2, sq=24, sk=24, h=4, d=8, dv=8, masked_rows={0: 17}),
+}
+
+
+def _bf16_ulp_close(ours, ref, name):
+    m = float(np.abs(ref).max())
+    ulp = 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+    err = float(np.abs(ours - ref).max())
+    assert err <= ulp, f"{name}: {err:.3e} off, one bf16 ulp of the largest value is {ulp:.3e}"
+
+
+def _f32(x):
+    return np.array(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_two_pass_plain_versions_match_pallas_in_bfloat16(name, layout, rate):
+    c = BF16_CASES[name]
+    b, sq, sk, h, d, dv = c["b"], c["sq"], c["sk"], c["h"], c["d"], c["dv"]
+    q, k, v, dout, mask = _case(**c, seed=40 + sorted(BF16_CASES).index(name))
+    if layout == "unpacked":  # the same logical inputs, head-major
+        q, k, v, dout = (x.reshape(b, x.shape[1], h, -1).transpose(0, 2, 1, 3).copy() for x in (q, k, v, dout))
+    seed = 17
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, dout))
+    jmask = None if mask is None else jnp.asarray(mask)
+    jseed = seed if rate else None
+    if layout == "packed":
+        jout, jlse = _fwd_impl_packed(jq, jk, jv, h, jmask, jseed, rate, None, BLOCK_Q, BLOCK_K, True)
+        ref = _bwd_impl_packed(jq, jk, jv, h, jmask, jseed, jout, jlse, jdo, rate, None, BLOCK_Q, BLOCK_K, True,
+                               fused=False)
+        _, _, sq_pad, sk_pad = _plan_packed(sq, sk, BLOCK_Q, BLOCK_K, 2)
+    else:
+        jout, jlse = _fwd_impl(jq, jk, jv, jmask, jseed, rate, None, BLOCK_Q, BLOCK_K, True)
+        ref = _bwd_impl(jq, jk, jv, jmask, jseed, jout, jlse, jdo, rate, None, BLOCK_Q, BLOCK_K, True)
+        _, _, sq_pad, sk_pad = _plan(sq, sk, BLOCK_Q, BLOCK_K, 2)
+    assert all(g.dtype == jnp.bfloat16 for g in ref)
+    ref = [_f32(g) for g in ref]
+    keep = None
+    if rate:  # the mask the Pallas kernels drew, at their bf16 plan's padded shape
+        drawn = np.asarray(dropout_keep_mask(seed, b * h, sq_pad, sk_pad, rate))
+        keep = torch.from_numpy(drawn.reshape(b, h, sq_pad, sk_pad)[:, :, :sq, :sk] > 0)
+
+    bf = lambda x: torch.from_numpy(_f32(x)).to(torch.bfloat16)
+    tq, tk, tv, tdo, tout = (bf(x) for x in (jq, jk, jv, jdo, jout))
+    # JAX keeps lse lane-padded: (B, Sq_pad, lanes) with head hh in lane hh
+    # (packed), or (B*h, Sq_pad, lanes) broadcast over the lanes (head-major)
+    jlse = np.asarray(jlse, np.float32)
+    lse = jlse[:, :sq, :h].transpose(0, 2, 1) if layout == "packed" else jlse[:, :sq, 0].reshape(b, h, sq)
+    tlse = torch.from_numpy(np.ascontiguousarray(lse))
+    tm = None if mask is None else torch.from_numpy(mask)
+    if layout == "packed":
+        args = (tq, tk, tv, h, tm, tout, tlse, tdo, None, rate, None, keep)
+        grads = (fa.flash_attention_dq_reference(*args), *fa.flash_attention_dkv_reference(*args))
+    else:
+        args = (tq, tk, tv, tm, tout, tlse, tdo, None, rate, None, keep)
+        grads = (fa.flash_attention_unpacked_dq_reference(*args), *fa.flash_attention_unpacked_dkv_reference(*args))
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    grads = [g.float().numpy() for g in grads]
+
+    full = [i for i, n in (c["masked_rows"] or {}).items() if n == 0]
+    live = [i for i in range(b) if i not in full]
+    for g, r, label in zip(grads, ref, ("dq", "dk", "dv")):
+        _bf16_ulp_close(g[live], r[live], label)
+    for i in full:  # the port's rule: its forward's gradient
+        assert not grads[0][i].any() and not grads[1][i].any()
+        w = np.full((h, sq, sk), 1.0 / sk) * (1.0 if keep is None else keep[i].numpy() / (1.0 - rate))
+        do = _f32(jdo[i])
+        if layout == "packed":
+            want = np.einsum("hqk,qhe->khe", w, do.reshape(sq, h, dv)).reshape(sk, h * dv)
+        else:
+            want = np.einsum("hqk,hqe->hke", w, do)
+        _bf16_ulp_close(grads[2][i], want, "dv of the fully masked entry")
 
 
 def test_fully_masked_row_is_the_gradient_of_the_plain_forward():
