@@ -26,8 +26,9 @@ Phases (any failure exits non-zero and prints no result):
      cells plus the wide cross-attention's (device times from CUDA-graph
      replay); times of the kernels, their plain versions and
      F.scaled_dot_product_attention (a yardstick, never on the path), and
-     the bound from bytes and operations. bfloat16 runs #1-#4 on the
-     tensor cores, float32 on the CUDA cores: for the bfloat16 step cells of
+     the bound from bytes and operations. #1 runs on the tensor cores in
+     both dtypes (float32 in 3xTF32), #2-#4 in bfloat16 (their float32 on
+     the CUDA cores): for the bfloat16 step cells of
      both widths, the device times (CUDA-graph replay) of #1 and of #2, or
      #3 and #4 where the plan runs them, at dropout 0 and 0.3 side by side,
      beside their eager times, their plain versions', their bounds, SDPA's
@@ -50,14 +51,20 @@ Phases (any failure exits non-zero and prints no result):
      at most 8 valid targets (the synthetic recipe) and with 150-300 (dense);
      rows duplicate-free, equal or a near-tie within T*eps of the plain
      total, and within T*eps of scipy's optimum where the auction converged
-     before its 256-round cap; rounds and bids printed; the bound from the
-     inputs, the bids' value rows over a long-window L2 read rate, and the
-     cost's operations;
+     before its 256-round cap; in the synthetic setting rows, rounds and
+     bids equal to the plain version's, also with the rounds capped at 1, 2
+     and 4 (valid columns left to the greedy completion) and with fewer real
+     rows than columns on some problems; the kernel's time alone on the
+     device (CUDA graph of the launch on prepared operands) beside the
+     wrapper's (with its PyTorch prologue) on the device and eager; the
+     bound from the inputs, the bids' value rows over a long-window L2 read
+     rate, and the cost's operations;
   5. the L1-cost matcher, kernel #8 against its plain version:
      losses.matcher.hungarian_match(cost_bbox=2.5) on 16 problems of the
      model's 300 queries and of the mini-detector's 400 tokens, T=300, sparse
      and dense targets, and set_criterion(rows=None, cost_bbox=2.5): one #8
-     launch a call, rows checked as in phase 4;
+     launch a call, rows checked as in phase 4, rounds and bids equal to the
+     plain solver's in the synthetic setting;
   6. the training path: train.train.main with the production recipe
      (synthetic 672px canvases, 640px, batch 16, bf16, 6+6 blocks, top_k 300,
      dropout 0.3, boxes-normalized class loss, L1 weight 2.5, clip 0.1,
@@ -89,8 +96,9 @@ Phases (any failure exits non-zero and prints no result):
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors and #3's and
-#4's errors at both cross sites); the last line is
-{"ok": true, "device": {...}}.
+#4's errors at both cross sites; #1's serving entry with its float32 B=1
+sites; #8's and #9's rounds and bids beside the plain version's); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -113,6 +121,11 @@ import urllib.request
 
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12  # H100 SXM dense bfloat16 tensor-core FLOP/s
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s
+# float32-accurate products on the tensor cores: three TF32 products each
+# (3xTF32), the fastest float32 rate the card offers, so the bound of float32
+# attention (not the 67 TFLOP/s of the CUDA cores)
+F32_3XTF32_PEAK = TF32_PEAK / 3
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -166,7 +179,15 @@ CUDA_CORE_RECORDED_MS = {
             "encoder_self_wide": 5.6720, "decoder_self_wide": 6.8773},
     "dq": {"cross_cls_reg_wide": 9.1328},
     "dkv": {"cross_cls_reg_wide": 12.7446},
+    # serving: B=1, float32, masked as on the path, device time (CUDA graph),
+    # the CUDA-core float32 kernel the 3xTF32 one replaced
+    "fwd_f32_b1": {"encoder_self": 0.0553, "decoder_self": 0.0569, "cross_cls_reg": 0.2450},
 }
+# the auction kernels before their compacted-column solver, eager ms of the
+# wrapper's call (PERF.md; this script, NVIDIA H100 80GB HBM3, 700.00 W):
+# printed beside this run's times, never measured by this run
+AUCTION_RECORDED_MS = {"fused_auction": {"synthetic": 0.7353, "dense": 2.0241},
+                       "auction_assignment": {"synthetic": 0.3735}}
 
 
 def log(msg: str) -> None:
@@ -251,9 +272,36 @@ def phase_build(libraries) -> None:
         f"(in parallel, {time.perf_counter() - start:.1f} s)")
     for lib in libraries:
         lib.library()
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {lib.name}: {line.strip()}")
+        for kernel, registers, spilled in ptxas_usage(lib.build_log):
+            log(f"  ptxas {lib.name}: {kernel}: {registers} registers, {spilled} bytes spilled")
+
+
+def ptxas_usage(build_log):
+    """(kernel with its template arguments, registers, spill-store bytes) of
+    each entry function in nvcc's -Xptxas -v output."""
+    import re
+
+    usage, kernel, spilled = [], None, 0
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            # an Itanium-mangled name: <length><identifier>, the kernel's the one ending in _kernel
+            # (a length may follow a hash's digits, so every tail of a digit run is tried)
+            names = [mangled[m.end():m.end() + int(m.group()[i:])] for m in re.finditer(r"\d+", mangled)
+                     for i in range(len(m.group()))]
+            names = [n for n in names if n.endswith("_kernel") and n[0].isalpha()]
+            args = re.findall(r"Li(\d+)E", mangled)
+            kernel = (names[-1] if names else mangled) + (f"<{', '.join(args)}>" if args else "")
+            spilled = 0
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            spilled = int(spill.group(1))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and kernel:
+            usage.append((kernel, int(used.group(1)), spilled))
+            kernel = None
+    return usage
 
 
 def phase_plan(torch, fa) -> None:
@@ -295,7 +343,8 @@ def bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dtype_name, kind="fwd"):
            2*Sq*Sk*(3d + 2dv) FLOPs (s recomputed, dp, dV, dQ, dK);
       dq (#3): the same inputs, dQ out; 2*Sq*Sk*(2d + dv) (s, dp, dQ);
       dkv (#4): the same inputs, dK, dV out; 2*Sq*Sk*(2d + 2dv) (s, dp,
-           dK, dV)."""
+           dK, dV).
+    The operations' peak: bfloat16 989 TFLOP/s, float32 495 / 3 (3xTF32)."""
     q, k, v, o = b * sq * h * d, b * sk * h * d, b * sk * h * dv, b * sq * h * dv
     grads_out, per_pair = {"fwd": (o, d + dv), "bwd": (q + k + v, 3 * d + 2 * dv),
                            "dq": (q, 2 * d + dv), "dkv": (k + v, 2 * d + 2 * dv)}[kind]
@@ -303,7 +352,7 @@ def bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dtype_name, kind="fwd"):
     nbytes = itemsize * (ins + grads_out) + 4 * b * h * sq  # lse out (fwd) or in
     nbytes += b * sk if masked else 0
     flops = 2 * b * h * sq * sk * per_pair
-    peak = F32_PEAK if dtype_name == "float32" else BF16_PEAK
+    peak = F32_3XTF32_PEAK if dtype_name == "float32" else BF16_PEAK
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -832,6 +881,7 @@ def auction_bound(inputs, valid, row_valid, bids, rate, pair_ops=AUCTION_PAIR_OP
 def phase_auction(torch, seed):
     from object_detection_destr_tpu_torch.ops.cuda.auction import (
         fused_auction,
+        fused_auction_operands,
         fused_cost_inputs,
         hungarian_match_fused_reference,
         matching_value_reference,
@@ -846,27 +896,61 @@ def phase_auction(torch, seed):
         rows_k, rounds_k = fused_auction(*args)
         torch.cuda.synchronize()
         bids = fused_auction.last_bids.cpu().long()
-        rows_p, rounds_p = hungarian_match_fused_reference(*args)
+        plain_bids = torch.zeros(args[0].shape[0], dtype=torch.long, device="cuda")
+        rows_p, rounds_p = hungarian_match_fused_reference(*args, bids_out=plain_bids)
         logits, boxes, tgt, labels, valid, row_valid = args
         pn, atan_p, atan_g = fused_cost_inputs(logits, boxes, tgt)
         cost = -matching_value_reference(pn, boxes, atan_p, tgt, atan_g, labels, valid, row_valid)
         differ, worst, capped = auction_check(cost, valid, row_valid, rows_k, rows_p, rounds_k.cpu())
         ms = time_cuda(torch, lambda: fused_auction(*args))
+        device = device_ms(torch, lambda: fused_auction(*args))
+        operands = fused_auction_operands(*args)
+        fused_auction.launch(operands)
+        kernel_ms = device_ms(torch, lambda: fused_auction.launch(operands))
         plain_ms = time_cuda(torch, lambda: hungarian_match_fused_reference(*args), reps=3)
         n_valid = valid.sum(1).cpu()
         rounds = rounds_k.cpu().long()
         if not ((bids >= rounds) & (bids <= rounds * n_valid)).all():
             raise AssertionError(f"bid counts {bids.tolist()} do not fit rounds {rounds.tolist()}")
+        same_counts = rounds.tolist() == rounds_p.cpu().tolist() and bids.tolist() == plain_bids.cpu().tolist()
+        if not dense and not (same_counts and differ == 0):
+            raise AssertionError(f"synthetic #9: {differ} rows differ from plain, rounds {rounds.tolist()} vs "
+                                 f"{rounds_p.cpu().tolist()}, bids {bids.tolist()} vs {plain_bids.cpu().tolist()}")
         bound, bound_by = auction_bound(args, valid, row_valid, bids, rate)
-        row = dict(setting="dense" if dense else "synthetic", differ=differ, max_abs_err=worst, ms=ms, capped=capped,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, rounds=rounds.tolist(),
-                   plain_rounds=rounds_p.cpu().tolist(), bids=int(bids.sum()))
+        setting = "dense" if dense else "synthetic"
+        row = dict(setting=setting, differ=differ, max_abs_err=worst, ms=ms, device_ms=device,
+                   kernel_device_ms=kernel_ms, capped=capped, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   rounds=rounds.tolist(), plain_rounds=rounds_p.cpu().tolist(), bids=int(bids.sum()),
+                   plain_bids=int(plain_bids.sum()), same_counts=same_counts)
         rows.append(row)
-        log(f"auction {row['setting']:9s}: 32 problems N=400 T=300, valid targets {n_valid.min().item()}-"
+        log(f"auction {setting:9s}: 32 problems N=400 T=300, valid targets {n_valid.min().item()}-"
             f"{n_valid.max().item()}; rows differing from plain {differ} (largest total gap {worst:.2e}); "
-            f"rounds kernel {row['rounds']} plain {row['plain_rounds']}; bids {row['bids']}; ms={ms:.4f} "
-            f"plain_ms={plain_ms:.2f} bound_ms={bound:.6f} ({bound_by}); converged problems within T*eps of scipy's "
-            f"optimum; {len(capped)} stopped at the 256-round cap, total above the optimum by {capped} OK")
+            f"rounds kernel {row['rounds']} plain {row['plain_rounds']}; bids kernel {row['bids']} plain "
+            f"{row['plain_bids']}; ms={ms:.4f} (eager call, prologue included) device_ms={device:.4f} (the call, "
+            f"CUDA graph) kernel_device_ms={kernel_ms:.4f} (the launch alone, CUDA graph) plain_ms={plain_ms:.2f} "
+            f"bound_ms={bound:.6f} ({bound_by}); recorded eager ms before this solver "
+            f"{AUCTION_RECORDED_MS['fused_auction'][setting]} (not this run); converged problems within T*eps of "
+            f"scipy's optimum; {len(capped)} stopped at the 256-round cap, total above the optimum by {capped} OK")
+    # the greedy completion with valid columns left (the rounds capped), and
+    # problems with fewer real rows than columns (invalid columns run out of
+    # free real rows and take row 0): rows, rounds and bids equal to plain
+    args = auction_problems(torch, seed + 3, False)
+    exhausted = list(args)
+    exhausted[5] = exhausted[5].clone()
+    exhausted[5][::4, 250:] = False  # 250 real rows for 300 columns
+    for label, problem, max_iters in (("capped 1", args, 1), ("capped 2", args, 2), ("capped 4", args, 4),
+                                      ("250 real rows", exhausted, 256)):
+        rows_k, rounds_k = fused_auction(*problem, max_iters=max_iters)
+        torch.cuda.synchronize()
+        bids = fused_auction.last_bids.cpu().long()
+        plain_bids = torch.zeros(problem[0].shape[0], dtype=torch.long, device="cuda")
+        rows_p, rounds_p = hungarian_match_fused_reference(*problem, max_iters=max_iters, bids_out=plain_bids)
+        differ = int((rows_k != rows_p).sum())
+        if differ or rounds_k.cpu().long().tolist() != rounds_p.cpu().tolist() \
+                or bids.tolist() != plain_bids.cpu().tolist():
+            raise AssertionError(f"#9 {label}: {differ} rows differ from plain, rounds {rounds_k.tolist()} vs "
+                                 f"{rounds_p.tolist()}, bids {bids.tolist()} vs {plain_bids.tolist()}")
+        log(f"auction {label}: rows, rounds and bids equal to plain (rounds {rounds_k.cpu().tolist()}) OK")
     return rows, rate
 
 
@@ -914,24 +998,34 @@ def phase_assignment(torch, kernels, seed, rate):
         cost = hungarian_cost_matrix(outputs, targets, 1.0, 2.5, 1.0)
         value = precomputed_value(cost, valid)
         row_valid = torch.ones(cost.shape[:2], dtype=torch.bool, device="cuda")
-        rows_p, rounds_p = solve_auction(value, valid, row_valid)
+        plain_bids = torch.zeros(value.shape[0], dtype=torch.long, device="cuda")
+        rows_p, rounds_p = solve_auction(value, valid, row_valid, bids_out=plain_bids)
         differ, worst, capped = auction_check(-value, valid, row_valid, rows_k, rows_p, rounds)
         n_valid = valid.sum(1).cpu()
         if not ((bids >= rounds) & (bids <= rounds * n_valid)).all():
             raise AssertionError(f"bid counts {bids.tolist()} do not fit rounds {rounds.tolist()}")
+        same_counts = rounds.tolist() == rounds_p.cpu().tolist() and bids.tolist() == plain_bids.cpu().tolist()
+        if setting == "synthetic" and not (same_counts and differ == 0):
+            raise AssertionError(f"synthetic #8: {differ} rows differ from plain, rounds {rounds.tolist()} vs "
+                                 f"{rounds_p.cpu().tolist()}, bids {bids.tolist()} vs {plain_bids.cpu().tolist()}")
         ms = time_cuda(torch, lambda: batched_assignment(cost, valid))
+        kernel_ms = device_ms(torch, lambda: auction_kernel(value, valid, row_valid))
         plain_ms = time_cuda(torch, lambda: solve_auction(precomputed_value(cost, valid), valid, row_valid), reps=3)
         bound, bound_by = auction_bound((cost, valid), valid, row_valid, bids, rate, pair_ops=2)
-        row = dict(setting=setting, n=n, differ=differ, max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=bound_by, rounds=rounds.tolist(), plain_rounds=rounds_p.cpu().tolist(),
-                   bids=int(bids.sum()), capped=capped)
+        row = dict(setting=setting, n=n, differ=differ, max_abs_err=worst, ms=ms, kernel_device_ms=kernel_ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, rounds=rounds.tolist(),
+                   plain_rounds=rounds_p.cpu().tolist(), bids=int(bids.sum()), plain_bids=int(plain_bids.sum()),
+                   same_counts=same_counts, capped=capped)
         rows.append(row)
+        recorded = AUCTION_RECORDED_MS["auction_assignment"].get(setting) if n == 300 else None
         log(f"assignment {setting:9s}: hungarian_match(cost_bbox=2.5), 16 problems N={n} T=300, valid targets "
             f"{n_valid.min().item()}-{n_valid.max().item()}; one #8 launch; rows differing from plain {differ} "
             f"(largest total gap {worst:.2e}); rounds kernel {row['rounds']} plain {row['plain_rounds']}; bids "
-            f"{row['bids']}; ms={ms:.4f} (batched_assignment: value matrix + kernel) plain_ms={plain_ms:.2f} "
-            f"bound_ms={bound:.6f} ({bound_by}); {len(capped)} stopped at the 256-round cap, total above the "
-            f"optimum by {capped} OK")
+            f"kernel {row['bids']} plain {row['plain_bids']}; ms={ms:.4f} (batched_assignment: value matrix + "
+            f"kernel) kernel_device_ms={kernel_ms:.4f} (the launch alone, CUDA graph) plain_ms={plain_ms:.2f} "
+            f"bound_ms={bound:.6f} ({bound_by})"
+            + (f"; recorded ms before this solver {recorded} (not this run)" if recorded else "")
+            + f"; {len(capped)} stopped at the 256-round cap, total above the optimum by {capped} OK")
     log(f"assignment: set_criterion(rows=None, cost_bbox=2.5) launched #8 once; losses "
         + " ".join(f"{k}={v.item():.4f}" for k, v in losses.items()))
     return rows, counts
@@ -1694,6 +1788,12 @@ def main(argv=None) -> int:
     # a request: the same sites at B=1, float32, no dropout, masked as served
     serve = [r for r in flash_rows for (n, *_, m) in PATH_SITES
              if r["site"] == n and r["b"] == 1 and r["dtype"] == "float32" and r["masked"] == m]
+    log("serving float32 B=1, #1 on the tensor cores (3xTF32), device ms a launch (CUDA graph): "
+        + "; ".join(f"{r['site']} {r['ms']:.4f} (SDPA {r['library_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+                    f"{r['bound_ms']:.4f}, rel_err {r['rel_err']:.2e}; CUDA-core kernel's recorded time "
+                    f"{CUDA_CORE_RECORDED_MS['fwd_f32_b1'][r['site']]:.4f}, not this run)" for r in serve)
+        + f"; a request's 18 launches {BLOCKS * sum(r['ms'] for r in serve):.4f} against SDPA's "
+        f"{BLOCKS * sum(r['library_ms'] for r in serve):.4f}")
     counts, step_ms = runs["hidden 256"]
     wide_counts, wide_step_ms = runs["hidden 512"]
 
@@ -1751,9 +1851,16 @@ def main(argv=None) -> int:
                            **device_rates(share_wide, "fwd")},
             "validation": {"launches": val_counts[0], "per": "4 train steps and 4 validation batches, 18 each"},
             "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"),
+                        "device_ms": per_step(serve, "ms"),
                         "plain_ms": per_step(serve, "plain_ms"), "library_ms": per_step(serve, "library_ms"),
-                        "bound_ms": per_step(serve, "bound_ms"),
-                        "per": "request: 18 launches, B=1, float32"},
+                        "bound_ms": per_step(serve, "bound_ms"), "bound_by": bound_by(serve, "bound_by"),
+                        "max_abs_err": max(r["max_abs_err"] for r in serve),
+                        "rel_err": max(r["rel_err"] for r in serve),
+                        "sites": {r["site"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "rel_err")}
+                                  for r in serve},
+                        "per": "request: 18 launches (3 call sites x 6 blocks), B=1, float32 (tensor cores, "
+                               "3xTF32), masked as served; ms and device_ms from CUDA-graph replay, library_ms "
+                               "SDPA's float32 forward the same way; sites: one launch each"},
         },
         {
             "name": "flash_attention_bwd", "route": "cuda",
@@ -1799,12 +1906,17 @@ def main(argv=None) -> int:
             "replaces": "object_detection_destr_tpu/ops/pallas/auction.py:189",
             "launches": assign_counts[5],
             "max_abs_err": max(r["max_abs_err"] for r in assign_rows),
-            "ms": assign_rows[0]["ms"], "plain_ms": assign_rows[0]["plain_ms"],
+            "ms": assign_rows[0]["ms"], "kernel_device_ms": assign_rows[0]["kernel_device_ms"],
+            "plain_ms": assign_rows[0]["plain_ms"],
             "bound_ms": assign_rows[0]["bound_ms"], "bound_by": assign_rows[0]["bound_by"], "library_ms": None,
+            **{k: assign_rows[0][k] for k in ("rounds", "plain_rounds", "bids", "plain_bids")},
+            "rows_differing": assign_rows[0]["differ"],
             "per": "one hungarian_match(cost_bbox=2.5) call: 16 problems N=300 T=300, at most 8 valid targets; "
-                   "ms around batched_assignment (value matrix + launch); max_abs_err is the largest total-cost "
-                   "gap of a near-tie",
-            "others": [{k: r[k] for k in ("setting", "n", "ms", "plain_ms", "bound_ms", "bound_by", "bids")}
+                   "ms around batched_assignment (value matrix + launch), kernel_device_ms the launch alone "
+                   "(CUDA graph); max_abs_err is the largest total-cost gap of a near-tie; library_ms null: no "
+                   "PyTorch call solves an assignment",
+            "others": [{k: r[k] for k in ("setting", "n", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "bids", "plain_bids", "differ")}
                        for r in assign_rows[1:]],
         },
         {
@@ -1813,10 +1925,16 @@ def main(argv=None) -> int:
             "replaces": "object_detection_destr_tpu/ops/pallas/auction.py:271",
             "launches": counts[4],
             "max_abs_err": max(r["max_abs_err"] for r in auction_rows),
-            "ms": synthetic["ms"], "plain_ms": synthetic["plain_ms"],
+            "ms": synthetic["ms"], "device_ms": synthetic["device_ms"],
+            "kernel_device_ms": synthetic["kernel_device_ms"], "plain_ms": synthetic["plain_ms"],
             "bound_ms": synthetic["bound_ms"], "bound_by": synthetic["bound_by"], "library_ms": None,
-            "per": "train step: 1 launch, 32 problems N=400 T=300, at most 8 valid targets",
-            "dense": {k: auction_rows[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bids")},
+            **{k: synthetic[k] for k in ("rounds", "plain_rounds", "bids", "plain_bids")},
+            "rows_differing": synthetic["differ"],
+            "per": "train step: 1 launch, 32 problems N=400 T=300, at most 8 valid targets; ms the wrapper's "
+                   "eager call (its PyTorch prologue included), device_ms the same call from CUDA-graph replay, "
+                   "kernel_device_ms the launch alone; library_ms null: no PyTorch call solves an assignment",
+            "dense": {k: auction_rows[1][k] for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "bids", "plain_bids", "differ")},
             "hidden_512": {"launches": wide_counts[4]},
             "validation": {"launches": val_counts[4], "per": "4 train steps and 4 validation batches"},
         },

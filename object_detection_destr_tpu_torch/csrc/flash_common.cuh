@@ -1,6 +1,8 @@
-// Helpers shared by the flash-attention forward (flash_attention_fwd.cu) and
-// backward (flash_attention_bwd.cu) kernels: dtype conversion, warp
-// reductions, shared-memory tile loads and the 32-key reduce-scatter.
+// Helpers shared by the flash-attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu, flash_attention_bwd_two_pass.cu): operand strides
+// and the 16-byte alignment test, and, for the float32 backward kernels on
+// the CUDA cores, dtype conversion, warp reductions, shared-memory tile
+// loads and the 32-key reduce-scatter.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -54,12 +54,14 @@ __all__ = [
     "FusedAuction",
     "auction_kernel",
     "fused_auction",
+    "fused_auction_operands",
     "fused_cost_inputs",
     "hungarian_match_fused",
     "hungarian_match_fused_reference",
     "matching_value_reference",
     "precomputed_value",
     "solve_auction",
+    "value_rows_in_smem",
 ]
 
 BIG = 1e9
@@ -67,11 +69,22 @@ BIG = 1e9
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = CudaLibrary(
     "odtt_auction", "auction.cu",
-    functions={"odtt_fused_auction": (_I, [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _P]),
-               "odtt_auction": (_I, [_P] * 6 + [_I] * 3 + [_F, _I, _P])},
-    abi=("odtt_auction_abi_version", 3),
+    functions={"odtt_fused_auction": (_I, [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _I, _P]),
+               "odtt_auction": (_I, [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P])},
+    abi=("odtt_auction_abi_version", 4),
     flags=("-fmad=false",),
 )
+# shared memory a block of either kernel gives to the value rows of its valid
+# columns (csrc/auction.cu); a problem with more valid columns than fit
+# keeps them in global memory
+_VALUE_SMEM_BYTES = 96 * 1024
+
+
+def value_rows_in_smem(n: int, t: int) -> int:
+    """Valid columns whose (N,) value rows a block keeps in shared memory:
+    64 at N = 400, so the training step's problems (at most 8 valid targets)
+    never touch global memory for them."""
+    return min(t, _VALUE_SMEM_BYTES // (4 * n))
 
 
 def solve_auction(
@@ -80,10 +93,13 @@ def solve_auction(
     row_valid: torch.Tensor,
     eps_frac: float = 0.001,
     max_iters: int = 256,
+    bids_out: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Args:
         value: (B, T, N) float32 benefits, -1e9 on rows that are not real.
         col_valid: (B, T) bool; row_valid: (B, N) bool.
+        bids_out: optional (B,) integer tensor; the bids of every round
+            (one a bidding column) are added to it, as the kernels count them.
 
     Returns:
         rows (B, T) int64, duplicate-free; rounds (B,) int64, the bidding
@@ -112,6 +128,8 @@ def solve_auction(
         if not bool(active.any()):
             break
         rounds += active
+        if bids_out is not None:
+            bids_out += bidding.sum(1).to(bids_out.dtype)
         net = value - prices[:, None, :]
         best_v, best_i = net.max(-1)  # first index of the maximum
         second_v = net.scatter(-1, best_i[..., None], -BIG).amax(-1)
@@ -208,19 +226,31 @@ def _row_valid(pred_logits, row_valid):
 def hungarian_match_fused_reference(pred_logits, pred_boxes, tgt_boxes, tgt_labels, col_valid,
                                     row_valid=None, cost_class: float = 1.0,
                                     cost_ciou: float = 1.0, eps_frac: float = 0.001,
-                                    max_iters: int = 256):
-    """The kernel's function in plain PyTorch: (rows (B, T) int64, rounds (B,))."""
+                                    max_iters: int = 256, bids_out: Optional[torch.Tensor] = None):
+    """The kernel's function in plain PyTorch: (rows (B, T) int64, rounds (B,));
+    ``bids_out`` as :func:`solve_auction` takes it."""
     row_valid = _row_valid(pred_logits, row_valid)
     pn, atan_p, atan_g = fused_cost_inputs(pred_logits, pred_boxes, tgt_boxes)
     value = matching_value_reference(pn, pred_boxes, atan_p, tgt_boxes, atan_g, tgt_labels,
                                      col_valid, row_valid, cost_class, cost_ciou)
-    return solve_auction(value, col_valid, row_valid, eps_frac, max_iters)
+    return solve_auction(value, col_valid, row_valid, eps_frac, max_iters, bids_out)
+
+
+def fused_auction_operands(pred_logits, pred_boxes, tgt_boxes, tgt_labels, col_valid, row_valid):
+    """The operands of #9's launch, computed beside it, all contiguous: pn
+    (B, C, N), boxes (B, N, 4), atan_p (B, N), targets (B, T, 4) and atan_g
+    (B, T) float32 (:func:`fused_cost_inputs`), labels (B, T) int32,
+    col_valid (B, T) and row_valid (B, N) bool."""
+    pn, atan_p, atan_g = fused_cost_inputs(pred_logits, pred_boxes, tgt_boxes)
+    return (pn, pred_boxes.float().contiguous(), atan_p, tgt_boxes.float().contiguous(), atan_g,
+            tgt_labels.to(torch.int32).contiguous(), col_valid.contiguous(), row_valid.contiguous())
 
 
 class FusedAuction:
     """The kernel's wrapper: computes the terms beside it, checks the
-    operands, allocates outputs and scratch and launches one block per
-    problem on the current stream. ``launches`` counts kernel launches and
+    operands, allocates outputs (and the scratch for valid columns beyond
+    :func:`value_rows_in_smem`) and launches one block per problem on the
+    current stream. ``launches`` counts kernel launches and
     nothing else; ``last_rounds`` and ``last_bids`` hold the (B,) bidding
     rounds and the bids made over them in the last launch (read them only
     after a synchronize)."""
@@ -249,13 +279,22 @@ class FusedAuction:
             raise TypeError("col_valid and row_valid must be bool")
         if t > n or t == 0:
             raise ValueError(f"fused_auction needs 0 < T <= N, got T={t}, N={n}")
-        pn, atan_p, atan_g = fused_cost_inputs(pred_logits, pred_boxes, tgt_boxes)
-        boxes = pred_boxes.float().contiguous()
-        targets = tgt_boxes.float().contiguous()
-        labels = tgt_labels.to(torch.int32).contiguous()
-        colv, rowv = col_valid.contiguous(), row_valid.contiguous()
-        dev = pred_logits.device
-        value = torch.empty((b, t, n), dtype=torch.float32, device=dev)
+        operands = fused_auction_operands(pred_logits, pred_boxes, tgt_boxes, tgt_labels, col_valid, row_valid)
+        rows, rounds = self.launch(operands, cost_class, cost_ciou, eps_frac, max_iters)
+        return rows.long(), rounds
+
+    def launch(self, operands, cost_class: float = 1.0, cost_ciou: float = 1.0, eps_frac: float = 0.001,
+               max_iters: int = 256):
+        """The launch alone, on :func:`fused_auction_operands`. Returns
+        (rows (B, T) int32, rounds (B,) int32)."""
+        pn, boxes, atan_p, targets, atan_g, labels, colv, rowv = operands
+        b, c, n = pn.shape
+        t = targets.shape[1]
+        dev = pn.device
+        rows_smem = value_rows_in_smem(n, t)
+        # only the valid columns' rows are built, and in global memory only
+        # where they do not fit the block's shared memory
+        value = torch.empty((b, t, n), dtype=torch.float32, device=dev) if rows_smem < t else None
         rows = torch.empty((b, t), dtype=torch.int32, device=dev)
         rounds = torch.empty((b,), dtype=torch.int32, device=dev)
         bids = torch.empty((b,), dtype=torch.int32, device=dev)
@@ -265,14 +304,15 @@ class FusedAuction:
             err = lib.odtt_fused_auction(
                 pn.data_ptr(), boxes.data_ptr(), atan_p.data_ptr(), targets.data_ptr(),
                 atan_g.data_ptr(), labels.data_ptr(), colv.data_ptr(), rowv.data_ptr(),
-                value.data_ptr(), rows.data_ptr(), rounds.data_ptr(), bids.data_ptr(), b, n, t, c,
-                float(cost_class), float(cost_ciou), float(eps_frac), int(max_iters), stream,
+                None if value is None else value.data_ptr(), rows.data_ptr(), rounds.data_ptr(),
+                bids.data_ptr(), b, n, t, c, float(cost_class), float(cost_ciou), float(eps_frac),
+                int(max_iters), rows_smem, stream,
             )
         if err != 0:
             raise RuntimeError(f"fused_auction launch failed: CUDA error {err}")
         self.launches += 1
         self.last_rounds, self.last_bids = rounds, bids
-        return rows.long(), rounds
+        return rows, rounds
 
 
 fused_auction = FusedAuction()
@@ -298,8 +338,9 @@ def precomputed_value(cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tens
 
 class AuctionAssignment:
     """Kernel #8's wrapper: the solver of ``csrc/auction.cu`` on a given
-    (B, T, N) value matrix (:func:`precomputed_value`), one block per
-    problem, on the current stream. ``launches`` counts kernel launches and
+    (B, T, N) value matrix (:func:`precomputed_value`: an invalid column
+    holds 0 on real rows and -1e9 on the others, which the kernel assumes
+    and does not read), one block per problem, on the current stream. ``launches`` counts kernel launches and
     nothing else; ``last_rounds`` and ``last_bids`` hold the (B,) bidding
     rounds and the bids made over them in the last launch (read them only
     after a synchronize)."""
@@ -333,7 +374,7 @@ class AuctionAssignment:
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.odtt_auction(value.data_ptr(), colv.data_ptr(), rowv.data_ptr(), rows.data_ptr(),
                                    rounds.data_ptr(), bids.data_ptr(), b, n, t, float(eps_frac),
-                                   int(max_iters), stream)
+                                   int(max_iters), value_rows_in_smem(n, t), stream)
         if err != 0:
             raise RuntimeError(f"auction_kernel launch failed: CUDA error {err}")
         self.launches += 1

@@ -107,7 +107,7 @@ FWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_fwd", "flash_attention_fwd.cu",
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
     functions={"odtt_flash_attention_fwd": (_I, [_P] * 7 + [_I] * 7 + [_F, _U, _U, _F, _P])},
-    abi=("odtt_flash_fwd_abi_version", 4),
+    abi=("odtt_flash_fwd_abi_version", 5),
 )
 BWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd", "flash_attention_bwd.cu",

@@ -215,3 +215,76 @@ def test_precomputed_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         auction_kernel(torch.zeros(1, 4, 10), valid, torch.ones(1, 10, dtype=torch.bool))
     assert auction_kernel.launches == before
+
+
+def _stacked_problem(seed, b=4, n=40, t=24, c=3, valid_frac=0.45, real=(30, 40, 26, 40)):
+    """Valid and invalid columns interleaved at random, and problems whose
+    last rows are not real, as the train step stacks the model's top-k
+    queries with the mini-detector's tokens."""
+    logits, pb, tb, lab, valid = _problem(b, n, t, c, seed, valid_frac=valid_frac)
+    row_valid = np.arange(n)[None, :] < np.array(real)[:, None]
+    return (logits, pb, tb, lab, valid), row_valid
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 4])
+def test_capped_fused_auction_matches_pallas(max_iters):
+    """With the rounds capped at 1, 2 or 4, valid columns are left without a
+    row and the greedy completion places them in column order among the
+    invalid ones. The plain #9 (and its public entry) equal
+    ``hungarian_match_pallas`` in interpret mode row for row, and the cap
+    bites: some problem stops at it while its uncapped auction runs on."""
+    args, row_valid = _stacked_problem(12 + max_iters)
+    ref = np.asarray(hungarian_match_pallas(*map(jnp.asarray, args), max_iters=max_iters,
+                                            row_valid=jnp.asarray(row_valid)))
+    targs = tuple(map(torch.from_numpy, args))
+    ours, rounds = hungarian_match_fused_reference(*targs, row_valid=torch.from_numpy(row_valid),
+                                                   max_iters=max_iters)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    public = hungarian_match_fused(*targs, row_valid=torch.from_numpy(row_valid), max_iters=max_iters)
+    np.testing.assert_array_equal(public.numpy(), ref)
+    _, full_rounds = hungarian_match_fused_reference(*targs, row_valid=torch.from_numpy(row_valid))
+    assert ((rounds == max_iters) & (full_rounds > max_iters)).any()
+    valid = args[-1]
+    for i in range(len(ref)):
+        assert len(set(ref[i].tolist())) == ref.shape[1]
+        assert row_valid[i][ref[i][valid[i]]].all()  # a valid target never takes a row that is not real
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 4])
+def test_capped_precomputed_auction_matches_pallas(max_iters):
+    """#8's plain version (``batched_assignment`` on the CPU) against
+    ``auction_assignment_pallas`` in interpret mode with the rounds capped,
+    on invalid columns interleaved with valid ones: the same float32 costs
+    on both sides, so the rows are equal."""
+    rng = np.random.default_rng(20 + max_iters)
+    cost = rng.uniform(-2, 2, (4, 36, 20)).astype(np.float32)
+    valid = rng.uniform(size=(4, 20)) < 0.5
+    ref = np.asarray(auction_assignment_pallas(jnp.asarray(cost), jnp.asarray(valid), max_iters=max_iters))
+    ours = batched_assignment(torch.from_numpy(cost), torch.from_numpy(valid), max_iters=max_iters).numpy()
+    np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("seed", [30, 31])
+def test_invalid_columns_take_the_lowest_free_real_rows(seed):
+    """When every valid column holds a row after the rounds, the invalid
+    columns, in column order, take the free real rows from the lowest up,
+    and row 0 once none is left (the argmax of fill over -1e9 everywhere);
+    here the second and fourth problems have fewer real rows than columns,
+    so their last invalid columns get row 0. The plain #9 equals
+    ``hungarian_match_pallas`` in interpret mode on the same problems."""
+    args, row_valid = _stacked_problem(seed, b=4, n=20, t=16, valid_frac=0.35, real=(20, 12, 17, 14))
+    targs = tuple(map(torch.from_numpy, args))
+    ours, rounds = hungarian_match_fused_reference(*targs, row_valid=torch.from_numpy(row_valid))
+    ours = ours.numpy()
+    ref = np.asarray(hungarian_match_pallas(*map(jnp.asarray, args), row_valid=jnp.asarray(row_valid)))
+    np.testing.assert_array_equal(ours, ref)
+    assert (rounds < 256).all()
+    valid = args[-1]
+    exhausted = 0
+    for i in range(len(ours)):
+        taken = set(ours[i][valid[i]].tolist())
+        free_real = [r for r in range(row_valid.shape[1]) if row_valid[i, r] and r not in taken]
+        want = [free_real[m] if m < len(free_real) else 0 for m in range((~valid[i]).sum())]
+        assert ours[i][~valid[i]].tolist() == want
+        exhausted += (~valid[i]).sum() > len(free_real)
+    assert exhausted >= 1
