@@ -46,6 +46,11 @@ Phases (any failure exits non-zero and prints no result):
   3b. the head-major public API, flash_attention and
      flash_attention_trainable, on (B, S, h, d) views at those shapes:
      exactly one #5 launch a call and one #6 and #7 a backward;
+  3c. the dropout seed in device memory: a draw of the training stream's
+     seed and kernel #1 captured in a CUDA graph, replayed at two steps
+     after reseeding the registered generator: each replay's seed and keep
+     mask equal the eager draw's at that step and the plain Philox mask, and
+     the two steps' masks differ;
   4. fused cost + auction, kernel #9 against its plain version: 32 problems
      of N=400 rows and T=300 columns as the training step stacks them, with
      at most 8 valid targets (the synthetic recipe) and with 150-300 (dense);
@@ -75,6 +80,19 @@ Phases (any failure exits non-zero and prints no result):
      first step; then three more steps of the same train step with CUDA
      events around its parts; the same with --hidden_dim 512, 18 / 12 / 6 /
      6 / 1 launches a step (the cross-attention's backward is two-pass);
+  6a. the captured step at both widths on device-cached batches: the epoch
+     runner takes step 0 (eager warm-up, CUDA-graph capture); at each of
+     steps 1-4, from one cloned state, five eager steps (the first once
+     under torch.cuda.set_sync_debug_mode("error")), a replay with the
+     step's seeds and a replay with the capture's seeds (a planted fault):
+     the replay's Adam first moment and parameters (relative to the step's
+     change) and its 4 steps' losses no farther from the eager samples' mean
+     than the largest distance between two eager samples, the planted fault
+     farther; step times (CUDA events) eager and captured in turns; a
+     torch.profiler window of 3 steps of each: the device's busy time and
+     idle share and the launches a step read from the trace (18 / 18 / 0 /
+     0 / 1 and 18 / 12 / 6 / 6 / 1 of #1 / #2 / #3 / #4 / #9); peak memory
+     of each;
   6b. the validation path: train.train.main with the production recipe, a
      32-image validation split, --ema_decay 0.999, --coco_eval and
      checkpoints for 4 steps: exactly 18 / 18 / 0 / 0 / 1 launches of #1 /
@@ -84,13 +102,24 @@ Phases (any failure exits non-zero and prints no result):
      1e-6; a resume from smoke_last runs steps 5-8; the eval step's time a
      batch, the sweep's images/s, the EMA update and a checkpoint's size and
      write time;
+  6c. train.train.main with --device_cache --epoch_scan, 2 epochs on 64
+     samples, against five --device_cache runs (the per-step path, the
+     first with --profile_dir): final parameters and logged losses no
+     farther from the per-step runs' mean than two per-step runs are apart,
+     the profile's trace parsed (steps 2 and 3, the traced range 2-4 cut by
+     the 4-step epoch; 18 / 18 / 0 / 0 / 1 launches a step), the cache's
+     bytes and build time;
   7. one whole train step, kernels against plain versions: B=4, float32,
      dropout 0, the same weights and batch, at hidden 256 and 512; the
      kernel run's discrete choices (pairs, top-k indices, matcher rows) must
      be near-ties where the plain run's differ and are then replayed in it;
      loss, gradients and updated parameters compared;
-  8. serving at full width: 8 requests through build_service, 18
-     forward launches each;
+  8. serving at full width: build_service captures the predict (its
+     warm-up and capture call #1's wrapper 18 times each), 8 requests as
+     graph replays and the same 8 with the model run eagerly, the
+     detections equal; latencies of both; a torch.profiler trace of 4
+     requests of each: 18 #1 launches a request, device busy time, idle
+     share;
   9. whole model forward, kernel against plain, discrete choices
      (top-k, pairs) recorded and replayed as in phase 7.
 
@@ -361,20 +390,31 @@ def _rel(a, ref):
     return ((a.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1e-30)).item()
 
 
-def kernel_keep_mask(torch, fa, b, sq, sk, h, d, dv, dtype, rate, seed):
-    """The keep mask that kernel #1 draws, read off its output: with q = k = 0
-    every key weighs 1/Sk, so with v a slice of the Sk x Sk identity, out[...,
-    c] = keep[..., off + c] / ((1 - rate) Sk). ceil(Sk / dv) launches of the
-    call site's shape; (B, h, Sq, Sk) bool."""
+def keep_mask_operands(torch, b, sq, sk, h, d, dv, dtype):
+    """q = k = 0 and the slices of the Sk x Sk identity that
+    :func:`kernel_keep_mask` reads a keep mask with: (q, k, [(off, w, v)])."""
     q = torch.zeros(b, sq, h * d, device="cuda", dtype=dtype)
     k = torch.zeros(b, sk, h * d, device="cuda", dtype=dtype)
-    keep = torch.empty(b, sq, h, sk, dtype=torch.bool, device="cuda")
+    slices = []
     for off in range(0, sk, dv):
         w = min(dv, sk - off)
         v = torch.zeros(b, sk, h, dv, device="cuda", dtype=dtype)
         cols = torch.arange(w, device="cuda")
         v[:, off + cols, :, cols] = 1
-        out, _ = fa.flash_attention_fwd(q, k, v.view(b, sk, h * dv), h, None, None, rate, seed)
+        slices.append((off, w, v.view(b, sk, h * dv)))
+    return q, k, slices
+
+
+def kernel_keep_mask(torch, fa, b, sq, sk, h, d, dv, dtype, rate, seed, operands=None):
+    """The keep mask that kernel #1 draws, read off its output: with q = k = 0
+    every key weighs 1/Sk, so with v a slice of the Sk x Sk identity, out[...,
+    c] = keep[..., off + c] / ((1 - rate) Sk). ceil(Sk / dv) launches of the
+    call site's shape on :func:`keep_mask_operands` (made here unless
+    given); (B, h, Sq, Sk) bool."""
+    q, k, slices = operands or keep_mask_operands(torch, b, sq, sk, h, d, dv, dtype)
+    keep = torch.empty(b, sq, h, sk, dtype=torch.bool, device="cuda")
+    for off, w, v in slices:
+        out, _ = fa.flash_attention_fwd(q, k, v, h, None, None, rate, seed)
         keep[..., off:off + w] = out.view(b, sq, h, dv)[..., :w].float() * ((1.0 - rate) * sk) > 0.5
     return keep.permute(0, 2, 1, 3)
 
@@ -1344,6 +1384,7 @@ def phase_train_compare(torch, kernels, seed, destr=None, image_size=640):
 
 
 VALID_SAMPLES = 32  # two validation batches
+EAGER_RUNS = 5  # eager samples a captured one is held against (their pairwise distances give the spread)
 
 
 def phase_validation(torch, kernels, seed):
@@ -1552,37 +1593,68 @@ def phase_serving(torch, kernel, seed, images):
         ["--checkpoint_dir", weights_dir, "--weights", "chip_smoke_weights.npz",
          "--score_thresh", "0.0"]
     )
-    service = build_service(args)  # default: GPU, 640px, letterbox, full width
-    log(f"serving: weights written and service built in {time.perf_counter() - start:.1f} s "
-        f"({sum(p.numel() for p in service.model.parameters()) / 1e6:.1f} M parameters)")
+    kernel.launches = 0  # the main path starts here: the service's warm-up forward and capture, then requests
+    service = build_service(args)  # default: GPU, 640px, letterbox, full width, the predict captured
+    built = kernel.launches
+    log(f"serving: weights written and service built (warm-up forward and CUDA-graph capture) in "
+        f"{time.perf_counter() - start:.1f} s ({sum(p.numel() for p in service.model.parameters()) / 1e6:.1f} M "
+        f"parameters); #1's wrapper called {built} times (the warm-up forward's and the capture's)")
+    if service.graph is None or built != 2 * 3 * BLOCKS:
+        raise AssertionError(f"the service captured no graph, or called #1 {built} times building it")
 
-    latencies, counts = [], []
-    kernel.launches = 0  # the main path starts here
-    for rnd in range(2):
+    def check(dets):
+        if len(dets["scores"]) != 300:
+            raise AssertionError(f"{len(dets['scores'])} detections at threshold 0, not 300")
+        if not all(0.0 <= s <= 1.0 for s in dets["scores"]) or any(
+            not (0.0 <= c <= 1.0) for box in dets["boxes"] for c in box
+        ):
+            raise AssertionError("detections out of range")
+
+    latencies, eager_latencies, counts, served = [], [], [], []
+    for rnd in range(2):  # captured requests: graph replays
         for image in images:
-            before = kernel.launches
             t0 = time.perf_counter()
             dets = service.predict_image(image)
             latencies.append((time.perf_counter() - t0) * 1e3)
-            launched = kernel.launches - before
-            if launched != 3 * BLOCKS:
-                raise AssertionError(f"request launched the kernel {launched} times, not {3 * BLOCKS}")
-            n = sum(score >= 0.5 for score in dets["scores"])
-            if len(dets["scores"]) != 300:
-                raise AssertionError(f"{len(dets['scores'])} detections at threshold 0, not 300")
-            if not all(0.0 <= s <= 1.0 for s in dets["scores"]) or any(
-                not (0.0 <= c <= 1.0) for box in dets["boxes"] for c in box
-            ):
-                raise AssertionError("detections out of range")
+            check(dets)
             if rnd == 0:
-                counts.append(n)
+                counts.append(sum(score >= 0.5 for score in dets["scores"]))
+                served.append(dets)
     main_path_launches = kernel.launches  # read just after the main path
-    log(f"serving: {len(latencies)} requests, {main_path_launches} kernel launches "
-        f"({main_path_launches // len(latencies)} per request), detections scoring >= 0.5 "
-        f"{dict(zip(['x'.join(map(str, im.shape[:2])) for im in images], counts))}")
-    log(f"serving: request latency ms median={statistics.median(latencies):.2f} "
-        f"min={min(latencies):.2f} max={max(latencies):.2f} (all: "
-        f"{', '.join(f'{t:.2f}' for t in latencies)})")
+    if main_path_launches != built:
+        raise AssertionError(f"a replayed request called #1's wrapper ({main_path_launches - built} times)")
+    for rnd in range(2):  # the same requests, the model run eagerly
+        for image, captured_dets in zip(images, served):
+            t0 = time.perf_counter()
+            dets = eager_predict_image(torch, service, image)
+            eager_latencies.append((time.perf_counter() - t0) * 1e3)
+            if dets != captured_dets:
+                raise AssertionError("the captured predict's detections differ from the eager forward's")
+    windows = {}
+    for kind, predict in (("captured", service.predict_image),
+                          ("eager", lambda image: eager_predict_image(torch, service, image))):
+        def requests(scope, predict=predict):
+            for i, image in enumerate(images):
+                with scope(i):
+                    predict(image)
+        windows[kind] = traced(torch, f"serve_{kind}", len(images), requests)
+        if windows[kind]["per_step"] != [3.0 * BLOCKS, 0, 0, 0, 0, 0]:
+            raise AssertionError(f"a traced {kind} request launched #1/#2/#3/#4/#9/#8 {windows[kind]['per_step']}")
+    log(f"serving: {len(latencies)} captured requests (graph replays, #1's wrapper not called), detections scoring "
+        f">= 0.5 {dict(zip(['x'.join(map(str, im.shape[:2])) for im in images], counts))}; the eager forward "
+        f"gives the same detections on every request")
+    log(f"serving: request latency ms captured median={statistics.median(latencies):.2f} "
+        f"min={min(latencies):.2f} max={max(latencies):.2f} (all: {', '.join(f'{t:.2f}' for t in latencies)}); "
+        f"eager median={statistics.median(eager_latencies):.2f} max={max(eager_latencies):.2f} (all: "
+        f"{', '.join(f'{t:.2f}' for t in eager_latencies)})")
+    log("serving: traced requests (4 each): " + "; ".join(
+        f"{kind} device busy {w['step_busy_ms']:.3f} ms a request of {w['step_period_ms']:.3f}, idle share "
+        f"{w['idle_share']:.4f}, #1 launches a request from the trace {w['per_step'][0]:.0f}"
+        for kind, w in windows.items()))
+    serve_timing = {"captured_ms": statistics.median(latencies), "captured_max_ms": max(latencies),
+                    "eager_ms": statistics.median(eager_latencies), "eager_max_ms": max(eager_latencies),
+                    **{f"{kind}_{key}": w[key] for kind, w in windows.items()
+                       for key in ("idle_share", "step_busy_ms", "step_period_ms")}}
 
     # where a request's time goes: host letterbox, then the model on the device
     from object_detection_destr_tpu_torch.data.loader import _letterbox_canvas
@@ -1617,7 +1689,28 @@ def phase_serving(torch, kernel, seed, images):
     if health != {"ok": True}:
         raise AssertionError(f"/healthz answered {health}")
     log("serving: HTTP /healthz ok")
-    return service, variables, main_path_launches, statistics.median(latencies), forward_ms
+    return service, variables, main_path_launches, serve_timing, forward_ms
+
+
+def eager_predict_image(torch, service, image):
+    """``service.predict_image`` with the model run eagerly on the request
+    (the host letterbox, the transform, the forward and destr_predict)."""
+    import numpy as np
+
+    from object_detection_destr_tpu_torch.data.loader import _letterbox_canvas
+    from object_detection_destr_tpu_torch.data.transforms import letterbox_infer_transform
+    from object_detection_destr_tpu_torch.infer.predict import destr_predict
+
+    canvas, fh, fw = _letterbox_canvas(image, service.image_size)
+    prep = letterbox_infer_transform(torch.from_numpy(canvas[None]).to(service.device),
+                                     torch.tensor([[fh, fw]], dtype=torch.float32), out_size=service.image_size)
+    with torch.inference_mode():
+        outputs, _ = service.model(prep["images"], valid_mask=prep["pixel_valid"])
+        dets = {k: v.cpu().numpy() for k, v in destr_predict(outputs, score_thresh=service.score_thresh).items()}
+    keep = dets["valid"][0]
+    boxes = np.clip(dets["boxes"][0][keep] / np.asarray([fw, fh, fw, fh], np.float32), 0.0, 1.0)
+    return {"boxes": boxes.tolist(), "scores": dets["scores"][0][keep].tolist(),
+            "labels": dets["labels"][0][keep].tolist()}
 
 
 def pair_flip_margins(torch, centers, pairs_a, pairs_b):
@@ -1705,6 +1798,415 @@ def phase_whole_model(torch, service, variables, images):
         raise AssertionError(f"whole model out of tolerance: {bad}, finite={finite}")
 
 
+# the kernels' device names in a torch.profiler trace, in the order of the
+# counts (#1, #2, #3, #4, #9, #8): demangled template names, or mangled ones
+# (ILb0E / ILb1E: the two-pass kernel's DKV = false / true)
+KERNEL_NAME_PATTERNS = [r"flash_fwd_(tc|f32)_kernel", r"flash_bwd_(tc_)?kernel",
+                        r"flash_two_pass_tc_kernel(<false|ILb0E)|flash_dq_kernel",
+                        r"flash_two_pass_tc_kernel(<true|ILb1E)|flash_dkv_kernel",
+                        r"fused_auction_kernel", r"(?<!fused_)auction_kernel"]
+
+
+def trace_launches(launches: dict) -> list:
+    """Launches of #1, #2, #3, #4, #9, #8 in a parsed trace's kernel counts."""
+    import re
+
+    counts = [0] * len(KERNEL_NAME_PATTERNS)
+    for name, n in launches.items():
+        for i, pattern in enumerate(KERNEL_NAME_PATTERNS):
+            if re.search(pattern, name):
+                counts[i] += n
+                break
+    return counts
+
+
+def traced(torch, label, steps, run_steps):
+    """Trace ``run_steps(scope)``, which runs ``steps`` steps, step i inside
+    ``scope(i)``, under torch.profiler; returns the parsed trace
+    (train/profiler.py) with ``per_step`` launches of #1/#2/#3/#4/#9/#8 read
+    from the device events."""
+    from object_detection_destr_tpu_torch.train.profiler import StepTrace, parse_trace
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build", "traces", label)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    trace = StepTrace(out_dir)
+    torch.cuda.synchronize()
+    trace.start()
+    run_steps(trace.step)
+    parsed = parse_trace(trace.stop())
+    if len(parsed["steps"]) != steps or parsed["busy_s"] <= 0.0:
+        raise AssertionError(f"{label}: the trace holds {len(parsed['steps'])} steps, busy {parsed['busy_s']} s")
+    counts = trace_launches(parsed["launches"])
+    parsed["per_step"] = [c / steps for c in counts]
+    parsed["step_busy_ms"] = statistics.median(s["busy_s"] * 1e3 for s in parsed["steps"])
+    parsed["step_period_ms"] = statistics.median(s["period_s"] * 1e3 for s in parsed["steps"])
+    return parsed
+
+
+def _flat_params(torch, model):
+    return torch.cat([p.detach().reshape(-1).float() for p in model.parameters()])
+
+
+def _hold_to_spread(label, eager, captured, controls=None):
+    """Hold one captured sample to the eager samples' own spread. The eager
+    step is not bit-reproducible (#2 adds dQ with float32 atomics, cuDNN's
+    backward sums in its own order), so a right capture is one more sample
+    of the eager spread: per quantity, the captured sample's distance to the
+    mean of the eager samples must not exceed the largest distance between
+    two eager samples (a sample's distance to the mean of K others is about
+    sqrt((1 + 1/K) / 2) of a pair's, so a right capture passes with margin
+    while the limit is no wider than the eager pairs). ``controls``: samples
+    of planted faults, each of which must fail on at least one quantity, or
+    the check could not see that fault. Returns the distances."""
+    import itertools
+
+    out = {}
+    for key in eager[0]:
+        mean = _mean_sample([e[key] for e in eager])
+        limit = max(dist(a[key], b[key], key) for a, b in itertools.combinations(eager, 2))
+        out[key] = {"captured": dist(captured[key], mean, key), "limit": limit,
+                    "eager_to_mean": [dist(e[key], mean, key) for e in eager],
+                    **{name: dist(c[key], mean, key) for name, c in (controls or {}).items()}}
+    bad = [k for k, v in out.items() if not v["captured"] <= v["limit"]]
+    blind = [name for name in controls or {} if all(v[name] <= v["limit"] for v in out.values())]
+    if bad or blind:
+        raise AssertionError(f"{label}: captured farther from the eager mean than two eager samples are apart in "
+                             f"{bad}; planted faults the check does not see: {blind}; distances {out}")
+    return out
+
+
+def _rounded(x):
+    """``x`` with every float at 4 significant digits, for the log."""
+    if isinstance(x, float):
+        return float(f"{x:.4g}")
+    if isinstance(x, dict):
+        return {k: _rounded(v) for k, v in x.items()}
+    return [_rounded(v) for v in x] if isinstance(x, list) else x
+
+
+def _mean_sample(samples):
+    import torch
+
+    stack = torch.stack([torch.as_tensor(x, dtype=torch.float64) for x in samples])
+    return stack[0] + (stack - stack[0]).mean(0)  # equal samples give their own value, not a rounding of it
+
+
+def dist(a, b, key):
+    """The distance of two samples' ``key``: the mean absolute difference of
+    the losses, the 2-norm of the difference of a vector (Adam's first
+    moment, the parameters)."""
+    import torch
+
+    diff = torch.as_tensor(a, dtype=torch.float64) - torch.as_tensor(b, dtype=torch.float64)
+    return float(diff.abs().mean() if key == "losses" else diff.norm())
+
+
+def phase_seed_replay(torch, seed):
+    """The flash seed read from device memory under a CUDA graph: a captured
+    draw of DropoutRng's seed followed by kernel #1 (its keep mask read off
+    its output, as in phase 3), replayed at steps 5 and 6 after reseeding the
+    registered generator: each replay's seed and keep mask equal the eager
+    draw's at that step and the plain Philox mask of that seed, and the two
+    steps' masks differ."""
+    from object_detection_destr_tpu_torch.models.destr.layers import DropoutRng
+    from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+
+    name, sq, sk, h, d, dv, _ = PATH_SITES[0]
+    b, dtype = 2, torch.bfloat16
+    rng = DropoutRng(seed, "cuda")
+    operands = keep_mask_operands(torch, b, sq, sk, h, d, dv, dtype)  # made outside the graph: copies from the host
+
+    def draw():
+        s = rng.seed()
+        return s, kernel_keep_mask(torch, fa, b, sq, sk, h, d, dv, dtype, RATE, s, operands)
+
+    eager = {}
+    for step in (5, 6):
+        rng.begin_step(step)
+        s, keep = draw()
+        eager[step] = (s.clone(), keep.clone())
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(rng.generator)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rng.begin_step(0)
+        draw()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        s_static, keep_static = draw()
+    replayed = {}
+    for step in (5, 6):
+        rng.begin_step(step)
+        graph.replay()
+        replayed[step] = (s_static.clone(), keep_static.clone())
+    torch.cuda.synchronize()
+    checks = {}
+    for step in (5, 6):
+        (se, ke), (sr, kr) = eager[step], replayed[step]
+        plain = fa._keep_mask(sr, RATE, b, h, sq, sk, "cuda")
+        checks[step] = {"seed": int(sr), "seed_equal": torch.equal(se, sr), "keep_equal": torch.equal(ke, kr),
+                        "plain_equal": torch.equal(kr, plain), "kept": kr.float().mean().item()}
+    differ = not torch.equal(replayed[5][1], replayed[6][1]) and not torch.equal(replayed[5][0], replayed[6][0])
+    del graph
+    log(f"seed replay ({name}, B={b}, bf16, dropout {RATE}): replays at steps 5 and 6 {checks}; the two steps' "
+        f"masks differ: {differ}")
+    if not differ or not all(c["seed_equal"] and c["keep_equal"] and c["plain_equal"] and abs(c["kept"] - (1 - RATE))
+                             < 0.005 for c in checks.values()):
+        raise AssertionError(f"replayed seeds or keep masks wrong: {checks}, differ={differ}")
+    return checks
+
+
+def _state_tensors(state):
+    """Every tensor a train step reads and writes in place: the parameters,
+    the buffers (BatchNorm statistics), Adam's moments and its counters."""
+    opt = state.optimizer
+    return [*state.model.parameters(), *state.model.buffers(), *opt._m.values(), *opt._v.values(), opt._count,
+            opt._notfinite]
+
+
+def _restore(torch, state, snapshot, step):
+    with torch.no_grad():
+        for t, saved in zip(_state_tensors(state), snapshot):
+            t.copy_(saved)
+    state.step = step
+
+
+def phase_captured_train(torch, kernels, seed, extra, per_step, label):
+    """The production recipe's step (+ ``extra`` flags) on device-cached
+    batches, captured against eager from the same state and seed: the
+    epoch runner takes step 0 (its eager warm-up on a side stream, then the
+    capture); at each of steps 1-4 the state is cloned and, each from the
+    clone, the eager per-step path runs EAGER_RUNS times (the first under
+    torch.cuda.set_sync_debug_mode("error")), the graph replays once with
+    the seeds of the capture's step 0 (a planted fault: the seed fixed at
+    capture) and once with the step's own seeds, which is the state the run
+    goes on from. The replay is held to the eager samples' spread
+    (``_hold_to_spread``): Adam's first moment after each step (where only
+    the summation order of #2's atomics and cuDNN's backward differ between
+    eager samples) and the parameters, each relative to the step's own
+    change, and the 4 steps' losses; the planted fault must fail. Then, in
+    turns on the live state, CUDA-event step times (eager, captured,
+    captured, eager, 3 steps each), a traced window of 3 steps of each (the
+    device's busy time and idle share, and the launches a step read from the
+    trace, ``per_step`` as the wrappers count them eagerly), and the peak
+    memory of each."""
+    from object_detection_destr_tpu_torch.data.device_cache import DeviceCachedLoader
+    from object_detection_destr_tpu_torch.data.transforms import destr_train_transform
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.train.driver import _aug_seed, _make_loaders
+    from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
+    from object_detection_destr_tpu_torch.train.state import create_destr_state
+    from object_detection_destr_tpu_torch.train.steps import make_destr_step_core, make_destr_train_step
+
+    config = recipe_config(list(extra) + ["--seed", str(seed)])
+    cfg = config.train
+    cache = DeviceCachedLoader(_make_loaders(config, 672, "destr")[0], "cuda")
+    _, idx = cache.epoch_index_matrix()
+    rows = torch.from_numpy(idx).cuda()
+    transform = lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"],
+                                                       gen, out_size=cfg.image_size)
+    torch.manual_seed(seed)
+    state = create_destr_state(build_destr(config.destr, "cuda"), cfg, steps_per_epoch=len(cache))
+    train_step = make_destr_train_step(cfg)
+    gen = torch.Generator(device="cuda")
+
+    def eager_step(sync_debug=False):
+        gen.manual_seed(_aug_seed(seed, state.step))
+        raw = cache.gather(rows[state.step % len(rows)])
+        if not sync_debug:
+            return train_step(state, transform(raw, gen))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return train_step(state, transform(raw, gen))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def sample(metrics):
+        return {"losses": [float(v) for v in metrics.values()],
+                "m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
+                "params": _flat_params(torch, state.model)}
+
+    def rows_from(step, n):
+        """The index rows of steps step .. step + n - 1 (the epoch's rows, repeated)."""
+        return idx[[i % len(idx) for i in range(step, step + n)]]
+
+    runner = EpochRunner(state, make_destr_step_core(cfg), transform, cache.data,
+                         lambda step: _aug_seed(seed, step), len(cache))
+    torch.cuda.synchronize()
+    before, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    runner.run(idx[:1], 0)
+    captured_peak = torch.cuda.max_memory_allocated()
+    capture_counts = [k.launches for k in kernels]  # the warm-up step and the capture call the wrappers
+    held = torch.cuda.memory_allocated() - before
+    pool = torch.cuda.memory_reserved() - reserved
+    if runner.graph is None or state.step != 1:
+        raise AssertionError(f"{label}: no graph captured, or {state.step} steps")
+
+    spread, losses = {}, {"eager": [[] for _ in range(EAGER_RUNS)], "captured": [], "seed_of_step_0": []}
+    for step in range(1, TRAIN_STEPS + 1):
+        snapshot = [t.detach().clone() for t in _state_tensors(state)]
+        start = {"m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
+                 "params": _flat_params(torch, state.model)}
+        eager = []
+        for k in range(EAGER_RUNS):
+            _restore(torch, state, snapshot, step)
+            first = step == 1 and k == 0
+            if first:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            eager.append(sample(eager_step(sync_debug=first)))
+            if first:
+                eager_added = torch.cuda.max_memory_allocated() - base
+        replays = {}
+        for name, seeds_of in (("seed_of_step_0", 0), ("captured", step)):
+            _restore(torch, state, snapshot, step)
+            got = runner.run(rows_from(step, 1), seeds_of)
+            replays[name] = sample({k: v[0] for k, v in got.items()})
+        state.step = step + 1  # the run goes on from the replay at the step's own seeds
+        del snapshot
+        # each vector relative to the step's change (the eager samples' mean change)
+        for key in ("m", "params"):
+            change = _mean_sample([e[key] for e in eager]).to(start[key].device) - start[key].double()
+            norm = float(change.norm())
+            for smp in (*eager, *replays.values()):
+                smp[key] = ((smp[key].double() - start[key].double()) / norm).float()
+        for k, e in enumerate(eager):
+            losses["eager"][k] += e.pop("losses")
+        for name, r in replays.items():
+            losses[name] += r.pop("losses")
+        spread[f"step {step}"] = _hold_to_spread(f"captured step {label}, step {step}", eager, replays["captured"],
+                                                 {"seed_of_step_0": replays["seed_of_step_0"]})
+        del eager, replays, start
+    spread["losses"] = _hold_to_spread(
+        f"captured step {label}, losses of steps 1-{TRAIN_STEPS}", [{"losses": e} for e in losses["eager"]],
+        {"losses": losses["captured"]}, {"seed_of_step_0": {"losses": losses["seed_of_step_0"]}})["losses"]
+    torch.cuda.empty_cache()
+    log(f"captured step {label}: step 0 the runner's warm-up and capture; steps 1-{TRAIN_STEPS} each from one "
+        f"cloned state, {EAGER_RUNS} eager samples, the replay and a replay with step 0's seeds (planted fault); "
+        f"distances to the eager mean (m: Adam's first moment, params: parameters, both as 2-norms relative to "
+        f"the step's change, so a step that applied no update is at 1.0; losses: mean absolute difference over "
+        f"the {TRAIN_STEPS} steps' 5 losses) and limit = the largest eager pair {json.dumps(_rounded(spread))}; "
+        f"the first "
+        f"eager step ran under set_sync_debug_mode('error') without a host sync; wrapper calls of the warm-up and "
+        f"the capture #1/#2/#3/#4/#9/#8/#5/#6/#7 {capture_counts}")
+
+    def eager_steps(scope=lambda i: contextlib.nullcontext(), after=lambda: None):
+        for _ in range(3):
+            with scope(state.step):
+                eager_step()
+            after()
+
+    def captured_steps(scope=lambda i: contextlib.nullcontext(), after=lambda: None):
+        runner.run(rows_from(state.step, 3), state.step, after_step=after, step_scope=scope)
+
+    # step times in turns, CUDA events between steps
+    run_steps = {"eager": eager_steps, "captured": captured_steps}
+    times = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        events = [torch.cuda.Event(enable_timing=True)]
+        torch.cuda.synchronize()
+        events[0].record()
+
+        def mark():
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        run_steps[kind](after=mark)
+        torch.cuda.synchronize()
+        times[kind] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    # a traced window of each: device busy time, idle share, launches a step
+    windows = {kind: traced(torch, f"train_{label.replace(' ', '_')}_{kind}", 3, lambda scope: fn(scope=scope))
+               for kind, fn in run_steps.items()}
+    for kind, window in windows.items():
+        if window["per_step"] != [float(n) for n in per_step[:6]]:
+            raise AssertionError(f"captured step {label}: a traced {kind} step launched #1/#2/#3/#4/#9/#8 "
+                                 f"{window['per_step']} times, not {list(per_step[:6])}")
+    out = {"eager_ms": statistics.median(times["eager"]), "captured_ms": statistics.median(times["captured"]),
+           "eager_ms_all": times["eager"], "captured_ms_all": times["captured"],
+           "eager_step_peak_gb": eager_added / 1e9, "captured_peak_gb": (captured_peak - before) / 1e9,
+           "graph_held_gb": held / 1e9, "reserved_added_gb": pool / 1e9, "spread": spread,
+           **{f"{kind}_{key}": window[key] for kind, window in windows.items()
+              for key in ("idle_share", "step_busy_ms", "step_period_ms", "per_step", "unattributed")}}
+    log(f"captured step {label}: step ms (CUDA events, in turns E C C E, 3 each) eager {out['eager_ms']:.2f} "
+        f"({', '.join(f'{t:.2f}' for t in times['eager'])}), captured {out['captured_ms']:.2f} "
+        f"({', '.join(f'{t:.2f}' for t in times['captured'])}); traced window of 3 steps: eager device busy "
+        f"{out['eager_step_busy_ms']:.2f} ms a step of {out['eager_step_period_ms']:.2f}, idle share "
+        f"{out['eager_idle_share']:.4f}; captured busy {out['captured_step_busy_ms']:.2f} ms of "
+        f"{out['captured_step_period_ms']:.2f}, idle share {out['captured_idle_share']:.4f}; launches a step "
+        f"from the trace #1/#2/#3/#4/#9/#8 eager {windows['eager']['per_step']} captured "
+        f"{windows['captured']['per_step']}; peak memory above the state's (max_memory_allocated) of an eager "
+        f"step {out['eager_step_peak_gb']:.2f} GB, of the runner's warm-up and capture "
+        f"{out['captured_peak_gb']:.2f} GB, allocated after them (gradients, the graph's outputs) "
+        f"{out['graph_held_gb']:.2f} GB, reserved by the allocator since the runner began (the graph's private "
+        f"pool among it) {out['reserved_added_gb']:.2f} GB")
+    del runner, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_scan(torch, seed):
+    """train.train.main with --device_cache --epoch_scan, 2 epochs on 64
+    samples (8 steps) at hidden 256, against EAGER_RUNS runs of
+    --device_cache alone (the per-step path; the first with --profile_dir,
+    so steps 2 and 3 are traced, the range 2-4 cut by the 4-step epoch, and
+    the trace parses): the scanned run's final parameters and logged losses
+    within the per-step runs' own spread (``_hold_to_spread``); the cache's
+    bytes and build seconds."""
+    from object_detection_destr_tpu_torch.train import train as train_cli
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    try:
+        results = {}
+        eager = ["eager_profiled"] + [f"eager_{i}" for i in range(1, EAGER_RUNS)]
+        for name in eager + ["scan"]:
+            extra = {"eager_profiled": ["--profile_dir", os.path.join(root, "trace")],
+                     "scan": ["--epoch_scan"]}.get(name, [])
+            argv = TRAIN_ARGS + ["--seed", str(seed), "--num_valid_samples", "0", "--epochs", "2", "--device_cache",
+                                 "--checkpoint_dir", os.path.join(root, name), "--log_dir", os.path.join(root, name)]
+            t0 = time.perf_counter()
+            result = train_cli.main(argv + extra)
+            torch.cuda.synchronize()
+            with open(os.path.join(root, name, "metrics.jsonl")) as f:
+                losses = [[v for k, v in r.items() if k.startswith("loss")] for r in map(json.loads, f)
+                          if r.get("prefix") == "train"]
+            results[name] = {"result": result, "wall": time.perf_counter() - t0, "losses": losses,
+                             "params": _flat_params(torch, result["state"].model)}
+            if result["state"].step != 2 * TRAIN_STEPS or len(losses) != 2 * TRAIN_STEPS:
+                raise AssertionError(f"{name}: {result['state'].step} steps, {len(losses)} logged")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    scan = results["scan"]["result"]
+    if not scan["epoch_scan"] or results["eager_1"]["result"]["epoch_scan"]:
+        raise AssertionError("--epoch_scan did not run captured epochs, or --device_cache alone did")
+    spread = _hold_to_spread("train.main scan", [{k: results[n][k] for k in ("losses", "params")} for n in eager],
+                             {k: results["scan"][k] for k in ("losses", "params")})
+    profile = results["eager_profiled"]["result"]["profile"]
+    labels = [s["label"] for s in profile["steps"]]
+    if labels != ["2", "3"] or not profile["busy_s"] > 0:  # steps 2-4 of an epoch of 4 steps
+        raise AssertionError(f"--profile_dir traced steps {labels}, busy {profile['busy_s']} s")
+    per_step = [c / len(labels) for c in trace_launches(profile["launches"])]
+    if per_step != [18.0, 18.0, 0.0, 0.0, 1.0, 0.0]:
+        raise AssertionError(f"--profile_dir trace: {per_step} launches of #1/#2/#3/#4/#9/#8 a step")
+    cache = scan["device_cache"]
+    out = {"spread": spread, "profile_idle_share": profile["idle_share"], "profile_busy_s": profile["busy_s"],
+           "profile_window_s": profile["window_s"], "per_step": per_step, "cache": cache,
+           "walls": {n: r["wall"] for n, r in results.items()},
+           "step_ms": {n: statistics.median(r["result"]["step_ms"][1:]) for n, r in results.items()}}
+    log(f"train.main --device_cache --epoch_scan, 2 epochs of 4 steps (hidden 256): distances to the per-step "
+        f"runs' mean (losses: mean absolute difference, parameters: 2-norm of the difference) and limit = the "
+        f"largest distance of two per-step runs {json.dumps(_rounded(spread))}; median step ms (CUDA events, after the first) "
+        + ", ".join(f"{n} {v:.2f}" for n, v in out["step_ms"].items())
+        + f"; --profile_dir steps {labels}: device busy {profile['busy_s'] * 1e3:.2f} ms of a "
+        f"{profile['window_s'] * 1e3:.2f} ms window, idle share {profile['idle_share']:.4f}, launches a step "
+        f"#1/#2/#3/#4/#9/#8 {per_step}; device cache " + ", ".join(
+            f"{k} {v['bytes']} bytes in {v['build_seconds']:.2f} s" for k, v in cache.items()))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1736,6 +2238,7 @@ def main(argv=None) -> int:
         warm_clocks(torch)
         flash_rows = phase_flash(torch, args.seed)
         shares = phase_dropout_share(torch, args.seed, flash_rows)
+        seed_checks = phase_seed_replay(torch, args.seed)
         split_rows = phase_split(torch, args.seed, one_bf16)
         unpacked_rows = phase_unpacked(torch, args.seed)
         api_counts = phase_unpacked_api(torch, kernels, args.seed)
@@ -1752,7 +2255,13 @@ def main(argv=None) -> int:
             runs[label] = (counts, step_ms)
             del state
             torch.cuda.empty_cache()
+        captured = {}
+        for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0)),
+                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0))):
+            captured[label] = phase_captured_train(torch, kernels, args.seed, extra, per_step_launches, label)
         val_counts, val_timing = phase_validation(torch, kernels, args.seed)
+        torch.cuda.empty_cache()
+        scan = phase_train_scan(torch, args.seed)
         torch.cuda.empty_cache()
         for destr in (None, {"hidden_dim": 512}):
             phase_train_compare(torch, kernels, args.seed, destr)
@@ -1760,7 +2269,7 @@ def main(argv=None) -> int:
         gen = torch.Generator().manual_seed(args.seed)
         images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
                   for h, w in REQUEST_SIZES]
-        service, variables, serve_launches, latency_ms, forward_ms = phase_serving(
+        service, variables, serve_launches, serve_timing, forward_ms = phase_serving(
             torch, fa.flash_attention_fwd, args.seed, images
         )
         phase_whole_model(torch, service, variables, images)
@@ -1850,7 +2359,9 @@ def main(argv=None) -> int:
                            "bound_ms": per_step(wide, "bound_ms"), "library_ms": per_step(wide, "library_ms"),
                            **device_rates(share_wide, "fwd")},
             "validation": {"launches": val_counts[0], "per": "4 train steps and 4 validation batches, 18 each"},
-            "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"),
+            "captured_step": {label: {k: v for k, v in c.items() if k != "spread"} for label, c in captured.items()},
+            "seed_replay": seed_checks,
+            "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"), **serve_timing,
                         "device_ms": per_step(serve, "ms"),
                         "plain_ms": per_step(serve, "plain_ms"), "library_ms": per_step(serve, "library_ms"),
                         "bound_ms": per_step(serve, "bound_ms"), "bound_by": bound_by(serve, "bound_by"),
@@ -1860,7 +2371,11 @@ def main(argv=None) -> int:
                                   for r in serve},
                         "per": "request: 18 launches (3 call sites x 6 blocks), B=1, float32 (tensor cores, "
                                "3xTF32), masked as served; ms and device_ms from CUDA-graph replay, library_ms "
-                               "SDPA's float32 forward the same way; sites: one launch each"},
+                               "SDPA's float32 forward the same way; sites: one launch each; launches: the "
+                               "wrapper's calls while the service is built (its warm-up forward and its "
+                               "capture), a request being a replay of the captured 18 (counted from the trace); "
+                               "captured_ms / eager_ms: request latency (host clock, median of 8), *_idle_share "
+                               "and *_step_busy_ms from a torch.profiler trace of 4 requests"},
         },
         {
             "name": "flash_attention_bwd", "route": "cuda",
@@ -1968,7 +2483,11 @@ def main(argv=None) -> int:
     log(f"train step median ms: hidden 256 {step_ms:.2f} ({TRAIN_B / step_ms * 1e3:.1f} images/s), hidden 512 "
         f"{wide_step_ms:.2f} ({TRAIN_B / wide_step_ms * 1e3:.1f} images/s); kernels per step ms "
         + " ".join(f"{e['name']}={e['ms']:.3f}" for e in entries)
-        + f"; request latency median ms={latency_ms:.2f}, model forward ms={forward_ms:.2f}; validation "
+        + f"; captured step ms " + ", ".join(f"{k} {c['captured_ms']:.2f} (eager {c['eager_ms']:.2f})"
+                                              for k, c in captured.items())
+        + f"; train.main --epoch_scan step ms {scan['step_ms']['scan']:.2f}"
+        + f"; request latency median ms={serve_timing['captured_ms']:.2f} (eager {serve_timing['eager_ms']:.2f}), "
+        f"model forward ms={forward_ms:.2f}; validation "
         f"eval step ms a batch={val_timing['val_batch_ms']:.2f}, {val_timing['val_images_per_sec']:.1f} images/s a "
         f"sweep, EMA update ms={val_timing['ema_update_ms']:.3f}, checkpoint {val_timing['checkpoint_mb']:.1f} MB in "
         f"{val_timing['checkpoint_save_s']:.2f} s; "

@@ -108,8 +108,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
     const uint8_t* __restrict__ key_valid, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int num_heads, int d, int dvw, float scale, uint32_t seed,
-    uint32_t drop_threshold, float inv_keep, bool vec_k, bool vec_v) {
+    int sq, int sk, int num_heads, int d, int dvw, float scale,
+    const long long* __restrict__ seed_ptr, uint32_t drop_threshold, float inv_keep, bool vec_k, bool vec_v) {
+  const uint32_t seed = philox::load_seed(seed_ptr, drop_threshold);
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(d, dvw, sizeof(T));
   int* key_state = reinterpret_cast<int*>(smem);  // 1 valid, 0 masked, -1 past Sk
@@ -292,7 +293,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_tc_kernel(
     const uint8_t* __restrict__ key_valid, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int num_heads, int d, int dvw,
-    float scale, uint32_t seed, uint32_t drop_threshold, float inv_keep, bool vec_qk, bool vec_vo) {
+    float scale, const long long* __restrict__ seed_ptr, uint32_t drop_threshold, float inv_keep, bool vec_qk,
+    bool vec_vo) {
+  const uint32_t seed = philox::load_seed(seed_ptr, drop_threshold);
   constexpr bool kSmemAcc = JPW == 0;
   constexpr int kQPW = QT / 2;  // queries of a warp in step 1
   constexpr int kNt = CW / 8;
@@ -564,7 +567,8 @@ struct Args {
   void *dq, *dk, *dv;
   int b, sq, sk, num_heads, d, dv_;
   float scale;
-  uint32_t seed, drop_threshold;
+  const long long* seed;  // device memory
+  uint32_t drop_threshold;
   float inv_keep;
   cudaStream_t stream;
 };
@@ -628,7 +632,7 @@ int dispatch_tc(const Args& a) {
 
 extern "C" {
 
-int odtt_flash_bwd_abi_version() { return 3; }
+int odtt_flash_bwd_abi_version() { return 4; }
 
 // Bytes of dynamic shared memory a block takes at head widths d, dv and an
 // operand itemsize of 4 (float32: Layout) or 2 (bfloat16: TcLayout), which
@@ -647,7 +651,7 @@ int odtt_flash_attention_bwd(const void* q, const void* k, const void* v,
                              const void* key_valid, const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv, int dtype,
                              int b, int sq, int sk, int num_heads, int d, int dv_,
-                             float scale, unsigned int seed, unsigned int drop_threshold,
+                             float scale, const long long* seed, unsigned int drop_threshold,
                              float inv_keep, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || num_heads <= 0 || d <= 0 || dv_ <= 0)
     return (int)cudaErrorInvalidValue;

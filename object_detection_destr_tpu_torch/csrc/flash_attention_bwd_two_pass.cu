@@ -109,7 +109,8 @@ struct Params {
   Strides sq_, sk_, sv_, so_;  // q / dq, k / dk, v / dv, dout
   int b, sq, sk, num_heads, d, dv_;
   float scale;
-  uint32_t seed, drop_threshold;
+  const long long* seed;  // device memory
+  uint32_t drop_threshold;
   float inv_keep;
   // 16-byte tile loads: float32, of the two staged operands; bfloat16, of
   // the block's own operands (vec_a) and of the streamed ones (vec_b)
@@ -119,8 +120,8 @@ struct Params {
 // p and the scaled ds of one (query row, key) pair; `state` 1 valid key,
 // 0 masked key. Returns ds * scale; writes the dropped probability to pd.
 __device__ __forceinline__ float pair_grad(const Params& a, int state, float dot, float dp,
-                                           float lse_i, float delta_i, uint32_t bh, int row,
-                                           int key, float& pd) {
+                                           float lse_i, float delta_i, uint32_t seed, uint32_t bh,
+                                           int row, int key, float& pd) {
   const float s = state == 0 ? kMaskedLogit : dot * a.scale;
   // a fully masked row's lse (-1e9 + log Sk) rounds to -1e9 in float32: its
   // probabilities are the uniform 1/Sk the forward used
@@ -128,7 +129,7 @@ __device__ __forceinline__ float pair_grad(const Params& a, int state, float dot
   float dpk = dp;
   pd = p;
   if (a.drop_threshold != 0u) {
-    const bool keep = philox::bits(a.seed, bh, (uint32_t)row, (uint32_t)key) >= a.drop_threshold;
+    const bool keep = philox::bits(seed, bh, (uint32_t)row, (uint32_t)key) >= a.drop_threshold;
     pd = keep ? p * a.inv_keep : 0.f;
     dpk = keep ? dp * a.inv_keep : 0.f;
   }
@@ -137,6 +138,7 @@ __device__ __forceinline__ float pair_grad(const Params& a, int state, float dot
 
 template <typename T, int P>
 __global__ void __launch_bounds__(kWarps * kWarp) flash_dq_kernel(Params a) {
+  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
   extern __shared__ __align__(16) unsigned char smem[];
   int* key_state = reinterpret_cast<int*>(smem);  // 1 valid, 0 masked, -1 past Sk
   T* k_tile = reinterpret_cast<T*>(smem + kHeaderBytes);  // (kTileK, d)
@@ -185,7 +187,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_dq_kernel(Params a) {
     const float dp = tile_dots<T, P>(doreg, v_tile, a.dv_, lane);
     const int state = key_state[lane];
     float pd, ds = 0.f;
-    if (state >= 0) ds = pair_grad(a, state, dot, dp, lse_i, delta_i, bh, row, t0 + lane, pd);
+    if (state >= 0) ds = pair_grad(a, state, dot, dp, lse_i, delta_i, seed, bh, row, t0 + lane, pd);
     // dQ_i += sum_j ds_ij k_j, this lane's slice of the row
 #pragma unroll
     for (int j = 0; j < kTileK; ++j) {
@@ -209,6 +211,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_dq_kernel(Params a) {
 
 template <typename T, int P>
 __global__ void __launch_bounds__(kWarps * kWarp) flash_dkv_kernel(Params a) {
+  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
   extern __shared__ __align__(16) unsigned char smem[];
   float* lse_s = reinterpret_cast<float*>(smem);            // (kTileK)
   float* delta_s = lse_s + kTileK;                          // (kTileK)
@@ -260,7 +263,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_dkv_kernel(Params a) {
     const float dp = tile_dots<T, P>(vreg, do_tile, a.dv_, lane);
     const int row = r0 + lane;
     float pd = 0.f, ds = 0.f;
-    if (row < a.sq) ds = pair_grad(a, state, dot, dp, lse_s[lane], delta_s[lane], bh, row, key, pd);
+    if (row < a.sq) ds = pair_grad(a, state, dot, dp, lse_s[lane], delta_s[lane], seed, bh, row, key, pd);
     // dK_j += sum_i ds_ij q_i and dV_j += sum_i pd_ij dO_i, this lane's slices
 #pragma unroll
     for (int r = 0; r < kTileK; ++r) {
@@ -360,6 +363,7 @@ struct TcLayout {
 // dP a warp takes, and the most 16-column gradient jobs it holds.
 template <bool DKV, int KPW>
 __global__ void __launch_bounds__(kTcThreads) flash_two_pass_tc_kernel(Params a) {
+  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
   constexpr int TR = tc_stream_rows(KPW);  // streamed rows an iteration
   constexpr int kEpt = kTcRows * TR / kTcThreads;  // (own, streamed) pairs a thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -521,8 +525,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_two_pass_tc_kernel(Params a)
       const int state = DKV ? own_state[q] : state_c;
       float pd = 0.f, ds = 0.f;
       if (state >= 0 && row < a.sq)
-        ds = pair_grad(a, state, dot, dp, DKV ? lse_c : own_lse[q], DKV ? delta_c : own_delta[q], bh, row, key,
-                       pd);
+        ds = pair_grad(a, state, dot, dp, DKV ? lse_c : own_lse[q], DKV ? delta_c : own_delta[q], seed, bh, row,
+                       key, pd);
       const int at = (r + (kTcThreads / TR) * q) * L.ps + c;
       const bf16 dsh = __float2bfloat16(ds);
       ds_hi[at] = dsh;
@@ -641,7 +645,7 @@ int dispatch_tc(Params a, bool dq, cudaStream_t stream) {
 
 extern "C" {
 
-int odtt_flash_bwd_two_pass_abi_version() { return 2; }
+int odtt_flash_bwd_two_pass_abi_version() { return 3; }
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores; q, k, v, dout
 // and the gradients).
@@ -654,7 +658,7 @@ int odtt_flash_attention_two_pass(int pass_dq, const void* q, const void* k, con
                                   const void* key_valid, const void* dout, const void* lse,
                                   const void* delta, void* dq, void* dk, void* dv,
                                   const long long* strides, int dtype, int b, int sq, int sk,
-                                  int num_heads, int d, int dv_, float scale, unsigned int seed,
+                                  int num_heads, int d, int dv_, float scale, const long long* seed,
                                   unsigned int drop_threshold, float inv_keep, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || num_heads <= 0 || d <= 0 || dv_ <= 0 || strides == nullptr)
     return (int)cudaErrorInvalidValue;

@@ -138,7 +138,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const uint8_t* __restrict__ key_valid, float* __restrict__ out, float* __restrict__ lse,
     Strides sq_, Strides sk_, Strides sv_, Strides so_, int sq, int sk, int num_heads, int d, int dv,
-    float scale, uint32_t seed, uint32_t drop_threshold, float inv_keep, int dv_chunks, bool vec) {
+    float scale, const long long* __restrict__ seed_ptr, uint32_t drop_threshold, float inv_keep, int dv_chunks,
+    bool vec) {
+  const uint32_t seed = philox::load_seed(seed_ptr, drop_threshold);
   constexpr int kVStride = DVC + 4;
   constexpr int kNt = DVC / 8;  // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
@@ -392,7 +394,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const uint8_t* __restrict__ key_valid, bf16* __restrict__ out, float* __restrict__ lse,
     Strides sq_, Strides sk_, Strides sv_, Strides so_, int sq, int sk, int num_heads, int d, int dv,
-    float scale, uint32_t seed, uint32_t drop_threshold, float inv_keep, int dv_chunks, bool vec) {
+    float scale, const long long* __restrict__ seed_ptr, uint32_t drop_threshold, float inv_keep, int dv_chunks,
+    bool vec) {
+  const uint32_t seed = philox::load_seed(seed_ptr, drop_threshold);
   constexpr int kVStride = DVC + tc::kPad;
   constexpr int kQSlots = NQ == 0 ? 2 : NQ;
   constexpr int kNt = DVC / 8;  // n-tiles of the output
@@ -589,7 +593,8 @@ struct Args {
   Strides sq_, sk_, sv_, so_;  // q, k, v, out
   int b, sq, sk, num_heads, d, dv;
   float scale;
-  uint32_t seed, drop_threshold;
+  const long long* seed;  // device memory
+  uint32_t drop_threshold;
   float inv_keep;
   cudaStream_t stream;
 };
@@ -655,19 +660,20 @@ int dispatch_tc(const Args& a) {
 
 extern "C" {
 
-int odtt_flash_fwd_abi_version() { return 5; }
+int odtt_flash_fwd_abi_version() { return 6; }
 
 // dtype: 0 float32 (tensor cores, 3xTF32), 1 bfloat16 (tensor cores). key_valid:
 // (B, Sk) bytes or null.
 // strides: 12 element strides, (batch, head, row) of q, k, v and out, in
 // that order (the feature stride is 1). lse: (B, h, Sq) float32, contiguous.
 // drop_threshold 0 disables dropout; otherwise keep iff the element's Philox
-// bits >= drop_threshold and scale kept probabilities by inv_keep.
+// bits (key: the low 32 bits of the int64 at seed, a device pointer) >=
+// drop_threshold and scale kept probabilities by inv_keep.
 // Returns cudaGetLastError() after the launch (0 on success).
 int odtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const void* key_valid, void* out, void* lse,
                              const long long* strides, int dtype, int b, int sq, int sk,
-                             int num_heads, int d, int dv, float scale, unsigned int seed,
+                             int num_heads, int d, int dv, float scale, const long long* seed,
                              unsigned int drop_threshold, float inv_keep, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || num_heads <= 0 || d <= 0 || dv <= 0 || strides == nullptr)
     return (int)cudaErrorInvalidValue;

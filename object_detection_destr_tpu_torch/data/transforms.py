@@ -8,6 +8,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,11 +28,17 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+# the float32 products mean * 255 and std * 255, as Python floats (exact):
+# constants enter the ops as scalars, with no host-to-device copy, so a CUDA
+# graph can capture the transforms
+_MEAN_255 = tuple(float(np.float32(m) * np.float32(255.0)) for m in IMAGENET_MEAN)
+_STD_255 = tuple(float(np.float32(s) * np.float32(255.0)) for s in IMAGENET_STD)
+
+
 def normalize_imagenet(images: torch.Tensor) -> torch.Tensor:
     """Scale [0, 255] uint8/float NHWC -> ImageNet-normalized float32."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device) * 255.0
-    return (images.float() - mean) / std
+    x = images.float()
+    return torch.stack([(x[..., c] - m) / s for c, (m, s) in enumerate(zip(_MEAN_255, _STD_255))], -1)
 
 
 def letterbox_infer_transform(
@@ -99,7 +106,8 @@ def _resize_crop(images: torch.Tensor, y0, x0, ch, cw, out_size: int) -> torch.T
 def _crop_boxes(boxes_xyxy, valid, y0, x0, ch, cw, h: int, w: int):
     """Normalized xyxy boxes re-expressed in each pixel window, clipped to
     [0, 1]; boxes that collapse leave ``valid`` (transforms.py:72-81)."""
-    px = boxes_xyxy.float() * torch.tensor([w, h, w, h], dtype=torch.float32, device=boxes_xyxy.device)
+    x1, y1, x2, y2 = boxes_xyxy.float().unbind(-1)
+    px = torch.stack([x1 * w, y1 * h, x2 * w, y2 * h], -1)
     shifted = px - torch.stack([x0, y0, x0, y0], -1)[:, None, :]
     rescaled = shifted / torch.stack([cw, ch, cw, ch], -1)[:, None, :]
     clipped = torch.clamp(rescaled, 0.0, 1.0)

@@ -47,8 +47,15 @@ class DetectionService:
     """The model, its post-processing and the host preprocessing; thread-safe.
 
     ``model`` is a DESTR in eval mode with its weights loaded; it runs on the
-    device its parameters are on. The first forward pass (and with it the
-    CUDA kernel's build) happens here, so the first request is fast.
+    device its parameters are on. The predict function (the B=1 forward and
+    ``destr_predict``, on the letterboxed input with its pixel mask, or on
+    the stretched input) reads static input tensors and, on a GPU, is
+    captured in a CUDA graph here, after a warm-up forward that builds the
+    kernels: the counterpart of the JAX package's ``jax.jit`` predict
+    compiled at startup (server.py:64-94). A request copies its input into
+    the static tensors and replays the graph under the service's lock, and
+    its detections are read from the graph's static outputs before the lock
+    is released. On the CPU the same function runs eagerly.
     """
 
     def __init__(self, model_kind, model, image_size, score_thresh, letterbox=True):
@@ -61,14 +68,45 @@ class DetectionService:
         self.letterbox = letterbox
         self.device = next(model.parameters()).device
         self._lock = threading.Lock()
-        zeros = torch.zeros((1, image_size, image_size, 3), device=self.device)
-        ones = torch.ones((1, image_size, image_size), dtype=torch.bool, device=self.device)
-        self._predict(zeros, ones if letterbox else None)
+        self._images = torch.zeros((1, image_size, image_size, 3), device=self.device)
+        self._pixel_valid = (torch.ones((1, image_size, image_size), dtype=torch.bool, device=self.device)
+                             if letterbox else None)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        if self.device.type == "cuda":
+            self._capture()
+        else:
+            self._predict(self._images, self._pixel_valid)
+
+    @torch.inference_mode()
+    def _forward(self) -> dict[str, torch.Tensor]:
+        """The predict function on the static inputs: detections on the device."""
+        outputs, _ = self.model(self._images, valid_mask=self._pixel_valid)
+        return destr_predict(outputs, score_thresh=self.score_thresh)
+
+    def _capture(self) -> None:
+        """A warm-up forward on a side stream, then the capture."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._forward()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._outputs = self._forward()
+        self.graph = graph
 
     @torch.inference_mode()
     def _predict(self, images, pixel_valid=None) -> dict[str, np.ndarray]:
-        outputs, _ = self.model(images, valid_mask=pixel_valid)
-        dets = destr_predict(outputs, score_thresh=self.score_thresh)
+        """Detections for one (1, S, S, 3) input (and its (1, S, S) pixel
+        mask when letterboxed), as numpy; the caller holds the lock."""
+        self._images.copy_(images)
+        if self._pixel_valid is not None:
+            self._pixel_valid.copy_(pixel_valid)
+        if self.graph is None:
+            dets = self._forward()
+        else:
+            self.graph.replay()
+            dets = self._outputs
         return {k: v.cpu().numpy() for k, v in dets.items()}
 
     def predict_image(self, image_uint8: np.ndarray) -> dict:

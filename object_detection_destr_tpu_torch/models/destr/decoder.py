@@ -36,7 +36,7 @@ def _single_head_attention(query, key, value, key_valid_mask, use_flash, rate, r
         return flash_attention_packed(query, key, value, 1, key_valid_mask, rate, seed)
     return scaled_dot_product_attention(
         query[:, None], key[:, None], value[:, None], key_valid_mask=key_valid_mask,
-        dropout_rate=rate, generator=None if rng is None else rng.device,
+        dropout_rate=rate, generator=None if rng is None else rng.generator,
     )
 
 
@@ -124,7 +124,7 @@ class DecoderBlock(nn.Module):
             o1 = flash_attention_packed(q_m, k_m, v_m, h2, None, a_rate, seed)
         else:
             o1 = scaled_dot_product_attention(
-                q, k, v, dropout_rate=rate, generator=None if rng is None else rng.device
+                q, k, v, dropout_rate=rate, generator=None if rng is None else rng.generator
             )
         o2 = pair_self_attention(
             q, k, v, obj_coords,

@@ -26,19 +26,30 @@ __all__ = [
 
 
 class DropoutRng:
-    """The dropout stream of a training run, from explicit generators: a
-    host generator draws the flash kernels' int32 seeds (no device sync) and
-    a generator on the model's device draws the elementwise dropout masks.
-    ``None`` in its place means eval: every dropout is the identity."""
+    """The dropout stream of a training run: one generator on the model's
+    device draws the elementwise dropout masks and the flash kernels' seeds.
+    ``begin_step(step)`` reseeds it from (seed, step), so a step's draws are
+    a pure function of both, as ``fold_in(rng, step)`` makes them in the JAX
+    package: a resumed run draws what the uninterrupted one did, and a CUDA
+    graph that registers :attr:`generator` (``train/epoch_scan.py``) draws
+    in a replay what the eager step draws at the same step. ``None`` in its
+    place means eval: every dropout is the identity."""
 
     def __init__(self, seed: int, device: str | torch.device = "cpu"):
-        device = torch.device(device)
-        self.host = torch.Generator().manual_seed(seed)
-        self.device = torch.Generator(device=device).manual_seed(seed + 1)
+        self.base_seed = seed
+        self.generator = torch.Generator(device=torch.device(device))
+        self.begin_step(0)
 
-    def seed(self) -> int:
-        """A fresh int32 kernel seed (layers.py:22-33 draws one per call)."""
-        return int(torch.randint(0, 2**31 - 1, (), generator=self.host))
+    def begin_step(self, step: int) -> None:
+        """Reseed for train step ``step`` (a host call; nothing waits for the
+        device)."""
+        self.generator.manual_seed((self.base_seed + 1) * 1_000_003 + step)
+
+    def seed(self) -> torch.Tensor:
+        """A fresh flash-kernel seed, a (1,) int64 tensor on the generator's
+        device that the kernels read there (layers.py:22-33 draws one per
+        call)."""
+        return torch.randint(0, 2**31 - 1, (1,), generator=self.generator, device=self.generator.device)
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Tensor:
@@ -46,11 +57,11 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Te
     by 1 / (1 - rate); the identity without a stream or at rate 0."""
     if rng is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=rng.device, device=x.device) < 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng.generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def attention_dropout_seed(rate: float, rng: Optional[DropoutRng]) -> tuple[float, Optional[int]]:
+def attention_dropout_seed(rate: float, rng: Optional[DropoutRng]) -> tuple[float, Optional[torch.Tensor]]:
     """(rate, seed) for the flash kernel's in-kernel dropout; (0, None) in eval."""
     if rng is None or rate <= 0.0:
         return 0.0, None
@@ -145,6 +156,6 @@ class MultiHeadAttention(nn.Module):
             out = scaled_dot_product_attention(
                 split_heads(q, h), split_heads(k, h), split_heads(v, h),
                 key_valid_mask=key_valid_mask, dropout_rate=self.dropout,
-                generator=None if rng is None else rng.device,
+                generator=None if rng is None else rng.generator,
             )
         return self.out_proj(out)

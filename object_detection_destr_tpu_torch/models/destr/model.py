@@ -82,8 +82,10 @@ class DESTR(nn.Module):
         train = train or self.training
         if not train:
             rng = None
+        # cache_enabled=False: no cast cache across calls, which a CUDA graph
+        # capture of the forward would otherwise hold on to
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
-                            enabled=self.config.compute_dtype == "bfloat16"):
+                            enabled=self.config.compute_dtype == "bfloat16", cache_enabled=False):
             model_output, det_output = self._forward(images, valid_mask, train, rng)
         return (
             {k: v.float() for k, v in model_output.items()},

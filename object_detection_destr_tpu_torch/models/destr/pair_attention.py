@@ -75,7 +75,8 @@ def pair_self_attention(
     qr, kr, vr = (_gather_queries(t, right) for t in (query, key, value))
 
     a2 = torch.matmul(ql, kl.transpose(-1, -2)) + torch.matmul(qr, kr.transpose(-1, -2))
-    inv_scale = 1.0 / torch.sqrt(torch.tensor(2 * d, dtype=a2.dtype, device=a2.device))
+    # a fill, not a copy from the host: a CUDA graph can capture it
+    inv_scale = 1.0 / torch.sqrt(torch.full((), 2 * d, dtype=a2.dtype, device=a2.device))
     if pair_mode == "paper":
         attn = torch.softmax(a2 * inv_scale, dim=-1)
     else:  # reference: softmax first, then scale the probabilities

@@ -36,7 +36,11 @@ model also takes the two-pass kernels. The function is the same either way.
 Dropout: element (b, head, q, k) is kept iff its Philox4x32-10 bits (key
 (seed, 0), counter (q, k, b*h + head, 0); ``csrc/philox.cuh``) are
 ``>= uint32(rate * 2**32)``, the rule of ``_drop_threshold`` (l.102-105), and
-kept probabilities are scaled by ``1 / (1 - rate)``. The logsumexp is that of
+kept probabilities are scaled by ``1 / (1 - rate)``. The seed is an int or a
+one-element int64 tensor (its low 32 bits); the kernels read it from device
+memory, as the Pallas kernels read theirs from a ref (``_prng_keep`` l.108),
+so a CUDA graph that replays a launch draws the mask of whatever seed the
+tensor holds at the replay. An int is written to a fresh device tensor. The logsumexp is that of
 the undropped probabilities. The TPU's own PRNG bits are not reproduced; the
 plain version draws the same Philox bits as the kernels, or takes an explicit
 ``(B, h, Sq, Sk)`` keep mask (the CPU tests feed it the JAX package's
@@ -56,7 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -88,6 +92,7 @@ __all__ = [
     "flash_attention_unpacked_fwd",
     "fused_backward_smem_bytes",
     "philox_keep_bits",
+    "seed_tensor",
 ]
 
 _MAX_HEAD_DIM = 1024  # kernels #1, #3, #4; #2 is bounded by backward_plan
@@ -102,25 +107,28 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
+# a dropout seed: an int, or a one-element int64 tensor (its low 32 bits)
+Seed = Union[int, torch.Tensor]
+
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 FWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_fwd", "flash_attention_fwd.cu",
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
-    functions={"odtt_flash_attention_fwd": (_I, [_P] * 7 + [_I] * 7 + [_F, _U, _U, _F, _P])},
-    abi=("odtt_flash_fwd_abi_version", 5),
+    functions={"odtt_flash_attention_fwd": (_I, [_P] * 7 + [_I] * 7 + [_F, _P, _U, _F, _P])},
+    abi=("odtt_flash_fwd_abi_version", 6),
 )
 BWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd", "flash_attention_bwd.cu",
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
-    functions={"odtt_flash_attention_bwd": (_I, [_P] * 10 + [_I] * 7 + [_F, _U, _U, _F, _P]),
+    functions={"odtt_flash_attention_bwd": (_I, [_P] * 10 + [_I] * 7 + [_F, _P, _U, _F, _P]),
                "odtt_flash_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 3)},
-    abi=("odtt_flash_bwd_abi_version", 3),
+    abi=("odtt_flash_bwd_abi_version", 4),
 )
 TWO_PASS_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd_two_pass", "flash_attention_bwd_two_pass.cu",
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
-    functions={"odtt_flash_attention_two_pass": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_F, _U, _U, _F, _P])},
-    abi=("odtt_flash_bwd_two_pass_abi_version", 2),
+    functions={"odtt_flash_attention_two_pass": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _U, _F, _P])},
+    abi=("odtt_flash_bwd_two_pass_abi_version", 3),
 )
 
 
@@ -194,13 +202,23 @@ def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi & _MASK32, lo_full & _MASK32
 
 
-def philox_keep_bits(seed: int, bh: torch.Tensor, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _seed_key(seed) -> "int | torch.Tensor":
+    """The low 32 bits of a seed given as an int or a one-element tensor (a
+    0-d int64 tensor then, on the seed's device; nothing is read to the
+    host)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _MASK32
+    return int(seed) & _MASK32
+
+
+def philox_keep_bits(seed, bh: torch.Tensor, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Word 0 of Philox4x32-10 with key (seed, 0) and counter (q, k, bh, 0),
-    as int64 in [0, 2**32); the three coordinate tensors broadcast. The same
-    bits ``csrc/philox.cuh`` draws in the kernels."""
+    as int64 in [0, 2**32); the three coordinate tensors broadcast, ``seed``
+    is an int or a one-element int64 tensor. The same bits
+    ``csrc/philox.cuh`` draws in the kernels."""
     c0, c1, c2 = (t.to(torch.int64) for t in (q, k, bh))
     c3 = torch.zeros((), dtype=torch.int64, device=c0.device)
-    k0, k1 = seed & _MASK32, 0
+    k0, k1 = _seed_key(seed), 0
     for r in range(10):
         if r:
             k0, k1 = (k0 + _PHILOX_W0) & _MASK32, (k1 + _PHILOX_W1) & _MASK32
@@ -210,7 +228,7 @@ def philox_keep_bits(seed: int, bh: torch.Tensor, q: torch.Tensor, k: torch.Tens
     return c0
 
 
-def _keep_mask(seed: int, rate: float, b: int, h: int, sq: int, sk: int, device) -> torch.Tensor:
+def _keep_mask(seed, rate: float, b: int, h: int, sq: int, sk: int, device) -> torch.Tensor:
     """(B, h, Sq, Sk) bool keep mask of the kernels' Philox rule."""
     bh = torch.arange(b * h, device=device).view(b, h, 1, 1)
     q = torch.arange(sq, device=device).view(1, 1, sq, 1)
@@ -230,7 +248,7 @@ def _dropout_keep(rate, seed, keep_mask, b, h, sq, sk, device) -> Optional[torch
         return keep_mask.to(device=device, dtype=torch.bool)
     if seed is None:
         raise ValueError("dropout_rate > 0 needs a dropout_seed or a keep_mask")
-    return _keep_mask(int(seed), rate, b, h, sq, sk, device)
+    return _keep_mask(seed, rate, b, h, sq, sk, device)
 
 
 def _scale_of(scale: Optional[float], d: int) -> float:
@@ -263,7 +281,7 @@ def flash_attention_packed_reference(
     key_valid_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's (#1) function in plain PyTorch.
@@ -295,7 +313,7 @@ def flash_attention_reference(
     key_valid_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The head-major forward kernel's (#5) function in plain PyTorch: that
@@ -381,7 +399,7 @@ def flash_attention_dq_reference(
     d_out: torch.Tensor,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The dQ kernel's (#3) function in plain PyTorch: dQ = scale * ds K
@@ -403,7 +421,7 @@ def flash_attention_dkv_reference(
     d_out: torch.Tensor,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dK / dV kernel's (#4) function in plain PyTorch: dK = scale *
@@ -427,7 +445,7 @@ def flash_attention_packed_backward_reference(
     d_out: torch.Tensor,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused backward kernel's (#2) function in plain PyTorch, from the
@@ -452,7 +470,7 @@ def flash_attention_unpacked_dq_reference(
     d_out: torch.Tensor,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The head-major dQ kernel's (#6) function in plain PyTorch: that of
@@ -474,7 +492,7 @@ def flash_attention_unpacked_dkv_reference(
     d_out: torch.Tensor,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     keep_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The head-major dK / dV kernel's (#7) function in plain PyTorch: that
@@ -525,15 +543,28 @@ def _check(name, query, key, value, num_heads, key_valid_mask, extra=()) -> tupl
     return b, sq, hd
 
 
-def _dropout_args(rate: float, seed: Optional[int]) -> tuple[int, int, float]:
-    """(seed, threshold, 1 / (1 - rate)) for the kernels; threshold 0 = off."""
+def seed_tensor(seed, device: torch.device) -> torch.Tensor:
+    """The seed as the kernels read it: a one-element int64 tensor on
+    ``device`` (the tensor itself where it is one; an int is written to a new
+    one by a fill, which a CUDA graph may capture)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != device:
+            raise ValueError(f"a seed tensor must be one int64 element on {device}, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        return seed.reshape(1)
+    return torch.full((1,), int(seed) & _MASK32, dtype=torch.int64, device=device)
+
+
+def _dropout_args(rate: float, seed, device: torch.device) -> tuple[Optional[torch.Tensor], int, float]:
+    """(seed tensor, threshold, 1 / (1 - rate)) for the kernels; threshold 0
+    = off (and no seed)."""
     if rate <= 0.0:
-        return 0, 0, 1.0
+        return None, 0, 1.0
     if seed is None:
         raise ValueError("dropout_rate > 0 needs a dropout_seed")
     if not 0.0 < rate < 1.0:
         raise ValueError(f"dropout_rate {rate} outside (0, 1)")
-    return int(seed) & _MASK32, dropout_threshold(rate), 1.0 / (1.0 - rate)
+    return seed_tensor(seed, device), dropout_threshold(rate), 1.0 / (1.0 - rate)
 
 
 def _check_unpacked(name, query, key, value, key_valid_mask, extra=()) -> tuple[int, ...]:
@@ -603,7 +634,7 @@ class FlashAttentionForward:
         return self._run(query, key, value, *args, **kwargs)
 
     def _run(self, query, key, value, num_heads, key_valid_mask=None, scale=None,
-             dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+             dropout_rate: float = 0.0, dropout_seed=None):
         if num_heads is None:
             name = "flash_attention_unpacked_fwd"
             b, h, sq, sk, d, dv = _check_unpacked(name, query, key, value, key_valid_mask)
@@ -618,7 +649,7 @@ class FlashAttentionForward:
             out = torch.empty((b, sq, hdv), dtype=query.dtype, device=query.device)
             strides = [*_packed_strides(query, d), *_packed_strides(key, d), *_packed_strides(value, dv),
                        *_packed_strides(out, dv)]
-        seed, threshold, inv_keep = _dropout_args(dropout_rate, dropout_seed)
+        seed, threshold, inv_keep = _dropout_args(dropout_rate, dropout_seed, query.device)
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=query.device)
         lib = self.library.library()
         with torch.cuda.device(query.device):
@@ -628,7 +659,7 @@ class FlashAttentionForward:
                 key_valid_mask.data_ptr() if key_valid_mask is not None else None,
                 out.data_ptr(), lse.data_ptr(), (ctypes.c_longlong * 12)(*strides),
                 _DTYPE_CODES[query.dtype], b, sq, sk, h, d, dv, float(_scale_of(scale, d)),
-                seed, threshold, inv_keep, stream,
+                None if seed is None else seed.data_ptr(), threshold, inv_keep, stream,
             )
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -650,7 +681,7 @@ def _backward_operands(name, query, key, value, num_heads, key_valid_mask, out, 
         raise ValueError("out and d_out must be (B, Sq, h*dv) in the input dtype")
     if lse.shape != (b, num_heads, sq) or lse.dtype != torch.float32:
         raise ValueError("lse must be (B, h, Sq) float32")
-    dropout = _dropout_args(dropout_rate, dropout_seed)
+    dropout = _dropout_args(dropout_rate, dropout_seed, query.device)
     delta = (d_out.float() * out.float()).view(b, sq, num_heads, dv).sum(-1)
     delta = delta.transpose(1, 2).contiguous()  # (B, h, Sq)
     return b, sq, sk, d, dv, float(_scale_of(scale, d)), dropout, delta
@@ -667,7 +698,7 @@ def _unpacked_backward_operands(name, query, key, value, key_valid_mask, out, ls
         raise ValueError("out and d_out must be (B, h, Sq, dv) in the input dtype")
     if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous (B, h, Sq) float32 tensor")
-    dropout = _dropout_args(dropout_rate, dropout_seed)
+    dropout = _dropout_args(dropout_rate, dropout_seed, query.device)
     delta = (d_out.float() * out.float()).sum(-1).contiguous()  # (B, h, Sq)
     return b, h, sq, sk, d, dv, float(_scale_of(scale, d)), dropout, delta
 
@@ -706,7 +737,7 @@ class FlashAttentionBackward:
         self.launches = 0
 
     def __call__(self, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
-                 scale=None, dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+                 scale=None, dropout_rate: float = 0.0, dropout_seed=None):
         b, sq, sk, d, dv, scale, (seed, threshold, inv_keep), delta = _backward_operands(
             "flash_attention_bwd", query, key, value, num_heads, key_valid_mask, out, lse, d_out,
             scale, dropout_rate, dropout_seed)
@@ -722,7 +753,8 @@ class FlashAttentionBackward:
                 key_valid_mask.data_ptr() if key_valid_mask is not None else None,
                 d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dvv.data_ptr(), _DTYPE_CODES[query.dtype],
-                b, sq, sk, num_heads, d, dv, scale, seed, threshold, inv_keep, stream,
+                b, sq, sk, num_heads, d, dv, scale, None if seed is None else seed.data_ptr(), threshold,
+                inv_keep, stream,
             )
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
@@ -760,7 +792,7 @@ class FlashAttentionTwoPass:
         return self._run(query, key, value, *args, **kwargs)
 
     def _run(self, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
-             scale=None, dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+             scale=None, dropout_rate: float = 0.0, dropout_seed=None):
         if num_heads is None:
             b, h, sq, sk, d, dv, scale, dropout, delta = _unpacked_backward_operands(
                 self.name, query, key, value, key_valid_mask, out, lse, d_out,
@@ -786,7 +818,8 @@ class FlashAttentionTwoPass:
                 int(self.dq), *(None if t is None else t.data_ptr() for t in (
                     query, key, value, key_valid_mask, d_out, lse, delta, dq, dk, dvv)),
                 (ctypes.c_longlong * 12)(*strides), _DTYPE_CODES[query.dtype],
-                b, sq, sk, h, d, dv, scale, seed, threshold, inv_keep, stream,
+                b, sq, sk, h, d, dv, scale, None if seed is None else seed.data_ptr(), threshold, inv_keep,
+                stream,
             )
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
@@ -810,6 +843,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, query, key, value, num_heads, key_valid_mask, scale, rate, seed, keep_mask, fused):
+        if seed is not None:
+            seed = seed_tensor(seed, query.device)  # the forward's seed, saved for the backward
         if query.is_cuda:
             if keep_mask is not None:
                 raise ValueError("the CUDA kernels draw their own Philox keep mask")
@@ -819,14 +854,14 @@ class _FlashAttention(torch.autograd.Function):
             out, lse = flash_attention_packed_reference(
                 query, key, value, num_heads, key_valid_mask, scale, rate, seed, keep_mask
             )
-        ctx.save_for_backward(query, key, value, key_valid_mask, out, lse, keep_mask)
-        ctx.params = (num_heads, scale, rate, seed, fused)
+        ctx.save_for_backward(query, key, value, key_valid_mask, out, lse, keep_mask, seed)
+        ctx.params = (num_heads, scale, rate, fused)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        query, key, value, key_valid_mask, out, lse, keep_mask = ctx.saved_tensors
-        num_heads, scale, rate, seed, fused = ctx.params
+        query, key, value, key_valid_mask, out, lse, keep_mask, seed = ctx.saved_tensors
+        num_heads, scale, rate, fused = ctx.params
         d_out = d_out.contiguous().to(query.dtype)
         d, dv = query.shape[-1] // num_heads, value.shape[-1] // num_heads
         plan = _plan(d, dv, query.dtype, query.device, fused)
@@ -852,7 +887,7 @@ def flash_attention_packed(
     num_heads: int,
     key_valid_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     scale: Optional[float] = None,
     keep_mask: Optional[torch.Tensor] = None,
     fused: Optional[bool] = None,
@@ -882,20 +917,22 @@ class _FlashAttentionUnpacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, query, key, value, key_valid_mask, scale, rate, seed, keep_mask):
+        if seed is not None:
+            seed = seed_tensor(seed, query.device)  # the forward's seed, saved for the backward
         if query.is_cuda:
             if keep_mask is not None:
                 raise ValueError("the CUDA kernels draw their own Philox keep mask")
             out, lse = flash_attention_unpacked_fwd(query, key, value, key_valid_mask, scale, rate, seed)
         else:
             out, lse = flash_attention_reference(query, key, value, key_valid_mask, scale, rate, seed, keep_mask)
-        ctx.save_for_backward(query, key, value, key_valid_mask, out, lse, keep_mask)
-        ctx.params = (scale, rate, seed)
+        ctx.save_for_backward(query, key, value, key_valid_mask, out, lse, keep_mask, seed)
+        ctx.params = (scale, rate)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        query, key, value, key_valid_mask, out, lse, keep_mask = ctx.saved_tensors
-        scale, rate, seed = ctx.params
+        query, key, value, key_valid_mask, out, lse, keep_mask, seed = ctx.saved_tensors
+        scale, rate = ctx.params
         d_out = _last_dim_contiguous(d_out.to(query.dtype))
         args = (query, key, value, key_valid_mask, out, lse, d_out, scale, rate, seed)
         if query.is_cuda:
@@ -920,7 +957,7 @@ def _unpacked_operands(query, key, value, key_valid_mask, dropout_rate, dropout_
     if dropout_rate <= 0.0:
         dropout_seed, keep_mask = None, None
     mask = None if key_valid_mask is None else key_valid_mask.contiguous()
-    seed = None if dropout_seed is None else int(dropout_seed)
+    seed = dropout_seed
     return (*map(_last_dim_contiguous, (query, key, value)), mask, seed, keep_mask)
 
 
@@ -929,7 +966,7 @@ def flash_attention(
     key: torch.Tensor,
     value: torch.Tensor,
     key_valid_mask: Optional[torch.Tensor] = None,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     dropout_rate: float = 0.0,
     *,
     scale: Optional[float] = None,
@@ -942,7 +979,8 @@ def flash_attention(
             view whose last dimension is contiguous, such as a (B, S, h, d)
             tensor transposed to (B, h, S, d), is read in place on CUDA.
         key_valid_mask: (B, Sk) bool, True = attendable.
-        dropout_seed: int; required when dropout_rate > 0 (or ``keep_mask``,
+        dropout_seed: an int or a one-element int64 tensor; required when
+            dropout_rate > 0 (or ``keep_mask``,
             an explicit (B, h, Sq, Sk) keep mask, CPU only).
         scale: defaults to 1/sqrt(d).
 
@@ -967,7 +1005,7 @@ def flash_attention_trainable(
     key: torch.Tensor,
     value: torch.Tensor,
     key_valid_mask: Optional[torch.Tensor] = None,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
     dropout_rate: float = 0.0,
     *,
     scale: Optional[float] = None,

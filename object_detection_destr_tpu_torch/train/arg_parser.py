@@ -38,7 +38,8 @@ def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_interval", type=int, default=100)
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a profiler trace of early steps here")
+                   help="write a torch.profiler trace of steps 2-4 of the "
+                        "first epoch here (turns --epoch_scan off)")
     p.add_argument("--coco_eval", action="store_true",
                    help="also compute COCO-style AP at validation")
     p.add_argument("--grad_accum_steps", type=int, default=1)
@@ -88,14 +89,15 @@ def _common(p: argparse.ArgumentParser) -> None:
                    choices=["float32", "bfloat16"])
     p.add_argument("--device_cache", action="store_true",
                    help="decode the dataset once and serve batches from "
-                        "device HBM (uint8 canvases, ~1.35 MB per 672px "
-                        "image); removes the per-step host feed for sets "
-                        "that fit memory")
+                        "device memory (uint8 canvases, 1,354,752 bytes per "
+                        "672px image); removes the per-step host feed for "
+                        "sets that fit memory")
     p.add_argument("--epoch_scan", action="store_true",
-                   help="compile each training epoch into ONE lax.scan "
-                        "program (requires --device_cache): one dispatch "
-                        "per epoch instead of per step; identical math, "
-                        "see train/epoch_scan.py")
+                   help="run each training epoch as replays of one "
+                        "CUDA-graph-captured step (requires --device_cache; "
+                        "off under --profile_dir); the same batches, draws "
+                        "and math as the per-step loop, see "
+                        "train/epoch_scan.py")
     p.add_argument("--val_interval", type=int, default=1,
                    help="run the validation sweep every N epochs "
                         "(1 = reference behavior; the final epoch always "

@@ -8,8 +8,8 @@ A checkpoint is one file, ``checkpoint_dir/name``, holding:
   statistics are buffers here, a separate collection in flax);
 * "optimizer": the AdamW moments and counts;
 * "step": the train step count;
-* "generators": the state of the dropout stream's host and device
-  generators (the augmentation draws are derived from the step, see
+* (no generator state: the dropout and augmentation draws of a step are
+  pure functions of the seed and the step, see ``DropoutRng`` and
   ``train/driver.py``);
 * "loader": the train loader's (epoch, step), so a resume replays the data
   order;
@@ -48,8 +48,6 @@ def _payload(state: TrainState, loader_state: Optional[dict], best_val: Optional
                       "m": {k: v.detach().cpu() for k, v in opt.m.items()},
                       "v": {k: v.detach().cpu() for k, v in opt.v.items()}},
         "step": int(state.step),
-        "generators": {"dropout_host": state.rng.host.get_state(),
-                       "dropout_device": state.rng.device.get_state()},
         "loader": dict(loader_state or {}),
         "best_val": float(best_val if best_val is not None else math.inf),
     }
@@ -62,7 +60,7 @@ def save_checkpoint(
     loader_state: Optional[dict] = None,
     best_val: Optional[float] = None,
 ) -> str:
-    """Write {model, optimizer, step, generators, loader, best_val} under
+    """Write {model, optimizer, step, loader, best_val} under
     ``checkpoint_dir/name`` by stage and swap; returns the path."""
     path = _ckpt_path(checkpoint_dir, name)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -98,8 +96,8 @@ def _load(checkpoint_dir: str, name: str) -> dict:
 
 @torch.no_grad()
 def restore_checkpoint(checkpoint_dir: str, name: str, state: TrainState) -> dict:
-    """Restore a checkpoint into ``state`` in place (its model, optimizer,
-    step and dropout generators). Returns {"state", "loader", "best_val"};
+    """Restore a checkpoint into ``state`` in place (its model, optimizer and
+    step). Returns {"state", "loader", "best_val"};
     raises FileNotFoundError where there is none (the reference silently
     trained from scratch)."""
     raw = _load(checkpoint_dir, name)
@@ -113,8 +111,6 @@ def restore_checkpoint(checkpoint_dir: str, name: str, state: TrainState) -> dic
             tensor.copy_(theirs[key])
     opt.count, opt.notfinite_count = int(saved["count"]), int(saved["notfinite_count"])
     state.step = int(raw["step"])
-    state.rng.host.set_state(raw["generators"]["dropout_host"])
-    state.rng.device.set_state(raw["generators"]["dropout_device"])
     return {"state": state, "loader": raw["loader"], "best_val": float(raw["best_val"])}
 
 

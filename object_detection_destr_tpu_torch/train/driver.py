@@ -6,8 +6,16 @@ l.219-461).
 Per epoch: batches from the train loader, the train transform on the model's
 device (its draws from a generator seeded from ``(seed + 7, step)`` each
 step, as the JAX driver folds the step into its key, so a resumed run draws
-what the uninterrupted one did), one train step each and, with
-``ema_decay``, one update of the parameter EMA; the running mean of the step
+what the uninterrupted one did; the dropout stream is reseeded from the step
+the same way), one train step each and, with ``ema_decay``, one update of
+the parameter EMA. With ``device_cache`` both loaders serve their batches
+from device memory (``data/device_cache.py``); with ``epoch_scan`` as well,
+an epoch is the replays of one CUDA-graph-captured step of gather, transform,
+step and EMA (``train/epoch_scan.py``; ``epoch_scan`` without
+``device_cache`` is ignored with a notice, as in the JAX driver). With
+``profile_dir`` (which turns ``epoch_scan`` off, as in JAX) steps 2-4 of the
+first epoch are traced (``train/profiler.py``) and the trace's device busy
+time and idle share printed; the running mean of the step
 metrics every ``log_interval`` steps (``[train step N] loss=...``, and
 ``log_dir/metrics.jsonl``), then ``Perf/images_per_sec``. Every
 ``val_interval`` epochs and at the last one, a validation sweep (the eval
@@ -22,10 +30,9 @@ every validated epoch and every ``save_interval`` epochs, and
 ``save_as_interrupt`` on ``KeyboardInterrupt``. ``resume`` restores
 ``resume_from`` and runs ``epochs`` more epochs.
 
-The device-resident dataset, scanned epochs, gradient accumulation,
-profiling, letterbox training, other optimizer layouts and multi-device
-training come with later slices: their flags raise ``NotImplementedError``
-here when set away from their defaults.
+Gradient accumulation, letterbox training, other optimizer layouts and
+multi-device training come with later slices: their flags raise
+``NotImplementedError`` here when set away from their defaults.
 """
 
 from __future__ import annotations
@@ -42,20 +49,22 @@ import torch
 
 from ..config import Config, DataConfig, TrainConfig, resolve_device
 from ..data import DetectionLoader, build_dataset
+from ..data.device_cache import DeviceCachedLoader
 from ..data.transforms import destr_eval_transform, destr_train_transform
 from ..losses.metrics import CocoAveragePrecision, MeanAveragePrecision
 from ..models.destr.model import build_destr
 from .checkpoint import restore_checkpoint, save_checkpoint
+from .epoch_scan import EpochRunner
+from .profiler import StepTimer, StepTrace, parse_trace
 from .state import create_destr_state
-from .steps import make_destr_eval_step, make_destr_train_step
+from .steps import make_destr_eval_step, make_destr_step_core, make_destr_train_step
 
 __all__ = ["train_destr", "MetricLogger", "StepTimer"]
 
 # (section, field) of each feature of a later slice, checked against the default
 _LATER_SLICES = [
-    ("train", "epoch_scan"), ("train", "grad_accum_steps"), ("train", "profile_dir"),
-    ("train", "letterbox"), ("train", "moment_dtype"), ("train", "rng_impl"),
-    ("train", "num_data_shards"), ("data", "device_cache"),
+    ("train", "grad_accum_steps"), ("train", "letterbox"), ("train", "moment_dtype"), ("train", "rng_impl"),
+    ("train", "num_data_shards"),
 ]
 _DEFAULTS = {"train": TrainConfig(), "data": DataConfig()}
 
@@ -117,46 +126,11 @@ class MetricLogger:
             self._jsonl.close()
 
 
-class StepTimer:
-    """Epoch throughput from the host clock around work that ends in a
-    synchronize, and on a GPU each step's time from CUDA events recorded
-    between steps (``step_ms``)."""
-
-    def __init__(self, batch_size: int, device: torch.device):
-        self.batch_size = batch_size
-        self.cuda = device.type == "cuda"
-        self.step_ms: list[float] = []
-        self._events: list = []
-        self._t0 = 0.0
-        self._steps = 0
-
-    def _mark(self) -> None:
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            self._events.append(event)
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-        self._steps = 0
-        self._events = []
-        self._mark()
-
-    def step(self) -> None:
-        self._steps += 1
-        self._mark()
-
-    def stop(self) -> dict:
-        if self.cuda:
-            torch.cuda.synchronize()
-            self.step_ms += [a.elapsed_time(b) for a, b in zip(self._events, self._events[1:])]
-        dt = time.perf_counter() - self._t0
-        steps = max(self._steps, 1)
-        return {"seconds": dt, "steps_per_sec": steps / dt, "images_per_sec": steps * self.batch_size / dt}
-
-
 def _to_device(raw: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in raw.items()}
+    """A host batch (numpy) copied to ``device``; a cached one (tensors on
+    the device) as it is."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v)).to(device, non_blocking=True)
+            for k, v in raw.items()}
 
 
 def _train_batch(raw: dict, device: torch.device, generator: torch.Generator, out_size: int) -> dict:
@@ -269,6 +243,20 @@ def _make_loaders(config: Config, canvas: int, for_train_model: str = "destr"):
     return train_loader, valid_loader
 
 
+_PROFILE_STEPS = (2, 4)  # the first and last step of epoch 0 traced under profile_dir (JAX driver.py:354-367)
+
+
+def _profile_summary(path: str) -> dict:
+    """The parsed trace, printed: device busy seconds and idle share of the
+    window and of each traced step."""
+    parsed = parse_trace(path)
+    steps = ", ".join(f"{s['label']}: busy {s['busy_s'] * 1e3:.2f} ms of {s['period_s'] * 1e3:.2f}"
+                      for s in parsed["steps"])
+    print(f"profile: {path}: device busy {parsed['busy_s'] * 1e3:.2f} ms of a {parsed['window_s'] * 1e3:.2f} ms "
+          f"window, idle share {parsed['idle_share']:.4f}; steps {steps}", flush=True)
+    return {"path": path, **parsed}
+
+
 def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
                coco_metric: Optional[CocoAveragePrecision], device: torch.device, resize_to: int,
                out_size: int) -> tuple[dict, float, Optional[float], float]:
@@ -301,13 +289,24 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
     Returns {"state", "best_val", "map" (of the last sweep), "metrics" (the
     last flushed train means), "images_per_sec" (of the last epoch),
     "step_ms" (per step, CUDA events; empty on the CPU), "history" (per
-    validated epoch: its scalars and the host seconds of each sweep)}.
+    validated epoch: its scalars and the host seconds of each sweep),
+    "device_cache" (bytes and build seconds of each split's cache, or None),
+    "epoch_scan" (whether epochs ran as captured steps), "profile" (the
+    parsed trace under profile_dir, or None)}.
     """
     _refuse_later_slices(config)
     device = resolve_device(device)
     cfg_t = config.train
     canvas = int(cfg_t.image_size * 672 / 640)  # reference eval geometry
     train_loader, valid_loader = _make_loaders(config, canvas, "destr")
+    cache_info = None
+    if config.data.device_cache:
+        train_loader = DeviceCachedLoader(train_loader, device)
+        valid_loader = DeviceCachedLoader(valid_loader, device)
+        cache_info = {name: {"bytes": c.nbytes, "build_seconds": c.build_seconds}
+                      for name, c in (("train", train_loader), ("valid", valid_loader))}
+        print("device cache: " + ", ".join(f"{name} {v['bytes'] / 1e9:.3f} GB in {v['build_seconds']:.1f} s"
+                                           for name, v in cache_info.items()), flush=True)
     torch.manual_seed(cfg_t.seed)  # the model's initial weights
     model = build_destr(config.destr, device)
     state = create_destr_state(model, cfg_t, steps_per_epoch=len(train_loader))
@@ -331,6 +330,20 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
         ema_params = ema_init(model)  # a resume seeds the EMA from the restored parameters
         best_ema_val = math.inf
 
+    epoch_runner = None
+    if cfg_t.epoch_scan and not cfg_t.profile_dir:  # profiling needs per-step
+        if not config.data.device_cache:
+            print("epoch_scan ignored: requires --device_cache", flush=True)
+        else:
+            epoch_runner = EpochRunner(
+                state, make_destr_step_core(cfg_t),
+                lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"],
+                                                       gen, out_size=out_size),
+                train_loader.data, lambda step: _aug_seed(cfg_t.seed, step), len(train_loader),
+                ema=None if ema_params is None else (ema_params, ema_update),
+            )
+    trace, profile = None, None
+
     sweep = (state, valid_loader, eval_step, metric, coco_metric, device, canvas, out_size)
     timer = StepTimer(cfg_t.batch_size, device)
     metrics, rate, means, last_map, history = None, {}, {}, 0.0, []
@@ -340,16 +353,38 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
             # ---- train ----
             metrics = None
             timer.start()
-            for step_in_epoch, raw in enumerate(train_loader):
-                aug_gen.manual_seed(_aug_seed(cfg_t.seed, state.step))
-                batch = _train_batch(raw, device, aug_gen, out_size)
-                metrics = train_step(state, batch)
-                if ema_params is not None:
-                    ema_update(ema_params, model)
-                timer.step()
-                logger.accumulate(state.step, metrics)
-                if (step_in_epoch + 1) % cfg_t.log_interval == 0:
-                    means = logger.flush("train")
+            if epoch_runner is not None:
+                # ---- captured steps (train/epoch_scan.py), metrics read once
+                base_step = state.step
+                _, idx = train_loader.epoch_index_matrix()
+                fetched = epoch_runner.run(idx, base_step, after_step=timer.step)
+                for i in range(idx.shape[0]):
+                    metrics = {k: torch.tensor(v[i]) for k, v in fetched.items()}
+                    logger.accumulate(base_step + i + 1, metrics)
+                    if (i + 1) % cfg_t.log_interval == 0:
+                        means = logger.flush("train")
+                train_loader.advance_epoch()
+            else:
+                for step_in_epoch, raw in enumerate(train_loader):
+                    if cfg_t.profile_dir and epoch == 0 and step_in_epoch == _PROFILE_STEPS[0]:
+                        trace = StepTrace(cfg_t.profile_dir)
+                        trace.start()
+                    with trace.step(state.step) if trace is not None else contextlib.nullcontext():
+                        aug_gen.manual_seed(_aug_seed(cfg_t.seed, state.step))
+                        batch = _train_batch(raw, device, aug_gen, out_size)
+                        metrics = train_step(state, batch)
+                        if ema_params is not None:
+                            ema_update(ema_params, model)
+                    timer.step()
+                    if trace is not None and step_in_epoch == _PROFILE_STEPS[1]:
+                        profile = _profile_summary(trace.stop())
+                        trace = None
+                    logger.accumulate(state.step, metrics)
+                    if (step_in_epoch + 1) % cfg_t.log_interval == 0:
+                        means = logger.flush("train")
+                if trace is not None:  # an epoch shorter than the traced range
+                    profile = _profile_summary(trace.stop())
+                    trace = None
             means = logger.flush("train") or means
             if metrics is not None:
                 rate = timer.stop()
@@ -410,4 +445,5 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
     finally:
         logger.close()
     return {"state": state, "best_val": best_val, "map": last_map, "metrics": means,
-            "images_per_sec": rate.get("images_per_sec"), "step_ms": timer.step_ms, "history": history}
+            "images_per_sec": rate.get("images_per_sec"), "step_ms": timer.step_ms, "history": history,
+            "device_cache": cache_info, "epoch_scan": epoch_runner is not None, "profile": profile}

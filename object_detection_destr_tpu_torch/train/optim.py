@@ -25,8 +25,16 @@ and :class:`AdamW` computes the same update:
   update is applied (the driver halts on non-finite parameters).
 
 Only the per-leaf layout and float32 moments are ported; ``opt_layout`` and
-``moment_dtype`` other than their defaults raise in the driver. The finite
-check is read on the host, one synchronization a step.
+``moment_dtype`` other than their defaults raise in the driver.
+
+Everything a step decides lives on the device, so the host never waits for
+it and a CUDA graph can capture the step (``train/epoch_scan.py``): the count
+of applied updates and of consecutive non-finite steps are int64 tensors, the
+lr schedule and the bias corrections are computed from the count there, and
+a skipped step is ``torch.where`` over the moments and the parameters' step.
+The moments of a group are one flat float32 buffer (``m`` and ``v`` hold a
+view a parameter), so that the Adam arithmetic and the selects are a few
+kernels a group rather than a few a parameter.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ __all__ = ["AdamW", "param_labels", "lr_schedule"]
 
 _TRAINABLE_BACKBONE_PREFIXES = ("layer2", "layer3", "layer4")
 
-LrSpec = Union[float, Callable[[int], float]]
+# a float, or a schedule from the update count (an int64 tensor) to the lr
+LrSpec = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
 
 def param_labels(model: nn.Module) -> dict[str, str]:
@@ -64,24 +73,25 @@ def param_labels(model: nn.Module) -> dict[str, str]:
 def lr_schedule(base: float, warmup_steps: int = 0, drop_step: int = 0,
                 drop_factor: float = 0.1) -> LrSpec:
     """The JAX package's schedule on the update count (state.py:41-71):
-    ``base * (factor if count >= drop_step) * min(1, (count + 1) / warmup)``;
-    a plain float when neither is set."""
+    ``base * (factor if count >= drop_step) * min(1, (count + 1) / warmup)``
+    in float32 on the count's device; a plain float when neither is set."""
     if not (warmup_steps or drop_step):
         return base
 
-    def sched(count: int) -> float:
-        value = base
+    def sched(count: torch.Tensor) -> torch.Tensor:
+        value = torch.full((), base, dtype=torch.float32, device=count.device)
         if drop_step:
-            value = value * (drop_factor if count >= drop_step else 1.0)
+            value = value * torch.where(count >= drop_step, drop_factor, 1.0)
         if warmup_steps:
-            value = value * min(1.0, (count + 1) / warmup_steps)
+            value = value * torch.clamp((count + 1) / warmup_steps, max=1.0)
         return value
 
     return sched
 
 
-def _lr_at(spec: LrSpec, count: int) -> float:
-    return float(spec(count)) if callable(spec) else float(spec)
+def _select(apply: Optional[torch.Tensor], new: torch.Tensor, old) -> torch.Tensor:
+    """``new`` where the update applies (always when ``apply`` is None)."""
+    return new if apply is None else torch.where(apply, new, old)
 
 
 class AdamW:
@@ -99,58 +109,86 @@ class AdamW:
             g: [n for n, lab in self.labels.items() if lab == g]
             for g in ("main", "backbone") if not (g == "backbone" and bb_frozen)
         }
+        self.groups = {g: names for g, names in self.groups.items() if names}
         self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
         self.grad_clip = grad_clip
         self.skip_nonfinite = skip_nonfinite
-        self.count = 0  # applied updates
-        self.notfinite_count = 0  # consecutive non-finite steps
-        self.m = {n: torch.zeros_like(p, dtype=torch.float32) for g in self.groups.values()
-                  for n in g for p in [self.params[n]]}
-        self.v = {n: torch.zeros_like(t) for n, t in self.m.items()}
+        device = next(iter(self.params.values())).device
+        self._count = torch.zeros((), dtype=torch.int64, device=device)  # applied updates
+        self._notfinite = torch.zeros((), dtype=torch.int64, device=device)  # consecutive non-finite steps
+        self._m, self._v, self.m, self.v = {}, {}, {}, {}
+        for group, names in self.groups.items():
+            for flat, views in ((self._m, self.m), (self._v, self.v)):
+                flat[group] = torch.zeros(sum(self.params[n].numel() for n in names), dtype=torch.float32,
+                                          device=device)
+                views.update(zip(names, self._views(flat[group], names)))
+
+    def _views(self, flat: torch.Tensor, names: list[str]) -> list[torch.Tensor]:
+        """``flat`` split into one view a parameter, each of its shape."""
+        sizes = [self.params[n].numel() for n in names]
+        return [part.view(self.params[n].shape) for part, n in zip(torch.split(flat, sizes), names)]
+
+    @property
+    def count(self) -> int:
+        """Applied updates (read from the device)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(int(value))
+
+    @property
+    def notfinite_count(self) -> int:
+        """Consecutive non-finite steps (read from the device)."""
+        return int(self._notfinite)
+
+    @notfinite_count.setter
+    def notfinite_count(self, value: int) -> None:
+        self._notfinite.fill_(int(value))
 
     def grads(self) -> list[torch.Tensor]:
         """The gradient of every parameter (zeros where none was computed)."""
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params.values()]
 
+    def _lr(self, group: str) -> torch.Tensor | float:
+        spec = self.lr[group]
+        return spec(self._count) if callable(spec) else float(spec)
+
     @torch.no_grad()
     def step(self) -> dict:
-        """One update from the parameters' ``.grad``. Returns
-        {"grad_norm": tensor, "finite": bool, "applied": bool}."""
+        """One update from the parameters' ``.grad``, on the device. Returns
+        {"grad_norm", "finite", "applied"}, device tensors."""
         grads = self.grads()
         norms = torch._foreach_norm(grads)  # per-tensor 2-norms: inf/NaN if any element is
         total = torch.stack([n.float() for n in norms]).square().sum().sqrt()
-        finite = True
+        finite = torch.isfinite(total)
+        apply = None  # every update applies
         if self.skip_nonfinite:
-            finite = bool(torch.isfinite(total))
-            self.notfinite_count = 0 if finite else self.notfinite_count + 1
-            if not finite and self.notfinite_count <= self.skip_nonfinite:
-                return {"grad_norm": total, "finite": False, "applied": False}
+            notfinite = torch.where(finite, 0, self._notfinite + 1)
+            self._notfinite.copy_(notfinite)
+            apply = finite | (notfinite > self.skip_nonfinite)
         by_name = dict(zip(self.params, grads))
+        count_inc = self._count + 1
+        bc1 = 1.0 - torch.pow(self.b1, count_inc)
+        bc2 = 1.0 - torch.pow(self.b2, count_inc)
         if self.grad_clip:
             clip = torch.where(total < self.grad_clip, 1.0, self.grad_clip / total)
-        count_inc = self.count + 1
-        bc1 = 1.0 - self.b1**count_inc
-        bc2 = 1.0 - self.b2**count_inc
         for group, names in self.groups.items():
-            if not names:
-                continue
             params = [self.params[n] for n in names]
-            g = [by_name[n].float() for n in names]
+            g = torch.cat([by_name[n].reshape(-1).float() for n in names])
             if self.grad_clip:
-                g = torch._foreach_mul(g, clip)
-            ms, vs = [self.m[n] for n in names], [self.v[n] for n in names]
-            torch._foreach_mul_(ms, self.b1)
-            torch._foreach_add_(ms, g, alpha=1.0 - self.b1)
-            torch._foreach_mul_(vs, self.b2)
-            torch._foreach_addcmul_(vs, g, g, value=1.0 - self.b2)
-            denom = torch._foreach_sqrt(torch._foreach_div(vs, bc2))
-            torch._foreach_add_(denom, self.eps)
-            upd = torch._foreach_div(torch._foreach_div(ms, bc1), denom)
-            torch._foreach_add_(upd, [p.float() for p in params], alpha=self.weight_decay)
-            lr = _lr_at(self.lr[group], self.count)
-            torch._foreach_add_(params, [u.to(p.dtype) for u, p in zip(upd, params)], alpha=-lr)
-        self.count = count_inc
-        return {"grad_norm": total, "finite": finite, "applied": True}
+                g = g * clip
+            m, v = self._m[group], self._v[group]
+            m_new = torch.add(m * self.b1, g, alpha=1.0 - self.b1)
+            v_new = torch.addcmul(v * self.b2, g, g, value=1.0 - self.b2)
+            upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps)
+            upd = torch.add(upd, torch.cat([p.reshape(-1).float() for p in params]), alpha=self.weight_decay)
+            delta = _select(apply, upd * -self._lr(group), 0.0)
+            m.copy_(_select(apply, m_new, m))
+            v.copy_(_select(apply, v_new, v))
+            torch._foreach_add_(params, [d.to(p.dtype) for d, p in zip(self._views(delta, names), params)])
+        self._count.add_(1 if apply is None else apply.long())
+        return {"grad_norm": total, "finite": finite, "applied": torch.ones_like(finite) if apply is None else apply}
 
     def zero_grad(self) -> None:
         for p in self.params.values():

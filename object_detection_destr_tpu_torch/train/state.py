@@ -1,7 +1,7 @@
 """Train state (port of ``object_detection_destr_tpu/train/state.py``): the
 model (its parameters and BatchNorm statistics), the optimizer, the step
-count, and the dropout stream, drawn from explicit generators seeded by
-``TrainConfig.seed``."""
+count (on the host), and the dropout stream, drawn from a generator reseeded
+from ``TrainConfig.seed`` and the step at each step."""
 
 from __future__ import annotations
 

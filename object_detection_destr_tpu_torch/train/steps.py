@@ -5,7 +5,11 @@
 
 One step: forward in train mode (batch-statistics BatchNorm, dropout from
 the state's stream), one matcher launch for both criteria, the two set
-criteria, backward, and the optimizer update. Loss wiring as the reference
+criteria, backward, and the optimizer update. That device work is
+:func:`make_destr_step_core`; it reads nothing back to the host, so a CUDA
+graph can capture it (``train/epoch_scan.py``). :func:`make_destr_train_step`
+wraps it with the host's bookkeeping: the dropout stream reseeded from the
+step, and the step count. Loss wiring as the reference
 (train.py:160-217):
 
     weighted = cost_class * class + cost_bbox * bbox + cost_ciou * ciou
@@ -24,7 +28,7 @@ from ..losses.criterion import set_criterion
 from ..ops.cuda.auction import hungarian_match_fused
 from .state import TrainState
 
-__all__ = ["make_destr_eval_step", "make_destr_train_step"]
+__all__ = ["make_destr_eval_step", "make_destr_step_core", "make_destr_train_step"]
 
 
 def _weighted(losses: dict, cfg: TrainConfig) -> torch.Tensor:
@@ -85,16 +89,17 @@ def _guard_stats(model, old_stats: dict, cfg: TrainConfig) -> None:
             buf.copy_(torch.where(torch.isfinite(buf), buf, old_stats[name]))
 
 
-def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
-    """``train_step(state, batch) -> metrics``, updating ``state`` in place.
+def make_destr_step_core(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
+    """``core(state, batch) -> metrics``: the device work of one step,
+    updating the model and the optimizer in place and nothing on the host
+    (not the step count; the dropout stream as the caller seeded it).
 
     ``batch``: {"images": (B, S, S, 3) float32 normalized, "boxes": (B, T, 4)
     xyxy, "labels": (B, T), "valid": (B, T) bool, optional "pixel_valid"}.
-    Metrics are detached device scalars (nothing is read on the host here
-    except the optimizer's finite check).
+    Metrics are detached device scalars.
     """
 
-    def train_step(state: TrainState, batch: dict) -> dict:
+    def core(state: TrainState, batch: dict) -> dict:
         model = state.model
         old_stats = (
             {k: v.clone() for k, v in _bn_stats(model).items()} if cfg.skip_nonfinite_updates else None
@@ -111,7 +116,6 @@ def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict
         loss.backward()
         _guard_stats(model, old_stats, cfg)
         state.optimizer.step()
-        state.step += 1
         return {
             "loss": loss.detach(),
             "loss_model": loss_model.detach(),
@@ -119,6 +123,21 @@ def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict
             "loss_class": l_model["class"].detach(),
             "loss_ciou": l_model["ciou"].detach(),
         }
+
+    return core
+
+
+def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
+    """``train_step(state, batch) -> metrics``, updating ``state`` in place:
+    the dropout stream reseeded for ``state.step``, :func:`make_destr_step_core`
+    's device work, then ``state.step + 1``."""
+    core = make_destr_step_core(cfg)
+
+    def train_step(state: TrainState, batch: dict) -> dict:
+        state.rng.begin_step(state.step)
+        metrics = core(state, batch)
+        state.step += 1
+        return metrics
 
     return train_step
 

@@ -177,11 +177,10 @@ def test_checkpoint_round_trip_and_fallback(pair):
         state.optimizer.count, state.step = 3, 7
         first = {k: v.clone() for k, v in state.model.state_dict().items()}
         path = save_checkpoint(d, "ck", state, {"epoch": 1, "step": 0}, 0.5)
-        torch.randint(0, 10**6, (4,), generator=state.rng.host)  # the stream moves on
         save_checkpoint(d, "ck", state, {"epoch": 2, "step": 1}, 0.25)  # the stage-and-swap path
         assert sorted(os.listdir(d)) == ["ck"]
-        expected = (torch.randint(0, 10**6, (4,), generator=state.rng.host),  # what follows the saved state
-                    torch.rand(4, generator=state.rng.device))
+        state.rng.begin_step(7)  # the dropout stream is a function of the step
+        expected = (state.rng.seed(), torch.rand(4, generator=state.rng.generator))
         with torch.no_grad():
             for p in state.model.parameters():
                 p.add_(1.0)
@@ -190,8 +189,9 @@ def test_checkpoint_round_trip_and_fallback(pair):
         assert restored["loader"] == {"epoch": 2, "step": 1} and restored["best_val"] == 0.25
         assert state.step == 7 and state.optimizer.count == 3
         assert all(torch.equal(v, first[k]) for k, v in state.model.state_dict().items())
-        assert torch.equal(torch.randint(0, 10**6, (4,), generator=state.rng.host), expected[0])
-        assert torch.equal(torch.rand(4, generator=state.rng.device), expected[1])
+        state.rng.begin_step(state.step)
+        assert torch.equal(state.rng.seed(), expected[0])
+        assert torch.equal(torch.rand(4, generator=state.rng.generator), expected[1])
         assert sorted(restore_for_inference(d, "ck")) == sorted(first)
         # a crash between the swap's two renames leaves .new (then .old) only
         for suffix in (".new", ".old"):
