@@ -1,8 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: its DESTR training step at
 hidden width 256 and 512, its validation sweep, checkpoints, resume and
 evaluator, its head-major flash-attention API, its L1-cost matcher and its
-serving path, and hold each hand-written CUDA kernel against its plain
-PyTorch version.
+serving path; SSD300's serving, training, validation and the batch CLI; and
+hold each hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -121,7 +121,32 @@ Phases (any failure exits non-zero and prints no result):
      requests of each: 18 #1 launches a request, device busy time, idle
      share;
   9. whole model forward, kernel against plain, discrete choices
-     (top-k, pairs) recorded and replayed as in phase 7.
+     (top-k, pairs) recorded and replayed as in phase 7;
+ 10. serve-ssd-300: build_service --model ssd (seeded random weights, the
+     B=1 predict captured), 8 requests of four aspect ratios as replays and
+     eagerly, the detections equal; latencies, a trace of 4 requests of each
+     (device busy time, idle share); the float32 forward against the CPU's
+     (1e-4 of each head's largest value);
+ 11. cli: infer.cli.predict_arrays on the card for DESTR (phase 8's
+     service) and SSD, each image's detections equal to the captured
+     server's (labels, counts; boxes and scores within 1e-5);
+ 12. train-ssd-300: scripts/train_prod_ssd.sh's recipe (B=32, 300px, bf16,
+     20 classes, paper mining, lr 1e-4, warmup 500, skip-non-finite 100) on
+     a 256-image device cache: phase 6a's captured-against-eager check
+     through the EpochRunner (five eager steps from one cloned state at each
+     of steps 1-4, the planted fault of step 0's augmentation seeds) with
+     cuDNN held to deterministic engines, where the eager samples are
+     bit-equal and so must the replay be; the step captured again with
+     cuDNN's default engines, its replay's losses equal to an eager step's;
+     that capture's step times, idle shares, peak memory; the eager step's parts (forward,
+     criterion, backward, the frozen VGG trunk's share of it, optimizer; the
+     criterion alone, forward and backward); ssd_criterion on the card
+     against the CPU's (1e-4 relative);
+ 13. validate-ssd: train_ssd.main with --device_cache --epoch_scan, the EMA
+     and a 64-image validation split, 4 steps; infer.evaluate --model ssd
+     reproduces the driver's mAP (1e-6) and validation loss; a resume goes
+     on from step 4 to 8. Phases 10-13 count the nine kernels' launches
+     from zero: SSD's path launches none of them.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors and #3's and
@@ -1972,9 +1997,47 @@ def _restore(torch, state, snapshot, step):
     state.step = step
 
 
-def phase_captured_train(torch, kernels, seed, extra, per_step, label):
-    """The production recipe's step (+ ``extra`` flags) on device-cached
-    batches, captured against eager from the same state and seed: the
+def destr_capture_setup(torch, seed, extra):
+    """The DESTR production recipe's (+ ``extra`` flags) state, device cache,
+    transform, steps and augmentation seeds for :func:`phase_captured_train`."""
+    from object_detection_destr_tpu_torch.data.device_cache import DeviceCachedLoader
+    from object_detection_destr_tpu_torch.data.transforms import destr_train_transform
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.train.driver import _aug_seed, _make_loaders
+    from object_detection_destr_tpu_torch.train.state import create_destr_state
+    from object_detection_destr_tpu_torch.train.steps import make_destr_step_core, make_destr_train_step
+
+    config = recipe_config(list(extra) + ["--seed", str(seed)])
+    cfg = config.train
+    cache = DeviceCachedLoader(_make_loaders(config, 672, "destr")[0], "cuda")
+    torch.manual_seed(seed)
+    return {"state": create_destr_state(build_destr(config.destr, "cuda"), cfg, steps_per_epoch=len(cache)),
+            "cache": cache, "train_step": make_destr_train_step(cfg), "step_core": make_destr_step_core(cfg),
+            "transform": lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"],
+                                                                raw["valid"], gen, out_size=cfg.image_size),
+            "aug_seed": lambda step: _aug_seed(seed, step)}
+
+
+EXACT_NOTE = (" (cuDNN held to deterministic engines for steps 0-4, so the eager samples are bit-equal; then the "
+              "step captured again with its default engines, whose replay has the losses of an eager step)")
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(torch, on):
+    """Inside, cuDNN picks only deterministic engines if ``on``; otherwise
+    nothing changes."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = saved or on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
+    """A recipe's step on device-cached batches (``setup``: its state, cache,
+    steps, transform and augmentation seeds), captured against eager from the
+    same state and seed: the
     epoch runner takes step 0 (its eager warm-up on a side stream, then the
     capture); at each of steps 1-4 the state is cloned and, each from the
     clone, the eager per-step path runs EAGER_RUNS times (the first under
@@ -1990,29 +2053,26 @@ def phase_captured_train(torch, kernels, seed, extra, per_step, label):
     captured, eager, 3 steps each), a traced window of 3 steps of each (the
     device's busy time and idle share, and the launches a step read from the
     trace, ``per_step`` as the wrappers count them eagerly), and the peak
-    memory of each."""
-    from object_detection_destr_tpu_torch.data.device_cache import DeviceCachedLoader
-    from object_detection_destr_tpu_torch.data.transforms import destr_train_transform
-    from object_detection_destr_tpu_torch.models.destr.model import build_destr
-    from object_detection_destr_tpu_torch.train.driver import _aug_seed, _make_loaders
-    from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
-    from object_detection_destr_tpu_torch.train.state import create_destr_state
-    from object_detection_destr_tpu_torch.train.steps import make_destr_step_core, make_destr_train_step
+    memory of each.
 
-    config = recipe_config(list(extra) + ["--seed", str(seed)])
-    cfg = config.train
-    cache = DeviceCachedLoader(_make_loaders(config, 672, "destr")[0], "cuda")
+    ``exact``: for a step whose only spread between eager samples is cuDNN's
+    choice of nondeterministic engines (SSD's, whose extra blocks' weight
+    gradients sum in a split order that changes from call to call). The
+    capture and steps 1-4 then run with cuDNN held to deterministic engines,
+    where eager samples are bit-equal, so the limit is 0 and the replay must
+    be bit-equal to them. The step is then captured again with cuDNN's
+    default engines, as the trainer runs it; its first replay's losses must
+    equal an eager step's from the same cloned state, and the times, traces
+    and peak memory are this capture's."""
+    from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
+
+    state, cache, transform, train_step = setup["state"], setup["cache"], setup["transform"], setup["train_step"]
     _, idx = cache.epoch_index_matrix()
     rows = torch.from_numpy(idx).cuda()
-    transform = lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"],
-                                                       gen, out_size=cfg.image_size)
-    torch.manual_seed(seed)
-    state = create_destr_state(build_destr(config.destr, "cuda"), cfg, steps_per_epoch=len(cache))
-    train_step = make_destr_train_step(cfg)
     gen = torch.Generator(device="cuda")
 
     def eager_step(sync_debug=False):
-        gen.manual_seed(_aug_seed(seed, state.step))
+        gen.manual_seed(setup["aug_seed"](state.step))
         raw = cache.gather(rows[state.step % len(rows)])
         if not sync_debug:
             return train_step(state, transform(raw, gen))
@@ -2032,65 +2092,88 @@ def phase_captured_train(torch, kernels, seed, extra, per_step, label):
         """The index rows of steps step .. step + n - 1 (the epoch's rows, repeated)."""
         return idx[[i % len(idx) for i in range(step, step + n)]]
 
-    runner = EpochRunner(state, make_destr_step_core(cfg), transform, cache.data,
-                         lambda step: _aug_seed(seed, step), len(cache))
-    torch.cuda.synchronize()
-    before, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(kernels)
-    runner.run(idx[:1], 0)
-    captured_peak = torch.cuda.max_memory_allocated()
-    capture_counts = [k.launches for k in kernels]  # the warm-up step and the capture call the wrappers
-    held = torch.cuda.memory_allocated() - before
-    pool = torch.cuda.memory_reserved() - reserved
-    if runner.graph is None or state.step != 1:
-        raise AssertionError(f"{label}: no graph captured, or {state.step} steps")
+    def capture(step):
+        """A new runner, its warm-up and capture at ``step``; the memory they take."""
+        runner = EpochRunner(state, setup["step_core"], transform, cache.data, setup["aug_seed"], len(cache))
+        torch.cuda.synchronize()
+        before, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        runner.run(rows_from(step, 1), step)
+        memory = {"captured_peak": torch.cuda.max_memory_allocated() - before,
+                  "held": torch.cuda.memory_allocated() - before, "pool": torch.cuda.memory_reserved() - reserved}
+        if runner.graph is None or state.step != step + 1:
+            raise AssertionError(f"{label}: no graph captured, or {state.step} steps")
+        return runner, memory, [k.launches for k in kernels]  # the warm-up step and the capture call the wrappers
 
-    spread, losses = {}, {"eager": [[] for _ in range(EAGER_RUNS)], "captured": [], "seed_of_step_0": []}
-    for step in range(1, TRAIN_STEPS + 1):
+    with _cudnn_deterministic(torch, exact):
+        runner, memory, capture_counts = capture(0)
+        spread, losses = {}, {"eager": [[] for _ in range(EAGER_RUNS)], "captured": [], "seed_of_step_0": []}
+        for step in range(1, TRAIN_STEPS + 1):
+            snapshot = [t.detach().clone() for t in _state_tensors(state)]
+            start = {"m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
+                     "params": _flat_params(torch, state.model)}
+            eager = []
+            for k in range(EAGER_RUNS):
+                _restore(torch, state, snapshot, step)
+                first = step == 1 and k == 0
+                if first:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                eager.append(sample(eager_step(sync_debug=first)))
+                if first:
+                    eager_added = torch.cuda.max_memory_allocated() - base
+            replays = {}
+            for name, seeds_of in (("seed_of_step_0", 0), ("captured", step)):
+                _restore(torch, state, snapshot, step)
+                got = runner.run(rows_from(step, 1), seeds_of)
+                replays[name] = sample({k: v[0] for k, v in got.items()})
+            state.step = step + 1  # the run goes on from the replay at the step's own seeds
+            del snapshot
+            # each vector relative to the step's change (the eager samples' mean change)
+            for key in ("m", "params"):
+                change = _mean_sample([e[key] for e in eager]).to(start[key].device) - start[key].double()
+                norm = float(change.norm())
+                for smp in (*eager, *replays.values()):
+                    smp[key] = ((smp[key].double() - start[key].double()) / norm).float()
+            for k, e in enumerate(eager):
+                losses["eager"][k] += e.pop("losses")
+            for name, r in replays.items():
+                losses[name] += r.pop("losses")
+            spread[f"step {step}"] = _hold_to_spread(f"captured step {label}, step {step}", eager,
+                                                     replays["captured"], {"seed_of_step_0": replays["seed_of_step_0"]})
+            del eager, replays, start
+        spread["losses"] = _hold_to_spread(
+            f"captured step {label}, losses of steps 1-{TRAIN_STEPS}", [{"losses": e} for e in losses["eager"]],
+            {"losses": losses["captured"]}, {"seed_of_step_0": {"losses": losses["seed_of_step_0"]}})["losses"]
+    if exact:  # capture again with cuDNN's default engines, as the trainer runs
+        del runner
+        torch.cuda.empty_cache()
+        runner, memory, capture_counts = capture(state.step)
+        step = state.step
         snapshot = [t.detach().clone() for t in _state_tensors(state)]
-        start = {"m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
-                 "params": _flat_params(torch, state.model)}
-        eager = []
-        for k in range(EAGER_RUNS):
-            _restore(torch, state, snapshot, step)
-            first = step == 1 and k == 0
-            if first:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-            eager.append(sample(eager_step(sync_debug=first)))
-            if first:
-                eager_added = torch.cuda.max_memory_allocated() - base
-        replays = {}
-        for name, seeds_of in (("seed_of_step_0", 0), ("captured", step)):
-            _restore(torch, state, snapshot, step)
-            got = runner.run(rows_from(step, 1), seeds_of)
-            replays[name] = sample({k: v[0] for k, v in got.items()})
-        state.step = step + 1  # the run goes on from the replay at the step's own seeds
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eager = sample(eager_step())
+        eager_added = torch.cuda.max_memory_allocated() - base
+        _restore(torch, state, snapshot, step)
+        replay = sample({k: v[0] for k, v in runner.run(rows_from(step, 1), step).items()})
         del snapshot
-        # each vector relative to the step's change (the eager samples' mean change)
-        for key in ("m", "params"):
-            change = _mean_sample([e[key] for e in eager]).to(start[key].device) - start[key].double()
-            norm = float(change.norm())
-            for smp in (*eager, *replays.values()):
-                smp[key] = ((smp[key].double() - start[key].double()) / norm).float()
-        for k, e in enumerate(eager):
-            losses["eager"][k] += e.pop("losses")
-        for name, r in replays.items():
-            losses[name] += r.pop("losses")
-        spread[f"step {step}"] = _hold_to_spread(f"captured step {label}, step {step}", eager, replays["captured"],
-                                                 {"seed_of_step_0": replays["seed_of_step_0"]})
-        del eager, replays, start
-    spread["losses"] = _hold_to_spread(
-        f"captured step {label}, losses of steps 1-{TRAIN_STEPS}", [{"losses": e} for e in losses["eager"]],
-        {"losses": losses["captured"]}, {"seed_of_step_0": {"losses": losses["seed_of_step_0"]}})["losses"]
+        if eager["losses"] != replay["losses"]:
+            raise AssertionError(f"{label}: the capture with cuDNN's default engines gives the losses "
+                                 f"{replay['losses']} at step {step}, an eager step {eager['losses']}")
+        spread[f"default engines, step {step}"] = {"losses": {"captured": dist(replay["losses"], eager["losses"],
+                                                                              "losses"), "limit": 0.0}}
+        del eager, replay
     torch.cuda.empty_cache()
     log(f"captured step {label}: step 0 the runner's warm-up and capture; steps 1-{TRAIN_STEPS} each from one "
         f"cloned state, {EAGER_RUNS} eager samples, the replay and a replay with step 0's seeds (planted fault); "
         f"distances to the eager mean (m: Adam's first moment, params: parameters, both as 2-norms relative to "
         f"the step's change, so a step that applied no update is at 1.0; losses: mean absolute difference over "
-        f"the {TRAIN_STEPS} steps' 5 losses) and limit = the largest eager pair {json.dumps(_rounded(spread))}; "
+        f"the {TRAIN_STEPS} steps' losses) and limit = the largest eager pair{EXACT_NOTE if exact else ''} "
+        f"{json.dumps(_rounded(spread))}; "
         f"the first "
         f"eager step ran under set_sync_debug_mode('error') without a host sync; wrapper calls of the warm-up and "
         f"the capture #1/#2/#3/#4/#9/#8/#5/#6/#7 {capture_counts}")
@@ -2127,8 +2210,8 @@ def phase_captured_train(torch, kernels, seed, extra, per_step, label):
                                  f"{window['per_step']} times, not {list(per_step[:6])}")
     out = {"eager_ms": statistics.median(times["eager"]), "captured_ms": statistics.median(times["captured"]),
            "eager_ms_all": times["eager"], "captured_ms_all": times["captured"],
-           "eager_step_peak_gb": eager_added / 1e9, "captured_peak_gb": (captured_peak - before) / 1e9,
-           "graph_held_gb": held / 1e9, "reserved_added_gb": pool / 1e9, "spread": spread,
+           "eager_step_peak_gb": eager_added / 1e9, "captured_peak_gb": memory["captured_peak"] / 1e9,
+           "graph_held_gb": memory["held"] / 1e9, "reserved_added_gb": memory["pool"] / 1e9, "spread": spread,
            **{f"{kind}_{key}": window[key] for kind, window in windows.items()
               for key in ("idle_share", "step_busy_ms", "step_period_ms", "per_step", "unattributed")}}
     log(f"captured step {label}: step ms (CUDA events, in turns E C C E, 3 each) eager {out['eager_ms']:.2f} "
@@ -2207,6 +2290,374 @@ def phase_train_scan(torch, seed):
     return out
 
 
+# ---- SSD300 (slice 6): no kernel of the nine lies on its path
+SSD_B = 32
+SSD_TRAIN_SAMPLES = 256  # the recipe's set cut to 8 batches
+SSD_VALID_SAMPLES = 64
+# scripts/train_prod_ssd.sh's recipe, the set cut to SSD_TRAIN_SAMPLES, one epoch
+SSD_ARGS = [
+    "--dataset", "synthetic", "--synthetic_size", "384", "--num_train_samples", str(SSD_TRAIN_SAMPLES),
+    "--num_valid_samples", "0", "--augment_factor", "1", "--batch_size", str(SSD_B), "--compute_dtype", "bfloat16",
+    "--num_cls", "20", "--hard_neg_mining", "paper", "--epochs", "1", "--lr", "1e-4", "--lr_backbone", "1e-4",
+    "--lr_drop", "240", "--lr_warmup_steps", "500", "--skip_nonfinite", "100", "--device_cache",
+    "--log_interval", "1",
+]
+SSD_REQUEST_SIZES = [(375, 500), (500, 375), (300, 300), (333, 500)]  # (H, W): VOC-like aspects
+NO_LAUNCHES = (0,) * 9  # SSD's path launches none of #1-#9
+
+
+def ssd_recipe_config(extra=()):
+    """The Config that the SSD trainer builds from SSD_ARGS (+ ``extra``)."""
+    from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
+
+    return config_from_args(get_parser("ssd").parse_args(SSD_ARGS + list(extra)), "ssd")
+
+
+def ssd_capture_setup(torch, seed):
+    """SSD_ARGS' state, device cache, transform, steps and augmentation seeds
+    (offset 13, as the SSD driver's) for :func:`phase_captured_train`."""
+    from object_detection_destr_tpu_torch.data.device_cache import DeviceCachedLoader
+    from object_detection_destr_tpu_torch.data.transforms import ssd_train_transform
+    from object_detection_destr_tpu_torch.models.ssd import build_ssd
+    from object_detection_destr_tpu_torch.train.driver import _aug_seed, _make_loaders
+    from object_detection_destr_tpu_torch.train.state import create_ssd_state
+    from object_detection_destr_tpu_torch.train.steps import make_ssd_step_core, make_ssd_train_step
+
+    config = ssd_recipe_config(["--seed", str(seed)])
+    cfg, ssd_cfg = config.train, config.ssd
+    cache = DeviceCachedLoader(_make_loaders(config, int(ssd_cfg.image_size * 1.28), "ssd")[0], "cuda")
+    torch.manual_seed(seed)
+    return {"state": create_ssd_state(build_ssd(ssd_cfg, "cuda"), cfg, steps_per_epoch=len(cache)),
+            "cache": cache, "train_step": make_ssd_train_step(cfg, ssd_cfg),
+            "step_core": make_ssd_step_core(cfg, ssd_cfg),
+            "transform": lambda raw, gen: ssd_train_transform(raw["images"], raw["boxes"], raw["labels"],
+                                                              raw["valid"], gen, out_size=ssd_cfg.image_size),
+            "aug_seed": lambda step: _aug_seed(seed, step, 13), "config": config}
+
+
+def ssd_step_parts(torch, setup, reps=3):
+    """Where an eager SSD step goes (CUDA events, median of ``reps`` steps
+    of ``make_ssd_train_step`` on the live state): the forward, the
+    criterion, the backward (the loss's backward, from the criterion's end to
+    the BatchNorm-statistics guard), the guard and the optimizer; then the
+    same steps with the frozen VGG trunk's parameters out of autograd (its
+    backward is not run at all), whose backward's difference is what the
+    trunk's backward costs; and the criterion alone on detached head outputs,
+    forward and its own backward."""
+    from object_detection_destr_tpu_torch.losses.criterion import ssd_criterion
+    from object_detection_destr_tpu_torch.train import steps
+
+    state, cache, config = setup["state"], setup["cache"], setup["config"]
+    gen = torch.Generator(device="cuda").manual_seed(setup["aug_seed"](0))
+    batch = setup["transform"](cache.gather(torch.arange(SSD_B, device="cuda")), gen)
+    marks = {}
+
+    def mark(key):
+        marks[key] = torch.cuda.Event(enable_timing=True)
+        marks[key].record()
+
+    def around(name, fn):
+        def inner(*args, **kwargs):
+            mark(name + ">")
+            out = fn(*args, **kwargs)
+            mark(name + "<")
+            return out
+        return inner
+
+    originals = (steps.ssd_criterion, steps._guard_stats)
+    steps.ssd_criterion = around("criterion", originals[0])
+    steps._guard_stats = around("guard", originals[1])
+    state.optimizer.step = around("optimizer", state.optimizer.step)
+    hooks = [state.model.register_forward_pre_hook(lambda *_: mark("forward>")),
+             state.model.register_forward_hook(lambda *_: mark("forward<"))]
+    spans = {"forward": ("forward>", "forward<"), "criterion": ("criterion>", "criterion<"),
+             "backward": ("criterion<", "guard>"), "stats guard": ("guard>", "guard<"),
+             "optimizer": ("optimizer>", "optimizer<"), "step": ("step>", "step<")}
+    train_step = steps.make_ssd_train_step(config.train, config.ssd)
+    trunk = list(state.model.backbone.parameters())
+    parts = {}
+    try:
+        for trunk_grads in (True, False):
+            for p in trunk:
+                p.requires_grad_(trunk_grads)
+            runs = {k: [] for k in spans}
+            for _ in range(reps):
+                marks.clear()
+                mark("step>")
+                train_step(state, batch)
+                mark("step<")
+                torch.cuda.synchronize()
+                for k, (a, b) in spans.items():
+                    runs[k].append(marks[a].elapsed_time(marks[b]))
+            parts[trunk_grads] = {k: statistics.median(v) for k, v in runs.items()}
+    finally:
+        steps.ssd_criterion, steps._guard_stats = originals
+        del state.optimizer.step
+        for hook in hooks:
+            hook.remove()
+        for p in trunk:
+            p.requires_grad_(True)
+    out = dict(parts[True])
+    out["trunk backward"] = parts[True]["backward"] - parts[False]["backward"]
+    out["step without the trunk's backward"] = parts[False]["step"]
+
+    with torch.no_grad():
+        outputs = state.model(batch["images"], train=False)
+    anchors = steps.flat_anchors(config.ssd, "cuda")
+    targets = {k: batch[k] for k in ("boxes", "labels", "valid")}
+    heads = {k: [t.detach().requires_grad_(True) for t in v] for k, v in outputs.items()}
+    fwd, bwd = [], []
+    for _ in range(reps + 1):
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        loss = ssd_criterion(heads, targets, anchors, loss_coef=config.train.coef_class_loss, mining="paper")["loss"]
+        b.record()
+        loss.backward()
+        c.record()
+        torch.cuda.synchronize()
+        fwd.append(a.elapsed_time(b))
+        bwd.append(a.elapsed_time(c) - a.elapsed_time(b))
+    out["criterion alone"] = statistics.median(fwd[1:])
+    out["criterion's backward alone"] = statistics.median(bwd[1:])
+
+    # the criterion on the card against itself on the CPU, float32, on these head outputs
+    ref = ssd_criterion({k: [t.detach().cpu() for t in v] for k, v in outputs.items()},
+                        {k: v.cpu() for k, v in targets.items()}, anchors.cpu(), mining="paper")
+    got = ssd_criterion({k: [t.detach() for t in v] for k, v in outputs.items()}, targets, anchors, mining="paper")
+    err = max(abs(float(got[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-6) for k in ref)
+    if not err <= 1e-4:  # float32 sums in other orders (tests/test_torch_ssd_criterion.py holds 1e-5 on the CPU)
+        raise AssertionError(f"ssd_criterion on the card is {err:.2e} from the CPU's (relative), over 1e-4")
+    out["criterion_rel_err_vs_cpu"] = err
+    return out
+
+
+def phase_ssd_train(torch, kernels, seed):
+    """train-ssd-300: SSD_ARGS' step (B=32, 300 px, bf16, paper mining) on
+    the device cache, captured through the EpochRunner against five eager
+    steps from one cloned state at each of steps 1-4 (phase 6a's check and
+    planted fault, the augmentation seeds of step 0), then where an eager
+    step goes (:func:`ssd_step_parts`). The counts are zero before and read
+    after: SSD launches none of the nine kernels."""
+    setup = ssd_capture_setup(torch, seed)
+    reset_counts(kernels)  # the SSD training path starts here
+    captured = phase_captured_train(torch, kernels, setup, NO_LAUNCHES, "ssd 300", exact=True)
+    counts = [k.launches for k in kernels]
+    if counts != list(NO_LAUNCHES):
+        raise AssertionError(f"SSD training launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}")
+    parts = ssd_step_parts(torch, setup)
+    n_trunk = sum(p.numel() for p in setup["state"].model.backbone.parameters())
+    n_all = sum(p.numel() for p in setup["state"].model.parameters())
+    log(f"train ssd 300: B={SSD_B}, 300px, bf16, paper mining, {n_all / 1e6:.2f} M parameters of which "
+        f"{n_trunk / 1e6:.2f} M the frozen VGG trunk; step ms captured {captured['captured_ms']:.2f} "
+        f"({SSD_B / captured['captured_ms'] * 1e3:.1f} images/s), eager {captured['eager_ms']:.2f} "
+        f"({SSD_B / captured['eager_ms'] * 1e3:.1f} images/s); device idle share captured "
+        f"{captured['captured_idle_share']:.4f}, eager {captured['eager_idle_share']:.4f}; peak above the state "
+        f"eager {captured['eager_step_peak_gb']:.2f} GB, captured {captured['captured_peak_gb']:.2f} GB; launches "
+        f"of the nine kernels {counts}")
+    log("train ssd 300: where an eager step goes, ms (CUDA events, median of 3) "
+        + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}" for k, v in parts.items()))
+    out = {k: v for k, v in captured.items() if k != "spread"}
+    out.update(parts=parts, launches=counts, spread=captured["spread"])
+    del setup
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssd_validation(torch, kernels, seed):
+    """validate-ssd: ``train_ssd.main`` with SSD_ARGS at 128 training images
+    (4 steps), a 64-image validation split, the EMA and --epoch_scan, one
+    epoch: the best, EMA and last checkpoints; ``infer.evaluate.main
+    --model ssd`` on the best reproduces the driver's sweep (mAP within 1e-6,
+    the validation loss within 1e-5 relative); a resume from ``_last`` goes
+    on from step 4 to 8. Launches of the nine kernels: none."""
+    from object_detection_destr_tpu_torch.infer import evaluate
+    from object_detection_destr_tpu_torch.train import train_ssd
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ssd_")
+    steps = 128 // SSD_B
+    try:
+        base = SSD_ARGS + ["--seed", str(seed), "--num_train_samples", "128", "--num_valid_samples",
+                           str(SSD_VALID_SAMPLES), "--checkpoint_dir", ckpt, "--log_dir", os.path.join(ckpt, "runs"),
+                           "--save_as", "ssd_smoke", "--epoch_scan"]
+        reset_counts(kernels)  # the SSD validation path starts here
+        t0 = time.perf_counter()
+        result = train_ssd.main(base + ["--ema_decay", "0.999"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        state, record = result["state"], result["history"][0]
+        files = sorted(f for f in os.listdir(ckpt) if f.startswith("ssd_smoke"))
+        if (state.step != steps or not result["epoch_scan"] or counts != list(NO_LAUNCHES)
+                or files != ["ssd_smoke", "ssd_smoke_ema", "ssd_smoke_last"]):
+            raise AssertionError(f"train_ssd: {state.step} steps, epoch_scan {result['epoch_scan']}, launches "
+                                 f"{counts}, checkpoints {files}")
+        scalars = [record["mAP"], record["ema_mAP"], *record["valid"].values(), *record["valid_ema"].values()]
+        if not all(math.isfinite(v) for v in scalars) or set(record["valid"]) != {"loss", "class", "local"}:
+            raise AssertionError(f"validation scalars: {record}")
+        evaluated = evaluate.main(["--model", "ssd"] + base + ["--resume_from", "ssd_smoke"])
+        if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != SSD_VALID_SAMPLES
+                or abs(evaluated["val_loss"] - record["valid"]["loss"]) > 1e-5 * abs(record["valid"]["loss"])):
+            raise AssertionError(f"evaluate --model ssd: {evaluated}, the driver's sweep {record}")
+        del state, result
+        torch.cuda.empty_cache()
+        resumed = train_ssd.main(base + ["--resume", "--resume_from", "ssd_smoke_last"])
+        torch.cuda.synchronize()
+        if resumed["state"].step != 2 * steps or resumed["history"][-1]["step"] != 2 * steps:
+            raise AssertionError(f"the resumed SSD run ended at step {resumed['state'].step}, not {2 * steps}")
+        del resumed
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"launches": counts, "wall_s": wall, "sweep_seconds": record["seconds"],
+           "val_images_per_sec": SSD_VALID_SAMPLES / record["seconds"][0], "map": record["mAP"],
+           "valid": record["valid"], "evaluate": evaluated}
+    log(f"validate ssd: {steps} captured steps (--device_cache --epoch_scan), {SSD_VALID_SAMPLES} validation "
+        f"images (live and EMA sweeps) through train_ssd.main in {wall:.1f} s; checkpoints {files}; mAP "
+        f"{record['mAP']:.6f} ema_mAP {record['ema_mAP']:.6f} valid {record['valid']}; sweep seconds "
+        f"{', '.join(f'{t:.2f}' for t in record['seconds'])} (host clock) = {out['val_images_per_sec']:.1f} "
+        f"images/s; infer.evaluate --model ssd map {evaluated['map']:.6f} val_loss {evaluated['val_loss']:.4f} "
+        f"gt_localized_frac {evaluated['gt_localized_frac']:.4f}; resume went on from step {steps} to "
+        f"{2 * steps}; launches of the nine kernels {counts}")
+    return out
+
+
+def eager_predict_ssd(torch, service, image):
+    """``service.predict_image`` for SSD with the model run eagerly (the
+    host stretch, the normalization, the forward and ssd_predict)."""
+    from object_detection_destr_tpu_torch.data.loader import _resize_canvas
+    from object_detection_destr_tpu_torch.data.transforms import normalize_imagenet
+    from object_detection_destr_tpu_torch.infer.predict import ssd_predict
+
+    images = normalize_imagenet(torch.from_numpy(_resize_canvas(image, service.image_size)[None]).to(service.device))
+    with torch.inference_mode():
+        dets = {k: v.cpu().numpy() for k, v in
+                ssd_predict(service.model(images), service._anchors, score_thresh=service.score_thresh).items()}
+    keep = dets["valid"][0]
+    return {"boxes": dets["boxes"][0][keep].tolist(), "scores": dets["scores"][0][keep].tolist(),
+            "labels": dets["labels"][0][keep].tolist()}
+
+
+def phase_ssd_serving(torch, kernels, seed, images):
+    """serve-ssd-300: ``build_service --model ssd`` with seeded random
+    weights (flax's initialisers, written as the .npz the server loads),
+    the B=1 predict captured at startup; 8 requests (four aspect ratios,
+    twice) as graph replays and the same 8 eagerly, the detections equal;
+    latencies; a torch.profiler trace of 4 requests of each (device busy time,
+    idle share); the model forward on the card against the CPU's (float32,
+    TF32 off, 1e-4 of each head's largest value). Launches of the nine
+    kernels: none."""
+    from object_detection_destr_tpu_torch.config import SSDConfig
+    from object_detection_destr_tpu_torch.infer.server import build_service, get_parser
+    from object_detection_destr_tpu_torch.models.convert import flax_variables_from_state_dict, save_variables_npz
+    from object_detection_destr_tpu_torch.models.ssd import build_ssd
+
+    weights_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build")
+    os.makedirs(weights_dir, exist_ok=True)
+    torch.manual_seed(seed)
+    save_variables_npz(flax_variables_from_state_dict(build_ssd(SSDConfig(), "cpu")),
+                       os.path.join(weights_dir, "chip_smoke_ssd.npz"))
+    args = get_parser().parse_args(["--model", "ssd", "--checkpoint_dir", weights_dir, "--weights",
+                                    "chip_smoke_ssd.npz", "--score_thresh", "0.0"])
+    reset_counts(kernels)  # the SSD serving path starts here
+    t0 = time.perf_counter()
+    service = build_service(args)  # default: GPU, 300 px, stretch, the predict captured
+    built_s = time.perf_counter() - t0
+    if service.graph is None or service.image_size != 300 or service.letterbox:
+        raise AssertionError("the SSD service captured no graph, or is not at 300 px stretched")
+
+    latencies, eager_latencies, served = [], [], []
+    for rnd in range(2):
+        for image in images:
+            t0 = time.perf_counter()
+            dets = service.predict_image(image)
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            n = len(dets["scores"])
+            if not 0 < n <= 200 or not all(0.0 <= v <= 1.0 for v in dets["scores"]) or any(
+                    not (0.0 <= c <= 1.0) for box in dets["boxes"] for c in box) or any(
+                    not 0 <= c < 20 for c in dets["labels"]):
+                raise AssertionError(f"SSD detections out of range or {n} of them")
+            if rnd == 0:
+                served.append(dets)
+    counts = [k.launches for k in kernels]
+    if counts != list(NO_LAUNCHES):
+        raise AssertionError(f"SSD serving launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}")
+    for rnd in range(2):
+        for image, captured_dets in zip(images, served):
+            t0 = time.perf_counter()
+            dets = eager_predict_ssd(torch, service, image)
+            eager_latencies.append((time.perf_counter() - t0) * 1e3)
+            if dets != captured_dets:
+                raise AssertionError("the captured SSD predict's detections differ from the eager forward's")
+    windows = {}
+    for kind, predict in (("captured", service.predict_image),
+                          ("eager", lambda image: eager_predict_ssd(torch, service, image))):
+        def requests(scope, predict=predict):
+            for i, image in enumerate(images):
+                with scope(i):
+                    predict(image)
+        windows[kind] = traced(torch, f"serve_ssd_{kind}", len(images), requests)
+
+    # the forward on the card against the CPU's, float32, one stretched request
+    from object_detection_destr_tpu_torch.data.loader import _resize_canvas
+    from object_detection_destr_tpu_torch.data.transforms import normalize_imagenet
+
+    x = normalize_imagenet(torch.from_numpy(_resize_canvas(images[0], 300)[None]))
+    cpu_model = build_ssd(SSDConfig(), "cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in service.model.state_dict().items()})
+    with torch.inference_mode():
+        ref, got = cpu_model(x), service.model(x.cuda())
+    err = max(float((g.cpu() - r).abs().max() / r.abs().max()) for key in ("boxes", "conf")
+              for g, r in zip(got[key], ref[key]))
+    if not err <= 1e-4:
+        raise AssertionError(f"the SSD forward on the card is {err:.2e} from the CPU's, over 1e-4")
+    forward_ms = time_cuda(torch, lambda: service.model(x.cuda()))
+    timing = {"captured_ms": statistics.median(latencies), "captured_max_ms": max(latencies),
+              "eager_ms": statistics.median(eager_latencies), "eager_max_ms": max(eager_latencies),
+              "forward_ms": forward_ms, "forward_rel_err_vs_cpu": err, "built_s": built_s, "launches": counts,
+              **{f"{kind}_{key}": w[key] for kind, w in windows.items()
+                 for key in ("idle_share", "step_busy_ms", "step_period_ms")}}
+    log(f"serve ssd 300: service built (warm-up and capture) in {built_s:.1f} s; {len(latencies)} captured "
+        f"requests, detections a request {[len(d['scores']) for d in served]}, equal to the eager forward's; "
+        f"latency ms captured median {timing['captured_ms']:.2f} max {timing['captured_max_ms']:.2f} (all: "
+        f"{', '.join(f'{t:.2f}' for t in latencies)}), eager median {timing['eager_ms']:.2f} max "
+        f"{timing['eager_max_ms']:.2f}; traced 4 requests: " + "; ".join(
+            f"{kind} device busy {w['step_busy_ms']:.3f} ms a request of {w['step_period_ms']:.3f}, idle share "
+            f"{w['idle_share']:.4f}" for kind, w in windows.items())
+        + f"; forward B=1 f32 {forward_ms:.2f} ms (CUDA events), {err:.2e} from the CPU's; launches of the nine "
+        f"kernels {counts}")
+    return service, timing
+
+
+def phase_cli(torch, cases):
+    """The CLI's array function (``infer.cli.predict_arrays``, eager) on the
+    card for each served model and image (``cases``: kind -> (service,
+    images)), against the server's captured predict on the same image: the
+    same detections (labels and counts equal, boxes and scores within
+    1e-5)."""
+    import numpy as np
+
+    from object_detection_destr_tpu_torch.infer.cli import predict_arrays
+
+    worst = {}
+    for kind, (service, images) in cases.items():
+        worst[kind] = 0.0
+        for image in images:
+            dets = predict_arrays(service.model, kind, [image], service.image_size, service.score_thresh,
+                                  letterbox=service.letterbox)
+            keep = dets["valid"][0]
+            want = service.predict_image(image)
+            if dets["labels"][0][keep].tolist() != want["labels"]:
+                raise AssertionError(f"cli {kind}: labels or counts differ from the server's")
+            for key in ("boxes", "scores"):
+                diff = float(np.abs(dets[key][0][keep] - np.asarray(want[key], np.float32)).max())
+                worst[kind] = max(worst[kind], diff)
+        if not worst[kind] <= 1e-5:
+            raise AssertionError(f"cli {kind}: detections {worst[kind]:.2e} from the server's")
+    log("cli: predict_arrays equals the captured server on " + ", ".join(
+        f"{len(images)} {kind} images" for kind, (_, images) in cases.items())
+        + f"; largest box / score difference {worst}")
+    return worst
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2258,7 +2709,8 @@ def main(argv=None) -> int:
         captured = {}
         for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0)),
                                                 ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0))):
-            captured[label] = phase_captured_train(torch, kernels, args.seed, extra, per_step_launches, label)
+            captured[label] = phase_captured_train(torch, kernels, destr_capture_setup(torch, args.seed, extra),
+                                                   per_step_launches, label)
         val_counts, val_timing = phase_validation(torch, kernels, args.seed)
         torch.cuda.empty_cache()
         scan = phase_train_scan(torch, args.seed)
@@ -2273,6 +2725,14 @@ def main(argv=None) -> int:
             torch, fa.flash_attention_fwd, args.seed, images
         )
         phase_whole_model(torch, service, variables, images)
+        ssd_images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
+                      for h, w in SSD_REQUEST_SIZES]
+        ssd_service, ssd_serve = phase_ssd_serving(torch, kernels, args.seed, ssd_images)
+        cli_worst = phase_cli(torch, {"destr": (service, images), "ssd": (ssd_service, ssd_images)})
+        del service, ssd_service, variables
+        torch.cuda.empty_cache()
+        ssd_train = phase_ssd_train(torch, kernels, args.seed)
+        ssd_val = phase_ssd_validation(torch, kernels, args.seed)
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2490,7 +2950,10 @@ def main(argv=None) -> int:
         f"model forward ms={forward_ms:.2f}; validation "
         f"eval step ms a batch={val_timing['val_batch_ms']:.2f}, {val_timing['val_images_per_sec']:.1f} images/s a "
         f"sweep, EMA update ms={val_timing['ema_update_ms']:.3f}, checkpoint {val_timing['checkpoint_mb']:.1f} MB in "
-        f"{val_timing['checkpoint_save_s']:.2f} s; "
+        f"{val_timing['checkpoint_save_s']:.2f} s; SSD300: captured step ms {ssd_train['captured_ms']:.2f} "
+        f"({SSD_B / ssd_train['captured_ms'] * 1e3:.1f} images/s, eager {ssd_train['eager_ms']:.2f}), request "
+        f"median ms {ssd_serve['captured_ms']:.2f} (eager {ssd_serve['eager_ms']:.2f}), validation "
+        f"{ssd_val['val_images_per_sec']:.1f} images/s, cli max difference {cli_worst}; "
         f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

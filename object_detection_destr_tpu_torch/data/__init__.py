@@ -1,6 +1,12 @@
 from .datasets import SyntheticDetection, build_dataset
 from .loader import DetectionLoader, _letterbox_canvas, _resize_canvas
-from .transforms import destr_train_transform, letterbox_infer_transform, normalize_imagenet
+from .transforms import (
+    destr_train_transform,
+    letterbox_infer_transform,
+    normalize_imagenet,
+    ssd_eval_transform,
+    ssd_train_transform,
+)
 
 __all__ = [
     "DetectionLoader",
@@ -11,4 +17,6 @@ __all__ = [
     "destr_train_transform",
     "letterbox_infer_transform",
     "normalize_imagenet",
+    "ssd_eval_transform",
+    "ssd_train_transform",
 ]

@@ -1,7 +1,14 @@
 """Transforms as batched tensor ops on the images' device (port of
 ``object_detection_destr_tpu/data/transforms.py``: ``normalize_imagenet``
 l.47-51, ``destr_train_transform`` l.54-173, ``destr_eval_transform``
-l.176-219, ``letterbox_infer_transform`` l.222-245)."""
+l.176-219, ``letterbox_infer_transform`` l.222-245, ``ssd_train_transform``
+l.248-338, ``ssd_eval_transform`` l.341-359).
+
+A random transform is split into its draws, made from a ``torch.Generator``
+on the images' device, and a pure function of them (``crop_flip``,
+``ssd_patch_flip``), which the tests feed the JAX package's draws.
+Constants enter the ops as Python scalars: nothing is copied from the host,
+so a CUDA graph can capture a transform."""
 
 from __future__ import annotations
 
@@ -12,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..geometry.boxes import flat_box_mask
+from ..geometry.boxes import flat_box_mask, xyxy_to_cxcyhw
 
 __all__ = [
     "IMAGENET_MEAN",
@@ -22,6 +29,9 @@ __all__ = [
     "destr_train_transform",
     "letterbox_infer_transform",
     "normalize_imagenet",
+    "ssd_eval_transform",
+    "ssd_patch_flip",
+    "ssd_train_transform",
 ]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -114,6 +124,14 @@ def _crop_boxes(boxes_xyxy, valid, y0, x0, ch, cw, h: int, w: int):
     return clipped, valid & flat_box_mask(clipped)
 
 
+def _flip_boxes(boxes_xyxy: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """Mirror normalized xyxy boxes horizontally where ``flip`` ((B,) bool)."""
+    flipped = torch.stack(
+        [1.0 - boxes_xyxy[..., 2], boxes_xyxy[..., 1], 1.0 - boxes_xyxy[..., 0], boxes_xyxy[..., 3]], -1
+    )
+    return torch.where(flip[:, None, None], flipped, boxes_xyxy)
+
+
 def crop_flip(
     images: torch.Tensor,
     boxes_xyxy: torch.Tensor,
@@ -150,11 +168,8 @@ def crop_flip(
 
     flip = flip.bool()
     out = torch.where(flip[:, None, None, None], out.flip(2), out)
-    flipped = torch.stack(
-        [1.0 - new_boxes[..., 2], new_boxes[..., 1], 1.0 - new_boxes[..., 0], new_boxes[..., 3]], -1
-    )
-    new_boxes = torch.where(flip[:, None, None], flipped, new_boxes)
-    return {"images": normalize_imagenet(out), "boxes": new_boxes, "labels": labels, "valid": new_valid}
+    return {"images": normalize_imagenet(out), "boxes": _flip_boxes(new_boxes, flip), "labels": labels,
+            "valid": new_valid}
 
 
 def destr_train_transform(
@@ -207,3 +222,106 @@ def destr_eval_transform(
     out = _resize_crop(images, y0, x0, side, side, out_size)
     new_boxes, new_valid = _crop_boxes(boxes_xyxy, valid, y0, x0, side, side, h, w)
     return {"images": normalize_imagenet(out), "boxes": new_boxes, "labels": labels, "valid": new_valid}
+
+
+# the retention modes, the least share of valid box centres a crop must
+# keep, -1 for "keep the whole image" (transforms.py:248-250; the
+# reference's {None, 0, .1, .3, .5, .7, .9})
+SSD_MODES = (-1.0, 0.0, 0.1, 0.3, 0.5, 0.7, 0.9)
+
+
+def ssd_patch_flip(
+    images: torch.Tensor,
+    boxes_xyxy: torch.Tensor,
+    labels: torch.Tensor,
+    valid: torch.Tensor,
+    mode_idx: torch.Tensor,
+    dims: torch.Tensor,
+    pos: torch.Tensor,
+    flip: torch.Tensor,
+    out_size: int = 300,
+) -> dict:
+    """SSD random patch + resize + horizontal flip + normalize at given draws
+    (transforms.py:264-330): per image ``mode_idx`` (B,) into
+    :data:`SSD_MODES`, ``dims`` (B, K, 2) each candidate crop's (h, w)
+    fraction in [0.3, 1], ``pos`` (B, K, 2) its (y, x) offset fraction of the
+    room left, ``flip`` (B,) bool.
+
+    A candidate is admissible when the share of valid box centres inside it
+    is at least the mode; the first admissible one is the crop, or the whole
+    image where none is or the mode is -1. Boxes are re-expressed in the crop
+    and clipped; a box leaves ``valid`` when it collapses or its centre lies
+    outside the crop. Returns {"images": (B, S, S, 3) normalized float32,
+    "boxes": (B, T, 4) cxcyhw, "labels", "valid"}."""
+    b, h, w, _ = images.shape
+    mode = torch.full(mode_idx.shape, SSD_MODES[0], dtype=torch.float32, device=images.device)
+    for k, v in enumerate(SSD_MODES[1:], 1):
+        mode = torch.where(mode_idx == k, v, mode)
+    chs, cws = dims[..., 0] * h, dims[..., 1] * w  # (B, K)
+    y0s, x0s = pos[..., 0] * (h - chs), pos[..., 1] * (w - cws)
+
+    boxes = boxes_xyxy.float()
+    cx = (boxes[..., 0] + boxes[..., 2]) / 2.0 * w  # (B, T) pixel centres
+    cy = (boxes[..., 1] + boxes[..., 3]) / 2.0 * h
+    inside = (
+        (cx[:, None, :] >= x0s[..., None]) & (cx[:, None, :] < (x0s + cws)[..., None])
+        & (cy[:, None, :] >= y0s[..., None]) & (cy[:, None, :] < (y0s + chs)[..., None])
+        & valid[:, None, :]
+    )  # (B, K, T)
+    n_valid = torch.clamp(valid.sum(-1), min=1)  # (B,)
+    frac = inside.sum(-1) / n_valid[:, None]  # (B, K)
+    admissible = frac >= torch.clamp(mode, min=0.0)[:, None]
+    pick = admissible.to(torch.uint8).argmax(-1)  # the first admissible
+    any_ok = admissible.any(-1) & ~(mode < 0.0)
+
+    take = lambda t: t.gather(1, pick[:, None])[:, 0]
+    y0 = torch.where(any_ok, take(y0s), 0.0)
+    x0 = torch.where(any_ok, take(x0s), 0.0)
+    ch = torch.where(any_ok, take(chs), float(h))
+    cw = torch.where(any_ok, take(cws), float(w))
+
+    out = _resize_crop(images, y0, x0, ch, cw, out_size)
+    new_boxes, new_valid = _crop_boxes(boxes_xyxy, valid, y0, x0, ch, cw, h, w)
+    kept = inside.gather(1, pick[:, None, None].expand(b, 1, inside.shape[-1]))[:, 0]
+    new_valid = new_valid & torch.where(any_ok[:, None], kept, valid)
+
+    flip = flip.bool()
+    out = torch.where(flip[:, None, None, None], out.flip(2), out)
+    return {"images": normalize_imagenet(out), "boxes": xyxy_to_cxcyhw(_flip_boxes(new_boxes, flip)),
+            "labels": labels, "valid": new_valid}
+
+
+def ssd_train_transform(
+    images: torch.Tensor,
+    boxes_xyxy: torch.Tensor,
+    labels: torch.Tensor,
+    valid: torch.Tensor,
+    generator: torch.Generator,
+    out_size: int = 300,
+    num_candidates: int = 8,
+) -> dict:
+    """:func:`ssd_patch_flip` at draws from ``generator`` (on the images'
+    device): per image a mode, ``num_candidates`` crop sizes in [0.3, 1] and
+    offsets in [0, 1), and a flip (transforms.py:248-338)."""
+    b, dev = images.shape[0], images.device
+    mode_idx = torch.randint(0, len(SSD_MODES), (b,), generator=generator, device=dev)
+    dims = 0.3 + 0.7 * torch.rand((b, num_candidates, 2), generator=generator, device=dev)
+    pos = torch.rand((b, num_candidates, 2), generator=generator, device=dev)
+    flip = torch.rand((b,), generator=generator, device=dev) < 0.5
+    return ssd_patch_flip(images, boxes_xyxy, labels, valid, mode_idx, dims, pos, flip, out_size)
+
+
+def ssd_eval_transform(
+    images: torch.Tensor,
+    boxes_xyxy: torch.Tensor,
+    labels: torch.Tensor,
+    valid: torch.Tensor,
+    out_size: int = 300,
+) -> dict:
+    """Stretch the whole canvas to ``out_size`` (no letterbox) + normalize;
+    boxes to cxcyhw, collapsed ones out of ``valid`` (transforms.py:341-359)."""
+    b, h, w, _ = images.shape
+    zero = torch.zeros((b,), dtype=torch.float32, device=images.device)
+    out = _resize_crop(images, zero, zero, zero + h, zero + w, out_size)
+    return {"images": normalize_imagenet(out), "boxes": xyxy_to_cxcyhw(boxes_xyxy.float()), "labels": labels,
+            "valid": valid & flat_box_mask(boxes_xyxy)}

@@ -8,6 +8,7 @@ width), h before w, as the reference has it (bbox_utils.py:33-63).
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 
@@ -20,6 +21,10 @@ __all__ = [
     "elementwise_ciou",
     "box_l1_size",
     "flat_box_mask",
+    "xywh_to_xyxy",
+    "make_grid",
+    "default_boxes",
+    "clip_boxes_to_window",
 ]
 
 
@@ -50,6 +55,12 @@ def xyxy_to_cxcyhw(
     return torch.stack(
         [(x1 + x2) / 2, (y1 + y2) / 2, y2 - y1, x2 - x1], dim=-1
     ).clamp(min_val, max_val)
+
+
+def xywh_to_xyxy(boxes: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    """(x1, y1, w, h) -> (x1, y1, x2, y2), clipping x2/y2 <= max (boxes.py:75-85)."""
+    x1, y1, w, h = boxes.unbind(-1)
+    return torch.stack([x1, y1, torch.clamp(x1 + w, max=max_val), torch.clamp(y1 + h, max=max_val)], dim=-1)
 
 
 def _area(boxes: torch.Tensor) -> torch.Tensor:
@@ -125,3 +136,67 @@ def flat_box_mask(boxes_xyxy: torch.Tensor, epsilon: float = 1e-6) -> torch.Tens
     w = boxes_xyxy[..., 2] - boxes_xyxy[..., 0]
     h = boxes_xyxy[..., 3] - boxes_xyxy[..., 1]
     return (w > epsilon) & (h > epsilon)
+
+
+def make_grid(height: int, width: int, bias: float = 0.5, norm: bool = True,
+              device: torch.device | str | None = None) -> torch.Tensor:
+    """(height, width, 2) float32 grid of (y, x) cell coordinates,
+    ``((i + bias) / height, (j + bias) / width)`` when ``norm`` (boxes.py:211-224)."""
+    h = torch.arange(height, dtype=torch.float32, device=device) + bias
+    w = torch.arange(width, dtype=torch.float32, device=device) + bias
+    if norm:
+        h, w = h / height, w / width
+    gy, gx = torch.meshgrid(h, w, indexing="ij")
+    return torch.stack([gy, gx], dim=-1)
+
+
+def default_boxes(
+    shapes: Sequence[int],
+    scales: Sequence[float],
+    aspect_ratios: Sequence[Sequence[float]],
+    device: torch.device | str | None = None,
+) -> list[torch.Tensor]:
+    """SSD default (anchor) boxes, one ``(H, W, A, 4)`` float32 tensor per
+    scale (boxes.py:226-255): per cell the (h, w) pairs (s, s),
+    (sqrt(s s'), sqrt(s s')), then (s sqrt(ar), s / sqrt(ar)) and its
+    transpose for each aspect ratio. The centre comes from :func:`make_grid`,
+    which yields (y, x), and the reference concatenates [centre, hw], so
+    anchor[..., 0] is the y-ish coordinate: that layout is kept bit for bit
+    (it is self-consistent on square grids, see ``decode_ssd_boxes``). The
+    boxes are computed on ``device`` (constants enter as fills, nothing is
+    copied from the host)."""
+    out = []
+    for ind, (shape, ars) in enumerate(zip(shapes, aspect_ratios)):
+        centers = make_grid(shape, shape, bias=0.5, norm=True, device=device)  # (H, W, 2)
+        s = float(scales[ind])
+        g = math.sqrt(float(scales[ind]) * float(scales[ind + 1]))
+        hw_pairs = [(s, s), (g, g)]
+        for ar in ars:
+            r = math.sqrt(ar)
+            hw_pairs += [(s * r, s / r), (s / r, s * r)]
+        num_a = len(hw_pairs)
+        fill = lambda v: torch.full((), v, dtype=torch.float32, device=device)
+        hw = torch.stack([torch.stack([fill(h), fill(w)]) for h, w in hw_pairs])  # (A, 2)
+        out.append(torch.cat([centers[:, :, None, :].expand(shape, shape, num_a, 2),
+                              hw[None, None].expand(shape, shape, num_a, 2)], dim=-1))
+    return out
+
+
+def clip_boxes_to_window(boxes_cxcyhw: torch.Tensor, window_xyxy: tuple, origin_hw: tuple) -> torch.Tensor:
+    """Re-clip cxcyhw pixel boxes into a crop window (boxes.py:258-293):
+    corners clamped into the window ``(min_x, min_y, max_x, max_y)``, then
+    back to cxcyhw clipped into the original canvas ``(H, W)``; coordinates
+    stay in the original frame."""
+    min_x, min_y, max_x, max_y = window_xyxy
+    h_lim, w_lim = origin_hw
+    cx, cy, h, w = boxes_cxcyhw.unbind(-1)
+    x1 = torch.clamp(torch.clamp(cx - w / 2, min=0.0), max=max_x)
+    y1 = torch.clamp(torch.clamp(cy - h / 2, min=0.0), max=max_y)
+    x2 = torch.clamp(torch.clamp(cx + w / 2, max=w_lim), min=min_x)
+    y2 = torch.clamp(torch.clamp(cy + h / 2, max=h_lim), min=min_y)
+    return torch.stack([
+        torch.clamp((x1 + x2) / 2, 0.0, w_lim),
+        torch.clamp((y1 + y2) / 2, 0.0, h_lim),
+        torch.clamp(y2 - y1, 0.0, h_lim),
+        torch.clamp(x2 - x1, 0.0, w_lim),
+    ], dim=-1)

@@ -1,5 +1,5 @@
-"""DESTR inference: post-processing and the HTTP detection service."""
+"""Inference: post-processing, the HTTP detection service, the evaluator and the batch CLI."""
 
-from .predict import destr_predict
+from .predict import destr_predict, ssd_predict
 
-__all__ = ["destr_predict"]
+__all__ = ["destr_predict", "ssd_predict"]

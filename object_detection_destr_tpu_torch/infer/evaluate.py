@@ -1,6 +1,7 @@
-"""Standalone DESTR evaluation (port of
+"""Standalone DESTR and SSD evaluation (port of
 ``object_detection_destr_tpu/infer/evaluate.py``: ``_batch_diagnostics``
-l.44-78, ``evaluate_destr`` l.81-160, ``main`` l.251-270).
+l.44-78, ``evaluate_destr`` l.81-160, ``evaluate_ssd`` l.163-248, ``main``
+l.251-270).
 
 Evaluates a saved checkpoint on the validation split of the trainer's
 configuration without training: the reference 11-point mAP and COCO AP, and
@@ -18,8 +19,9 @@ cpu``)::
         --dataset synthetic --synthetic_size 672 --num_valid_samples 256 \\
         --image_size 640 --batch_size 8 --top_k 300 [--no-letterbox_eval]
 
-Prints one JSON line with metrics and diagnostics. ``--model ssd`` raises
-``NotImplementedError`` until the SSD slice.
+``--model ssd`` evaluates an SSD checkpoint on the SSD driver's validation
+sweep, with the SSD trainer's flags. Prints one JSON line with metrics and
+diagnostics.
 """
 
 from __future__ import annotations
@@ -31,14 +33,18 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..data.transforms import ssd_eval_transform
 from ..geometry.boxes import cxcyhw_to_xyxy, pairwise_iou
 from ..losses.metrics import CocoAveragePrecision, MeanAveragePrecision
 from ..models.destr.model import build_destr
+from ..models.ssd.model import build_ssd
 from ..train.arg_parser import config_from_args, get_parser
 from ..train.checkpoint import restore_for_inference
-from ..train.driver import _eval_batch, _make_loaders
+from ..train.driver import _eval_batch, _make_loaders, _to_device
+from ..train.state import TrainState
+from ..train.steps import make_ssd_eval_step
 
-__all__ = ["evaluate_destr", "main"]
+__all__ = ["evaluate_destr", "evaluate_ssd", "main"]
 
 
 def _batch_diagnostics(outputs: dict, targets: dict) -> dict:
@@ -134,6 +140,54 @@ def evaluate_destr(config, checkpoint_name: str, device: str | torch.device | No
     }
 
 
+@torch.no_grad()
+def evaluate_ssd(config, checkpoint_name: str, device: str | torch.device | None = None) -> dict:
+    """The SSD driver's validation sweep for ``checkpoint_name``, standalone:
+    the reference 11-point mAP over ``num_cls`` classes, the mean val loss,
+    and the localization ceiling (for each ground truth the best IoU over
+    all decoded default boxes, which no confidence or NMS can exceed)."""
+    device = resolve_device(device)
+    cfg_t = config.train
+    _, valid_loader = _make_loaders(config, int(config.ssd.image_size * 1.28), "ssd")  # the driver's canvas
+    model = build_ssd(config.ssd, device)
+    model.load_state_dict(restore_for_inference(cfg_t.checkpoint_dir, checkpoint_name))
+    state = TrainState(model=model, optimizer=None, rng=None)  # the eval step reads the model only
+    eval_step = make_ssd_eval_step(cfg_t, config.ssd)
+
+    metric = MeanAveragePrecision(num_cls=config.ssd.num_cls)
+    m_state = metric.init_state()
+    losses, totals = [], {"n_gt": 0, "sum_best_iou": 0.0, "n_gt_localized": 0, "n_images": 0}
+    for raw in valid_loader:
+        b = _to_device(raw, device)
+        batch = ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=config.ssd.image_size)
+        _, batch_losses, detections = eval_step(state, batch)
+        losses.append(batch_losses["loss"])
+        gt_xyxy = cxcyhw_to_xyxy(batch["boxes"])
+        m_state = metric.update(m_state, detections, {"boxes": gt_xyxy, "labels": batch["labels"],
+                                                      "valid": batch["valid"]})
+        best = pairwise_iou(cxcyhw_to_xyxy(detections["pred_boxes"]), gt_xyxy).amax(dim=1)  # (B, T)
+        best, gt_valid = best.cpu().numpy(), batch["valid"].cpu().numpy()
+        totals["n_gt"] += int(gt_valid.sum())
+        totals["sum_best_iou"] += float(best[gt_valid].sum())
+        totals["n_gt_localized"] += int((best[gt_valid] >= 0.5).sum())
+        totals["n_images"] += int(gt_valid.shape[0])
+    if not losses:
+        raise RuntimeError(
+            "empty validation split: the loader yielded zero batches "
+            f"(num_valid_samples={config.data.num_valid_samples}, batch_size={cfg_t.batch_size})"
+        )
+    n_gt = max(totals["n_gt"], 1)
+    return {
+        "checkpoint": checkpoint_name,
+        "map": metric.compute(m_state),
+        "val_loss": float(torch.stack(losses).float().mean()),
+        "gt_localized_frac": totals["n_gt_localized"] / n_gt,
+        "mean_best_iou_per_gt": totals["sum_best_iou"] / n_gt,
+        "n_gt": totals["n_gt"],
+        "n_images": totals["n_images"],
+    }
+
+
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     kind = "destr"
@@ -141,11 +195,10 @@ def main(argv=None) -> dict:
         i = argv.index("--model")
         kind = argv[i + 1]
         del argv[i : i + 2]
-    if kind != "destr":
-        raise NotImplementedError(f"--model {kind}: only DESTR evaluation is ported yet")
     args = get_parser(kind).parse_args(argv)
     config = config_from_args(args, kind)
-    result = evaluate_destr(config, args.resume_from, device=args.device)
+    evaluate = evaluate_ssd if kind == "ssd" else evaluate_destr
+    result = evaluate(config, args.resume_from, device=args.device)
     print(json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in result.items()}), flush=True)
     return result
 

@@ -1,8 +1,8 @@
-"""Minimal HTTP serving for DESTR detection (port of
+"""Minimal HTTP serving for batched detection, DESTR or SSD (port of
 ``object_detection_destr_tpu/infer/server.py``).
 
     python -m object_detection_destr_tpu_torch.infer.server \
-        --checkpoint_dir checkpoints --weights model_weights --port 8900
+        --model destr --checkpoint_dir checkpoints --weights model_weights --port 8900
 
 Protocol (stdlib only):
     POST /predict   body = raw JPEG/PNG bytes (or JSON {"image_b64": ...})
@@ -14,9 +14,12 @@ The model runs on the GPU unless ``--device cpu`` is given. ``--weights
 NAME`` is a checkpoint that the port's trainer wrote into ``--checkpoint_dir``
 (``--save_as``), restored as the JAX package's server restores one of its own
 trainer's; flax weights come from the port's ``.npz`` file (models/convert.py)
-when NAME ends in ``.npz`` or no checkpoint NAME exists. Requests are letterboxed by
-default (aspect-preserving, with a pixel valid-mask; boxes are mapped back
-to the original image), or stretched with ``--no-letterbox``.
+when NAME ends in ``.npz`` or no checkpoint NAME exists. DESTR requests are
+letterboxed by default (aspect-preserving, with a pixel valid-mask; boxes are
+mapped back to the original image), or stretched with ``--no-letterbox``;
+SSD requests are always stretched (to ``--image_size``, 300 by default), as
+its reference evaluates (transforms.py:141-152), and decoded with
+``ssd_predict``'s NMS.
 """
 
 from __future__ import annotations
@@ -32,24 +35,29 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from ..config import DestrConfig, resolve_device
+from ..config import DestrConfig, SSDConfig, resolve_device
 from ..data.loader import _letterbox_canvas, _resize_canvas
 from ..data.transforms import letterbox_infer_transform, normalize_imagenet
 from ..models.convert import load_flax_variables, load_variables_npz
 from ..models.destr.model import build_destr
+from ..models.ssd.model import build_ssd
 from ..train.checkpoint import restore_for_inference
-from .predict import destr_predict
+from ..train.steps import flat_anchors
+from .predict import destr_predict, ssd_predict
 
-__all__ = ["DetectionService", "serve", "get_parser", "build_service"]
+__all__ = ["DetectionService", "serve", "get_parser", "build_model", "build_service", "load_weights"]
 
 
 class DetectionService:
     """The model, its post-processing and the host preprocessing; thread-safe.
 
-    ``model`` is a DESTR in eval mode with its weights loaded; it runs on the
-    device its parameters are on. The predict function (the B=1 forward and
-    ``destr_predict``, on the letterboxed input with its pixel mask, or on
-    the stretched input) reads static input tensors and, on a GPU, is
+    ``model`` is a DESTR or (``model_kind="ssd"``) an SSD in eval mode with
+    its weights loaded; it runs on the device its parameters are on. SSD
+    never letterboxes. The predict function (the B=1 forward and
+    ``destr_predict``, on the letterboxed input with its pixel mask or on
+    the stretched input; or ``ssd_predict`` on the stretched input, against
+    the default boxes placed on the device here) reads static input tensors
+    and, on a GPU, is
     captured in a CUDA graph here, after a warm-up forward that builds the
     kernels: the counterpart of the JAX package's ``jax.jit`` predict
     compiled at startup (server.py:64-94). A request copies its input into
@@ -59,18 +67,19 @@ class DetectionService:
     """
 
     def __init__(self, model_kind, model, image_size, score_thresh, letterbox=True):
-        if model_kind != "destr":
-            raise NotImplementedError(f"--model {model_kind}: SSD arrives with the SSD slice")
+        if model_kind not in ("destr", "ssd"):
+            raise ValueError(f"model_kind={model_kind!r}")
         self.model_kind = model_kind
         self.model = model
         self.image_size = image_size
         self.score_thresh = score_thresh
-        self.letterbox = letterbox
+        self.letterbox = letterbox and model_kind == "destr"
         self.device = next(model.parameters()).device
         self._lock = threading.Lock()
+        self._anchors = flat_anchors(model.config, self.device) if model_kind == "ssd" else None
         self._images = torch.zeros((1, image_size, image_size, 3), device=self.device)
         self._pixel_valid = (torch.ones((1, image_size, image_size), dtype=torch.bool, device=self.device)
-                             if letterbox else None)
+                             if self.letterbox else None)
         self.graph: torch.cuda.CUDAGraph | None = None
         if self.device.type == "cuda":
             self._capture()
@@ -80,6 +89,8 @@ class DetectionService:
     @torch.inference_mode()
     def _forward(self) -> dict[str, torch.Tensor]:
         """The predict function on the static inputs: detections on the device."""
+        if self.model_kind == "ssd":
+            return ssd_predict(self.model(self._images), self._anchors, score_thresh=self.score_thresh)
         outputs, _ = self.model(self._images, valid_mask=self._pixel_valid)
         return destr_predict(outputs, score_thresh=self.score_thresh)
 
@@ -194,7 +205,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--letterbox", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="aspect-preserving DESTR serving (default); "
-                        "--no-letterbox restores the square stretch")
+                        "--no-letterbox restores the square stretch (SSD "
+                        "always stretches)")
     p.add_argument("--hidden_dim", type=int, default=256)
     p.add_argument("--ffn_dim", type=int, default=2048)
     p.add_argument("--num_heads", type=int, default=8)
@@ -208,7 +220,7 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _load_weights(model, checkpoint_dir: str, weights: str) -> None:
+def load_weights(model, checkpoint_dir: str, weights: str) -> None:
     """A checkpoint of the port's trainer (``weights``, or its ``.new`` /
     ``.old`` stage), as JAX ``build_service`` (l.198-201) restores one; the
     ``.npz`` flax weights where ``weights`` ends in ``.npz`` or names no
@@ -222,21 +234,29 @@ def _load_weights(model, checkpoint_dir: str, weights: str) -> None:
     load_flax_variables(model, load_variables_npz(os.path.join(checkpoint_dir, weights)))
 
 
-def build_service(args) -> DetectionService:
-    if args.model != "destr":
-        raise NotImplementedError(f"--model {args.model}: SSD arrives with the SSD slice")
-    device = resolve_device(args.device)
+def build_model(args, device: torch.device):
+    """The server's and the CLI's model from their shared flags (server.py:198-219):
+    DESTR at its shape flags, or SSD with ``num_cls`` 20 unless
+    ``--num_cls`` is set away from DESTR's default 2 (the JAX package's rule);
+    returns (model, default image size)."""
+    if args.model == "ssd":
+        return build_ssd(SSDConfig(num_cls=args.num_cls if args.num_cls != 2 else 20), device), 300
     cfg = DestrConfig(
         hidden_dim=args.hidden_dim, ffn_dim=args.ffn_dim,
         num_heads=args.num_heads,
         num_encoder_blocks=args.num_encoder_blocks,
         num_decoder_blocks=args.num_decoder_blocks,
         top_k=args.top_k, num_cls=args.num_cls, backbone=args.backbone,
+        dilation=getattr(args, "dilation", False),
     )
-    model = build_destr(cfg, device)
-    _load_weights(model, args.checkpoint_dir, args.weights)
+    return build_destr(cfg, device), 640
+
+
+def build_service(args) -> DetectionService:
+    model, size = build_model(args, resolve_device(args.device))
+    load_weights(model, args.checkpoint_dir, args.weights)
     return DetectionService(
-        args.model, model, args.image_size or 640, args.score_thresh,
+        args.model, model, args.image_size or size, args.score_thresh,
         letterbox=args.letterbox,
     )
 

@@ -1,4 +1,4 @@
-"""CLI flags of the DESTR trainer (port of
+"""CLI flags of the DESTR and SSD trainers (port of
 ``object_detection_destr_tpu/train/arg_parser.py``): the same names and
 defaults. Flags of features that come with a later slice are parsed and
 refused by ``train/driver.py`` when set away from their default."""
@@ -153,8 +153,20 @@ def get_parser(model_name: str = "destr") -> argparse.ArgumentParser:
                        help="fused flash attention (the CUDA kernels on a GPU, "
                             "their plain versions on the CPU), incl. in-kernel "
                             "attention dropout; auto = on")
+    elif model_name == "ssd":
+        p.add_argument("--coef_class_loss", type=float, default=0.5)
+        p.add_argument("--num_cls", type=int, default=20)
+        p.add_argument("--scale_min", type=float, default=0.2)
+        p.add_argument("--scale_max", type=float, default=0.9)
+        p.add_argument("--image_size", type=int, default=300)
+        p.add_argument("--hard_neg_mining", type=str, default="reference",
+                       choices=["reference", "paper"],
+                       help="negative mining direction: 'reference' keeps the "
+                            "easiest negatives (the reference's inverted sort, "
+                            "criterion.py:329-332); 'paper' keeps the "
+                            "highest-loss negatives (SSD-paper semantics)")
     else:
-        raise NotImplementedError(f"the {model_name!r} trainer is not ported yet")
+        raise ValueError(f"unknown model {model_name!r}")
     return p
 
 

@@ -1,11 +1,18 @@
-"""The DESTR training loop with validation, checkpoints and resume (port of
-``object_detection_destr_tpu/train/driver.py``: ``_halt_diverged``,
-``_try_save``, ``_make_ema``, ``_make_loaders`` l.84-197 and ``train_destr``
-l.219-461).
+"""The DESTR and SSD training loops with validation, checkpoints and resume
+(port of ``object_detection_destr_tpu/train/driver.py``: ``_halt_diverged``,
+``_try_save``, ``_make_ema``, ``_make_loaders`` l.84-197, ``train_destr``
+l.219-461 and ``train_ssd`` l.464-660). The two trainers share one epoch
+loop (:func:`_fit`); what differs is their :class:`_Run`: the model, steps
+and transforms, the validation sweep (SSD's stretches instead of
+letterboxing, scores the decoded detections against xyxy targets over its
+``num_cls`` classes and has no COCO AP), the augmentation seed offset (7 and
+13, as the JAX drivers' keys), the loss that picks the best checkpoint
+(``loss_model`` and ``loss``) and, for DESTR only, ``profile_dir`` (the JAX
+SSD driver has none).
 
 Per epoch: batches from the train loader, the train transform on the model's
-device (its draws from a generator seeded from ``(seed + 7, step)`` each
-step, as the JAX driver folds the step into its key, so a resumed run draws
+device (its draws from a generator seeded from ``(seed + offset, step)``
+each step, as the JAX driver folds the step into its key, so a resumed run draws
 what the uninterrupted one did; the dropout stream is reseeded from the step
 the same way), one train step each and, with ``ema_decay``, one update of
 the parameter EMA. With ``device_cache`` both loaders serve their batches
@@ -24,9 +31,8 @@ AP; tags ``Loss/valid/*``, ``Metric/mAP``, ``Metric/coco_mAP``) and with the
 EMA a second one on the EMA parameters with the live BatchNorm statistics
 (``Loss/valid_ema/*``, ``Metric/ema_mAP``, ``Metric/ema_coco_mAP``). The
 run halts before any save when the parameters stop being finite. Checkpoints
-(``train/checkpoint.py``): ``save_as`` on the lowest ``loss_model``,
-``save_as_ema`` on the lowest EMA ``loss_model``, ``save_as_last`` after
-every validated epoch and every ``save_interval`` epochs, and
+(``train/checkpoint.py``): ``save_as`` on the lowest validation loss,
+``save_as_ema`` on the lowest EMA one, ``save_as_last`` after every validated epoch and every ``save_interval`` epochs, and
 ``save_as_interrupt`` on ``KeyboardInterrupt``. ``resume`` restores
 ``resume_from`` and runs ``epochs`` more epochs.
 
@@ -38,11 +44,12 @@ multi-device training come with later slices: their flags raise
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -50,16 +57,25 @@ import torch
 from ..config import Config, DataConfig, TrainConfig, resolve_device
 from ..data import DetectionLoader, build_dataset
 from ..data.device_cache import DeviceCachedLoader
-from ..data.transforms import destr_eval_transform, destr_train_transform
+from ..data.transforms import destr_eval_transform, destr_train_transform, ssd_eval_transform, ssd_train_transform
+from ..geometry.boxes import cxcyhw_to_xyxy
 from ..losses.metrics import CocoAveragePrecision, MeanAveragePrecision
 from ..models.destr.model import build_destr
+from ..models.ssd.model import build_ssd
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .epoch_scan import EpochRunner
 from .profiler import StepTimer, StepTrace, parse_trace
-from .state import create_destr_state
-from .steps import make_destr_eval_step, make_destr_step_core, make_destr_train_step
+from .state import TrainState, create_destr_state, create_ssd_state
+from .steps import (
+    make_destr_eval_step,
+    make_destr_step_core,
+    make_destr_train_step,
+    make_ssd_eval_step,
+    make_ssd_step_core,
+    make_ssd_train_step,
+)
 
-__all__ = ["train_destr", "MetricLogger", "StepTimer"]
+__all__ = ["train_destr", "train_ssd", "MetricLogger", "StepTimer"]
 
 # (section, field) of each feature of a later slice, checked against the default
 _LATER_SLICES = [
@@ -133,13 +149,6 @@ def _to_device(raw: dict, device: torch.device) -> dict:
             for k, v in raw.items()}
 
 
-def _train_batch(raw: dict, device: torch.device, generator: torch.Generator, out_size: int) -> dict:
-    """Copy the host batch to the device and run the train transform there."""
-    b = _to_device(raw, device)
-    return destr_train_transform(b["images"], b["boxes"], b["labels"], b["valid"], generator,
-                                 out_size=out_size)
-
-
 def _eval_batch(raw: dict, device: torch.device, resize_to: int, out_size: int) -> dict:
     """Copy the host batch to the device and run the eval transform there
     (over the letterboxed content where the loader gives its extents)."""
@@ -148,10 +157,11 @@ def _eval_batch(raw: dict, device: torch.device, resize_to: int, out_size: int) 
                                 resize_to=resize_to, out_size=out_size)
 
 
-def _aug_seed(seed: int, step: int) -> int:
-    """The train transform's seed at a step: a pure function of (seed + 7,
-    step), as ``fold_in(key(seed + 7), step)`` is in the JAX driver."""
-    return (seed + 7) * 1_000_003 + step
+def _aug_seed(seed: int, step: int, offset: int = 7) -> int:
+    """The train transform's seed at a step: a pure function of (seed +
+    offset, step), as ``fold_in(key(seed + offset), step)`` is in the JAX
+    drivers (offset 7 for DESTR, 13 for SSD)."""
+    return (seed + offset) * 1_000_003 + step
 
 
 def _params_finite(model) -> bool:
@@ -219,13 +229,14 @@ def _make_loaders(config: Config, canvas: int, for_train_model: str = "destr"):
     under letterbox training or letterbox eval the synthetic set emits the
     aspect ratios (1.0, 0.7, 1.4); the valid split's dataset seed is
     ``seed + 10_000`` (``build_dataset``); the valid loader augments once,
-    shuffles with ``seed + 1`` and letterboxes at eval."""
+    shuffles with ``seed + 1`` and, for DESTR, letterboxes at eval. SSD's
+    sets have ``ssd.num_cls`` classes and never letterbox (its reference
+    stretches, and its model has no pixel-mask input)."""
     data = config.data
-    if for_train_model != "destr":
-        raise NotImplementedError(f"the {for_train_model!r} loaders are not ported yet")
-    num_classes = 1
-    train_letterbox = config.train.letterbox
-    eval_letterbox = config.train.letterbox or config.train.letterbox_eval
+    num_classes = {"destr": 1, "ssd": config.ssd.num_cls}[for_train_model]
+    is_destr = for_train_model == "destr"
+    train_letterbox = config.train.letterbox and is_destr
+    eval_letterbox = (config.train.letterbox or config.train.letterbox_eval) and is_destr
     aspects = (1.0, 0.7, 1.4) if (train_letterbox or eval_letterbox) and data.dataset == "synthetic" else (1.0,)
     valid_split = {"widerface": "val", "coco": "val2017"}.get(data.dataset, "valid")
     datasets = [
@@ -257,6 +268,18 @@ def _profile_summary(path: str) -> dict:
     return {"path": path, **parsed}
 
 
+def _device_cached(train_loader, valid_loader, device: torch.device):
+    """Both loaders served from device memory (``--device_cache``), and the
+    caches' bytes and build seconds, printed."""
+    train_loader = DeviceCachedLoader(train_loader, device)
+    valid_loader = DeviceCachedLoader(valid_loader, device)
+    info = {name: {"bytes": c.nbytes, "build_seconds": c.build_seconds}
+            for name, c in (("train", train_loader), ("valid", valid_loader))}
+    print("device cache: " + ", ".join(f"{name} {v['bytes'] / 1e9:.3f} GB in {v['build_seconds']:.1f} s"
+                                       for name, v in info.items()), flush=True)
+    return train_loader, valid_loader, info
+
+
 def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
                coco_metric: Optional[CocoAveragePrecision], device: torch.device, resize_to: int,
                out_size: int) -> tuple[dict, float, Optional[float], float]:
@@ -282,39 +305,52 @@ def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
     return val_means, metric.compute(metric_state), coco_val, time.perf_counter() - t0
 
 
-def train_destr(config: Config, device: str | torch.device | None = None) -> dict:
-    """Train and validate DESTR on ``device`` (the GPU unless "cpu" is asked
-    for).
+def _ssd_val_sweep(state, loader, eval_step, metric: MeanAveragePrecision, device: torch.device,
+                   out_size: int) -> tuple[dict, float, None, float]:
+    """SSD's validation pass (driver.py:529-554): the stretch eval transform,
+    the eval step, and the reference mAP of its decoded detections against
+    the targets in xyxy; (loss means, mAP, None, host seconds)."""
+    t0 = time.perf_counter()
+    metric_state = metric.init_state()
+    val_metrics: list = []
+    for raw in loader:
+        b = _to_device(raw, device)
+        batch = ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=out_size)
+        _, m, detections = eval_step(state, batch)
+        metric_state = metric.update(metric_state, detections, {
+            "boxes": cxcyhw_to_xyxy(batch["boxes"]), "labels": batch["labels"], "valid": batch["valid"]})
+        val_metrics.append(m)
+    val_means = {k: float(torch.stack([m[k] for m in val_metrics]).float().mean())
+                 for k in val_metrics[0]} if val_metrics else {}
+    return val_means, metric.compute(metric_state), None, time.perf_counter() - t0
 
-    Returns {"state", "best_val", "map" (of the last sweep), "metrics" (the
-    last flushed train means), "images_per_sec" (of the last epoch),
-    "step_ms" (per step, CUDA events; empty on the CPU), "history" (per
-    validated epoch: its scalars and the host seconds of each sweep),
+
+@dataclasses.dataclass
+class _Run:
+    """What one trainer gives the shared epoch loop :func:`_fit`."""
+
+    state: TrainState
+    train_step: Callable[[TrainState, dict], dict]  # the per-step path
+    step_core: Callable[[TrainState, dict], dict]  # the captured path's body
+    transform: Callable[[dict, torch.Generator], dict]  # device batch, draws -> model batch
+    sweep: Callable[[], tuple]  # one validation pass of ``state``: (means, mAP, COCO or None, seconds)
+    aug_offset: int  # the augmentation seed's offset (_aug_seed)
+    val_key: str  # the validation loss that picks the best checkpoints
+    val_label: str  # its name in the epoch line
+    profile_dir: Optional[str]  # trace steps 2-4 of epoch 0 here (and run per step)
+
+
+def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_info) -> dict:
+    """The epoch loop of both trainers (driver.py:325-461, 556-660); see the
+    module doc. Returns {"state", "best_val", "map" (of the last sweep),
+    "metrics" (the last flushed train means), "images_per_sec" (of the last
+    epoch), "step_ms" (per step, CUDA events; empty on the CPU), "history"
+    (per validated epoch: its scalars and the host seconds of each sweep),
     "device_cache" (bytes and build seconds of each split's cache, or None),
     "epoch_scan" (whether epochs ran as captured steps), "profile" (the
-    parsed trace under profile_dir, or None)}.
-    """
-    _refuse_later_slices(config)
-    device = resolve_device(device)
+    parsed trace under profile_dir, or None)}."""
     cfg_t = config.train
-    canvas = int(cfg_t.image_size * 672 / 640)  # reference eval geometry
-    train_loader, valid_loader = _make_loaders(config, canvas, "destr")
-    cache_info = None
-    if config.data.device_cache:
-        train_loader = DeviceCachedLoader(train_loader, device)
-        valid_loader = DeviceCachedLoader(valid_loader, device)
-        cache_info = {name: {"bytes": c.nbytes, "build_seconds": c.build_seconds}
-                      for name, c in (("train", train_loader), ("valid", valid_loader))}
-        print("device cache: " + ", ".join(f"{name} {v['bytes'] / 1e9:.3f} GB in {v['build_seconds']:.1f} s"
-                                           for name, v in cache_info.items()), flush=True)
-    torch.manual_seed(cfg_t.seed)  # the model's initial weights
-    model = build_destr(config.destr, device)
-    state = create_destr_state(model, cfg_t, steps_per_epoch=len(train_loader))
-    train_step = make_destr_train_step(cfg_t)
-    eval_step = make_destr_eval_step(cfg_t)
-    metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
-    coco_metric = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1)) if cfg_t.coco_eval else None
-
+    state, model = run.state, run.state.model
     logger = MetricLogger(cfg_t.log_dir)
     best_val = math.inf
     if cfg_t.resume:
@@ -322,7 +358,7 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
         train_loader.load_state_dict(restored["loader"])
         best_val = restored["best_val"]
     aug_gen = torch.Generator(device=device)
-    out_size = cfg_t.image_size
+    aug_seed = lambda step: _aug_seed(cfg_t.seed, step, run.aug_offset)
 
     ema_params = None
     if cfg_t.ema_decay:
@@ -331,20 +367,16 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
         best_ema_val = math.inf
 
     epoch_runner = None
-    if cfg_t.epoch_scan and not cfg_t.profile_dir:  # profiling needs per-step
+    if cfg_t.epoch_scan and not run.profile_dir:  # profiling needs per-step
         if not config.data.device_cache:
             print("epoch_scan ignored: requires --device_cache", flush=True)
         else:
             epoch_runner = EpochRunner(
-                state, make_destr_step_core(cfg_t),
-                lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"],
-                                                       gen, out_size=out_size),
-                train_loader.data, lambda step: _aug_seed(cfg_t.seed, step), len(train_loader),
+                state, run.step_core, run.transform, train_loader.data, aug_seed, len(train_loader),
                 ema=None if ema_params is None else (ema_params, ema_update),
             )
     trace, profile = None, None
 
-    sweep = (state, valid_loader, eval_step, metric, coco_metric, device, canvas, out_size)
     timer = StepTimer(cfg_t.batch_size, device)
     metrics, rate, means, last_map, history = None, {}, {}, 0.0, []
     try:
@@ -366,13 +398,13 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
                 train_loader.advance_epoch()
             else:
                 for step_in_epoch, raw in enumerate(train_loader):
-                    if cfg_t.profile_dir and epoch == 0 and step_in_epoch == _PROFILE_STEPS[0]:
-                        trace = StepTrace(cfg_t.profile_dir)
+                    if run.profile_dir and epoch == 0 and step_in_epoch == _PROFILE_STEPS[0]:
+                        trace = StepTrace(run.profile_dir)
                         trace.start()
                     with trace.step(state.step) if trace is not None else contextlib.nullcontext():
-                        aug_gen.manual_seed(_aug_seed(cfg_t.seed, state.step))
-                        batch = _train_batch(raw, device, aug_gen, out_size)
-                        metrics = train_step(state, batch)
+                        aug_gen.manual_seed(aug_seed(state.step))
+                        batch = run.transform(_to_device(raw, device), aug_gen)
+                        metrics = run.train_step(state, batch)
                         if ema_params is not None:
                             ema_update(ema_params, model)
                     timer.step()
@@ -392,9 +424,9 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
 
             # ---- validate ----
             do_val = (epoch + 1) % max(cfg_t.val_interval, 1) == 0 or epoch == cfg_t.epochs - 1
-            val_model = ema_val_model = None
+            val_loss = ema_val_loss = None
             if do_val:
-                val_means, last_map, coco_val, seconds = _val_sweep(*sweep)
+                val_means, last_map, coco_val, seconds = run.sweep()
                 record = {"epoch": epoch, "step": state.step, "valid": val_means, "mAP": last_map,
                           "coco_mAP": coco_val, "seconds": [seconds]}
                 for k, v in val_means.items():
@@ -404,7 +436,7 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
                     logger.scalar("Metric/coco_mAP", coco_val, state.step)
                 if ema_params is not None:
                     with _parameters_swapped(model, ema_params):
-                        ema_means, ema_map, ema_coco, seconds = _val_sweep(*sweep)
+                        ema_means, ema_map, ema_coco, seconds = run.sweep()
                     record.update(valid_ema=ema_means, ema_mAP=ema_map, ema_coco_mAP=ema_coco)
                     record["seconds"].append(seconds)
                     for k, v in ema_means.items():
@@ -412,8 +444,8 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
                     logger.scalar("Metric/ema_mAP", ema_map, state.step)
                     if ema_coco is not None:
                         logger.scalar("Metric/ema_coco_mAP", ema_coco, state.step)
-                    ema_val_model = ema_means.get("loss_model", math.inf)
-                val_model = val_means.get("loss_model", math.inf)
+                    ema_val_loss = ema_means.get(run.val_key, math.inf)
+                val_loss = val_means.get(run.val_key, math.inf)
                 history.append(record)
 
             # ---- divergence halt: never checkpoint non-finite parameters
@@ -421,20 +453,20 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
                 _halt_diverged(cfg_t.save_as, epoch)
                 break
 
-            # ---- best checkpoint on the lowest model val loss (train.py:123-128)
-            if val_model is not None and val_model < best_val:
-                best_val = val_model
+            # ---- best checkpoint on the lowest val loss (train.py:123-128)
+            if val_loss is not None and val_loss < best_val:
+                best_val = val_loss
                 _try_save(cfg_t.checkpoint_dir, cfg_t.save_as, state, train_loader.state_dict(), best_val)
-            if ema_val_model is not None and ema_val_model < best_ema_val:
-                best_ema_val = ema_val_model
+            if ema_val_loss is not None and ema_val_loss < best_ema_val:
+                best_ema_val = ema_val_loss
                 with _parameters_swapped(model, ema_params):
                     _try_save(cfg_t.checkpoint_dir, cfg_t.save_as + "_ema", state, train_loader.state_dict(),
                               best_ema_val)
             if do_val or (epoch + 1) % max(cfg_t.save_interval, 1) == 0 or epoch == cfg_t.epochs - 1:
                 _try_save(cfg_t.checkpoint_dir, cfg_t.save_as + "_last", state, train_loader.state_dict(),
                           best_val)
-            ema_note = f" ema_val={ema_val_model:.4f} ema_mAP={ema_map:.4f}" if ema_val_model is not None else ""
-            val_note = f" val_model={val_model:.4f} mAP={last_map:.4f}" if do_val else ""
+            ema_note = f" ema_val={ema_val_loss:.4f} ema_mAP={ema_map:.4f}" if ema_val_loss is not None else ""
+            val_note = f" {run.val_label}={val_loss:.4f} mAP={last_map:.4f}" if do_val else ""
             print(f"epoch {epoch}: {time.time() - t0:.1f}s{val_note}{ema_note}", flush=True)
     except KeyboardInterrupt:
         # crash / preemption recovery: a resumable checkpoint before exiting
@@ -447,3 +479,60 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
     return {"state": state, "best_val": best_val, "map": last_map, "metrics": means,
             "images_per_sec": rate.get("images_per_sec"), "step_ms": timer.step_ms, "history": history,
             "device_cache": cache_info, "epoch_scan": epoch_runner is not None, "profile": profile}
+
+
+def train_destr(config: Config, device: str | torch.device | None = None) -> dict:
+    """Train and validate DESTR on ``device`` (the GPU unless "cpu" is asked
+    for); returns :func:`_fit`'s dict."""
+    _refuse_later_slices(config)
+    device = resolve_device(device)
+    cfg_t = config.train
+    canvas = int(cfg_t.image_size * 672 / 640)  # reference eval geometry
+    train_loader, valid_loader = _make_loaders(config, canvas, "destr")
+    cache_info = None
+    if config.data.device_cache:
+        train_loader, valid_loader, cache_info = _device_cached(train_loader, valid_loader, device)
+    torch.manual_seed(cfg_t.seed)  # the model's initial weights
+    model = build_destr(config.destr, device)
+    state = create_destr_state(model, cfg_t, steps_per_epoch=len(train_loader))
+    metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
+    coco_metric = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1)) if cfg_t.coco_eval else None
+    out_size = cfg_t.image_size
+    sweep = (state, valid_loader, make_destr_eval_step(cfg_t), metric, coco_metric, device, canvas, out_size)
+    run = _Run(
+        state, make_destr_train_step(cfg_t), make_destr_step_core(cfg_t),
+        lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"], gen,
+                                               out_size=out_size),
+        lambda: _val_sweep(*sweep), aug_offset=7, val_key="loss_model", val_label="val_model",
+        profile_dir=cfg_t.profile_dir,
+    )
+    return _fit(config, device, run, train_loader, cache_info)
+
+
+def train_ssd(config: Config, device: str | torch.device | None = None) -> dict:
+    """Train and validate SSD on ``device`` (the GPU unless "cpu" is asked
+    for), at ``config.ssd``'s size on canvases of ``1.28 x`` it (the random
+    patch's headroom); returns :func:`_fit`'s dict. ``profile_dir`` is not
+    read, as in the JAX SSD driver."""
+    _refuse_later_slices(config)
+    device = resolve_device(device)
+    cfg_t, ssd_cfg = config.train, config.ssd
+    canvas = int(ssd_cfg.image_size * 1.28)
+    train_loader, valid_loader = _make_loaders(config, canvas, "ssd")
+    cache_info = None
+    if config.data.device_cache:
+        train_loader, valid_loader, cache_info = _device_cached(train_loader, valid_loader, device)
+    torch.manual_seed(cfg_t.seed)  # the model's initial weights
+    model = build_ssd(ssd_cfg, device)
+    state = create_ssd_state(model, cfg_t, steps_per_epoch=len(train_loader))
+    eval_step = make_ssd_eval_step(cfg_t, ssd_cfg)
+    metric = MeanAveragePrecision(num_cls=ssd_cfg.num_cls)
+    out_size = ssd_cfg.image_size
+    run = _Run(
+        state, make_ssd_train_step(cfg_t, ssd_cfg), make_ssd_step_core(cfg_t, ssd_cfg),
+        lambda raw, gen: ssd_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"], gen,
+                                             out_size=out_size),
+        lambda: _ssd_val_sweep(state, valid_loader, eval_step, metric, device, out_size),
+        aug_offset=13, val_key="loss", val_label="val", profile_dir=None,
+    )
+    return _fit(config, device, run, train_loader, cache_info)

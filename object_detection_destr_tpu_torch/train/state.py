@@ -1,23 +1,25 @@
 """Train state (port of ``object_detection_destr_tpu/train/state.py``): the
 model (its parameters and BatchNorm statistics), the optimizer, the step
 count (on the host), and the dropout stream, drawn from a generator reseeded
-from ``TrainConfig.seed`` and the step at each step."""
+from ``TrainConfig.seed`` and the step at each step (SSD has no dropout; its
+state carries the stream all the same, which the epoch runner registers)."""
 
 from __future__ import annotations
 
 import dataclasses
 
+from torch import nn
+
 from ..config import TrainConfig
 from ..models.destr.layers import DropoutRng
-from ..models.destr.model import DESTR
 from .optim import AdamW, lr_schedule
 
-__all__ = ["TrainState", "create_destr_state"]
+__all__ = ["TrainState", "create_destr_state", "create_ssd_state"]
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: DESTR
+    model: nn.Module
     optimizer: AdamW
     rng: DropoutRng
     step: int = 0
@@ -32,10 +34,11 @@ def _lr_specs(train_cfg: TrainConfig, steps_per_epoch: int):
     return make(train_cfg.lr), lr_bb
 
 
-def create_destr_state(model: DESTR, train_cfg: TrainConfig, steps_per_epoch: int = 0) -> TrainState:
+def _init_state(model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int = 0) -> TrainState:
     """Puts ``model`` in training mode with a gradient on every parameter
     (the frozen ones too: the clip and the finite check count them) and
-    builds the optimizer and the dropout stream."""
+    builds the optimizer (``param_labels`` decides which parameters train)
+    and the dropout stream (state.py:74-119)."""
     for p in model.parameters():
         p.requires_grad_(True)
     model.train()
@@ -47,3 +50,16 @@ def create_destr_state(model: DESTR, train_cfg: TrainConfig, steps_per_epoch: in
     )
     device = next(model.parameters()).device
     return TrainState(model=model, optimizer=optimizer, rng=DropoutRng(train_cfg.seed, device))
+
+
+def create_destr_state(model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int = 0) -> TrainState:
+    """The DESTR state (state.py:122-130)."""
+    return _init_state(model, train_cfg, steps_per_epoch)
+
+
+def create_ssd_state(model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int = 0) -> TrainState:
+    """The SSD state (state.py:133-140). ``param_labels`` marks the VGG trunk
+    (``backbone.conv*``) "frozen", as the JAX package's rule does for these
+    names: it gets gradients, which count in the clip and the finite check,
+    and no update."""
+    return _init_state(model, train_cfg, steps_per_epoch)

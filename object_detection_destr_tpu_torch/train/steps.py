@@ -1,7 +1,8 @@
-"""The DESTR train and eval steps (port of
+"""The DESTR and SSD train and eval steps (port of
 ``object_detection_destr_tpu/train/steps.py``: ``_match_pair`` l.86-152,
 ``make_destr_train_step`` l.155-209, ``_guard_stats`` l.212-223,
-``make_destr_eval_step`` l.226-252).
+``make_destr_eval_step`` l.226-252, ``flat_anchors`` l.255-261,
+``make_ssd_train_step`` l.264-305, ``make_ssd_eval_step`` l.308-339).
 
 One step: forward in train mode (batch-statistics BatchNorm, dropout from
 the state's stream), one matcher launch for both criteria, the two set
@@ -14,6 +15,9 @@ step, and the step count. Loss wiring as the reference
 
     weighted = cost_class * class + cost_bbox * bbox + cost_ciou * ciou
     loss = 0.7 * weighted(model output) + 0.3 * weighted(mini-detector output)
+
+and for SSD ``ssd_criterion``'s ``coef * class + (1 - coef) * local``
+(train_ssd.py:108-134), the same core / wrapper split around it.
 """
 
 from __future__ import annotations
@@ -23,12 +27,22 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from ..config import TrainConfig
-from ..losses.criterion import set_criterion
+from ..config import SSDConfig, TrainConfig
+from ..geometry.boxes import default_boxes
+from ..losses.criterion import _flatten_scales, set_criterion, ssd_criterion
+from ..losses.matcher import decode_ssd_boxes
 from ..ops.cuda.auction import hungarian_match_fused
 from .state import TrainState
 
-__all__ = ["make_destr_eval_step", "make_destr_step_core", "make_destr_train_step"]
+__all__ = [
+    "flat_anchors",
+    "make_destr_eval_step",
+    "make_destr_step_core",
+    "make_destr_train_step",
+    "make_ssd_eval_step",
+    "make_ssd_step_core",
+    "make_ssd_train_step",
+]
 
 
 def _weighted(losses: dict, cfg: TrainConfig) -> torch.Tensor:
@@ -127,11 +141,10 @@ def make_destr_step_core(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]
     return core
 
 
-def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
+def _step_wrapper(core: Callable[[TrainState, dict], dict]) -> Callable[[TrainState, dict], dict]:
     """``train_step(state, batch) -> metrics``, updating ``state`` in place:
-    the dropout stream reseeded for ``state.step``, :func:`make_destr_step_core`
-    's device work, then ``state.step + 1``."""
-    core = make_destr_step_core(cfg)
+    the dropout stream reseeded for ``state.step``, ``core``'s device work,
+    then ``state.step + 1``."""
 
     def train_step(state: TrainState, batch: dict) -> dict:
         state.rng.begin_step(state.step)
@@ -140,6 +153,11 @@ def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict
         return metrics
 
     return train_step
+
+
+def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
+    """:func:`make_destr_step_core` wrapped with the step's host bookkeeping."""
+    return _step_wrapper(make_destr_step_core(cfg))
 
 
 def make_destr_eval_step(cfg: TrainConfig) -> Callable[[TrainState, dict], tuple[dict, dict]]:
@@ -173,5 +191,83 @@ def make_destr_eval_step(cfg: TrainConfig) -> Callable[[TrainState, dict], tuple
             "loss_ciou": l_model["ciou"],
         }
         return model_out, metrics
+
+    return eval_step
+
+
+def flat_anchors(ssd_cfg: SSDConfig, device: torch.device | str | None = None) -> torch.Tensor:
+    """(S, 4) float32 default boxes flattened scale-major, the criterion's
+    flatten order (steps.py:255-261), computed on ``device``."""
+    per_scale = default_boxes(ssd_cfg.feature_shapes, ssd_cfg.scales, ssd_cfg.aspect_ratios, device)
+    return torch.cat([a.reshape(-1, 4) for a in per_scale], dim=0)
+
+
+def _anchors_on(ssd_cfg: SSDConfig) -> Callable[[torch.device], torch.Tensor]:
+    """The default boxes on a device, made there at the first call (the
+    runner's eager warm-up) and kept: a captured step recomputes nothing, and
+    no step copies from the host."""
+    placed: dict[torch.device, torch.Tensor] = {}
+
+    def on(device: torch.device) -> torch.Tensor:
+        if device not in placed:
+            placed[device] = flat_anchors(ssd_cfg, device)
+        return placed[device]
+
+    return on
+
+
+def make_ssd_step_core(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainState, dict], dict]:
+    """``core(state, batch) -> metrics``: one SSD step's device work (forward
+    in train mode, ``ssd_criterion`` with the config's mining, backward,
+    update), as :func:`make_destr_step_core`. ``batch``: {"images": (B, S,
+    S, 3) float32 normalized, "boxes": (B, T, 4) cxcyhw, "labels", "valid"}.
+    Metrics {"loss", "class", "local"} are detached device scalars."""
+    anchors = _anchors_on(ssd_cfg)
+
+    def core(state: TrainState, batch: dict) -> dict:
+        model = state.model
+        old_stats = (
+            {k: v.clone() for k, v in _bn_stats(model).items()} if cfg.skip_nonfinite_updates else None
+        )
+        state.optimizer.zero_grad()
+        outputs = model(batch["images"], train=True)
+        losses = ssd_criterion(outputs, _destr_targets(batch), anchors(batch["images"].device),
+                               loss_coef=cfg.coef_class_loss, mining=ssd_cfg.hard_neg_mining)
+        losses["loss"].backward()
+        _guard_stats(model, old_stats, cfg)
+        state.optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return core
+
+
+def make_ssd_train_step(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainState, dict], dict]:
+    """:func:`make_ssd_step_core` wrapped with the step's host bookkeeping."""
+    return _step_wrapper(make_ssd_step_core(cfg, ssd_cfg))
+
+
+def make_ssd_eval_step(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainState, dict], tuple]:
+    """``eval_step(state, batch) -> (outputs, losses, detections)``: the
+    model in eval mode (running statistics) without gradients, its
+    ``ssd_criterion`` losses, and the detections in the metric's contract,
+    {"pred_class": (B, S, C+1) logits, "pred_boxes": (B, S, 4) cxcyhw
+    decoded}. The model goes back to the mode it was in."""
+    anchors = _anchors_on(ssd_cfg)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict) -> tuple[dict, dict, dict]:
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            outputs = model(batch["images"], train=False)
+        finally:
+            model.train(was_training)
+        flat = anchors(batch["images"].device)
+        losses = ssd_criterion(outputs, _destr_targets(batch), flat, loss_coef=cfg.coef_class_loss,
+                               mining=ssd_cfg.hard_neg_mining)
+        detections = {"pred_class": _flatten_scales(outputs["conf"]),
+                      "pred_boxes": decode_ssd_boxes(_flatten_scales(outputs["boxes"]), flat)}
+        return outputs, losses, detections
 
     return eval_step

@@ -33,10 +33,11 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["forbidden"] == []
-    # every module of the slice was imported
+    # every module of the slices was imported
     for name in ("config", "ops.cuda.flash_attention", "ops.cuda.auction", "ops.assignment",
                  "models.destr.model", "models.convert", "infer.server", "data.transforms",
                  "data.datasets", "data.loader", "losses.matcher", "losses.criterion",
                  "train.optim", "train.state", "train.steps", "train.driver", "train.train",
-                 "train.checkpoint", "losses.metrics", "infer.evaluate"):
+                 "train.checkpoint", "losses.metrics", "infer.evaluate", "models.ssd.model", "ops.nms",
+                 "infer.predict", "infer.cli", "train.train_ssd"):
         assert f"object_detection_destr_tpu_torch.{name}" in result["modules"], name

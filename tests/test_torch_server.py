@@ -121,7 +121,8 @@ def test_build_service_device_and_model_rules(services):
         # no --device on a host without CUDA: raise, never serve on the CPU quietly
         with pytest.raises(RuntimeError, match="CUDA"):
             build_service(get_parser().parse_args(base))
-    with pytest.raises(NotImplementedError, match="SSD"):
+    # --model ssd builds an SSD, which takes no DESTR weights
+    with pytest.raises(KeyError, match="backbone.conv0.weight"):
         build_service(get_parser().parse_args(base + ["--model", "ssd", "--device", "cpu"]))
 
 

@@ -240,5 +240,5 @@ def test_evaluate_main_reproduces_the_drivers_map(runs):
     assert abs(evaluated["map"] - saved["mAP"]) <= 1e-6
     assert abs(evaluated["coco_map"] - saved["coco_mAP"]) <= 1e-6
     assert evaluated["n_images"] == 2 and evaluated["checkpoint"] == "tiny"
-    with pytest.raises(NotImplementedError, match="ssd"):
-        evaluate.main(["--model", "ssd"])
+    with pytest.raises(SystemExit):  # --model ssd takes the SSD trainer's flags, which have no --top_k
+        evaluate.main(["--model", "ssd", "--top_k", "4"])
