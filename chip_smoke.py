@@ -1,7 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU: its DESTR training step at
 hidden width 256 and 512, its validation sweep, checkpoints, resume and
 evaluator, its head-major flash-attention API, its L1-cost matcher and its
-serving path; SSD300's serving, training, validation and the batch CLI; and
+serving path; SSD300's serving, training, validation and the batch CLI;
+training on image files with the JAX package's options (letterbox,
+gradient accumulation, bfloat16 moments, optimizer layouts, remat); and
 hold each hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
@@ -147,6 +149,30 @@ Phases (any failure exits non-zero and prints no result):
      reproduces the driver's mAP (1e-6) and validation loss; a resume goes
      on from step 4 to 8. Phases 10-13 count the nine kernels' launches
      from zero: SSD's path launches none of them.
+ 14. train-real-data: (a) a WIDER FACE tree written in a temporary
+     directory (64 + 16 seeded JPEGs 1024 wide and 0.5-1.5 as tall, 1-40
+     faces each, a 0-count entry a split); (b) the loader's native pool
+     (the fused JPEG decode where libjpeg's headers let it build, else PIL's
+     decode and the native resize; which, printed) against PIL + cv2 on 16
+     of them at the 672 canvas, 99th percentile of the difference at most 2
+     grey levels, host images/s of both and of the letterbox path; (c)
+     train.train.main --dataset widerface --letterbox --grad_accum_steps 2
+     --moment_dtype bfloat16 --opt_layout grouped --rng_impl threefry at the
+     production width, one epoch (4 mini-steps, 2 updates) and its
+     validation batch, eager and with --device_cache --epoch_scan: launches
+     18 / 18 / 1 of #1 / #2 / #9 a mini-step and 18 / 0 / 1 a validation
+     batch, moments bfloat16, TensorBoard events; mini-steps 1 and 2 from a
+     fresh state (parameters held, then moved); (e) one float32 update of
+     each optimizer layout from one state, the parameters bit-equal, and the
+     update's time by layout and moment dtype; (d) DestrConfig(remat=True):
+     one micro-step's gradients within five micro-steps' spread without
+     remat, a planted fault (the recomputation drawing new dropout masks)
+     outside it, 36 / 18 / 1 launches a micro-step with remat (18 / 18 / 1
+     without), eager and from a trace of the captured step, peak memory
+     below the one without remat, step times; then phase 6a's check on this
+     recipe: each replayed mini-step within five eager ones' spread (the
+     accumulator held where a mini-step updates nothing), step times, idle
+     shares, launches from a trace, peak memory.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors and #3's and
@@ -1984,10 +2010,12 @@ def phase_seed_replay(torch, seed):
 
 def _state_tensors(state):
     """Every tensor a train step reads and writes in place: the parameters,
-    the buffers (BatchNorm statistics), Adam's moments and its counters."""
+    the buffers (BatchNorm statistics), Adam's moments and its counters, and
+    with gradient accumulation the accumulated mean and the mini-step."""
     opt = state.optimizer
+    accumulation = [] if opt.accumulated is None else [opt.accumulated, opt._mini]
     return [*state.model.parameters(), *state.model.buffers(), *opt._m.values(), *opt._v.values(), opt._count,
-            opt._notfinite]
+            opt._notfinite, *accumulation]
 
 
 def _restore(torch, state, snapshot, step):
@@ -2084,9 +2112,12 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
             torch.cuda.set_sync_debug_mode("default")
 
     def sample(metrics):
-        return {"losses": [float(v) for v in metrics.values()],
-                "m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
-                "params": _flat_params(torch, state.model)}
+        out = {"losses": [float(v) for v in metrics.values()],
+               "m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
+               "params": _flat_params(torch, state.model)}
+        if state.optimizer.accumulated is not None:  # a mini-step that does not emit moves only this
+            out["acc"] = state.optimizer.accumulated.clone()
+        return out
 
     def rows_from(step, n):
         """The index rows of steps step .. step + n - 1 (the epoch's rows, repeated)."""
@@ -2113,6 +2144,8 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
             snapshot = [t.detach().clone() for t in _state_tensors(state)]
             start = {"m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
                      "params": _flat_params(torch, state.model)}
+            if state.optimizer.accumulated is not None:
+                start["acc"] = state.optimizer.accumulated.clone()
             eager = []
             for k in range(EAGER_RUNS):
                 _restore(torch, state, snapshot, step)
@@ -2131,10 +2164,12 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
                 replays[name] = sample({k: v[0] for k, v in got.items()})
             state.step = step + 1  # the run goes on from the replay at the step's own seeds
             del snapshot
-            # each vector relative to the step's change (the eager samples' mean change)
-            for key in ("m", "params"):
+            # each vector relative to the step's change (the eager samples' mean
+            # change; absolute where the step changed nothing: a mini-step that
+            # does not emit leaves the moments and the parameters)
+            for key in start:
                 change = _mean_sample([e[key] for e in eager]).to(start[key].device) - start[key].double()
-                norm = float(change.norm())
+                norm = float(change.norm()) or 1.0
                 for smp in (*eager, *replays.values()):
                     smp[key] = ((smp[key].double() - start[key].double()) / norm).float()
             for k, e in enumerate(eager):
@@ -2658,6 +2693,408 @@ def phase_cli(torch, cases):
     return worst
 
 
+# ---- slice 7: training on real image files (WIDER FACE format)
+REAL_TRAIN_IMAGES = 64  # four mini-steps of B=16, two updates at k = 2
+REAL_VALID_IMAGES = 16  # one validation batch
+REAL_WIDTH = 1024  # WIDER FACE's images are 1024 wide, 0.5-1.5 as tall
+ACCUM = 2
+REAL_FLAGS = ["--letterbox", "--grad_accum_steps", str(ACCUM), "--moment_dtype", "bfloat16", "--opt_layout",
+              "grouped", "--rng_impl", "threefry"]
+REAL_CANVAS = 672
+# #1-#9 a remat micro-step: #1 twice a block (the forward and its recomputation)
+REMAT_LAUNCHES = [36, 18, 0, 0, 1, 0, 0, 0, 0]
+
+
+def real_args(root, seed, extra=()):
+    """The production recipe on a WIDER FACE tree with the JAX package's
+    training options (TRAIN_ARGS' synthetic flags are overridden or unused)."""
+    return TRAIN_ARGS + ["--dataset", "widerface", "--data_root", root, *REAL_FLAGS, "--seed", str(seed), *extra]
+
+
+def write_widerface_tree(root, seed):
+    """A WIDER FACE tree written in the reader's format: seeded JPEGs 1024
+    wide and 0.5-1.5 of that tall (a smooth coloured background, 1-40 bright
+    faces of 8-170 px), REAL_TRAIN_IMAGES in train and REAL_VALID_IMAGES in
+    val, each list closed by a 0-count entry with its dummy row. Returns the
+    bytes written."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "wider_face_split"), exist_ok=True)
+    written = 0
+    for split, n in (("train", REAL_TRAIN_IMAGES), ("val", REAL_VALID_IMAGES)):
+        lines = []
+        for i in range(n):
+            w = REAL_WIDTH
+            h = int(round(w * rng.uniform(0.5, 1.5)))
+            coarse = rng.integers(0, 256, (6, 6, 3), dtype=np.uint8)
+            image = np.array(Image.fromarray(coarse).resize((w, h), Image.BILINEAR))
+            rows = []
+            for _ in range(int(rng.integers(1, 41))):
+                fw = int(rng.integers(8, w // 6))
+                fh = min(int(fw * rng.uniform(1.0, 1.4)), h - 1)
+                x, y = int(rng.integers(0, w - fw)), int(rng.integers(0, h - fh))
+                image[y:y + fh, x:x + fw] = rng.integers(120, 256, 3)
+                rows.append(f"{x} {y} {fw} {fh} 0 0 0 0 0 0")
+            rel = f"{i % 8}--Event/{split}_{i}.jpg"
+            path = os.path.join(root, f"WIDER_{split}", "images", rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(image).save(path, quality=90)
+            written += os.path.getsize(path)
+            lines += [rel, str(len(rows)), *rows]
+        lines += [rel, "0", "0 0 0 0 0 0 0 0 0 0"]
+        with open(os.path.join(root, "wider_face_split", f"wider_face_{split}_bbx_gt.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return written
+
+
+def phase_native_pool(root):
+    """The loader's native pool on the tree's first 16 train images at the
+    recipe's canvas against PIL's decode and cv2's INTER_LINEAR resize (the
+    99th percentile of the difference at most 2 grey levels); host images/s
+    of the pool's path (the fused JPEG decode where libjpeg built, else PIL's
+    decode over the loader's threads and the native batch_resize), of PIL +
+    cv2 one image after another, and of the letterbox path the training run
+    takes."""
+    import numpy as np
+    import cv2
+    from PIL import Image
+
+    from object_detection_destr_tpu_torch.data import DetectionLoader, build_dataset
+    from object_detection_destr_tpu_torch.runtime import native
+
+    ds = build_dataset("widerface", root, "train")
+    idxs = np.arange(TRAIN_B)
+    if not native.is_available():
+        raise AssertionError(f"the native resize library did not build: {native.unavailable_reason('resize')}")
+    jpeg = native.jpeg_available()
+    if not jpeg:
+        log(f"native pool: the JPEG decode library is unavailable on this host "
+            f"({native.unavailable_reason('jpeg')}), so the fused decode is unverified here; holding the "
+            f"decoded-array path (PIL decode, native batch_resize)")
+
+    def pil_cv2():
+        return np.stack([cv2.resize(np.asarray(Image.open(ds.samples[i][0]).convert("RGB")),
+                                    (REAL_CANVAS, REAL_CANVAS), interpolation=cv2.INTER_LINEAR) for i in idxs])
+
+    def timed_host(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, TRAIN_B / statistics.median(times)
+
+    kw = dict(batch_size=TRAIN_B, canvas_size=REAL_CANVAS, max_targets=300, shuffle=False, prefetch=0)
+    stretch, letterbox = DetectionLoader(ds, **kw), DetectionLoader(ds, letterbox=True, **kw)
+    batch, native_rate = timed_host(lambda: stretch._make_batch(idxs))
+    ref, pil_rate = timed_host(pil_cv2)
+    _, letterbox_rate = timed_host(lambda: letterbox._make_batch(idxs))
+    diff = np.abs(batch["images"].astype(int) - ref.astype(int))
+    p99, worst = float(np.percentile(diff, 99)), int(diff.max())
+    out = {"path": "jpeg" if jpeg else "decoded", "p99": p99, "max": worst, "native_images_per_sec": native_rate,
+           "pil_cv2_images_per_sec": pil_rate, "letterbox_images_per_sec": letterbox_rate,
+           "sizes": [tuple(Image.open(ds.samples[i][0]).size[::-1]) for i in idxs[:4]]}
+    log(f"native pool ({out['path']} path) on {TRAIN_B} WIDER-like JPEGs (1024 wide; first sizes (h, w) "
+        f"{out['sizes']}) onto the {REAL_CANVAS} canvas: against PIL + cv2 99th percentile {p99:.1f}, max {worst} "
+        f"grey levels; host images/s (B={TRAIN_B}, canvas {REAL_CANVAS}, median of 3) native path "
+        f"{native_rate:.1f}, PIL + cv2 one by one {pil_rate:.1f}, the letterbox path (PIL decode, PyTorch resize) "
+        f"{letterbox_rate:.1f}")
+    if p99 > 2:
+        raise AssertionError(f"native pool differs from PIL + cv2: 99th percentile {p99} grey levels")
+    return out
+
+
+def phase_real_cli(torch, kernels, seed, root):
+    """train.train.main on the tree with --letterbox --grad_accum_steps 2
+    --moment_dtype bfloat16 --opt_layout grouped --rng_impl threefry at the
+    production width: one epoch of 4 mini-steps (2 updates) and the
+    validation sweep (1 batch), eager, then the same with --device_cache
+    --epoch_scan. Counts set to 0 just before each run and read just after:
+    eager, 18 / 18 / 1 of #1 / #2 / #9 a mini-step and 18 / 0 / 1 a validation
+    batch; captured, the runner's warm-up step and its capture call the
+    wrappers (a replay does not) and the sweep. Moments bfloat16, 2 updates
+    applied, the accumulation closed, finite losses."""
+    from object_detection_destr_tpu_torch.train import train as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    out = {}
+    try:
+        for name, extra in (("eager", []), ("scan", ["--device_cache", "--epoch_scan"])):
+            d = os.path.join(tmp, name)
+            argv = real_args(root, seed, ["--checkpoint_dir", d, "--log_dir", d, *extra])
+            reset_counts(kernels)  # the main path starts here
+            t0 = time.perf_counter()
+            result = train_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = [k.launches for k in kernels]  # read just after the main path
+            state, opt = result["state"], result["state"].optimizer
+            steps = state.step
+            calls = steps if name == "eager" else 2  # the scan's replays call no wrapper
+            want = [18 * calls + 18, 18 * calls, 0, 0, calls + 1, 0, 0, 0, 0]
+            moments = {m.dtype for m in opt.m.values()}
+            metrics = result["metrics"]
+            if (steps, opt.count, opt.mini_step) != (REAL_TRAIN_IMAGES // TRAIN_B, steps // ACCUM, 0):
+                raise AssertionError(f"real data {name}: {steps} mini-steps, {opt.count} updates, mini-step "
+                                     f"{opt.mini_step}")
+            if counts != want or moments != {torch.bfloat16} or opt.layout != "grouped" \
+                    or result["epoch_scan"] != (name == "scan"):
+                raise AssertionError(f"real data {name}: launches {counts} (want {want}), moments {moments}, layout "
+                                     f"{opt.layout}, epoch_scan {result['epoch_scan']}")
+            if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"real data {name}: non-finite or missing losses {metrics}")
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                logged = sum(1 for r in map(json.loads, f) if r.get("prefix") == "train")
+            events = [f for f in os.listdir(d) if f.startswith("events.out.tfevents")]
+            out[name] = {"wall": wall, "launches": counts, "step_ms": result["step_ms"],
+                         "images_per_sec": result["images_per_sec"], "val_map": result["map"],
+                         "cache": result["device_cache"], "tensorboard_events": len(events), "logged": logged}
+            log(f"real data train.main {name} ({' '.join(REAL_FLAGS)}{' ' + ' '.join(extra) if extra else ''}): "
+                f"{steps} mini-steps, {opt.count} updates in {wall:.1f} s with the validation sweep; launches "
+                f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}; step ms (CUDA events) "
+                f"{', '.join(f'{t:.1f}' for t in result['step_ms'])}; epoch images/s {result['images_per_sec']:.1f}; "
+                f"last losses " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+                + f"; mAP {result['map']:.4f}; TensorBoard event files {len(events)}, train records {logged}"
+                + (f"; device cache " + ", ".join(f"{k} {v['bytes']} bytes in {v['build_seconds']:.2f} s"
+                                                  for k, v in result["device_cache"].items()) if extra else ""))
+            del result, state
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def real_capture_setup(torch, seed, root):
+    """destr_capture_setup's dictionary for the real-data recipe: the WIDER
+    tree letterboxed into a device cache, the letterbox train transform (the
+    cache's content extents), accumulation over 2 mini-steps, bfloat16
+    moments, the grouped layout."""
+    from object_detection_destr_tpu_torch.data.device_cache import DeviceCachedLoader
+    from object_detection_destr_tpu_torch.data.transforms import destr_train_transform
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
+    from object_detection_destr_tpu_torch.train.driver import _aug_seed, _make_loaders
+    from object_detection_destr_tpu_torch.train.state import create_destr_state
+    from object_detection_destr_tpu_torch.train.steps import make_destr_step_core, make_destr_train_step
+
+    config = config_from_args(get_parser("destr").parse_args(real_args(root, seed)), "destr")
+    cfg = config.train
+    cache = DeviceCachedLoader(_make_loaders(config, REAL_CANVAS, "destr")[0], "cuda")
+    torch.manual_seed(seed)
+    return {"state": create_destr_state(build_destr(config.destr, "cuda"), cfg, steps_per_epoch=len(cache)),
+            "cache": cache, "config": config, "train_step": make_destr_train_step(cfg),
+            "step_core": make_destr_step_core(cfg),
+            "transform": lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"],
+                                                                raw["valid"], gen, raw["content_hw"],
+                                                                out_size=cfg.image_size),
+            "aug_seed": lambda step: _aug_seed(seed, step)}
+
+
+def phase_real_ministeps(torch, setup):
+    """Mini-steps 1 and 2 of the real-data recipe, eager, from the fresh
+    state: the parameters and moments do not move on the first (the
+    accumulator does), and move on the second (one update applied); the
+    state is put back afterwards."""
+    state, cache = setup["state"], setup["cache"]
+    _, idx = cache.epoch_index_matrix()
+    gen = torch.Generator(device="cuda")
+    snapshot = [t.detach().clone() for t in _state_tensors(state)]
+    before = _flat_params(torch, state.model)
+    seen = []
+    for step in range(2):
+        gen.manual_seed(setup["aug_seed"](state.step))
+        batch = setup["transform"](cache.gather(torch.from_numpy(idx[step]).cuda()), gen)
+        if "pixel_valid" not in batch or bool(batch["pixel_valid"].all()):
+            raise AssertionError("letterbox training: no pixel_valid mask, or no padding in the crops")
+        setup["train_step"](state, batch)
+        seen.append({"moved": not torch.equal(_flat_params(torch, state.model), before),
+                     "count": state.optimizer.count, "mini_step": state.optimizer.mini_step,
+                     "acc_norm": float(state.optimizer.accumulated.norm())})
+    _restore(torch, state, snapshot, 0)
+    del snapshot
+    log(f"real data mini-steps from the fresh state: {seen}")
+    if [s["moved"] for s in seen] != [False, True] or [s["count"] for s in seen] != [0, 1] \
+            or seen[0]["acc_norm"] == 0.0 or seen[1]["acc_norm"] != 0.0:
+        raise AssertionError(f"accumulation: parameters should hold on mini-step 1 and move on 2: {seen}")
+    return seen
+
+
+def phase_remat(torch, kernels, setup):
+    """DestrConfig(remat=True) through the API at the real-data recipe's
+    width: one micro-step (forward, matcher, criteria, backward; at mini-step
+    0 of 2 the optimizer only accumulates, so the gradients are read off the
+    parameters) from one cloned state, one seed, dropout 0.3, the CUDA
+    kernels, without remat EAGER_RUNS times and with remat once: the remat
+    gradients and losses within the eager samples' spread (``_hold_to_spread``),
+    and a remat micro-step whose recomputation draws afresh (the replay of
+    the forward's draws switched off, a planted fault) outside it. Launches
+    of #1 / #2 / #9 a micro-step with and without remat (#1 twice a block
+    with remat: forward and recomputation), peak memory above the state and
+    the step time (CUDA events, median of 3) of each. Returns (the numbers,
+    the remat state at step 0, for :func:`phase_captured_train`)."""
+    from object_detection_destr_tpu_torch.models.destr.layers import DropoutRng
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.train.state import create_destr_state
+
+    config, cache, core = setup["config"], setup["cache"], setup["step_core"]
+    plain = setup["state"]
+    model = build_destr(dataclasses.replace(config.destr, remat=True), "cuda")
+    model.load_state_dict(plain.model.state_dict())
+    remat = create_destr_state(model, config.train, steps_per_epoch=len(cache))
+    if not (model.encoder.remat and model.decoder.remat):
+        raise AssertionError("DestrConfig(remat=True) built blocks without remat")
+    _, idx = cache.epoch_index_matrix()
+    gen = torch.Generator(device="cuda").manual_seed(setup["aug_seed"](0))
+    batch = setup["transform"](cache.gather(torch.from_numpy(idx[0]).cuda()), gen)
+    step = 0
+
+    def micro(state, counts=None):
+        snapshot = [t.detach().clone() for t in _state_tensors(state)]
+        state.rng.begin_step(step)
+        if counts is not None:
+            reset_counts(kernels)
+        metrics = core(state, batch)
+        if counts is not None:
+            counts.extend(k.launches for k in kernels)
+        out = {"losses": [float(v) for v in metrics.values()],
+               "grads": torch.cat([p.grad.reshape(-1).float() for p in state.model.parameters()])}
+        _restore(torch, state, snapshot, step)
+        return out
+
+    def timed_micro(state):
+        """(peak bytes above the state of a micro-step, its median ms over 3)."""
+        snapshot = [t.detach().clone() for t in _state_tensors(state)]
+        state.optimizer.zero_grad()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state.rng.begin_step(step)
+        core(state, batch)
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_cuda(torch, lambda: core(state, batch), reps=3, warmup=0)
+        _restore(torch, state, snapshot, step)
+        state.optimizer.zero_grad()
+        return peak, ms
+
+    counts = {"plain": [], "remat": []}
+    eager = [micro(plain, counts["plain"] if i == 0 else None) for i in range(EAGER_RUNS)]
+    with_remat = micro(remat, counts["remat"])
+    original = DropoutRng.taped
+    DropoutRng.taped = lambda self, tape, replay: contextlib.nullcontext()  # the planted fault
+    try:
+        no_replay = micro(remat)
+    finally:
+        DropoutRng.taped = original
+    spread = _hold_to_spread("remat gradients", eager, with_remat, {"no_replay": no_replay})
+    del eager, with_remat, no_replay
+    plain_peak, plain_ms = timed_micro(plain)
+    remat_peak, remat_ms = timed_micro(remat)
+    want = {"plain": [18, 18, 0, 0, 1, 0, 0, 0, 0], "remat": REMAT_LAUNCHES}
+    out = {"spread": spread, "launches": counts, "plain_peak_gb": plain_peak / 1e9, "remat_peak_gb": remat_peak / 1e9,
+           "plain_ms": plain_ms, "remat_ms": remat_ms}
+    log(f"remat (DestrConfig(remat=True), hidden {config.destr.hidden_dim}, B={TRAIN_B}, bf16, dropout "
+        f"{config.destr.dropout}): gradients and losses of one micro-step, distances to the mean of {EAGER_RUNS} "
+        f"micro-steps without remat (2-norm; losses mean absolute difference), limit the largest eager pair, "
+        f"no_replay the planted fault {json.dumps(_rounded(spread))}; launches #1/#2/#3/#4/#9/#8/#5/#6/#7 a "
+        f"micro-step without remat {counts['plain']}, with {counts['remat']}; peak memory above the state "
+        f"(max_memory_allocated) {plain_peak / 1e9:.2f} GB without, {remat_peak / 1e9:.2f} GB with; micro-step "
+        f"ms (CUDA events, median of 3) {plain_ms:.2f} without, {remat_ms:.2f} with")
+    if counts != want:
+        raise AssertionError(f"remat launches {counts} (want {want})")
+    if not remat_peak < plain_peak:
+        raise AssertionError(f"remat's peak {remat_peak} bytes is not below {plain_peak}")
+    del model
+    torch.cuda.empty_cache()
+    return out, remat
+
+
+def phase_layouts(torch, setup):
+    """One AdamW update of each layout (per-leaf, grouped, flat) in float32
+    from one state and one gradient (the recipe's lr 1e-4 / 1e-5, clip 0.1,
+    skip-non-finite 100; constant lrs, as the flat layout takes no
+    schedule): the parameters bit-equal across layouts. The update's time
+    (CUDA events, median) for each layout and moment dtype."""
+    from object_detection_destr_tpu_torch.train.optim import AdamW
+
+    state, cache = setup["state"], setup["cache"]
+    model = state.model
+    _, idx = cache.epoch_index_matrix()
+    gen = torch.Generator(device="cuda").manual_seed(setup["aug_seed"](0))
+    snapshot = [t.detach().clone() for t in _state_tensors(state)]
+    state.rng.begin_step(0)
+    setup["step_core"](state, setup["transform"](cache.gather(torch.from_numpy(idx[0]).cuda()), gen))
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    _restore(torch, state, snapshot, 0)
+    start = [p.detach().clone() for p in model.parameters()]
+    results, times = {}, {}
+    for layout, dtype in (("per-leaf", torch.float32), ("grouped", torch.float32), ("flat", torch.float32),
+                          ("per-leaf", torch.bfloat16), ("grouped", torch.bfloat16)):
+        with torch.no_grad():
+            for p, s0 in zip(model.parameters(), start):
+                p.copy_(s0)
+        for p, g in zip(model.parameters(), grads):
+            p.grad = g.clone()
+        opt = AdamW(model, lr=1e-4, lr_backbone=1e-5, grad_clip=0.1, skip_nonfinite=100, layout=layout,
+                    moment_dtype=dtype)
+        opt.step()
+        if dtype == torch.float32:
+            results[layout] = _flat_params(torch, model)
+        times[f"{layout} {str(dtype).removeprefix('torch.')}"] = time_cuda(torch, opt.step, reps=5, warmup=1)
+        del opt
+    with torch.no_grad():
+        for p, s0 in zip(model.parameters(), start):
+            p.copy_(s0)
+    _restore(torch, state, snapshot, 0)
+    for p in model.parameters():
+        p.grad = None
+    equal = {name: torch.equal(v, results["per-leaf"]) for name, v in results.items()}
+    moved = not torch.equal(results["per-leaf"], torch.cat([s0.reshape(-1).float() for s0 in start]))
+    del snapshot, grads, start, results
+    torch.cuda.empty_cache()
+    log(f"optimizer layouts, one float32 update from one state and gradient: parameters bit-equal to per-leaf "
+        f"{equal} (moved: {moved}); update ms (CUDA events, median of 5) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    if not all(equal.values()) or not moved:
+        raise AssertionError(f"layouts disagree: {equal}, moved {moved}")
+    return {"equal": equal, "update_ms": times}
+
+
+def phase_real_data(torch, kernels, seed):
+    """Phase 14, train-real-data: (a) a WIDER FACE tree on disk, (b) the
+    native pool against PIL + cv2, (c) train.main on it with the JAX
+    package's training options, eager and captured, mini-steps 1 and 2, and
+    the captured step held to five eager steps (phase 6a's check), (d)
+    remat against the step without it, and its captured step held to five
+    eager remat steps in the same way, (e) the optimizer layouts."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_wider_")
+    t0 = time.perf_counter()
+    try:
+        written = write_widerface_tree(root, seed)
+        log(f"real data: a WIDER FACE tree of {REAL_TRAIN_IMAGES} + {REAL_VALID_IMAGES} JPEGs (1024 wide, 1-40 "
+            f"faces, a 0-count entry each split), {written / 1e6:.1f} MB, written in {time.perf_counter() - t0:.1f} s")
+        pool = phase_native_pool(root)
+        cli = phase_real_cli(torch, kernels, seed, root)
+        setup = real_capture_setup(torch, seed, root)
+        ministeps = phase_real_ministeps(torch, setup)
+        layouts = phase_layouts(torch, setup)
+        remat, remat_state = phase_remat(torch, kernels, setup)
+        remat["captured"] = phase_captured_train(torch, kernels, {**setup, "state": remat_state},
+                                                 REMAT_LAUNCHES[:6], "real data remat")
+        del remat_state
+        torch.cuda.empty_cache()
+        captured = phase_captured_train(torch, kernels, setup, (18, 18, 0, 0, 1, 0), "real data")
+        del setup
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"real data phase: {time.perf_counter() - t0:.1f} s")
+    return {"pool": pool, "cli": cli, "ministeps": ministeps, "layouts": layouts, "remat": remat,
+            "captured": captured}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2733,6 +3170,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         ssd_train = phase_ssd_train(torch, kernels, args.seed)
         ssd_val = phase_ssd_validation(torch, kernels, args.seed)
+        torch.cuda.empty_cache()
+        real = phase_real_data(torch, kernels, args.seed)
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2821,6 +3260,12 @@ def main(argv=None) -> int:
             "validation": {"launches": val_counts[0], "per": "4 train steps and 4 validation batches, 18 each"},
             "captured_step": {label: {k: v for k, v in c.items() if k != "spread"} for label, c in captured.items()},
             "seed_replay": seed_checks,
+            "real_data": {"launches": real["cli"]["eager"]["launches"][0],
+                          "remat_launches_a_micro_step": real["remat"]["launches"]["remat"][0],
+                          "remat_captured_per_step": real["remat"]["captured"]["captured_per_step"][0],
+                          "per": "train.main on a WIDER FACE tree, --letterbox --grad_accum_steps 2: 4 mini-steps "
+                                 "(18 each) and 1 validation batch (18); with DestrConfig(remat=True) 36 a "
+                                 "micro-step (forward and recomputation), eager and replayed"},
             "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"), **serve_timing,
                         "device_ms": per_step(serve, "ms"),
                         "plain_ms": per_step(serve, "plain_ms"), "library_ms": per_step(serve, "library_ms"),
@@ -2953,7 +3398,12 @@ def main(argv=None) -> int:
         f"{val_timing['checkpoint_save_s']:.2f} s; SSD300: captured step ms {ssd_train['captured_ms']:.2f} "
         f"({SSD_B / ssd_train['captured_ms'] * 1e3:.1f} images/s, eager {ssd_train['eager_ms']:.2f}), request "
         f"median ms {ssd_serve['captured_ms']:.2f} (eager {ssd_serve['eager_ms']:.2f}), validation "
-        f"{ssd_val['val_images_per_sec']:.1f} images/s, cli max difference {cli_worst}; "
+        f"{ssd_val['val_images_per_sec']:.1f} images/s, cli max difference {cli_worst}; real data: "
+        f"captured mini-step ms {real['captured']['captured_ms']:.2f} (eager {real['captured']['eager_ms']:.2f}), "
+        f"remat micro-step ms {real['remat']['remat_ms']:.2f} (without {real['remat']['plain_ms']:.2f}), captured "
+        f"remat mini-step ms {real['remat']['captured']['captured_ms']:.2f}, peak GB "
+        f"{real['remat']['remat_peak_gb']:.2f} (without {real['remat']['plain_peak_gb']:.2f}), loader images/s "
+        f"native {real['pool']['native_images_per_sec']:.1f}, PIL + cv2 {real['pool']['pil_cv2_images_per_sec']:.1f}; "
         f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@ device rule shared by every entry point of the port.
 
 The dataclasses keep the JAX package's field names, defaults and comments,
 so a config carries across unchanged. Fields of features the port does not
-have yet are kept for that reason; the training driver
+have yet (``num_data_shards``) are kept for that reason; the training driver
 (``train/driver.py``) raises when one is set away from its default.
+``rng_impl`` names a JAX PRNG: the port accepts both values and ignores them
+(its dropout is Philox, ``models/destr/layers.py::DropoutRng``).
 """
 
 from __future__ import annotations

@@ -2,10 +2,25 @@
 ``object_detection_destr_tpu/data/loader.py``: ``_resize_canvas`` and
 ``_letterbox_canvas`` l.29-69, ``DetectionLoader`` l.72-265).
 
-The JAX package resizes with cv2 (PIL as fallback); neither is certain to be
-installed beside the port, so the resize is ``torch.nn.functional.interpolate``
-(bilinear, ``align_corners=False``, the half-pixel sampling cv2's INTER_LINEAR
-uses). cv2 rounds in fixed point, so the two differ by at most one grey level.
+A batch is made on one of JAX ``_make_batch``'s paths, in its order
+(loader.py:120-222):
+
+1. letterbox: items decoded one by one, each resized with its aspect kept
+   and pasted top-left on a zero canvas;
+2. the native JPEG pool (``runtime/native.py``): where the dataset has
+   ``raw_item``, the batch's JPEG bytes are decoded and resized in one
+   threaded call; a non-JPEG file or a failed decode (``AttributeError`` /
+   ``ValueError``) sends the batch to path 3;
+3. decoded arrays: items decoded one by one, resized by the native pool's
+   ``batch_resize``.
+
+Where the native library cannot be built (no ``g++``, or no libjpeg for
+path 2), the loader says so once and takes the next path; where it has no
+native resize at all, it resizes with ``torch.nn.functional.interpolate``
+(bilinear, ``align_corners=False``, the half-pixel sampling of cv2's
+INTER_LINEAR and of the native pool), as the letterbox does. cv2 and the
+native pool round in other ways than PyTorch, so the paths differ by a grey
+level or two.
 """
 
 from __future__ import annotations
@@ -18,6 +33,8 @@ from typing import Iterator
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..runtime import native
 
 __all__ = ["DetectionLoader", "resize_uint8", "_resize_canvas", "_letterbox_canvas"]
 
@@ -90,6 +107,7 @@ class DetectionLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self._pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
+        self._noticed: set[str] = set()  # native libraries this loader said it goes without
         self.epoch = 0
         self._start_step = 0
         self._step = 0
@@ -117,33 +135,68 @@ class DetectionLoader:
             rng.shuffle(order)
         return order
 
+    def _native_ready(self, name: str) -> bool:
+        """Whether native library ``name`` ("jpeg" or "resize") is there; the
+        first time it is not, the loader says why and which path it takes."""
+        ready = native.jpeg_available() if name == "jpeg" else native.is_available()
+        if not ready and name not in self._noticed:
+            self._noticed.add(name)
+            instead = "decoded arrays" if name == "jpeg" else "a torch resize"
+            print(f"loader: native {name} library unavailable ({native.unavailable_reason(name)}); "
+                  f"using {instead}", flush=True)
+        return ready
+
+    def _fetch(self, idxs: np.ndarray, raw: bool = False) -> list:
+        """The items of virtual indices ``idxs`` (``raw_item`` with ``raw``),
+        fetched over the thread pool."""
+        get = self.dataset.raw_item if raw else self.dataset.__getitem__
+        fetch = lambda vi: get(int(vi) % len(self.dataset))
+        return list(self._pool.map(fetch, idxs)) if self._pool is not None else [fetch(i) for i in idxs]
+
     def _make_batch(self, idxs: np.ndarray) -> dict:
         c, t = self.canvas_size, self.max_targets
         b = len(idxs)
         boxes = np.zeros((b, t, 4), np.float32)
         labels = np.zeros((b, t), np.int32)
         valid = np.zeros((b, t), bool)
-        fetch = lambda vi: self.dataset[int(vi) % len(self.dataset)]
-        items = list(self._pool.map(fetch, idxs)) if self._pool is not None else [fetch(i) for i in idxs]
-        images = np.zeros((b, c, c, 3), np.uint8)
-        content_hw = np.zeros((b, 2), np.float32)
-        for j, (img, bx, lb) in enumerate(items):
-            scale = np.ones(4, np.float32)
-            if self.letterbox:
+
+        def targets(items, scales=None) -> None:
+            for j, (_, bx, lb) in enumerate(items):
+                n = min(len(bx), t)
+                if n:
+                    boxes[j, :n] = bx[:n] if scales is None else bx[:n] * scales[j]
+                    labels[j, :n] = lb[:n]
+                    valid[j, :n] = True
+
+        batch = {"boxes": boxes, "labels": labels, "valid": valid}
+        if self.letterbox:
+            items = self._fetch(idxs)
+            images = np.zeros((b, c, c, 3), np.uint8)
+            content_hw = np.zeros((b, 2), np.float32)
+            scales = []
+            for j, (img, _, _) in enumerate(items):
                 images[j], fh, fw = _letterbox_canvas(img, c)
                 content_hw[j] = (fh, fw)
-                scale = np.asarray([fw, fh, fw, fh], np.float32)
-            else:
-                images[j] = _resize_canvas(img, c)
-            n = min(len(bx), t)
-            if n:
-                boxes[j, :n] = bx[:n] * scale if self.letterbox else bx[:n]
-                labels[j, :n] = lb[:n]
-                valid[j, :n] = True
-        batch = {"images": images, "boxes": boxes, "labels": labels, "valid": valid}
-        if self.letterbox:
-            batch["content_hw"] = content_hw
-        return batch
+                scales.append(np.asarray([fw, fh, fw, fh], np.float32))  # to canvas coordinates
+            targets(items, scales)
+            return {"images": images, **batch, "content_hw": content_hw}
+
+        if hasattr(self.dataset, "raw_item") and self._native_ready("jpeg"):
+            try:
+                items = self._fetch(idxs, raw=True)
+                images = native.batch_decode_resize([it[0] for it in items], c)
+                targets(items)
+                return {"images": images, **batch}
+            except (AttributeError, ValueError):
+                pass  # non-JPEG files or a failed decode: the decoded-array path
+
+        items = self._fetch(idxs)
+        targets(items)
+        if self._native_ready("resize"):
+            images = native.batch_resize([img for img, _, _ in items], c)
+        else:
+            images = np.stack([_resize_canvas(img, c) for img, _, _ in items])
+        return {"images": images, **batch}
 
     def __iter__(self) -> Iterator[dict]:
         order = self._epoch_order()

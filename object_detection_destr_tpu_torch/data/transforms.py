@@ -143,19 +143,30 @@ def crop_flip(
     u_x: torch.Tensor,
     flip: torch.Tensor,
     out_size: int = 640,
+    content_hw: Optional[torch.Tensor] = None,
 ) -> dict:
     """RandomResizedCrop + horizontal flip + normalize at given draws, one
-    (B,) tensor each (transforms.py:117-173 without letterbox content).
+    (B,) tensor each (transforms.py:117-173).
 
-    The crop window is sampled from ``area_frac`` of the image and an aspect
-    ``exp(log_ratio)``, its size clipped to [8, side], its offset
-    ``u * (side - crop)``; it is resampled to ``out_size`` with the
+    The crop window is sampled from ``area_frac`` of the content and an
+    aspect ``exp(log_ratio)``, its size clipped to [8, side], its offset
+    ``u * (content side - crop)``; it is resampled to ``out_size`` with the
     antialiased linear kernel of ``jax.image.scale_and_translate``; boxes are
     re-expressed in the window, clipped to [0, 1], and those that collapse
-    are dropped from ``valid``.
+    are dropped from ``valid``. The content is the whole canvas, or with
+    ``content_hw`` ((B, 2) fractions of the canvas, from the letterbox
+    loader) the top-left region the image fills: the crop's area and offsets
+    are then taken inside it, though a window whose aspect does not fit may
+    reach into the zero padding, and the output carries ``pixel_valid`` (B,
+    S, S) bool, True where an output pixel samples content, flipped with the
+    image.
     """
     b, h, w, _ = images.shape
-    hc, wc = float(h), float(w)
+    if content_hw is None:
+        hc, wc = float(h), float(w)
+    else:
+        content = content_hw.to(device=images.device, dtype=torch.float32)
+        hc, wc = content[:, 0] * h, content[:, 1] * w
     ratio = torch.exp(log_ratio)
     target_area = area_frac * hc * wc
     cw = torch.clamp(torch.sqrt(target_area * ratio), 8.0, float(w))
@@ -168,8 +179,16 @@ def crop_flip(
 
     flip = flip.bool()
     out = torch.where(flip[:, None, None, None], out.flip(2), out)
-    return {"images": normalize_imagenet(out), "boxes": _flip_boxes(new_boxes, flip), "labels": labels,
-            "valid": new_valid}
+    result = {"images": normalize_imagenet(out), "boxes": _flip_boxes(new_boxes, flip), "labels": labels,
+              "valid": new_valid}
+    if content_hw is not None:
+        # output pixel (i, j) samples canvas position y0 + (i + 0.5) * ch / S
+        centers = torch.arange(out_size, device=images.device, dtype=torch.float32) + 0.5
+        rows = y0[:, None] + centers[None, :] * ch[:, None] / out_size
+        cols = x0[:, None] + centers[None, :] * cw[:, None] / out_size
+        pixel_valid = (rows[:, :, None] < hc[:, None, None]) & (cols[:, None, :] < wc[:, None, None])
+        result["pixel_valid"] = torch.where(flip[:, None, None], pixel_valid.flip(2), pixel_valid)
+    return result
 
 
 def destr_train_transform(
@@ -178,22 +197,24 @@ def destr_train_transform(
     labels: torch.Tensor,
     valid: torch.Tensor,
     generator: torch.Generator,
+    content_hw: Optional[torch.Tensor] = None,
     out_size: int = 640,
     scale_range: tuple = (0.08, 1.0),
     ratio_range: tuple = (3.0 / 4.0, 4.0 / 3.0),
 ) -> dict:
     """Batched RandomResizedCrop + hflip + normalize (transforms.py:84-173),
     its random draws from ``generator`` (on the images' device): per image
-    the area fraction, log aspect, the two offsets and the flip. Returns
-    {"images": (B, S, S, 3) float32, "boxes", "labels", "valid"}. The
-    letterbox form (``content_hw``) is not ported yet."""
+    the area fraction, log aspect, the two offsets and the flip. With the
+    letterbox loader's ``content_hw`` the crop is taken over each image's
+    content (:func:`crop_flip`). Returns {"images": (B, S, S, 3) float32,
+    "boxes", "labels", "valid"}, and "pixel_valid" with ``content_hw``."""
     b = images.shape[0]
     u = torch.rand((5, b), generator=generator, device=images.device)
     lo_r, hi_r = math.log(ratio_range[0]), math.log(ratio_range[1])
     area_frac = scale_range[0] + (scale_range[1] - scale_range[0]) * u[0]
     log_ratio = lo_r + (hi_r - lo_r) * u[1]
     return crop_flip(images, boxes_xyxy, labels, valid, area_frac, log_ratio, u[2], u[3],
-                     u[4] < 0.5, out_size)
+                     u[4] < 0.5, out_size, content_hw)
 
 
 def destr_eval_transform(

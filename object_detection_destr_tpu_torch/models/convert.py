@@ -12,8 +12,9 @@ state-dict key by joining with ``.`` and renaming the leaf:
     nn.Embed embedding               -> weight
 
 The weights file is that tree flattened with ``/`` keys into an ``.npz``
-(``params/backbone/conv1/kernel`` ...). Converting an Orbax checkpoint into
-it needs JAX and is left to a later slice.
+(``params/backbone/conv1/kernel`` ...). A checkpoint of the JAX package's
+trainer (Orbax) becomes one with ``tools/orbax_to_npz.py``, which needs JAX
+and lives outside both packages.
 """
 
 from __future__ import annotations

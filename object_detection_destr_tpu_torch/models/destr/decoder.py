@@ -9,7 +9,10 @@ axis, decoder.py:175-188). Dropout sits where the JAX blocks have it
 (decoder.py:65-92, 133-153): inside both attention calls, on the
 self-attention and pair-attention outputs, on the cross-attention output
 and the branch FFN; it is active only when a :class:`~.layers.DropoutRng`
-is passed. Shared heads run in float32 (:func:`~.layers.f32_head`).
+is passed. Shared heads run in float32 (:func:`~.layers.f32_head`). With
+``remat`` each block runs under activation checkpointing
+(:func:`~.layers.checkpointed`, ``nn.remat`` at decoder.py:219-221) while
+gradients are recorded.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 from ...geometry.embeddings import inverse_sigmoid, sine_embed_centers
 from ...ops.attention import combine_heads, scaled_dot_product_attention, split_heads
 from ...ops.cuda.flash_attention import flash_attention_packed
-from .layers import DropoutRng, Mlp, attention_dropout_seed, dropout, f32_head, layer_norm
+from .layers import DropoutRng, Mlp, attention_dropout_seed, checkpointed, dropout, f32_head, layer_norm
 from .pair_attention import pair_self_attention
 
 __all__ = ["Decoder", "DecoderBlock", "ClsRegBranch"]
@@ -36,7 +39,7 @@ def _single_head_attention(query, key, value, key_valid_mask, use_flash, rate, r
         return flash_attention_packed(query, key, value, 1, key_valid_mask, rate, seed)
     return scaled_dot_product_attention(
         query[:, None], key[:, None], value[:, None], key_valid_mask=key_valid_mask,
-        dropout_rate=rate, generator=None if rng is None else rng.generator,
+        dropout_rate=rate, dropout_rng=rng,
     )
 
 
@@ -124,7 +127,7 @@ class DecoderBlock(nn.Module):
             o1 = flash_attention_packed(q_m, k_m, v_m, h2, None, a_rate, seed)
         else:
             o1 = scaled_dot_product_attention(
-                q, k, v, dropout_rate=rate, generator=None if rng is None else rng.generator
+                q, k, v, dropout_rate=rate, dropout_rng=rng
             )
         o2 = pair_self_attention(
             q, k, v, obj_coords,
@@ -172,10 +175,11 @@ class Decoder(nn.Module):
     def __init__(self, hidden_dim: int = 256, num_heads: int = 8, num_blocks: int = 6,
                  lambda_pair: float = 0.5, pair_mode: str = "reference",
                  pair_output_mode: str = "reference", use_flash: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_blocks = num_blocks
+        self.remat = remat
         self.pos_scale = Mlp(hidden_dim, [hidden_dim, hidden_dim])
         for i in range(num_blocks):
             self.add_module(
@@ -207,8 +211,11 @@ class Decoder(nn.Module):
             obj_coords = torch.sigmoid(
                 torch.cat([tmp_bbox[..., :2] + centers_logit, tmp_bbox[..., 2:]], dim=-1)
             )
-            tmp = getattr(self, f"block{i}")(
-                x, encoder_output, fine_pos, enc_valid_mask, obj_coords, obj_pos_embed, sin_embed, rng,
-            )
+            block = getattr(self, f"block{i}")
+            inputs = (x, encoder_output, fine_pos, enc_valid_mask, obj_coords, obj_pos_embed, sin_embed)
+            if self.remat and torch.is_grad_enabled():
+                tmp = checkpointed(block, rng, *inputs)
+            else:
+                tmp = block(*inputs, rng)
             x = self.outer_norm(x + tmp)
         return x

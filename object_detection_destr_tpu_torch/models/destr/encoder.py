@@ -7,7 +7,9 @@ LayerNorm has eps 1e-6, the flax default (encoder.py:56, :62, :87).
 Dropout (rate ``dropout``) sits where the JAX block has it (encoder.py:48-62):
 on the attention probabilities inside the attention call, after the
 attention, after the FFN's ReLU and after its output; it is active only when
-a :class:`~.layers.DropoutRng` is passed.
+a :class:`~.layers.DropoutRng` is passed. With ``remat`` each block runs under
+activation checkpointing (:func:`~.layers.checkpointed`, ``nn.remat`` at
+encoder.py:78) while gradients are recorded.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import DropoutRng, Mlp, MultiHeadAttention, dropout, layer_norm
+from .layers import DropoutRng, Mlp, MultiHeadAttention, checkpointed, dropout, layer_norm
 
 __all__ = ["Encoder", "EncoderBlock"]
 
@@ -48,9 +50,11 @@ class EncoderBlock(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, hidden_dim: int = 256, num_heads: int = 8, ffn_dim: int = 2048,
-                 num_blocks: int = 6, use_flash: bool = False, dropout: float = 0.0):
+                 num_blocks: int = 6, use_flash: bool = False, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         self.num_blocks = num_blocks
+        self.remat = remat
         self.pos_scale = Mlp(hidden_dim, [hidden_dim, hidden_dim])
         for i in range(num_blocks):
             self.add_module(
@@ -64,6 +68,10 @@ class Encoder(nn.Module):
         x = tokens
         for i in range(self.num_blocks):
             scale = self.pos_scale(x)
-            tmp = getattr(self, f"block{i}")(x, pos_embed * scale, valid_mask, rng)
+            block = getattr(self, f"block{i}")
+            if self.remat and torch.is_grad_enabled():
+                tmp = checkpointed(block, rng, x, pos_embed * scale, valid_mask)
+            else:
+                tmp = block(x, pos_embed * scale, valid_mask, rng)
             x = self.outer_norm(x + tmp)
         return x

@@ -4,10 +4,12 @@ stream a training step hands the model."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ...ops.attention import scaled_dot_product_attention, split_heads
@@ -19,6 +21,7 @@ __all__ = [
     "Mlp",
     "MultiHeadAttention",
     "attention_dropout_seed",
+    "checkpointed",
     "dropout",
     "f32_head",
     "layer_norm",
@@ -33,11 +36,18 @@ class DropoutRng:
     package: a resumed run draws what the uninterrupted one did, and a CUDA
     graph that registers :attr:`generator` (``train/epoch_scan.py``) draws
     in a replay what the eager step draws at the same step. ``None`` in its
-    place means eval: every dropout is the identity."""
+    place means eval: every dropout is the identity.
+
+    Every draw goes through :meth:`seed` or :meth:`keep_mask`, so that
+    :meth:`taped` can hand a recomputed block the draws of its first run
+    (activation checkpointing, :func:`checkpointed`)."""
 
     def __init__(self, seed: int, device: str | torch.device = "cpu"):
         self.base_seed = seed
         self.generator = torch.Generator(device=torch.device(device))
+        self._tape: Optional[list] = None  # draws recorded or replayed inside ``taped``
+        self._replay = False
+        self._pos = 0
         self.begin_step(0)
 
     def begin_step(self, step: int) -> None:
@@ -45,11 +55,66 @@ class DropoutRng:
         device)."""
         self.generator.manual_seed((self.base_seed + 1) * 1_000_003 + step)
 
+    def _draw(self, make) -> torch.Tensor:
+        if self._tape is None:
+            return make()
+        if self._replay:
+            self._pos += 1
+            return self._tape[self._pos - 1]
+        drawn = make()
+        self._tape.append(drawn)
+        return drawn
+
     def seed(self) -> torch.Tensor:
         """A fresh flash-kernel seed, a (1,) int64 tensor on the generator's
         device that the kernels read there (layers.py:22-33 draws one per
         call)."""
-        return torch.randint(0, 2**31 - 1, (1,), generator=self.generator, device=self.generator.device)
+        return self._draw(lambda: torch.randint(0, 2**31 - 1, (1,), generator=self.generator,
+                                                device=self.generator.device))
+
+    def keep_mask(self, shape, rate: float, device: torch.device) -> torch.Tensor:
+        """A bool mask of ``shape``, each element True with probability
+        ``1 - rate``."""
+        return self._draw(lambda: torch.rand(shape, generator=self.generator, device=device) < 1.0 - rate)
+
+    @contextlib.contextmanager
+    def taped(self, tape: list, replay: bool):
+        """Inside the block, record every draw into ``tape`` or, with
+        ``replay``, return the recorded draws in their order instead of
+        drawing: a recomputation sees the masks and seeds of the first run."""
+        if self._tape is not None:
+            raise RuntimeError("DropoutRng.taped does not nest")
+        self._tape, self._replay, self._pos = tape, replay, 0
+        try:
+            yield
+        finally:
+            self._tape, self._replay = None, False
+
+
+def checkpointed(block: nn.Module, rng: Optional[DropoutRng], *args) -> torch.Tensor:
+    """``block(*args, rng)`` under activation checkpointing (``nn.remat`` in
+    the JAX package, encoder.py:78, decoder.py:219-221): its activations are
+    dropped after the forward and recomputed in the backward.
+
+    ``torch.utils.checkpoint``'s ``preserve_rng_state`` restores only the
+    default CPU and CUDA generators, and the blocks draw from ``rng``'s own:
+    the recomputation would draw new dropout masks and kernel seeds and give
+    a wrong gradient without an error. So the forward records its draws
+    (bool masks and seeds, kept until the backward) and the recomputation
+    replays them; nothing reads or sets a generator's state, which a CUDA
+    graph capture would not allow, so ``preserve_rng_state`` is off."""
+    tape: list = []
+    runs = [0]
+
+    def run(*inputs):
+        replay = runs[0] > 0
+        runs[0] += 1
+        if rng is None:
+            return block(*inputs, None)
+        with rng.taped(tape, replay):
+            return block(*inputs, rng)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Tensor:
@@ -57,7 +122,7 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Te
     by 1 / (1 - rate); the identity without a stream or at rate 0."""
     if rng is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=rng.generator, device=x.device) < 1.0 - rate
+    keep = rng.keep_mask(x.shape, rate, x.device)
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -155,7 +220,6 @@ class MultiHeadAttention(nn.Module):
             h = self.num_heads
             out = scaled_dot_product_attention(
                 split_heads(q, h), split_heads(k, h), split_heads(v, h),
-                key_valid_mask=key_valid_mask, dropout_rate=self.dropout,
-                generator=None if rng is None else rng.generator,
+                key_valid_mask=key_valid_mask, dropout_rate=self.dropout, dropout_rng=rng,
             )
         return self.out_proj(out)

@@ -18,6 +18,9 @@ in float32 and the outputs in float32, as model.py:50-53, 118-119, 173-177
 of the JAX package. ``train=True`` (or ``model.train()``) uses batch
 statistics in the mini-detector's BatchNorm and, with a
 :class:`~.layers.DropoutRng`, dropout at the JAX package's sites.
+``remat=True`` recomputes each encoder and decoder block's activations in
+the backward (``nn.remat`` in the JAX package), with the forward's dropout
+draws (:func:`~.layers.checkpointed`).
 """
 
 from __future__ import annotations
@@ -44,8 +47,6 @@ class DESTR(nn.Module):
         cfg = self.config = config
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={cfg.compute_dtype!r}")
-        if cfg.remat:
-            raise NotImplementedError("remat (activation checkpointing) is not ported yet")
         if cfg.use_flash_attention not in ("auto", True, False):
             raise ValueError(f"use_flash_attention={cfg.use_flash_attention!r}")
         use_flash = cfg.use_flash_attention is not False
@@ -64,10 +65,10 @@ class DESTR(nn.Module):
         if cfg.pos_embed == "learned":
             self.pos_embedding = LearnedPositionEmbedding(num_pos_feats=c // 2)
         self.encoder = Encoder(c, cfg.num_heads, cfg.ffn_dim, cfg.num_encoder_blocks, use_flash,
-                               cfg.dropout)
+                               cfg.dropout, cfg.remat)
         self.decoder = Decoder(
             c, cfg.num_heads, cfg.num_decoder_blocks, cfg.lambda_pair,
-            cfg.pair_mode, cfg.pair_output_mode, use_flash, cfg.dropout,
+            cfg.pair_mode, cfg.pair_output_mode, use_flash, cfg.dropout, cfg.remat,
         )
         self.mini_detector = MiniDetector(cfg.top_k, c)
 

@@ -4,8 +4,8 @@ Batch-first ``(B, S, D)`` or pre-split ``(B, h, S, d)``. Logits and the
 softmax are float32; masked keys are set to -1e9, not -inf, so a row whose
 keys are all masked gets uniform weights instead of NaN (attention.py:31, :88).
 This is the plain path the model takes with ``use_flash_attention=False``;
-its probability dropout (attention.py:90-92) draws from an explicit
-``torch.Generator``.
+its probability dropout (attention.py:90-92) draws its keep mask from an
+explicit stream (the model's ``DropoutRng``).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def scaled_dot_product_attention(
     key_valid_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    dropout_rng=None,
 ) -> torch.Tensor:
     """Attention over pre-split heads.
 
@@ -48,9 +48,10 @@ def scaled_dot_product_attention(
         value: (B, h, S_k, d_v) — d_v may differ from d.
         key_valid_mask: (B, S_k) bool, True = attendable.
         scale: default 1/sqrt(d).
-        dropout_rate, generator: probability dropout (keep with probability
-            1 - rate, kept values scaled by 1 / (1 - rate)) when a generator
-            is given; none without one.
+        dropout_rate, dropout_rng: probability dropout (keep with
+            probability 1 - rate, kept values scaled by 1 / (1 - rate)) when
+            a stream is given, its mask from ``dropout_rng.keep_mask(shape,
+            rate, device)``; none without one.
 
     Returns:
         (B, S_q, h*d_v) — heads merged, batch-first, in the value dtype.
@@ -63,8 +64,8 @@ def scaled_dot_product_attention(
         if key_valid_mask is not None:
             logits = logits.masked_fill(~key_valid_mask[:, None, None, :], NEG_INF)
         probs = torch.softmax(logits, dim=-1)
-        if dropout_rate > 0.0 and generator is not None:
-            keep = torch.rand(probs.shape, generator=generator, device=probs.device) < 1.0 - dropout_rate
+        if dropout_rate > 0.0 and dropout_rng is not None:
+            keep = dropout_rng.keep_mask(probs.shape, dropout_rate, probs.device)
             probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
         # P is rounded to the value dtype before P V, as attention.py:94 does
         out = torch.matmul(probs.to(value.dtype).float(), value.float()).to(value.dtype)

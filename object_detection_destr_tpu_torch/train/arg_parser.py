@@ -1,7 +1,7 @@
 """CLI flags of the DESTR and SSD trainers (port of
 ``object_detection_destr_tpu/train/arg_parser.py``): the same names and
-defaults. Flags of features that come with a later slice are parsed and
-refused by ``train/driver.py`` when set away from their default."""
+defaults. ``--rng_impl`` is accepted and ignored (``train/driver.py``);
+multi-device training, a later slice, is refused there."""
 
 from __future__ import annotations
 
@@ -68,8 +68,9 @@ def _common(p: argparse.ArgumentParser) -> None:
                         "train/optim.py::scale_by_adam_compact)")
     p.add_argument("--rng_impl", type=str, default="rbg",
                    choices=["rbg", "threefry"],
-                   help="dropout-stream PRNG of the JAX package; the port "
-                        "draws from torch generators and takes the default only")
+                   help="dropout-stream PRNG of the JAX package; accepted so "
+                        "that its command lines run unchanged, and ignored: the "
+                        "port's dropout draws from a Philox generator either way")
     # the reference's --device selects cuda/cpu (arg_parser.py:85-89); here
     # the GPU unless "cpu" is asked for (config.resolve_device)
     p.add_argument("--device", type=str, default=None)

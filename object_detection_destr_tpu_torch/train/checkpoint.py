@@ -6,7 +6,10 @@ A checkpoint is one file, ``checkpoint_dir/name``, holding:
 
 * "model": the model's parameters and buffers (``state_dict``: the BatchNorm
   statistics are buffers here, a separate collection in flax);
-* "optimizer": the AdamW moments and counts;
+* "optimizer": the AdamW moments (in their dtype, with its name and the
+  layout), the counts and, with gradient accumulation, the mini-step and
+  the accumulated mean gradient, so that a resume in the middle of an
+  accumulation goes on as the uninterrupted run;
 * "step": the train step count;
 * (no generator state: the dropout and augmentation draws of a step are
   pure functions of the seed and the step, see ``DropoutRng`` and
@@ -45,8 +48,11 @@ def _payload(state: TrainState, loader_state: Optional[dict], best_val: Optional
     return {
         "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
         "optimizer": {"count": opt.count, "notfinite_count": opt.notfinite_count,
+                      "layout": opt.layout, "moment_dtype": str(opt.moment_dtype).removeprefix("torch."),
                       "m": {k: v.detach().cpu() for k, v in opt.m.items()},
-                      "v": {k: v.detach().cpu() for k, v in opt.v.items()}},
+                      "v": {k: v.detach().cpu() for k, v in opt.v.items()},
+                      "accum_steps": opt.accum_steps, "mini_step": opt.mini_step,
+                      "acc": None if opt.accumulated is None else opt.accumulated.detach().cpu()},
         "step": int(state.step),
         "loader": dict(loader_state or {}),
         "best_val": float(best_val if best_val is not None else math.inf),
@@ -105,11 +111,22 @@ def restore_checkpoint(checkpoint_dir: str, name: str, state: TrainState) -> dic
     opt, saved = state.optimizer, raw["optimizer"]
     if set(saved["m"]) != set(opt.m):
         raise ValueError(f"{name}: its optimizer holds other parameters than this run's "
-                         "(lr_backbone = 0 freezes the backbone's moments away)")
+                         "(lr_backbone = 0 freezes the backbone's moments away; the flat layout "
+                         "keeps the frozen ones)")
+    dtype = next(iter(saved["m"].values())).dtype if saved["m"] else opt.moment_dtype
+    if dtype != opt.moment_dtype:
+        raise ValueError(f"{name}: moments in {dtype}, this run keeps them in {opt.moment_dtype} "
+                         "(--moment_dtype)")
+    if int(saved.get("accum_steps", 1)) != opt.accum_steps:
+        raise ValueError(f"{name}: written with grad_accum_steps={saved.get('accum_steps', 1)}, "
+                         f"this run has {opt.accum_steps}")
     for ours, theirs in ((opt.m, saved["m"]), (opt.v, saved["v"])):
         for key, tensor in ours.items():
             tensor.copy_(theirs[key])
     opt.count, opt.notfinite_count = int(saved["count"]), int(saved["notfinite_count"])
+    if opt.accumulated is not None:
+        opt.accumulated.copy_(saved["acc"])
+        opt.mini_step = int(saved["mini_step"])
     state.step = int(raw["step"])
     return {"state": state, "loader": raw["loader"], "best_val": float(raw["best_val"])}
 

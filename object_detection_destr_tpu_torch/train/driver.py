@@ -36,22 +36,30 @@ run halts before any save when the parameters stop being finite. Checkpoints
 ``save_as_interrupt`` on ``KeyboardInterrupt``. ``resume`` restores
 ``resume_from`` and runs ``epochs`` more epochs.
 
-Gradient accumulation, letterbox training, other optimizer layouts and
-multi-device training come with later slices: their flags raise
-``NotImplementedError`` here when set away from their defaults.
+The JAX package's training options: ``grad_accum_steps`` (the optimizer
+accumulates k mini-steps an update, ``train/optim.py``; a step of the loop,
+of the log and of the step count is a mini-step, as in JAX), ``letterbox``
+(the train loader letterboxes and the train transform crops inside each
+image's content and hands the model its ``pixel_valid`` mask, eager and
+through the device cache and the epoch runner), ``moment_dtype`` and
+``opt_layout`` (``train/optim.py``). ``rng_impl`` names a JAX PRNG for the
+dropout stream; the port's dropout draws from :class:`~..models.destr.layers.
+DropoutRng`'s Philox generator whatever it says, so both of its values are
+accepted and change nothing, and JAX command lines run unchanged. Metrics
+go to stdout, ``log_dir/metrics.jsonl`` and TensorBoard
+(``train/logging_utils.py``). Multi-device training
+(``num_data_shards``) comes with a later slice: it raises
+``NotImplementedError`` here when set away from its default.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import json
 import math
-import os
 import time
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from ..config import Config, DataConfig, TrainConfig, resolve_device
@@ -64,6 +72,7 @@ from ..models.destr.model import build_destr
 from ..models.ssd.model import build_ssd
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .epoch_scan import EpochRunner
+from .logging_utils import MetricLogger
 from .profiler import StepTimer, StepTrace, parse_trace
 from .state import TrainState, create_destr_state, create_ssd_state
 from .steps import (
@@ -78,10 +87,7 @@ from .steps import (
 __all__ = ["train_destr", "train_ssd", "MetricLogger", "StepTimer"]
 
 # (section, field) of each feature of a later slice, checked against the default
-_LATER_SLICES = [
-    ("train", "grad_accum_steps"), ("train", "letterbox"), ("train", "moment_dtype"), ("train", "rng_impl"),
-    ("train", "num_data_shards"),
-]
+_LATER_SLICES = [("train", "num_data_shards")]
 _DEFAULTS = {"train": TrainConfig(), "data": DataConfig()}
 
 
@@ -91,55 +97,8 @@ def _refuse_later_slices(config: Config) -> None:
         if value != getattr(_DEFAULTS[section], field):
             raise NotImplementedError(
                 f"{section}.{field}={value!r}: this feature is not ported yet "
-                "(the port trains, validates and checkpoints; the rest comes later)"
+                "(the port trains on one device; multi-device training comes later)"
             )
-    if config.train.opt_layout not in ("auto", "per-leaf"):
-        raise NotImplementedError(f"opt_layout={config.train.opt_layout!r}: only per-leaf is ported")
-
-
-class MetricLogger:
-    """Running means of step metrics, printed and appended to
-    ``log_dir/metrics.jsonl`` at each flush (logging_utils.py:22-84); the
-    device values are read once per flush."""
-
-    def __init__(self, log_dir: Optional[str] = None):
-        self._jsonl = None
-        if log_dir:
-            os.makedirs(log_dir, exist_ok=True)
-            self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        self._pending: list[tuple[int, dict]] = []
-        self._t0 = time.time()
-
-    def accumulate(self, step: int, metrics: dict) -> None:
-        self._pending.append((step, metrics))
-
-    def flush(self, prefix: str = "train", echo: bool = True) -> dict:
-        if not self._pending:
-            return {}
-        keys = self._pending[0][1].keys()
-        stacked = {k: torch.stack([m[k].float() for _, m in self._pending]).cpu().numpy() for k in keys}
-        means = {k: float(np.mean(v)) for k, v in stacked.items()}
-        last_step = self._pending[-1][0]
-        self._pending.clear()
-        if self._jsonl:
-            record = {"step": int(last_step), "prefix": prefix,
-                      "time": round(time.time() - self._t0, 3), **{k: round(v, 6) for k, v in means.items()}}
-            self._jsonl.write(json.dumps(record) + "\n")
-            self._jsonl.flush()
-        if echo:
-            body = " ".join(f"{k}={v:.4f}" for k, v in means.items())
-            print(f"[{prefix} step {last_step}] {body}", flush=True)
-        return means
-
-    def scalar(self, tag: str, value: float, step: int) -> None:
-        print(f"{tag}={value:.4f} (step {step})", flush=True)
-        if self._jsonl:
-            self._jsonl.write(json.dumps({"step": int(step), "tag": tag, "value": float(value)}) + "\n")
-            self._jsonl.flush()
-
-    def close(self) -> None:
-        if self._jsonl:
-            self._jsonl.close()
 
 
 def _to_device(raw: dict, device: torch.device) -> dict:
@@ -502,7 +461,7 @@ def train_destr(config: Config, device: str | torch.device | None = None) -> dic
     run = _Run(
         state, make_destr_train_step(cfg_t), make_destr_step_core(cfg_t),
         lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"], gen,
-                                               out_size=out_size),
+                                               raw.get("content_hw"), out_size=out_size),
         lambda: _val_sweep(*sweep), aug_offset=7, val_key="loss_model", val_label="val_model",
         profile_dir=cfg_t.profile_dir,
     )

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch import nn
 
 from ..config import TrainConfig
@@ -37,8 +38,10 @@ def _lr_specs(train_cfg: TrainConfig, steps_per_epoch: int):
 def _init_state(model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int = 0) -> TrainState:
     """Puts ``model`` in training mode with a gradient on every parameter
     (the frozen ones too: the clip and the finite check count them) and
-    builds the optimizer (``param_labels`` decides which parameters train)
-    and the dropout stream (state.py:74-119)."""
+    builds the optimizer (``param_labels`` decides which parameters train;
+    ``opt_layout``, ``moment_dtype`` and ``grad_accum_steps`` as
+    state.py:95-110 hands them to ``build_optimizer``) and the dropout
+    stream (state.py:74-119)."""
     for p in model.parameters():
         p.requires_grad_(True)
     model.train()
@@ -47,6 +50,9 @@ def _init_state(model: nn.Module, train_cfg: TrainConfig, steps_per_epoch: int =
         model, lr=lr, lr_backbone=lr_backbone,
         grad_clip=train_cfg.grad_clip_norm or None,
         skip_nonfinite=train_cfg.skip_nonfinite_updates,
+        layout=train_cfg.opt_layout,
+        moment_dtype={"float32": torch.float32, "bfloat16": torch.bfloat16}[train_cfg.moment_dtype],
+        accum_steps=train_cfg.grad_accum_steps,
     )
     device = next(model.parameters()).device
     return TrainState(model=model, optimizer=optimizer, rng=DropoutRng(train_cfg.seed, device))

@@ -6,7 +6,9 @@
 
 One step: forward in train mode (batch-statistics BatchNorm, dropout from
 the state's stream), one matcher launch for both criteria, the two set
-criteria, backward, and the optimizer update. That device work is
+criteria, backward, and the optimizer update (with ``grad_accum_steps`` k a
+step is a mini-step: the optimizer folds its gradients into their running
+mean and updates on every k-th, ``train/optim.py``). That device work is
 :func:`make_destr_step_core`; it reads nothing back to the host, so a CUDA
 graph can capture it (``train/epoch_scan.py``). :func:`make_destr_train_step`
 wraps it with the host's bookkeeping: the dropout stream reseeded from the

@@ -35,8 +35,8 @@ def test_synthetic_items_equal():
         for i in range(len(ref)):
             for a, b in zip(ours[i], ref[i]):
                 np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        build_dataset("widerface")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        build_dataset("imagenet")
 
 
 @pytest.mark.parametrize("image_size,canvas", [(48, 48), (40, 56)])

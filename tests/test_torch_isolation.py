@@ -39,5 +39,17 @@ def test_port_imports_no_jax():
                  "data.datasets", "data.loader", "losses.matcher", "losses.criterion",
                  "train.optim", "train.state", "train.steps", "train.driver", "train.train",
                  "train.checkpoint", "losses.metrics", "infer.evaluate", "models.ssd.model", "ops.nms",
-                 "infer.predict", "infer.cli", "train.train_ssd"):
+                 "infer.predict", "infer.cli", "train.train_ssd", "runtime.native", "train.logging_utils"):
         assert f"object_detection_destr_tpu_torch.{name}" in result["modules"], name
+
+
+def test_native_sources_are_the_ports_own():
+    """The native pool builds from the port's copies of its C++ sources into
+    the port's build directory, never from a file of the JAX package."""
+    from object_detection_destr_tpu_torch.runtime import native
+
+    port = os.path.join(REPO, "object_detection_destr_tpu_torch") + os.sep
+    for name, (sources, _) in native.SOURCES.items():
+        for src in sources:
+            assert os.path.realpath(src).startswith(port) and os.path.exists(src), src
+        assert os.path.realpath(native.library_path(name)).startswith(port + "_build" + os.sep)

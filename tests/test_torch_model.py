@@ -141,5 +141,12 @@ def test_entry_point_rules():
     (out["pred_class"].sum() + det["pred_boxes"].sum()).backward()
     assert not torch.equal(model.mini_detector.cls_conv.bn0.running_mean, before)
     assert model.encoder.block0.fc1.weight.grad is not None
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_destr(DestrConfig(**TINY, remat=True), "cpu")
+    # remat builds, and recomputing the blocks changes no output
+    torch.manual_seed(0)
+    plain = build_destr(DestrConfig(**dict(TINY, dropout=0.3)), "cpu")
+    remat = build_destr(DestrConfig(**dict(TINY, dropout=0.3), remat=True), "cpu")
+    remat.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 64, 64, 3)
+    out_p, _ = plain(x, train=True, rng=DropoutRng(1))
+    out_r, _ = remat(x, train=True, rng=DropoutRng(1))
+    assert torch.equal(out_p["pred_boxes"], out_r["pred_boxes"])

@@ -17,6 +17,7 @@
   CPU, whose mAP equals the driver's at the saved epoch.
 """
 
+import importlib.util
 import os
 import tempfile
 
@@ -225,7 +226,10 @@ def runs():
 
 def test_resume_retraces_the_uninterrupted_run(runs):
     whole, first, resumed, _, files = runs
-    assert files == ["metrics.jsonl", "tiny", "tiny_ema", "tiny_last"]
+    # the log directory also holds TensorBoard's event file (train/logging_utils.py)
+    events = [f for f in files if f.startswith("events.out.tfevents.")]
+    assert [f for f in files if f not in events] == ["metrics.jsonl", "tiny", "tiny_ema", "tiny_last"]
+    assert len(events) == (1 if importlib.util.find_spec("tensorboard") else 0)
     assert first["state"].step == 2 and resumed["state"].step == whole["state"].step == 4
     ours, ref = resumed["state"].model.state_dict(), whole["state"].model.state_dict()
     assert all(torch.equal(ours[k], ref[k]) for k in ref)
