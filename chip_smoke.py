@@ -3,8 +3,10 @@ hidden width 256 and 512, its validation sweep, checkpoints, resume and
 evaluator, its head-major flash-attention API, its L1-cost matcher and its
 serving path; SSD300's serving, training, validation and the batch CLI;
 training on image files with the JAX package's options (letterbox,
-gradient accumulation, bfloat16 moments, optimizer layouts, remat); and
-hold each hand-written CUDA kernel against its plain PyTorch version.
+gradient accumulation, bfloat16 moments, optimizer layouts, remat);
+training and serving from torch weights, and the captured step profiled by
+kernel; and hold each hand-written CUDA kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -173,6 +175,29 @@ Phases (any failure exits non-zero and prints no result):
      recipe: each replayed mini-step within five eager ones' spread (the
      accumulator held where a mini-step updates nothing), step times, idle
      shares, launches from a trace, peak memory.
+ 15. import: (a) a torchvision-layout ResNet-50 (tools/ref_torch_models.py,
+     seeded, BN statistics randomized) written as .npz and .pth, each
+     through models.import_weights.main at the default full width: the two
+     checkpoints equal, the backbone bit-equal to resnet_params_from_torch;
+     the imported backbone on the card against TorchResNet (2 images
+     640x640, float32, TF32 off, each stage within 1e-4 of its largest
+     value); train.main --resume --resume_from pretrained, 2 steps of the
+     production recipe: 18 / 18 / 1 launches of #1 / #2 / #9 a step,
+     finite losses, the stem, layer1 and every FrozenBN tensor held and
+     every layer2-4 conv moved; (b) torch_vgg16_features through
+     import_weights --model ssd, conv4_3 against it at 300 px (1e-4),
+     train_ssd.main --resume for 2 steps, none of the nine kernels, the
+     trunk bit-equal to the import; (c) a seeded full-width DESTR and SSD
+     written in the reference's key layout (tests/reference_layout.py),
+     destr_variables_from_torch / ssd_variables_from_torch,
+     save_variables_npz, build_service --weights ref_*.npz: the served
+     weights bit-equal to the source, 4 requests each against the source
+     model's own predict (labels and counts equal, boxes and scores within
+     1e-5), #1 18 times a traced request; (d) tools/profile_step_torch.py's
+     main in this process (3 captured steps, B=16, 640 px): 18 / 18 / 1
+     launches of #1 / #2 / #9 a step from the trace, the kernels' summed
+     time a step within 5 % above the device's busy time; its table and
+     top 10 kernels printed, each line beside the card's name and power.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors and #3's and
@@ -1690,7 +1715,8 @@ def phase_serving(torch, kernel, seed, images):
                     predict(image)
         windows[kind] = traced(torch, f"serve_{kind}", len(images), requests)
         if windows[kind]["per_step"] != [3.0 * BLOCKS, 0, 0, 0, 0, 0]:
-            raise AssertionError(f"a traced {kind} request launched #1/#2/#3/#4/#9/#8 {windows[kind]['per_step']}")
+            raise AssertionError(f"a traced {kind} request launched #1/#2/#3/#4/#9/#8 {windows[kind]['per_step']} "
+                                 f"(launch lead {windows[kind]['launch_lead_s']} s)")
     log(f"serving: {len(latencies)} captured requests (graph replays, #1's wrapper not called), detections scoring "
         f">= 0.5 {dict(zip(['x'.join(map(str, im.shape[:2])) for im in images], counts))}; the eager forward "
         f"gives the same detections on every request")
@@ -2242,7 +2268,8 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
     for kind, window in windows.items():
         if window["per_step"] != [float(n) for n in per_step[:6]]:
             raise AssertionError(f"captured step {label}: a traced {kind} step launched #1/#2/#3/#4/#9/#8 "
-                                 f"{window['per_step']} times, not {list(per_step[:6])}")
+                                 f"{window['per_step']} times, not {list(per_step[:6])} (launch lead "
+                                 f"{window['launch_lead_s']} s)")
     out = {"eager_ms": statistics.median(times["eager"]), "captured_ms": statistics.median(times["captured"]),
            "eager_ms_all": times["eager"], "captured_ms_all": times["captured"],
            "eager_step_peak_gb": eager_added / 1e9, "captured_peak_gb": memory["captured_peak"] / 1e9,
@@ -2308,7 +2335,8 @@ def phase_train_scan(torch, seed):
         raise AssertionError(f"--profile_dir traced steps {labels}, busy {profile['busy_s']} s")
     per_step = [c / len(labels) for c in trace_launches(profile["launches"])]
     if per_step != [18.0, 18.0, 0.0, 0.0, 1.0, 0.0]:
-        raise AssertionError(f"--profile_dir trace: {per_step} launches of #1/#2/#3/#4/#9/#8 a step")
+        raise AssertionError(f"--profile_dir trace: {per_step} launches of #1/#2/#3/#4/#9/#8 a step (launch lead "
+                             f"{profile.get('launch_lead_s')} s)")
     cache = scan["device_cache"]
     out = {"spread": spread, "profile_idle_share": profile["idle_share"], "profile_busy_s": profile["busy_s"],
            "profile_window_s": profile["window_s"], "per_step": per_step, "cache": cache,
@@ -3095,6 +3123,337 @@ def phase_real_data(torch, kernels, seed):
             "captured": captured}
 
 
+IMPORT_STEPS = 2  # train steps resumed from each imported checkpoint
+STAGE_TOL = 1e-4  # backbone parity: of each stage's (conv4_3's) largest |value|, float32, TF32 off
+SERVE_TOL = 1e-5  # a served answer against its source model's own (phase 11's; bit-equal expected)
+PROFILE_STEPS = 3
+PROFILE_OVERLAP = 0.05  # the kernels' summed time a step may exceed the device's busy time by this share
+
+
+def repo_module(name, relpath):
+    """A module of the repo outside the port (``tools/``, ``tests/``), loaded
+    from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                                     relpath))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _beside_card(card, label, fn, *args):
+    """``fn(*args)``, what it prints printed again line by line beside the
+    card's name and power limit."""
+    import io
+
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            return fn(*args)
+    finally:
+        for line in printed.getvalue().splitlines():
+            log(f"import ({card}) {label} | {line}")
+
+
+def _seeded_bn_stats_(torch, module, seed):
+    """BatchNorm affine and statistics away from identity, as
+    tests/test_backbone_parity.py sets them."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+                m.running_mean.normal_(0.0, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+
+
+def _stage_errors(torch, ours: dict, theirs: dict) -> dict:
+    """Each stage's largest difference over the reference stage's largest
+    |value|, as a share of STAGE_TOL (ours NHWC, theirs NCHW)."""
+    return {k: _rel(ours[k].permute(0, 3, 1, 2), theirs[k]) / STAGE_TOL for k in theirs}
+
+
+def _imported_backbone(torch, tree):
+    from object_detection_destr_tpu_torch.models.convert import state_dict_from_flax
+
+    return {"backbone." + k: v.cuda() for k, v in state_dict_from_flax({"params": tree}).items()}
+
+
+def _checkpoints_equal(torch, paths) -> bool:
+    a, b = (torch.load(p, map_location="cpu", weights_only=True) for p in paths)
+    same = a["model"].keys() == b["model"].keys() and all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"])
+    for moment in ("m", "v"):
+        same = same and all(torch.equal(a["optimizer"][moment][k], b["optimizer"][moment][k])
+                            for k in a["optimizer"][moment])
+    return same and a["step"] == b["step"] == 0 and a["loader"] == b["loader"] == {"epoch": 0, "step": 0}
+
+
+def import_destr(torch, kernels, seed, card, work):
+    """(a) DESTR from a torchvision ResNet-50: import from .npz and .pth,
+    backbone parity on the card, then 2 resumed steps of the recipe."""
+    import numpy as np
+
+    from object_detection_destr_tpu_torch.config import DestrConfig
+    from object_detection_destr_tpu_torch.models import import_weights
+    from object_detection_destr_tpu_torch.models.convert import resnet_params_from_torch
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.train import train as train_cli
+    from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference
+
+    ref_models = repo_module("ref_torch_models", os.path.join("tools", "ref_torch_models.py"))
+    t0 = time.perf_counter()
+    torch.manual_seed(seed)
+    resnet = ref_models.TorchResNet((3, 4, 6, 3)).eval()
+    _seeded_bn_stats_(torch, resnet, seed)
+    sd = resnet.state_dict()
+    np.savez(os.path.join(work, "resnet50.npz"), **{k: v.numpy() for k, v in sd.items()})
+    torch.save(sd, os.path.join(work, "resnet50.pth"))
+    paths = [_beside_card(card, "import_weights", import_weights.main,
+                          ["--weights", os.path.join(work, f"resnet50.{ext}"), "--checkpoint_dir",
+                           os.path.join(work, f"destr_{ext}")]) for ext in ("npz", "pth")]
+    imported = _imported_backbone(torch, resnet_params_from_torch({k: v.numpy() for k, v in sd.items()}))
+    restored = restore_for_inference(os.path.join(work, "destr_npz"), "pretrained")
+    if not _checkpoints_equal(torch, paths) or not all(torch.equal(restored[k].cuda(), v)
+                                                        for k, v in imported.items()):
+        raise AssertionError("the .npz and .pth imports differ, or the checkpoint's backbone is not the importer's")
+    import_s = time.perf_counter() - t0
+
+    model = build_destr(DestrConfig(), "cuda")
+    model.load_state_dict(restored)
+    images = torch.randn((2, 640, 640, 3), generator=torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad():
+        errors = _stage_errors(torch, model.backbone(images), resnet.cuda()(images.permute(0, 3, 1, 2).contiguous()))
+    del model, resnet
+    if max(errors.values()) > 1.0:
+        raise AssertionError(f"backbone stages against TorchResNet, error / limit {errors}")
+    log(f"import ({card}): torchvision ResNet-50 (seeded, BN statistics randomized) written as .npz and .pth, "
+        f"import_weights at full width from each in {import_s:.1f} s: checkpoints equal, backbone bit-equal to "
+        f"resnet_params_from_torch; backbone on 2 images 640x640 float32 (TF32 off) against TorchResNet, error / "
+        f"limit ({STAGE_TOL:g} of each stage's largest value) "
+        + " ".join(f"{k}={v:.3f}" for k, v in errors.items()))
+
+    argv = TRAIN_ARGS + ["--seed", str(seed), "--num_train_samples", str(TRAIN_B * IMPORT_STEPS),
+                         "--num_valid_samples", "0", "--log_dir", "", "--checkpoint_dir",
+                         os.path.join(work, "destr_npz"), "--resume", "--resume_from", "pretrained"]
+    reset_counts(kernels)  # the pretrained training path starts here
+    result = _beside_card(card, "train.main", train_cli.main, argv)
+    torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]  # read just after it
+    state = result["state"]
+    want = [n * IMPORT_STEPS for n in (18, 18, 0, 0, 1, 0, 0, 0, 0)]
+    if state.step != IMPORT_STEPS or counts != want:
+        raise AssertionError(f"{state.step} resumed steps launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, not {want}")
+    metrics = result["metrics"]
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite or missing losses: {metrics}")
+    after = state.model.state_dict()
+    moved = {k for k, v in imported.items() if not torch.equal(after[k], v)}
+    trains = {k for k in imported if k.split(".")[1].startswith(("layer2", "layer3", "layer4"))
+              and "conv" in k.split(".")[2]}
+    if moved != trains:
+        raise AssertionError(f"moved but frozen: {sorted(moved - trains)[:4]}; held but trainable: "
+                             f"{sorted(trains - moved)[:4]}")
+    step_ms = result["step_ms"]
+    log(f"import ({card}): train.main --resume --resume_from pretrained, {IMPORT_STEPS} steps of the production "
+        f"recipe: launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} ({'/'.join(str(c // IMPORT_STEPS) for c in counts)} "
+        f"a step); losses " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+        + f"; the stem, layer1 and every FrozenBN tensor held, all {len(trains)} layer2-4 conv weights moved; "
+        f"step ms (CUDA events, eager) {', '.join(f'{t:.2f}' for t in step_ms)}")
+    del state, result
+    torch.cuda.empty_cache()
+    return {"launches": counts, "stage_error_over_limit": errors, "step_ms": step_ms}
+
+
+def import_ssd(torch, kernels, seed, card, work):
+    """(b) SSD from a torchvision VGG-16: import, conv4_3 parity on the
+    card, then 2 resumed steps of the SSD recipe, the trunk held."""
+    from object_detection_destr_tpu_torch.config import SSDConfig
+    from object_detection_destr_tpu_torch.models import import_weights
+    from object_detection_destr_tpu_torch.models.convert import vgg16_params_from_torch
+    from object_detection_destr_tpu_torch.models.ssd import build_ssd
+    from object_detection_destr_tpu_torch.train import train_ssd
+    from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference
+
+    ref_models = repo_module("ref_torch_models", os.path.join("tools", "ref_torch_models.py"))
+    torch.manual_seed(seed)
+    vgg = ref_models.torch_vgg16_features().eval()
+    sd = vgg.state_dict()
+    path = os.path.join(work, "vgg16.pth")
+    torch.save(sd, path)
+    _beside_card(card, "import_weights", import_weights.main,
+                 ["--model", "ssd", "--weights", path, "--checkpoint_dir", os.path.join(work, "ssd")])
+    imported = _imported_backbone(torch, vgg16_params_from_torch({k: v.numpy() for k, v in sd.items()}))
+    restored = restore_for_inference(os.path.join(work, "ssd"), "pretrained")
+    if not all(torch.equal(restored[k].cuda(), v) for k, v in imported.items()):
+        raise AssertionError("the SSD checkpoint's trunk is not the importer's")
+    model = build_ssd(SSDConfig(), "cuda")
+    model.load_state_dict(restored)
+    images = torch.randn((2, 3, 300, 300), generator=torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad():
+        error = _rel(model.backbone(images), vgg.cuda()(images)) / STAGE_TOL
+    del model, vgg
+    if error > 1.0:
+        raise AssertionError(f"conv4_3 against torch_vgg16_features, error / limit {error}")
+
+    argv = [a for a in SSD_ARGS if a != "--device_cache"] + [
+        "--seed", str(seed), "--num_train_samples", str(SSD_B * IMPORT_STEPS), "--log_dir", "",
+        "--checkpoint_dir", os.path.join(work, "ssd"), "--resume", "--resume_from", "pretrained"]
+    reset_counts(kernels)  # the pretrained SSD path starts here
+    result = _beside_card(card, "train_ssd.main", train_ssd.main, argv)
+    torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]
+    state = result["state"]
+    if state.step != IMPORT_STEPS or counts != list(NO_LAUNCHES):
+        raise AssertionError(f"{state.step} resumed SSD steps, launches {counts}")
+    metrics = result["metrics"]
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite or missing SSD losses: {metrics}")
+    after = state.model.state_dict()
+    held = all(torch.equal(after[k], v) for k, v in imported.items())
+    if not held:
+        raise AssertionError("the VGG trunk moved: the JAX package trains it frozen")
+    log(f"import ({card}): torch_vgg16_features (seeded) as .pth, import_weights --model ssd; conv4_3 on 2 images "
+        f"300x300 float32 against it, error / limit ({STAGE_TOL:g} of its largest value) {error:.3f}; "
+        f"train_ssd.main --resume, {IMPORT_STEPS} steps: losses "
+        + " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+        + f", launches of the nine {counts}, all {len(imported)} trunk tensors bit-equal to the import")
+    del state, result
+    torch.cuda.empty_cache()
+    return {"conv4_3_error_over_limit": error}
+
+
+def _same_answer(a: dict, b: dict) -> float:
+    """The largest box or score difference of two answers with the same
+    labels and counts (inf otherwise)."""
+    if a["labels"] != b["labels"] or len(a["scores"]) != len(b["scores"]):
+        return math.inf
+    diffs = [abs(x - y) for x, y in zip(a["scores"], b["scores"])]
+    diffs += [abs(x - y) for p, q in zip(a["boxes"], b["boxes"]) for x, y in zip(p, q)]
+    return max(diffs, default=0.0)
+
+
+def serve_reference(torch, kernels, seed, card, work):
+    """(c) a reference-layout DESTR and SSD state dict through the
+    importers, the .npz and build_service; 4 requests each against the
+    source model's own predict."""
+    import types
+
+    from object_detection_destr_tpu_torch.config import DestrConfig, SSDConfig
+    from object_detection_destr_tpu_torch.infer.server import build_service, get_parser
+    from object_detection_destr_tpu_torch.models.convert import (
+        destr_variables_from_torch,
+        flax_variables_from_state_dict,
+        save_variables_npz,
+        ssd_variables_from_torch,
+    )
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.models.ssd import build_ssd
+
+    layout = repo_module("reference_layout", os.path.join("tests", "reference_layout.py"))
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for kind, sizes in (("destr", REQUEST_SIZES), ("ssd", SSD_REQUEST_SIZES)):
+        if kind == "destr":
+            source = build_destr(DestrConfig(), "cuda")
+            randomize_(torch, source, seed)
+            variables = flax_variables_from_state_dict(source)
+            imported = destr_variables_from_torch(layout.reference_destr_state_dict(variables))
+        else:
+            source = build_ssd(SSDConfig(), "cuda")
+            randomize_(torch, source, seed + 1)
+            variables = flax_variables_from_state_dict(source)
+            imported = ssd_variables_from_torch(layout.reference_ssd_state_dict(variables, num_cls=20), num_cls=20)
+        name = f"ref_{kind}.npz"
+        save_variables_npz(imported, os.path.join(work, name))
+        args = get_parser().parse_args(["--model", kind, "--checkpoint_dir", work, "--weights", name,
+                                        "--score_thresh", "0.0"])
+        reset_counts(kernels)  # the serving path starts here
+        service = _beside_card(card, "build_service", build_service, args)
+        same = service.model.state_dict()
+        if not all(torch.equal(v, same[k]) for k, v in source.state_dict().items()):
+            raise AssertionError(f"{kind}: the served weights are not the source model's")
+        stand_in = types.SimpleNamespace(model=source.eval(), image_size=service.image_size, device=service.device,
+                                         score_thresh=service.score_thresh, _anchors=service._anchors)
+        images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy() for h, w in sizes]
+        served = [service.predict_image(image) for image in images]
+        counts = [k.launches for k in kernels]  # read just after the serving path
+        own = [(eager_predict_image if kind == "destr" else eager_predict_ssd)(torch, stand_in, image)
+               for image in images]
+        worst = max(_same_answer(a, b) for a, b in zip(served, own))
+        exact = served == own
+
+        def requests(scope):
+            for i, image in enumerate(images):
+                with scope(i):
+                    service.predict_image(image)
+        window = traced(torch, f"import_serve_{kind}", len(images), requests)
+        want_built = [2 * 3 * BLOCKS if (kind, i) == ("destr", 0) else 0 for i in range(9)]
+        want_trace = [3.0 * BLOCKS if kind == "destr" else 0.0, 0, 0, 0, 0, 0]
+        if worst > SERVE_TOL or counts != want_built or window["per_step"] != want_trace:
+            raise AssertionError(f"{kind}: served against the source model {worst} (limit {SERVE_TOL}); launches "
+                                 f"{counts}, not {want_built}; a traced request {window['per_step']} (launch lead "
+                                 f"{window['launch_lead_s']} s)")
+        log(f"import ({card}): reference-layout {kind} state dict "
+            f"({sum(v.numel() for v in source.state_dict().values()) / 1e6:.1f} M values) -> {kind}_variables_from_torch "
+            f"-> save_variables_npz -> build_service --weights {name}: weights bit-equal to the source; "
+            f"{len(images)} requests {'bit-equal to' if exact else f'within {worst:.2e} of'} the source model's own "
+            f"predict; launches #1/#2/#3/#4/#9/#8/#5/#6/#7 building the service {counts}, a traced request's "
+            f"#1/#2/#3/#4/#9/#8 {window['per_step']}, device busy {window['step_busy_ms']:.3f} ms a request")
+        out[kind] = {"launches": counts, "per_request": window["per_step"], "exact": exact, "worst": worst}
+        del service, source
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_captured_step(torch, kernels, card):
+    """(d) tools/profile_step_torch.py in this process: the captured DESTR
+    step (B=16, 640 px, bf16) by kernel."""
+    tool = repo_module("profile_step_torch", os.path.join("tools", "profile_step_torch.py"))
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build", "traces", "profile_step")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    reset_counts(kernels)  # the profiled path starts here: a warm-up step, the capture, 3 replays
+    out = _beside_card(card, "profile", tool.main, ["--steps", str(PROFILE_STEPS), "--batch", str(TRAIN_B), "--image",
+                                                    "640", "--top", "10", "--trace_dir", trace_dir])
+    counts = [k.launches for k in kernels]
+    per_step = [c / PROFILE_STEPS for c in trace_launches(out["trace"]["launches"])]
+    busy, total = out["busy_ms_per_step"], out["total_ms_per_step"]
+    by_cat = {r["name"]: r["count_per_step"] for r in out["categories"]}
+    named = [by_cat.get(n, 0.0) for n in ("flash_attention_fwd #1/#5", "flash_attention_bwd #2", "fused_auction #9")]
+    if (per_step != [18.0, 18.0, 0.0, 0.0, 1.0, 0.0] or named != [18.0, 18.0, 1.0]
+            or counts[:5] != [36, 36, 0, 0, 2] or not busy <= total <= (1 + PROFILE_OVERLAP) * busy):
+        raise AssertionError(f"profile: a step's #1/#2/#3/#4/#9/#8 {per_step} (by category {named}), wrapper "
+                             f"launches {counts}, kernels {total} ms a step against busy {busy} (launch lead "
+                             f"{out['trace']['launch_lead_s']} s)")
+    log(f"import ({card}): profile_step_torch --steps {PROFILE_STEPS} --batch {TRAIN_B} --image 640: a captured step's "
+        f"kernels, copies and memsets sum to {total:.2f} ms against {busy:.2f} ms busy "
+        f"({(total / busy - 1) * 100:.2f} % above, limit {PROFILE_OVERLAP * 100:.0f} %); median step busy "
+        f"{out['step_busy_ms']:.2f} ms of a {out['step_period_ms']:.2f} ms period; #1/#2/#9 a step {named}; "
+        f"wrapper launches (warm-up and capture) {counts}")
+    return {**{k: out[k] for k in ("step_busy_ms", "step_period_ms", "busy_ms_per_step", "total_ms_per_step",
+                                   "categories", "top")}, "per_step": per_step, "launches": counts}
+
+
+def phase_import(torch, kernels, seed, card):
+    """Phase 15, starting from torch weights: (a) DESTR from a torchvision
+    ResNet-50, (b) SSD from VGG-16, (c) reference checkpoints served, (d)
+    the captured step profiled by kernel."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_import_",
+                            dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build"))
+    try:
+        out = {"destr": import_destr(torch, kernels, seed, card, work),
+               "ssd": import_ssd(torch, kernels, seed, card, work),
+               "serve": serve_reference(torch, kernels, seed, card, work),
+               "profile": profile_captured_step(torch, kernels, card)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"import ({card}): phase {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3119,7 +3478,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     try:
-        phase_device(torch)
+        card = phase_device(torch)
         one_bf16 = one_bf16_backward(fa)
         phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, fa.TWO_PASS_LIBRARY, auction.LIBRARY, one_bf16.library])
         phase_plan(torch, fa)
@@ -3172,6 +3531,8 @@ def main(argv=None) -> int:
         ssd_val = phase_ssd_validation(torch, kernels, args.seed)
         torch.cuda.empty_cache()
         real = phase_real_data(torch, kernels, args.seed)
+        torch.cuda.empty_cache()
+        imported = phase_import(torch, kernels, args.seed, card)
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3266,6 +3627,14 @@ def main(argv=None) -> int:
                           "per": "train.main on a WIDER FACE tree, --letterbox --grad_accum_steps 2: 4 mini-steps "
                                  "(18 each) and 1 validation batch (18); with DestrConfig(remat=True) 36 a "
                                  "micro-step (forward and recomputation), eager and replayed"},
+            "import": {"launches": imported["destr"]["launches"][0],
+                       "serving_launches": imported["serve"]["destr"]["launches"][0],
+                       "serving_per_request": imported["serve"]["destr"]["per_request"][0],
+                       "profile_per_step": imported["profile"]["per_step"][0],
+                       "per": f"train.main --resume --resume_from pretrained after import_weights: {IMPORT_STEPS} "
+                              "steps (18 each); a reference checkpoint served: the service's warm-up and capture "
+                              "(18 each), a request a replay of 18 (trace); profile_step_torch: a replayed step "
+                              "(trace)"},
             "serving": {"launches": serve_launches, "ms": per_step(serve, "ms"), **serve_timing,
                         "device_ms": per_step(serve, "ms"),
                         "plain_ms": per_step(serve, "plain_ms"), "library_ms": per_step(serve, "library_ms"),
@@ -3292,6 +3661,7 @@ def main(argv=None) -> int:
             "per": f"train step: 18 launches, B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; "
                    f"device_ms_rate_* the same launches from CUDA-graph replay; {sdpa}",
             "split_rel_err": {r["site"]: r for r in split_rows},
+            "import": {"launches": imported["destr"]["launches"][1], "profile_per_step": imported["profile"]["per_step"][1]},
             "hidden_512": {"launches": wide_counts[1], "max_abs_err": abs_err(wide_fused, "fused"),
                            **timed(wide_fused, "bwd"), "library_ms": per_step(wide_fused, "bwd_library_ms"),
                            **device_rates(share_wide, "bwd"), "per": "12 launches: encoder and decoder self-attention"},
@@ -3357,6 +3727,7 @@ def main(argv=None) -> int:
                                                       "bound_by", "bids", "plain_bids", "differ")},
             "hidden_512": {"launches": wide_counts[4]},
             "validation": {"launches": val_counts[4], "per": "4 train steps and 4 validation batches"},
+            "import": {"launches": imported["destr"]["launches"][4], "profile_per_step": imported["profile"]["per_step"][4]},
         },
     ]
     # the head-major kernels: one launch at each hidden-256 call-site shape
@@ -3404,7 +3775,9 @@ def main(argv=None) -> int:
         f"remat mini-step ms {real['remat']['captured']['captured_ms']:.2f}, peak GB "
         f"{real['remat']['remat_peak_gb']:.2f} (without {real['remat']['plain_peak_gb']:.2f}), loader images/s "
         f"native {real['pool']['native_images_per_sec']:.1f}, PIL + cv2 {real['pool']['pil_cv2_images_per_sec']:.1f}; "
-        f"total {time.perf_counter() - t_start:.0f} s")
+        f"pretrained: resumed step ms {', '.join(f'{t:.2f}' for t in imported['destr']['step_ms'])}, profiled "
+        f"captured step busy ms {imported['profile']['step_busy_ms']:.2f} (kernels {imported['profile']['total_ms_per_step']:.2f}), "
+        f"phase {imported['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card})")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "scaled_dot_product_attention", "split_heads", "combine_heads"]
+__all__ = ["NEG_INF", "scaled_dot_product_attention", "multi_head_attention", "split_heads", "combine_heads"]
 
 NEG_INF = -1e9  # finite -inf stand-in: keeps softmax well-defined on full-pad rows
 
@@ -70,3 +70,22 @@ def scaled_dot_product_attention(
         # P is rounded to the value dtype before P V, as attention.py:94 does
         out = torch.matmul(probs.to(value.dtype).float(), value.float()).to(value.dtype)
     return combine_heads(out)
+
+
+def multi_head_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    num_heads: int,
+    *,
+    key_valid_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_rng=None,
+) -> torch.Tensor:
+    """Projection-free MHA over (B, S, D) tensors (attention.py:100-121): the
+    heads split off, :func:`scaled_dot_product_attention`, merged back to
+    (B, S_q, D_v). The projections live in the calling module."""
+    return scaled_dot_product_attention(
+        split_heads(query, num_heads), split_heads(key, num_heads), split_heads(value, num_heads),
+        key_valid_mask=key_valid_mask, dropout_rate=dropout_rate, dropout_rng=dropout_rng,
+    )

@@ -8,8 +8,9 @@
   a ``record_function`` range, exported as a Chrome trace (``--profile_dir``);
 * :func:`parse_trace`: what the device did in such a trace: each marked
   step's device busy seconds and period, the device busy time and idle share
-  of the window, and the kernel launches by name (the counterpart of the JAX
-  package's ``device_step_seconds``).
+  of the window, the kernel launches by name, and each device event name's
+  count and summed duration (the counterpart of the JAX package's
+  ``device_step_seconds``, and of the op table of ``tools/profile_step.py``).
 
 A device event (kernel, memcpy, memset) belongs to the step whose host range
 holds the runtime call that launched it (the trace's ``correlation`` id; a
@@ -81,7 +82,18 @@ class StepTrace:
     """A ``torch.profiler`` trace of some steps: ``start()``, one ``with
     step(label):`` around each step's work, ``stop()`` (waits for the device,
     exports ``profile_dir/trace_<time>.json`` and returns its path). CUDA
-    activities are traced where a GPU is present."""
+    activities are traced where a GPU is present.
+
+    On a GPU the trace stays open ``MARGIN_S`` on each side of the steps with
+    the device idle. The profiler keeps only the device events whose time,
+    put on the host's clock, lies inside its window, and the two clocks
+    disagree by milliseconds from trace to trace (``parse_trace``'s
+    ``launch_lead_s`` below 0: a kernel that starts before the host call
+    that launched it). Without the margins the first device events of a
+    window, or the last ones of a CUDA graph's replay that ends just before
+    ``stop()``, can be lost."""
+
+    MARGIN_S = 0.25
 
     def __init__(self, profile_dir: str):
         self.profile_dir = profile_dir
@@ -93,6 +105,9 @@ class StepTrace:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = torch.profiler.profile(activities=activities)
         self._prof.__enter__()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            time.sleep(self.MARGIN_S)
 
     def step(self, label) -> contextlib.AbstractContextManager:
         return torch.profiler.record_function(f"{STEP_PREFIX}{label}")
@@ -100,6 +115,7 @@ class StepTrace:
     def stop(self) -> str:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+            time.sleep(self.MARGIN_S)
         prof, self._prof = self._prof, None
         prof.__exit__(None, None, None)
         os.makedirs(self.profile_dir, exist_ok=True)
@@ -135,9 +151,16 @@ def parse_trace(path: str) -> dict:
 
         {"steps": [{"label", "busy_s", "period_s", "idle_share", "events"}, ...],
          "window_s", "busy_s", "idle_share", "launches": {kernel name: count},
-         "unattributed": device events of no marked step}
+         "device_time": {name: {"category", "count", "seconds"}},
+         "unattributed": device events of no marked step,
+         "launch_lead_s": the least time from a runtime call to the start of
+                          a device event it launched (None without one)}
 
-    ``launches`` counts the kernels of the marked steps."""
+    ``launches`` counts the kernels of the marked steps; ``device_time``
+    holds every device event of the marked steps (kernels, copies and
+    memsets; ``category`` is the trace's) by name, with the sum of their
+    durations. Events that overlap are each counted whole there, so its sum
+    is at least the busy time."""
     with open(_newest_trace(path)) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
@@ -153,8 +176,11 @@ def parse_trace(path: str) -> dict:
     steps = [{"label": s["name"][len(STEP_PREFIX):], "events": []} for s in spans]
     bounds = [(float(s["ts"]), float(s["ts"]) + float(s.get("dur", 0.0))) for s in spans]
     unattributed = 0
+    lead = None
     for e in device:
         at = launches_at.get(e.get("args", {}).get("correlation"))
+        if at is not None:
+            lead = float(e["ts"]) - at if lead is None else min(lead, float(e["ts"]) - at)
         owner = None if at is None else next((i for i, (a, b) in enumerate(bounds) if a <= at <= b), None)
         if owner is None:
             unattributed += 1
@@ -162,6 +188,7 @@ def parse_trace(path: str) -> dict:
             steps[owner]["events"].append(e)
     firsts = [min((float(e["ts"]) for e in s["events"]), default=None) for s in steps]
     launches: dict[str, int] = {}
+    device_time: dict[str, dict] = {}
     intervals = []
     for i, step in enumerate(steps):
         own = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in step["events"]]
@@ -169,6 +196,9 @@ def parse_trace(path: str) -> dict:
         for e in step["events"]:
             if e.get("cat") == "kernel":
                 launches[e["name"]] = launches.get(e["name"], 0) + 1
+            entry = device_time.setdefault(e["name"], {"category": e["cat"], "count": 0, "seconds": 0.0})
+            entry["count"] += 1
+            entry["seconds"] += float(e.get("dur", 0.0)) / 1e6
         later = [t for t in firsts[i + 1:] if t is not None]
         end = later[0] if later else max((b for _, b in own), default=firsts[i])
         period = (end - firsts[i]) / 1e6 if firsts[i] is not None else 0.0
@@ -180,4 +210,5 @@ def parse_trace(path: str) -> dict:
     busy = _union_seconds(intervals)
     return {"steps": steps, "window_s": window, "busy_s": busy,
             "idle_share": 1.0 - busy / window if window > 0 else 0.0,
-            "launches": launches, "unattributed": unattributed}
+            "launches": launches, "device_time": device_time, "unattributed": unattributed,
+            "launch_lead_s": None if lead is None else lead / 1e6}

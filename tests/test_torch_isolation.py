@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import no JAX, no flax, no orbax and nothing of
+"""The port, chip_smoke.py, tools/profile_step_torch.py and
+tools/trace_window_check.py import no JAX, no flax, no orbax and nothing of
 the JAX package. Checked in a fresh interpreter, because this test process
 has JAX loaded already (tests/conftest.py)."""
 
@@ -10,13 +11,16 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 import object_detection_destr_tpu_torch as pkg
 names = [pkg.__name__]
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
     names.append(info.name)
 import chip_smoke
+for tool in ("profile_step_torch", "trace_window_check"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 forbidden = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "object_detection_destr_tpu"))
 print(json.dumps({"modules": names, "forbidden": forbidden}))
@@ -39,7 +43,8 @@ def test_port_imports_no_jax():
                  "data.datasets", "data.loader", "losses.matcher", "losses.criterion",
                  "train.optim", "train.state", "train.steps", "train.driver", "train.train",
                  "train.checkpoint", "losses.metrics", "infer.evaluate", "models.ssd.model", "ops.nms",
-                 "infer.predict", "infer.cli", "train.train_ssd", "runtime.native", "train.logging_utils"):
+                 "infer.predict", "infer.cli", "train.train_ssd", "runtime.native", "train.logging_utils",
+                 "models.import_weights"):
         assert f"object_detection_destr_tpu_torch.{name}" in result["modules"], name
 
 
