@@ -5,8 +5,8 @@ serving path; SSD300's serving, training, validation and the batch CLI;
 training on image files with the JAX package's options (letterbox,
 gradient accumulation, bfloat16 moments, optimizer layouts, remat);
 training and serving from torch weights, and the captured step profiled by
-kernel; and hold each hand-written CUDA kernel against its plain PyTorch
-version.
+kernel; data-parallel training over explicit process groups; and hold each
+hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -198,6 +198,21 @@ Phases (any failure exits non-zero and prints no result):
      launches of #1 / #2 / #9 a step from the trace, the kernels' summed
      time a step within 5 % above the device's busy time; its table and
      top 10 kernels printed, each line beside the card's name and power.
+ 16. data parallelism (parallel/mesh.py; multi-GPU throughput is not
+     measured: the machine has one card): (a) the DESTR recipe (hidden 256,
+     B=16, 640 px, bf16, dropout 0.3) and the SSD recipe (B=32, 300 px) over
+     an explicit 1-rank NCCL mesh (its BatchNorms synced, its gradient,
+     criterion and BatchNorm all-reduces in the graph), captured by the
+     epoch runner: at 2 steps, from one cloned state, the replay within 3
+     eager no-mesh steps' spread (SSD with cuDNN held to deterministic
+     engines, so bit-equal); captured step times with and without the mesh
+     in turns; a trace of 3 mesh replays: 18 / 18 / 1 launches of #1 / #2 /
+     #9 a step (SSD none), the NCCL kernels' device time; (b) two gloo
+     thread-ranks on the card, each on its own stream, eager, DESTR at full
+     width in float32, global B=16 (8 a rank), dropout 0, 2 steps, against one process
+     on the same weights and batches: parameters, losses and BatchNorm
+     statistics bit-identical across ranks, near one process's (DP_TOL),
+     18 / 18 / 1 launches of #1 / #2 / #9 a rank-step counted by stream.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors and #3's and
@@ -2069,7 +2084,7 @@ def destr_capture_setup(torch, seed, extra):
             "cache": cache, "train_step": make_destr_train_step(cfg), "step_core": make_destr_step_core(cfg),
             "transform": lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"],
                                                                 raw["valid"], gen, out_size=cfg.image_size),
-            "aug_seed": lambda step: _aug_seed(seed, step)}
+            "aug_seed": lambda step: _aug_seed(seed, step), "config": config}
 
 
 EXACT_NOTE = (" (cuDNN held to deterministic engines for steps 0-4, so the eager samples are bit-equal; then the "
@@ -3454,6 +3469,278 @@ def phase_import(torch, kernels, seed, card):
     return out
 
 
+DP_EAGER_RUNS = 3  # no-mesh eager samples a 1-rank-mesh replay is held against
+DP_STEPS = 2  # steps held so, and the 2-rank run's steps
+# 2 gloo ranks against one process, float32 with TF32 off: JAX's tolerances for
+# its sharded step against one device (tests/test_parallel.py: metrics and the
+# BatchNorm mean rtol 2e-4, updated heads 2e-3), Adam's first moment as a norm
+DP_TOL = {"losses": 2e-4, "m": 2e-3, "bn": 2e-4}
+
+
+def _bn_mesh(model, mesh) -> None:
+    """The mesh the model's flax BatchNorms sync over (None: each rank's batch)."""
+    for module in model.modules():
+        if hasattr(module, "bn_mesh"):
+            module.bn_mesh = mesh
+
+
+def _close_group(group) -> None:
+    """End an explicit process group (no default group is involved)."""
+    for name in ("shutdown", "abort"):
+        if hasattr(group, name):
+            getattr(group, name)()
+            return
+
+
+def _dp_sample(torch, state, metrics):
+    return {"losses": [float(v) for v in metrics.values()],
+            "m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
+            "params": _flat_params(torch, state.model)}
+
+
+def dp_one_rank(torch, kernels, setup, mesh_core, per_step, label, exact=False):
+    """Phase 16 (a): a recipe's step over an explicit 1-rank NCCL mesh
+    (``mesh_core(mesh)``: its step core over the mesh; the model's
+    BatchNorms synced), captured by the epoch runner, against the no-mesh
+    step. The no-mesh runner takes step 0 and the mesh runner step 1 (each
+    its warm-up and capture); at each of the next DP_STEPS steps, from one
+    cloned state, DP_EAGER_RUNS eager no-mesh steps and one replay of the
+    mesh graph, which is held to the eager samples' spread (Adam's first
+    moment and the parameters relative to the step's change, and the
+    losses; ``exact``: cuDNN held to deterministic engines, where the eager
+    samples are bit-equal and so must the replay be). Then captured step
+    times of both in turns (CUDA events, 3 steps each), and a traced window
+    of 3 mesh replays: the launches a step of #1/#2/#3/#4/#9/#8 and the
+    device time of the NCCL all-reduce kernels."""
+    import torch.distributed as tdist
+
+    from object_detection_destr_tpu_torch.parallel.mesh import Mesh, group_from_store
+    from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
+
+    state, cache, transform = setup["state"], setup["cache"], setup["transform"]
+    _, idx = cache.epoch_index_matrix()
+    rows = torch.from_numpy(idx).cuda()
+    rows_from = lambda step, n: idx[[i % len(idx) for i in range(step, step + n)]]
+    group = group_from_store(tdist.HashStore(), 0, 1, "nccl")
+    runners = {}
+    try:
+        mesh = Mesh(group, 0, 1, torch.device("cuda", torch.cuda.current_device()), "nccl")
+        with _cudnn_deterministic(torch, exact):
+            reset_counts(kernels)
+            runners["no mesh"] = EpochRunner(state, setup["step_core"], transform, cache.data, setup["aug_seed"],
+                                             len(cache))
+            runners["no mesh"].run(rows_from(0, 1), 0)
+            _bn_mesh(state.model, mesh)
+            runners["mesh"] = EpochRunner(state, mesh_core(mesh), transform, cache.data, setup["aug_seed"],
+                                          len(cache), mesh=mesh)
+            runners["mesh"].run(rows_from(1, 1), 1)
+            _bn_mesh(state.model, None)  # the eager steps below are the no-mesh step's
+            capture_counts = [k.launches for k in kernels]
+            if any(r.graph is None for r in runners.values()) or state.step != 2:
+                raise AssertionError(f"data parallel {label}: no graph captured, or {state.step} steps")
+            gen, spread = torch.Generator(device="cuda"), {}
+            for step in range(2, 2 + DP_STEPS):
+                snapshot = [t.detach().clone() for t in _state_tensors(state)]
+                start = _dp_sample(torch, state, {})
+                eager = []
+                for _ in range(DP_EAGER_RUNS):
+                    _restore(torch, state, snapshot, step)
+                    gen.manual_seed(setup["aug_seed"](step))
+                    metrics = setup["train_step"](state, transform(cache.gather(rows[step % len(rows)]), gen))
+                    eager.append(_dp_sample(torch, state, metrics))
+                _restore(torch, state, snapshot, step)
+                got = runners["mesh"].run(rows_from(step, 1), step)
+                replay = _dp_sample(torch, state, {k: v[0] for k, v in got.items()})
+                state.step = step + 1
+                del snapshot
+                for key in ("m", "params"):  # relative to the step's change, as phase 6a
+                    change = _mean_sample([e[key] for e in eager]).to(start[key].device) - start[key].double()
+                    norm = float(change.norm()) or 1.0
+                    for smp in (*eager, replay):
+                        smp[key] = ((smp[key].double() - start[key].double()) / norm).float()
+                spread[f"step {step}"] = _hold_to_spread(f"data parallel {label}, 1-rank mesh replay at step "
+                                                         f"{step}", eager, replay)
+                del eager, replay, start
+            times = {"no mesh": [], "mesh": []}
+            for kind in ("no mesh", "mesh", "mesh", "no mesh"):
+                events = [torch.cuda.Event(enable_timing=True)]
+                torch.cuda.synchronize()
+                events[0].record()
+
+                def mark():
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+                runners[kind].run(rows_from(state.step, 3), state.step, after_step=mark)
+                torch.cuda.synchronize()
+                times[kind] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            windows = {kind: traced(torch, f"dp_{label.replace(' ', '_')}_{kind.replace(' ', '_')}", 3,
+                                    lambda scope, kind=kind: runners[kind].run(rows_from(state.step, 3), state.step,
+                                                                               step_scope=scope))
+                       for kind in ("no mesh", "mesh")}
+            window = windows["mesh"]
+    finally:
+        runners.clear()
+        torch.cuda.synchronize()
+        _close_group(group)
+    if window["per_step"] != [float(n) for n in per_step]:
+        raise AssertionError(f"data parallel {label}: a traced 1-rank-mesh replay launched #1/#2/#3/#4/#9/#8 "
+                             f"{window['per_step']} times a step, not {list(per_step)}")
+    nccl = {k: v for k, v in window["device_time"].items() if "nccl" in k.lower()}
+    nccl_ms = sum(v["seconds"] for v in nccl.values()) * 1e3 / 3
+    nccl_launches = sum(v["count"] for v in nccl.values()) / 3  # a 1-rank communicator may launch none
+    out = {"captured_ms": statistics.median(times["mesh"]), "no_mesh_captured_ms": statistics.median(times["no mesh"]),
+           "captured_ms_all": times["mesh"], "no_mesh_captured_ms_all": times["no mesh"],
+           "nccl_ms_per_step": nccl_ms, "nccl_launches_per_step": nccl_launches, "nccl_kernels": sorted(nccl),
+           "per_step": window["per_step"], "idle_share": window["idle_share"],
+           "step_busy_ms": window["step_busy_ms"], "step_period_ms": window["step_period_ms"],
+           "no_mesh_step_busy_ms": windows["no mesh"]["step_busy_ms"],
+           "no_mesh_step_period_ms": windows["no mesh"]["step_period_ms"],
+           "no_mesh_idle_share": windows["no mesh"]["idle_share"], "capture_counts": capture_counts, "spread": spread}
+    log(f"data parallel {label}, explicit 1-rank NCCL mesh, captured by EpochRunner{' (cuDNN deterministic engines)' if exact else ''}: "
+        f"replay against {DP_EAGER_RUNS} no-mesh eager steps from one cloned state at steps 2-{1 + DP_STEPS} "
+        f"{json.dumps(_rounded(spread))}; captured step ms (CUDA events, in turns N M M N, 3 each) mesh "
+        f"{out['captured_ms']:.2f} ({', '.join(f'{t:.2f}' for t in times['mesh'])}), no mesh "
+        f"{out['no_mesh_captured_ms']:.2f} ({', '.join(f'{t:.2f}' for t in times['no mesh'])}); traced mesh "
+        f"replays: NCCL kernels {out['nccl_kernels']} {nccl_launches:.1f} a step, {nccl_ms:.4f} device ms a step; "
+        f"device busy {out['step_busy_ms']:.2f} ms of a {out['step_period_ms']:.2f} ms step, idle share "
+        f"{out['idle_share']:.4f} (no mesh: busy {out['no_mesh_step_busy_ms']:.2f} of "
+        f"{out['no_mesh_step_period_ms']:.2f}, idle share {out['no_mesh_idle_share']:.4f}); launches a step "
+        f"#1/#2/#3/#4/#9/#8 {window['per_step']}; wrapper calls of the warm-ups and captures {capture_counts}")
+    return out
+
+
+def dp_two_gloo_ranks(torch, kernels, seed):
+    """Phase 16 (b): two gloo thread-ranks on the one card, each on a CUDA
+    stream of its own, eager: the DESTR recipe at full width, dropout 0, in
+    float32 (bfloat16 rounds differently at a batch of 8 than of 16, so
+    only float32 can show the two equal to one process), global B=16 (8 a
+    rank), DP_STEPS steps, against one process on the same weights and
+    batches. The ranks' parameters and BatchNorm statistics must
+    be bit-identical; against one process the losses within DP_TOL
+    ["losses"] relative, Adam's first moment within DP_TOL["m"] of its norm,
+    the BatchNorm statistics within DP_TOL["bn"] of each one's largest
+    value, the parameters within 2 x lr_max a step (+1e-6). Each rank's
+    launches of #1/#2/#9 are read off the wrappers' counts by stream."""
+    import copy
+
+    import torch.distributed as tdist
+
+    from object_detection_destr_tpu_torch.models.destr.mini_detector import sync_batch_norms
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.parallel.mesh import Mesh, group_from_store, shard_batch
+    from object_detection_destr_tpu_torch.train.state import create_destr_state
+    from object_detection_destr_tpu_torch.train.steps import make_destr_train_step
+
+    config = recipe_config(["--seed", str(seed), "--dropout", "0", "--compute_dtype", "float32"])
+    cfg = config.train
+    batches = [{k: v for k, v in train_batch(torch, TRAIN_B, seed + i).items() if k != "pixel_valid"}
+               for i in range(DP_STEPS)]
+    torch.manual_seed(seed)
+    template = build_destr(config.destr, "cuda")
+    copies = [copy.deepcopy(template) for _ in range(2)]
+
+    def bn_stats(model):
+        return {k: v.detach().clone() for k, v in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+
+    one_state = create_destr_state(template, cfg)
+    step = make_destr_train_step(cfg)
+    one = [_dp_sample(torch, one_state, step(one_state, b)) for b in batches]
+    one_bn = bn_stats(template)
+    torch.cuda.synchronize()
+
+    store = tdist.PrefixStore("dp_two_gloo_ranks", tdist.HashStore())
+    results, errors = [None, None], [None, None]
+    for k in kernels:
+        k.launches_by_stream.clear()
+
+    def rank_main(r):
+        group = None
+        try:
+            group = group_from_store(store, r, 2, "gloo")
+            mesh = Mesh(group, r, 2, torch.device("cuda", torch.cuda.current_device()), "gloo")
+            model = sync_batch_norms(copies[r], "data", mesh)
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                state = create_destr_state(model, cfg)
+                rank_step = make_destr_train_step(cfg, mesh)
+                samples = [_dp_sample(torch, state, rank_step(state, shard_batch(b, mesh))) for b in batches]
+                stream.synchronize()
+            results[r] = {"samples": samples, "bn": bn_stats(model), "stream": stream.cuda_stream}
+        except BaseException as e:  # noqa: BLE001 — handed to the phase, which raises it
+            errors[r] = e
+        finally:
+            if group is not None:
+                _close_group(group)
+
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True) for r in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    seconds = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("data parallel, 2 gloo ranks: a rank did not finish in 300 s")
+    for e in errors:
+        if e is not None:
+            raise e
+    r0, r1 = results
+    for a, b in zip(r0["samples"], r1["samples"]):
+        if not torch.equal(a["params"], b["params"]) or a["losses"] != b["losses"]:
+            raise AssertionError("data parallel, 2 gloo ranks: the ranks' parameters or losses differ")
+    if any(not torch.equal(v, r1["bn"][k]) for k, v in r0["bn"].items()):
+        raise AssertionError("data parallel, 2 gloo ranks: the ranks' BatchNorm statistics differ")
+    lr_max = max(cfg.lr, cfg.lr_backbone)
+    dist_out = []
+    for i, (mine, ref) in enumerate(zip(r0["samples"], one)):
+        d = {"losses": max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(mine["losses"], ref["losses"])),
+             "m": float((mine["m"] - ref["m"]).norm() / ref["m"].norm().clamp_min(1e-30)),
+             "params": float((mine["params"] - ref["params"]).abs().max())}
+        dist_out.append(d)
+        if d["losses"] > DP_TOL["losses"] or d["m"] > DP_TOL["m"] or d["params"] > 2 * lr_max * (i + 1) + 1e-6:
+            raise AssertionError(f"data parallel, 2 gloo ranks against one process at step {i}: {d}")
+    bn = max(float((r0["bn"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30)) for k, v in one_bn.items())
+    if bn > DP_TOL["bn"]:
+        raise AssertionError(f"data parallel, 2 gloo ranks: BatchNorm statistics {bn} from one process's")
+    per_rank = [[k.launches_by_stream.get(res["stream"], 0) for k in kernels[:5]] for res in results]
+    want = [n * DP_STEPS for n in (18, 18, 0, 0, 1)]
+    if any(p != want for p in per_rank):
+        raise AssertionError(f"data parallel, 2 gloo ranks: launches #1/#2/#3/#4/#9 by rank {per_rank}, not {want}")
+    out = {"seconds": seconds, "against_one_process": dist_out, "bn_rel": bn, "launches_per_rank": per_rank}
+    log(f"data parallel, 2 gloo thread-ranks on one card (eager, float32, global B={TRAIN_B}, dropout 0, {DP_STEPS} steps, "
+        f"{seconds:.1f} s): parameters, losses and BatchNorm statistics bit-identical across ranks; against one "
+        f"process: {json.dumps(_rounded(dist_out))}, BatchNorm statistics {bn:.3e} of their largest (limits "
+        f"{DP_TOL}); launches #1/#2/#3/#4/#9 by rank {per_rank}")
+    del template, copies, one_state
+    return out
+
+
+def phase_data_parallel(torch, kernels, seed, card):
+    """Phase 16, data parallelism on the one card: (a) the DESTR and SSD
+    recipes over an explicit 1-rank NCCL mesh, captured, against the no-mesh
+    step; (b) two gloo thread-ranks against one process."""
+    from object_detection_destr_tpu_torch.train.steps import make_destr_step_core, make_ssd_step_core
+
+    t0 = time.perf_counter()
+    setup = destr_capture_setup(torch, seed, [])
+    cfg = setup["config"].train
+    destr = dp_one_rank(torch, kernels, setup, lambda mesh: make_destr_step_core(cfg, mesh),
+                        (18, 18, 0, 0, 1, 0), "DESTR hidden 256")
+    del setup
+    torch.cuda.empty_cache()
+    setup = ssd_capture_setup(torch, seed)
+    config = setup["config"]
+    ssd = dp_one_rank(torch, kernels, setup, lambda mesh: make_ssd_step_core(config.train, config.ssd, mesh),
+                      (0, 0, 0, 0, 0, 0), "SSD300", exact=True)
+    del setup
+    torch.cuda.empty_cache()
+    two = dp_two_gloo_ranks(torch, kernels, seed)
+    torch.cuda.empty_cache()
+    out = {"destr": destr, "ssd": ssd, "two_ranks": two, "seconds": time.perf_counter() - t0}
+    log(f"data parallel ({card}): phase {out['seconds']:.1f} s; multi-GPU throughput not measured (one card)")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3533,6 +3820,8 @@ def main(argv=None) -> int:
         real = phase_real_data(torch, kernels, args.seed)
         torch.cuda.empty_cache()
         imported = phase_import(torch, kernels, args.seed, card)
+        torch.cuda.empty_cache()
+        dp = phase_data_parallel(torch, kernels, args.seed, card)
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3777,7 +4066,18 @@ def main(argv=None) -> int:
         f"native {real['pool']['native_images_per_sec']:.1f}, PIL + cv2 {real['pool']['pil_cv2_images_per_sec']:.1f}; "
         f"pretrained: resumed step ms {', '.join(f'{t:.2f}' for t in imported['destr']['step_ms'])}, profiled "
         f"captured step busy ms {imported['profile']['step_busy_ms']:.2f} (kernels {imported['profile']['total_ms_per_step']:.2f}), "
-        f"phase {imported['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card})")
+        f"phase {imported['seconds']:.1f} s; data parallel: captured step ms over a 1-rank NCCL mesh DESTR "
+        f"{dp['destr']['captured_ms']:.2f} (no mesh {dp['destr']['no_mesh_captured_ms']:.2f}, NCCL "
+        f"{dp['destr']['nccl_ms_per_step']:.4f}), SSD {dp['ssd']['captured_ms']:.2f} (no mesh "
+        f"{dp['ssd']['no_mesh_captured_ms']:.2f}, cuDNN deterministic), 2 gloo ranks {dp['two_ranks']['seconds']:.1f} s, "
+        f"phase {dp['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card})")
+    for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
+        entry["data_parallel"] = {
+            "launches_per_rank": [rank[index] for rank in dp["two_ranks"]["launches_per_rank"]],
+            "one_rank_mesh_per_step": dp["destr"]["per_step"][index],
+            "per": f"phase 16: launches_per_rank, each of 2 gloo thread-ranks on the card over {DP_STEPS} eager "
+                   f"float32 steps (B=8 a rank, global {TRAIN_B}), counted by the rank's CUDA stream; "
+                   "one_rank_mesh_per_step, a replayed step over an explicit 1-rank NCCL mesh (trace)"}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 device rule shared by every entry point of the port.
 
 The dataclasses keep the JAX package's field names, defaults and comments,
-so a config carries across unchanged. Fields of features the port does not
-have yet (``num_data_shards``) are kept for that reason; the training driver
-(``train/driver.py``) raises when one is set away from its default.
+so a config carries across unchanged. ``num_data_shards`` pins the data
+axis of a run under a launcher (``parallel/mesh.py``), and ``bn_axis_name``
+makes the model's flax BatchNorms take their batch statistics over the mesh
+that ``build_destr`` / ``build_ssd`` are given.
 ``rng_impl`` names a JAX PRNG: the port accepts both values and ignores them
 (its dropout is Philox, ``models/destr/layers.py::DropoutRng``).
 """
@@ -45,6 +46,11 @@ class DestrConfig:
     # True launch the CUDA kernel for CUDA tensors and run its plain PyTorch
     # version for CPU tensors; False takes ops/attention.py instead
     use_flash_attention: bool | str = "auto"
+    # set to the mesh data-axis name ("data") when the train step runs over a
+    # data-parallel mesh: the mini-detector BatchNorms then compute GLOBAL
+    # batch statistics (a pmean over the mesh given to build_destr), keeping
+    # multi-device train math identical to single-device. build_destr raises
+    # when it is set and no mesh is given.
     bn_axis_name: Optional[str] = None
 
 

@@ -18,6 +18,11 @@ set), so cached and uncached runs see the same batches, and ``state_dict`` /
 ``load_state_dict`` round-trip with :class:`~.loader.DetectionLoader`'s.
 Its size: B canvases of C x C x 3 bytes (C = 672 at 640 px: 1,354,752 bytes
 each) plus 17 bytes a target slot.
+
+Under the base loader's data-parallel mesh every rank holds the whole set
+(replicated, device_cache.py:71-74) and iteration yields the rank's rows of
+each global batch; :meth:`DeviceCachedLoader.epoch_index_matrix` gives the
+global batches, whose columns the epoch runner splits.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ class DeviceCachedLoader:
     def __init__(self, base, device: str | torch.device):
         self.base = base
         self.device = torch.device(device)
+        self.mesh = base.mesh
         self.batch_size = base.batch_size
         self.letterbox = base.letterbox
         self.max_targets = base.max_targets
@@ -134,6 +140,9 @@ class DeviceCachedLoader:
         for step in range(start, n_batches):
             self._step = step + 1
             lo = step * self.batch_size
-            yield self.gather(torch.from_numpy(order[lo: lo + self.batch_size]).to(self.device))
+            idxs = order[lo: lo + self.batch_size]
+            if self.mesh is not None:
+                idxs = idxs[self.mesh.rows(len(idxs))]
+            yield self.gather(torch.from_numpy(idxs).to(self.device))
         self.epoch += 1
         self._step = 0

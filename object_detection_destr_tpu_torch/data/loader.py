@@ -80,6 +80,11 @@ class DetectionLoader:
     prefetch thread. With ``letterbox=True`` images are aspect-preserving
     resized and pasted top-left on a zero canvas; the batch gains
     "content_hw": (B, 2) and boxes are in canvas coordinates.
+
+    With a data-parallel ``mesh`` (``parallel.Mesh``; loader.py:97-117,
+    228-231) ``batch_size`` is the global batch: every rank builds the same
+    epoch order and makes only its rows of each batch (``Mesh.rows``), which
+    ``shard_batch`` of the global batch would give it.
     """
 
     def __init__(
@@ -95,8 +100,10 @@ class DetectionLoader:
         prefetch: int = 2,
         num_workers: int = 8,
         letterbox: bool = False,
+        mesh=None,
     ):
         self.dataset = dataset
+        self.mesh = mesh
         self.batch_size = batch_size
         self.canvas_size = canvas_size
         self.letterbox = letterbox
@@ -208,7 +215,8 @@ class DetectionLoader:
             for step in range(start, n_batches):
                 self._step = step + 1
                 lo = step * self.batch_size
-                yield self._make_batch(order[lo : lo + self.batch_size])
+                idxs = order[lo : lo + self.batch_size]
+                yield self._make_batch(idxs if self.mesh is None else idxs[self.mesh.rows(len(idxs))])
             self.epoch += 1
             self._step = 0
 

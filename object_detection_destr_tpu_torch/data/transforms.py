@@ -191,6 +191,16 @@ def crop_flip(
     return result
 
 
+def _drawn_rows(draw, b: int, mesh, axis: int = 0) -> torch.Tensor:
+    """``draw(n)`` for this rank's ``b`` images: the whole global batch's
+    draws (``b`` times the mesh's size) cut to the rank's rows on ``axis``;
+    ``draw(b)`` without a mesh."""
+    if mesh is None:
+        return draw(b)
+    drawn = draw(b * mesh.size)
+    return drawn.narrow(axis, mesh.rank * b, b)
+
+
 def destr_train_transform(
     images: torch.Tensor,
     boxes_xyxy: torch.Tensor,
@@ -201,15 +211,21 @@ def destr_train_transform(
     out_size: int = 640,
     scale_range: tuple = (0.08, 1.0),
     ratio_range: tuple = (3.0 / 4.0, 4.0 / 3.0),
+    mesh=None,
 ) -> dict:
     """Batched RandomResizedCrop + hflip + normalize (transforms.py:84-173),
     its random draws from ``generator`` (on the images' device): per image
     the area fraction, log aspect, the two offsets and the flip. With the
     letterbox loader's ``content_hw`` the crop is taken over each image's
     content (:func:`crop_flip`). Returns {"images": (B, S, S, 3) float32,
-    "boxes", "labels", "valid"}, and "pixel_valid" with ``content_hw``."""
+    "boxes", "labels", "valid"}, and "pixel_valid" with ``content_hw``.
+
+    With a data-parallel ``mesh`` the batch is this rank's rows of the
+    global batch: the draws are the global batch's, and the rank keeps its
+    columns, as the JAX driver augments the sharded global batch with one
+    key (driver.py:200-216), so N ranks draw what one process draws."""
     b = images.shape[0]
-    u = torch.rand((5, b), generator=generator, device=images.device)
+    u = _drawn_rows(lambda n: torch.rand((5, n), generator=generator, device=images.device), b, mesh, axis=1)
     lo_r, hi_r = math.log(ratio_range[0]), math.log(ratio_range[1])
     area_frac = scale_range[0] + (scale_range[1] - scale_range[0]) * u[0]
     log_ratio = lo_r + (hi_r - lo_r) * u[1]
@@ -320,15 +336,20 @@ def ssd_train_transform(
     generator: torch.Generator,
     out_size: int = 300,
     num_candidates: int = 8,
+    mesh=None,
 ) -> dict:
     """:func:`ssd_patch_flip` at draws from ``generator`` (on the images'
     device): per image a mode, ``num_candidates`` crop sizes in [0.3, 1] and
-    offsets in [0, 1), and a flip (transforms.py:248-338)."""
+    offsets in [0, 1), and a flip (transforms.py:248-338). With a ``mesh``,
+    the global batch's draws and this rank's rows of them
+    (:func:`destr_train_transform`)."""
     b, dev = images.shape[0], images.device
-    mode_idx = torch.randint(0, len(SSD_MODES), (b,), generator=generator, device=dev)
-    dims = 0.3 + 0.7 * torch.rand((b, num_candidates, 2), generator=generator, device=dev)
-    pos = torch.rand((b, num_candidates, 2), generator=generator, device=dev)
-    flip = torch.rand((b,), generator=generator, device=dev) < 0.5
+    k = num_candidates
+    mode_idx = _drawn_rows(lambda n: torch.randint(0, len(SSD_MODES), (n,), generator=generator, device=dev),
+                           b, mesh)
+    dims = 0.3 + 0.7 * _drawn_rows(lambda n: torch.rand((n, k, 2), generator=generator, device=dev), b, mesh)
+    pos = _drawn_rows(lambda n: torch.rand((n, k, 2), generator=generator, device=dev), b, mesh)
+    flip = _drawn_rows(lambda n: torch.rand((n,), generator=generator, device=dev), b, mesh) < 0.5
     return ssd_patch_flip(images, boxes_xyxy, labels, valid, mode_idx, dims, pos, flip, out_size)
 
 

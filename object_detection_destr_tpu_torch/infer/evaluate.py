@@ -22,6 +22,11 @@ cpu``)::
 ``--model ssd`` evaluates an SSD checkpoint on the SSD driver's validation
 sweep, with the SSD trainer's flags. Prints one JSON line with metrics and
 diagnostics.
+
+Under a launcher (``torchrun``; ``parallel/mesh.py::launched``) the sweep
+runs over ``auto_mesh(batch_size)`` (evaluate.py:83-111, 175-206): each rank
+evaluates its rows of every batch and the outputs and targets are gathered
+before scoring, so the metrics are one process's; rank 0 prints them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import resolve_device
 from ..data.transforms import ssd_eval_transform
@@ -38,11 +44,12 @@ from ..geometry.boxes import cxcyhw_to_xyxy, pairwise_iou
 from ..losses.metrics import CocoAveragePrecision, MeanAveragePrecision
 from ..models.destr.model import build_destr
 from ..models.ssd.model import build_ssd
+from ..parallel.mesh import auto_mesh, launched
 from ..train.arg_parser import config_from_args, get_parser
 from ..train.checkpoint import restore_for_inference
-from ..train.driver import _eval_batch, _make_loaders, _to_device
+from ..train.driver import _eval_batch, _gathered_targets, _make_loaders, _to_device
 from ..train.state import TrainState
-from ..train.steps import make_ssd_eval_step
+from ..train.steps import _gathered, make_ssd_eval_step
 
 __all__ = ["evaluate_destr", "evaluate_ssd", "main"]
 
@@ -82,15 +89,25 @@ def _batch_diagnostics(outputs: dict, targets: dict) -> dict:
     }
 
 
+def _step_mesh(cfg_t, device, mesh):
+    """The sweep's mesh: ``mesh`` or ``auto_mesh(batch_size)``, None on one
+    rank."""
+    mesh = mesh if mesh is not None else auto_mesh(cfg_t.batch_size, device=device)
+    if not mesh.active:
+        raise RuntimeError(f"this rank is outside the {mesh.size}-rank data axis of batch {cfg_t.batch_size}")
+    return mesh if mesh.size > 1 else None
+
+
 @torch.no_grad()
-def evaluate_destr(config, checkpoint_name: str, device: str | torch.device | None = None) -> dict:
+def evaluate_destr(config, checkpoint_name: str, device: str | torch.device | None = None, mesh=None) -> dict:
     """Run the whole validation sweep for ``checkpoint_name`` (the model's
-    forward in eval mode, as the driver's eval step runs it); returns the
-    metric dict."""
+    forward in eval mode, as the trainer's eval step runs it) over ``mesh``
+    (``auto_mesh`` by default); returns the metric dict."""
     device = resolve_device(device)
     cfg_t = config.train
+    mesh = _step_mesh(cfg_t, device, mesh)
     canvas = int(cfg_t.image_size * 672 / 640)
-    _, valid_loader = _make_loaders(config, canvas, "destr")
+    _, valid_loader = _make_loaders(config, canvas, "destr", mesh)
     model = build_destr(config.destr, device)
     model.load_state_dict(restore_for_inference(cfg_t.checkpoint_dir, checkpoint_name))
 
@@ -101,7 +118,7 @@ def evaluate_destr(config, checkpoint_name: str, device: str | torch.device | No
     for raw in valid_loader:
         batch = _eval_batch(raw, device, canvas, cfg_t.image_size)
         outputs, _ = model(batch["images"], batch.get("pixel_valid"))
-        targets = {"boxes": batch["boxes"], "labels": batch["labels"], "valid": batch["valid"]}
+        outputs, targets = _gathered(outputs, mesh), _gathered_targets(batch, mesh)
         m_state = metric.update(m_state, outputs, targets)
         coco.update(outputs, targets)
         d = _batch_diagnostics({k: v.cpu().numpy() for k, v in outputs.items()},
@@ -141,18 +158,20 @@ def evaluate_destr(config, checkpoint_name: str, device: str | torch.device | No
 
 
 @torch.no_grad()
-def evaluate_ssd(config, checkpoint_name: str, device: str | torch.device | None = None) -> dict:
-    """The SSD driver's validation sweep for ``checkpoint_name``, standalone:
-    the reference 11-point mAP over ``num_cls`` classes, the mean val loss,
-    and the localization ceiling (for each ground truth the best IoU over
-    all decoded default boxes, which no confidence or NMS can exceed)."""
+def evaluate_ssd(config, checkpoint_name: str, device: str | torch.device | None = None, mesh=None) -> dict:
+    """The SSD driver's validation sweep for ``checkpoint_name``, standalone
+    (over ``mesh``, as :func:`evaluate_destr`): the reference 11-point mAP
+    over ``num_cls`` classes, the mean val loss, and the localization
+    ceiling (for each ground truth the best IoU over all decoded default
+    boxes, which no confidence or NMS can exceed)."""
     device = resolve_device(device)
     cfg_t = config.train
-    _, valid_loader = _make_loaders(config, int(config.ssd.image_size * 1.28), "ssd")  # the driver's canvas
+    mesh = _step_mesh(cfg_t, device, mesh)
+    _, valid_loader = _make_loaders(config, int(config.ssd.image_size * 1.28), "ssd", mesh)  # the trainer's canvas
     model = build_ssd(config.ssd, device)
     model.load_state_dict(restore_for_inference(cfg_t.checkpoint_dir, checkpoint_name))
     state = TrainState(model=model, optimizer=None, rng=None)  # the eval step reads the model only
-    eval_step = make_ssd_eval_step(cfg_t, config.ssd)
+    eval_step = make_ssd_eval_step(cfg_t, config.ssd, mesh)
 
     metric = MeanAveragePrecision(num_cls=config.ssd.num_cls)
     m_state = metric.init_state()
@@ -162,11 +181,11 @@ def evaluate_ssd(config, checkpoint_name: str, device: str | torch.device | None
         batch = ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=config.ssd.image_size)
         _, batch_losses, detections = eval_step(state, batch)
         losses.append(batch_losses["loss"])
-        gt_xyxy = cxcyhw_to_xyxy(batch["boxes"])
-        m_state = metric.update(m_state, detections, {"boxes": gt_xyxy, "labels": batch["labels"],
-                                                      "valid": batch["valid"]})
+        targets = _gathered_targets(batch, mesh)
+        gt_xyxy = cxcyhw_to_xyxy(targets["boxes"])
+        m_state = metric.update(m_state, detections, {**targets, "boxes": gt_xyxy})
         best = pairwise_iou(cxcyhw_to_xyxy(detections["pred_boxes"]), gt_xyxy).amax(dim=1)  # (B, T)
-        best, gt_valid = best.cpu().numpy(), batch["valid"].cpu().numpy()
+        best, gt_valid = best.cpu().numpy(), targets["valid"].cpu().numpy()
         totals["n_gt"] += int(gt_valid.sum())
         totals["sum_best_iou"] += float(best[gt_valid].sum())
         totals["n_gt_localized"] += int((best[gt_valid] >= 0.5).sum())
@@ -198,8 +217,11 @@ def main(argv=None) -> dict:
     args = get_parser(kind).parse_args(argv)
     config = config_from_args(args, kind)
     evaluate = evaluate_ssd if kind == "ssd" else evaluate_destr
-    result = evaluate(config, args.resume_from, device=args.device)
-    print(json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in result.items()}), flush=True)
+    with launched(args.device) as device:
+        result = evaluate(config, args.resume_from, device=device)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in result.items()}),
+                  flush=True)
     return result
 
 

@@ -30,6 +30,7 @@ def set_criterion(
     ciou_mode: str = "elementwise",
     class_norm: str = "queries",
     rows: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """DETR-style set criterion.
 
@@ -43,6 +44,13 @@ def set_criterion(
         class_norm: "queries" divides the per-image focal sum by N, "boxes"
             by the image's valid GT count (min 1).
         rows: optional precomputed (B, T) assignment.
+        mesh: the data-parallel mesh (``parallel.Mesh``) when this rank's
+            rows of the global batch are given (JAX ``axis_name``,
+            criterion.py:146-160): the batch reductions then span the whole
+            batch, in one all-reduce. Each value is the GLOBAL loss, and its
+            gradient is this rank's share of the global loss' gradient (its
+            numerators over the global, detached denominators), so the sum
+            of the ranks' gradients is the global batch's.
 
     Returns:
         {"class", "bbox", "ciou"} scalars: class averaged over every image,
@@ -94,12 +102,23 @@ def set_criterion(
         raise ValueError(f"ciou_mode={ciou_mode!r}")
 
     has_match = (n_match > 0).float()
-    num_with = torch.clamp(has_match.sum(), min=1.0)
-    return {
-        "class": class_loss.mean(),
-        "bbox": (l1 * has_match).sum() / num_with,
-        "ciou": (ciou * has_match).sum() / num_with,
-    }
+    if mesh is None:
+        num_with = torch.clamp(has_match.sum(), min=1.0)
+        return {
+            "class": class_loss.mean(),
+            "bbox": (l1 * has_match).sum() / num_with,
+            "ciou": (ciou * has_match).sum() / num_with,
+        }
+    # num_with is the psum of has_match, class the pmean of the shard means,
+    # bbox and ciou psummed numerators over the global num_with
+    local = torch.stack([has_match.sum(), class_loss.mean(), (l1 * has_match).sum(), (ciou * has_match).sum()])
+    total = mesh.all_reduce_(local.detach().clone())
+    num_with = torch.clamp(total[0], min=1.0)
+    shares = {"class": local[1] / mesh.size, "bbox": local[2] / num_with, "ciou": local[3] / num_with}
+    values = {"class": total[1] / mesh.size, "bbox": total[2] / num_with, "ciou": total[3] / num_with}
+    # the value is the global one, bit for bit on every rank (the trainer's
+    # best-checkpoint choice must agree across ranks); the gradient is the share's
+    return {k: values[k] + (shares[k] - shares[k].detach()) for k in shares}
 
 
 def _flatten_scales(per_scale: Sequence[torch.Tensor]) -> torch.Tensor:

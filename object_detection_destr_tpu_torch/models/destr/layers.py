@@ -14,6 +14,7 @@ from torch import nn
 
 from ...ops.attention import scaled_dot_product_attention, split_heads
 from ...ops.cuda.flash_attention import flash_attention_packed
+from ...parallel.mesh import fold_seed
 
 __all__ = [
     "DropoutRng",
@@ -50,10 +51,13 @@ class DropoutRng:
         self._pos = 0
         self.begin_step(0)
 
-    def begin_step(self, step: int) -> None:
+    def begin_step(self, step: int, rank: Optional[int] = None) -> None:
         """Reseed for train step ``step`` (a host call; nothing waits for the
-        device)."""
-        self.generator.manual_seed((self.base_seed + 1) * 1_000_003 + step)
+        device). A rank of a data axis above 1 passes its index, which goes
+        into the seed as ``fold_in(step_rng, axis_index)`` does (JAX
+        steps.py:195, 290), so the ranks draw distinct masks; ``None`` (one
+        device, or an axis of 1) keeps the single device's seed."""
+        self.generator.manual_seed(fold_seed((self.base_seed + 1) * 1_000_003 + step, rank))
 
     def _draw(self, make) -> torch.Tensor:
         if self._tape is None:

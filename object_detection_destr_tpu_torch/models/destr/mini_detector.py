@@ -6,7 +6,11 @@ Three 4x(3x3 conv + BatchNorm) stacks. BatchNorm follows flax
 statistics (``running_mean`` / ``running_var`` here, flax's ``mean`` /
 ``var``); in training with the batch's float32 mean and biased variance
 (E[x^2] - E[x]^2, clipped at 0), and it updates the running statistics with
-flax's momentum 0.9 (torch's 0.1) and that same biased variance. The
+flax's momentum 0.9 (torch's 0.1) and that same biased variance. With
+``bn_axis_name`` set (flax ``BatchNorm(axis_name=...)``, JAX
+mini_detector.py:51-54, model.py:103) the mean and the mean of squares are
+pmeaned over the data-parallel mesh first, so every rank normalizes with
+the global batch's statistics and keeps the same running ones. The
 cls/bbox/pos heads are the model's shared modules, passed in at call time so
 each has one set of parameters, and run in float32. The selected queries and
 centres are detached, as the JAX package stop-gradients them
@@ -21,21 +25,26 @@ from torch import nn
 from ...ops.topk import masked_topk_with_recycle
 from .layers import f32_head
 
-__all__ = ["ConvBnStack", "MiniDetector", "batch_norm"]
+__all__ = ["ConvBnStack", "MiniDetector", "batch_norm", "sync_batch_norms"]
 
 BN_MOMENTUM = 0.9  # flax: new = momentum * running + (1 - momentum) * batch
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
-    """flax ``nn.BatchNorm`` over NCHW ``x`` (statistics over N, H, W).
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, mesh=None) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` over NCHW ``x`` (statistics over N, H, W, and
+    over the ranks of ``mesh``, a ``parallel.Mesh``, where one is given).
 
     In training the running statistics are updated in place (without
-    autograd); the result is in ``x``'s dtype.
+    autograd); the result is in ``x``'s dtype. The statistics' pmean is
+    differentiable (its backward sums over the mesh), so the gradient of
+    ``x`` counts every rank's use of the global statistics, as JAX's does.
     """
     xf = x.float()
     if train:
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        mean, mean_sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+        if mesh is not None:
+            mean, mean_sq = mesh.pmean(torch.stack([mean, mean_sq]))
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
             bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
@@ -56,12 +65,29 @@ class ConvBnStack(nn.Module):
         for i in range(num_layers):
             self.add_module(f"conv{i}", nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1))
             self.add_module(f"bn{i}", nn.BatchNorm2d(hidden_dim, eps=1e-5))
+        self.bn_mesh = None  # the mesh the statistics sync over (sync_batch_norms)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
         for i in range(self.num_layers):
-            x = batch_norm(getattr(self, f"conv{i}")(x), getattr(self, f"bn{i}"), train)
+            x = batch_norm(getattr(self, f"conv{i}")(x), getattr(self, f"bn{i}"), train, self.bn_mesh)
         return x.permute(0, 2, 3, 1)
+
+
+def sync_batch_norms(model: nn.Module, axis_name, mesh) -> nn.Module:
+    """Give every flax BatchNorm of ``model`` (each module with a
+    ``bn_mesh``) the mesh its statistics sync over when the config's
+    ``bn_axis_name`` is set; returns the model. Without the axis name the
+    statistics stay the local batch's. The axis name without a mesh is
+    refused, as flax refuses an unbound axis."""
+    if axis_name is None:
+        return model
+    if mesh is None:
+        raise ValueError(f"bn_axis_name={axis_name!r} needs the mesh of that axis")
+    for module in model.modules():
+        if hasattr(module, "bn_mesh"):
+            module.bn_mesh = mesh
+    return model
 
 
 class MiniDetector(nn.Module):

@@ -36,7 +36,7 @@ from ..resnet import downsample_mask, resnet50, resnet101
 from .decoder import Decoder
 from .encoder import Encoder
 from .layers import DropoutRng, LearnedPositionEmbedding, Mlp, f32_head
-from .mini_detector import MiniDetector
+from .mini_detector import MiniDetector, sync_batch_norms
 
 __all__ = ["DESTR", "build_destr"]
 
@@ -137,7 +137,11 @@ class DESTR(nn.Module):
         return model_output, det_output
 
 
-def build_destr(config: DestrConfig | None = None, device: str | torch.device | None = None) -> DESTR:
+def build_destr(config: DestrConfig | None = None, device: str | torch.device | None = None,
+                mesh=None) -> DESTR:
     """The model in eval mode on ``device`` (the GPU unless ``"cpu"`` is asked
-    for; with no CUDA device and no explicit CPU this raises)."""
-    return DESTR(config or DestrConfig()).to(resolve_device(device)).eval()
+    for; with no CUDA device and no explicit CPU this raises). With the
+    config's ``bn_axis_name`` the mini-detector's BatchNorms sync over
+    ``mesh`` (``mini_detector.sync_batch_norms``)."""
+    config = config or DestrConfig()
+    return sync_batch_norms(DESTR(config).to(resolve_device(device)).eval(), config.bn_axis_name, mesh)

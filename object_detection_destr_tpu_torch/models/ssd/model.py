@@ -41,7 +41,7 @@ from torch import nn
 
 from ...config import SSDConfig, resolve_device
 from ..destr.layers import f32_head
-from ..destr.mini_detector import batch_norm
+from ..destr.mini_detector import batch_norm, sync_batch_norms
 
 __all__ = ["SSD", "ExtraBlock", "VGG16Features", "build_ssd"]
 
@@ -91,13 +91,14 @@ class ExtraBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(mid, eps=1e-5)
         self.conv2 = nn.Conv2d(mid, out, 3, stride=2 if stride2 else 1, bias=False)
         self.bn2 = nn.BatchNorm2d(out, eps=1e-5)
+        self.bn_mesh = None  # the mesh the statistics sync over (sync_batch_norms)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = F.relu(batch_norm(self.conv1(x), self.bn1, train))
+        x = F.relu(batch_norm(self.conv1(x), self.bn1, train, self.bn_mesh))
         if self.stride2:
             (hl, hh), (wl, wh) = _same_pad(x.shape[2]), _same_pad(x.shape[3])
             x = F.pad(x, (wl, wh, hl, hh))
-        return F.relu(batch_norm(self.conv2(x), self.bn2, train))
+        return F.relu(batch_norm(self.conv2(x), self.bn2, train, self.bn_mesh))
 
 
 class SSD(nn.Module):
@@ -151,7 +152,10 @@ class SSD(nn.Module):
         return outputs
 
 
-def build_ssd(config: SSDConfig | None = None, device: str | torch.device | None = None) -> SSD:
+def build_ssd(config: SSDConfig | None = None, device: str | torch.device | None = None, mesh=None) -> SSD:
     """The model in eval mode on ``device`` (the GPU unless ``"cpu"`` is asked
-    for; with no CUDA device and no explicit CPU this raises)."""
-    return SSD(config or SSDConfig()).to(resolve_device(device)).eval()
+    for; with no CUDA device and no explicit CPU this raises). With the
+    config's ``bn_axis_name`` the extra blocks' BatchNorms sync over
+    ``mesh`` (``mini_detector.sync_batch_norms``)."""
+    config = config or SSDConfig()
+    return sync_batch_norms(SSD(config).to(resolve_device(device)).eval(), config.bn_axis_name, mesh)

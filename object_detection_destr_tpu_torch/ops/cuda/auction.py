@@ -46,7 +46,7 @@ import torch
 
 from ...geometry.boxes import cxcyhw_to_xyxy, xyxy_to_cxcyhw
 from ..focal import focal_cost_terms
-from .build import CudaLibrary
+from .build import CudaLibrary, LaunchCounter
 
 __all__ = [
     "BIG",
@@ -246,7 +246,7 @@ def fused_auction_operands(pred_logits, pred_boxes, tgt_boxes, tgt_labels, col_v
             tgt_labels.to(torch.int32).contiguous(), col_valid.contiguous(), row_valid.contiguous())
 
 
-class FusedAuction:
+class FusedAuction(LaunchCounter):
     """The kernel's wrapper: computes the terms beside it, checks the
     operands, allocates outputs (and the scratch for valid columns beyond
     :func:`value_rows_in_smem`) and launches one block per problem on the
@@ -258,7 +258,7 @@ class FusedAuction:
     library = LIBRARY
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
         self.last_rounds: Optional[torch.Tensor] = None
         self.last_bids: Optional[torch.Tensor] = None
 
@@ -310,7 +310,7 @@ class FusedAuction:
             )
         if err != 0:
             raise RuntimeError(f"fused_auction launch failed: CUDA error {err}")
-        self.launches += 1
+        self.count_launch(stream)
         self.last_rounds, self.last_bids = rounds, bids
         return rows, rounds
 
@@ -336,7 +336,7 @@ def precomputed_value(cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tens
     return torch.where(col_valid[:, :, None], -cost.float().transpose(1, 2), 0.0).contiguous()
 
 
-class AuctionAssignment:
+class AuctionAssignment(LaunchCounter):
     """Kernel #8's wrapper: the solver of ``csrc/auction.cu`` on a given
     (B, T, N) value matrix (:func:`precomputed_value`: an invalid column
     holds 0 on real rows and -1e9 on the others, which the kernel assumes
@@ -348,7 +348,7 @@ class AuctionAssignment:
     library = LIBRARY
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
         self.last_rounds: Optional[torch.Tensor] = None
         self.last_bids: Optional[torch.Tensor] = None
 
@@ -377,7 +377,7 @@ class AuctionAssignment:
                                    int(max_iters), value_rows_in_smem(n, t), stream)
         if err != 0:
             raise RuntimeError(f"auction_kernel launch failed: CUDA error {err}")
-        self.launches += 1
+        self.count_launch(stream)
         self.last_rounds, self.last_bids = rounds, bids
         return rows.long(), rounds
 

@@ -17,7 +17,7 @@ import threading
 import time
 from typing import Iterable, Optional, Sequence
 
-__all__ = ["CudaLibrary", "build_all"]
+__all__ = ["CudaLibrary", "LaunchCounter", "build_all"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -33,6 +33,24 @@ def _nvcc() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
     return path
+
+
+class LaunchCounter:
+    """A kernel wrapper's launch counts: ``launches``, and
+    ``launches_by_stream``, the same by the handle of the CUDA stream each
+    launch went to (ranks that share one card, each on a stream of its own,
+    read their own launches there). The wrapper calls :meth:`count_launch`
+    where it launches its kernel and nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+        self.launches_by_stream: dict[int, int] = {}
+        self._count_lock = threading.Lock()
+
+    def count_launch(self, stream: int) -> None:
+        with self._count_lock:
+            self.launches += 1
+            self.launches_by_stream[stream] = self.launches_by_stream.get(stream, 0) + 1
 
 
 class CudaLibrary:

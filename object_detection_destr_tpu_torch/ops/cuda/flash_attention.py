@@ -65,7 +65,7 @@ from typing import Optional, Union
 import torch
 
 from ..attention import NEG_INF
-from .build import CudaLibrary
+from .build import CudaLibrary, LaunchCounter
 
 __all__ = [
     "FlashAttentionBackward",
@@ -611,7 +611,7 @@ def _empty_as(x: torch.Tensor) -> torch.Tensor:
     return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
 
 
-class FlashAttentionForward:
+class FlashAttentionForward(LaunchCounter):
     """The forward kernel's wrapper: checks the operands, allocates the
     outputs and launches on the current stream. ``unpacked=False`` is kernel
     #1 on head-packed (B, S, h*d) operands, ``unpacked=True`` kernel #5 on
@@ -622,7 +622,7 @@ class FlashAttentionForward:
 
     def __init__(self, unpacked: bool = False):
         self.unpacked = unpacked
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, query, key, value, *args, **kwargs):
         """Packed: (query, key, value, num_heads, key_valid_mask=None,
@@ -663,7 +663,7 @@ class FlashAttentionForward:
             )
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        self.launches += 1
+        self.count_launch(stream)
         return out, lse
 
 
@@ -723,7 +723,7 @@ def _plan(d: int, dv: int, dtype: torch.dtype, device: torch.device, fused: Opti
     return "fused" if fused else "two_pass"
 
 
-class FlashAttentionBackward:
+class FlashAttentionBackward(LaunchCounter):
     """The fused backward kernel's (#2) wrapper: dQ, dK, dV in one launch.
     Computes delta beside the kernel, zeroes the float32 dQ buffer the kernel
     adds into and casts it to the query dtype after. Raises where
@@ -734,7 +734,7 @@ class FlashAttentionBackward:
     library = BWD_LIBRARY
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, query, key, value, num_heads, key_valid_mask, out, lse, d_out,
                  scale=None, dropout_rate: float = 0.0, dropout_seed=None):
@@ -758,11 +758,11 @@ class FlashAttentionBackward:
             )
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
-        self.launches += 1
+        self.count_launch(stream)
         return dq.to(query.dtype), dk, dvv
 
 
-class FlashAttentionTwoPass:
+class FlashAttentionTwoPass(LaunchCounter):
     """The wrapper of one pass of the two-pass backward: ``dq=True`` kernel
     #3 (returns dQ), ``dq=False`` kernel #4 (returns dK, dV) on head-packed
     (B, S, h*d) operands; with ``unpacked=True`` the same kernels as #6 and
@@ -777,7 +777,7 @@ class FlashAttentionTwoPass:
     def __init__(self, dq: bool, unpacked: bool = False):
         self.dq = dq
         self.unpacked = unpacked
-        self.launches = 0
+        super().__init__()
 
     @property
     def name(self) -> str:
@@ -823,7 +823,7 @@ class FlashAttentionTwoPass:
             )
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += 1
+        self.count_launch(stream)
         return dq if self.dq else (dk, dvv)
 
 

@@ -74,6 +74,11 @@ def _common(p: argparse.ArgumentParser) -> None:
     # the reference's --device selects cuda/cpu (arg_parser.py:85-89); here
     # the GPU unless "cpu" is asked for (config.resolve_device)
     p.add_argument("--device", type=str, default=None)
+    # the port's additions for data parallelism (parallel/mesh.py): run under
+    # torchrun, this pins the data axis (config.py: num_data_shards)
+    p.add_argument("--num_data_shards", type=int, default=1,
+                   help="ranks on the data axis under a launcher; 1 = the "
+                        "largest rank count that divides --batch_size")
     # additions of the JAX build
     p.add_argument("--dataset", type=str, default="synthetic",
                    choices=["synthetic", "widerface", "voc", "coco"])
@@ -133,6 +138,8 @@ def get_parser(model_name: str = "destr") -> argparse.ArgumentParser:
         p.add_argument("--hidden_dim", type=int, default=256)
         p.add_argument("--ffn_dim", type=int, default=2048)
         p.add_argument("--num_heads", type=int, default=8)
+        p.add_argument("--dropout", type=float, default=0.3,
+                       help="transformer dropout rate (config.py: DestrConfig.dropout)")
         p.add_argument("--backbone", type=str, default="resnet50",
                        choices=["resnet50", "resnet101"])
         p.add_argument("--dilation", action="store_true")
@@ -205,6 +212,7 @@ def config_from_args(args: argparse.Namespace, model_name: str) -> Config:
         val_interval=getattr(args, "val_interval", 1),
         save_interval=getattr(args, "save_interval", 1),
         rng_impl=getattr(args, "rng_impl", "rbg"),
+        num_data_shards=getattr(args, "num_data_shards", 1),
         image_size=getattr(args, "image_size", 640),
         letterbox=getattr(args, "letterbox", False),
         letterbox_eval=getattr(args, "letterbox_eval", True),
@@ -213,6 +221,7 @@ def config_from_args(args: argparse.Namespace, model_name: str) -> Config:
         hidden_dim=getattr(args, "hidden_dim", 256),
         ffn_dim=getattr(args, "ffn_dim", 2048),
         num_heads=getattr(args, "num_heads", 8),
+        dropout=getattr(args, "dropout", 0.3),
         num_encoder_blocks=getattr(args, "num_encoder_blocks", 6),
         num_decoder_blocks=getattr(args, "num_decoder_blocks", 6),
         top_k=getattr(args, "top_k", 300),

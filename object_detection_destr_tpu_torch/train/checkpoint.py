@@ -24,6 +24,10 @@ becomes ``name.old``, ``name.new`` becomes ``name`` and ``name.old`` goes. A
 crash anywhere in that sequence leaves a complete checkpoint that
 :func:`_resolve_ckpt_path` finds (``name``, then ``name.new``, then
 ``name.old``).
+
+On a data-parallel run rank 0 alone saves, and the other ranks wait for it
+at a barrier (``train/driver.py``); a resume restores the same checkpoint on
+every rank, so the replicated state stays replicated.
 """
 
 from __future__ import annotations

@@ -47,9 +47,22 @@ dropout stream; the port's dropout draws from :class:`~..models.destr.layers.
 DropoutRng`'s Philox generator whatever it says, so both of its values are
 accepted and change nothing, and JAX command lines run unchanged. Metrics
 go to stdout, ``log_dir/metrics.jsonl`` and TensorBoard
-(``train/logging_utils.py``). Multi-device training
-(``num_data_shards``) comes with a later slice: it raises
-``NotImplementedError`` here when set away from its default.
+(``train/logging_utils.py``).
+
+Data parallelism (driver.py:42-47, 219-260, 464-497): a trainer runs over a
+mesh (``parallel/mesh.py``), by default the launcher's world cut to the
+largest rank count that divides the batch (``auto_mesh``; ranks beyond it
+sit idle and return at once), or ``num_data_shards`` ranks. On one rank the
+single device's path runs unchanged; above one, as JAX's ``step_mesh``,
+the loaders make each rank's rows of the global batch (``batch_size`` stays
+global), the eager augmentation draws the global batch's values and keeps
+the rank's, the steps reduce over the mesh with the BatchNorms synced
+(``bn_axis_name="data"``), and the epoch runner replays each rank's columns.
+The parameters stay replicated, so every rank takes the same divergence
+halt. Rank 0 alone prints, writes ``metrics.jsonl`` and TensorBoard, saves
+the checkpoints and traces under ``profile_dir``; the others wait for its
+writes at a barrier. Validation gathers each batch's outputs and targets to
+every rank, so its mAP and COCO AP are one process's.
 """
 
 from __future__ import annotations
@@ -62,7 +75,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..config import Config, DataConfig, TrainConfig, resolve_device
+from ..config import Config, resolve_device
 from ..data import DetectionLoader, build_dataset
 from ..data.device_cache import DeviceCachedLoader
 from ..data.transforms import destr_eval_transform, destr_train_transform, ssd_eval_transform, ssd_train_transform
@@ -70,6 +83,7 @@ from ..geometry.boxes import cxcyhw_to_xyxy
 from ..losses.metrics import CocoAveragePrecision, MeanAveragePrecision
 from ..models.destr.model import build_destr
 from ..models.ssd.model import build_ssd
+from ..parallel.mesh import Mesh, auto_mesh, make_mesh
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .epoch_scan import EpochRunner
 from .logging_utils import MetricLogger
@@ -86,19 +100,17 @@ from .steps import (
 
 __all__ = ["train_destr", "train_ssd", "MetricLogger", "StepTimer"]
 
-# (section, field) of each feature of a later slice, checked against the default
-_LATER_SLICES = [("train", "num_data_shards")]
-_DEFAULTS = {"train": TrainConfig(), "data": DataConfig()}
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on a rank other than 0."""
 
 
-def _refuse_later_slices(config: Config) -> None:
-    for section, field in _LATER_SLICES:
-        value = getattr(getattr(config, section), field)
-        if value != getattr(_DEFAULTS[section], field):
-            raise NotImplementedError(
-                f"{section}.{field}={value!r}: this feature is not ported yet "
-                "(the port trains on one device; multi-device training comes later)"
-            )
+def _default_mesh(cfg_t, device) -> Mesh:
+    """num_data_shards > 1 pins the data-axis size; otherwise the largest
+    rank count dividing the batch is used (driver.py:42-47)."""
+    if cfg_t.num_data_shards > 1:
+        return make_mesh(num_data=cfg_t.num_data_shards, device=device)
+    return auto_mesh(cfg_t.batch_size, device=device)
 
 
 def _to_device(raw: dict, device: torch.device) -> dict:
@@ -137,15 +149,17 @@ def _halt_diverged(save_as: str, epoch: int) -> None:
     )
 
 
-def _try_save(*args) -> None:
+def _try_save(mesh: Mesh, *args) -> None:
     """Per-epoch checkpoint write that cannot kill the run: a failure costs
     one checkpoint, the next epoch writes again. The interrupt handler saves
-    unguarded."""
-    try:
-        save_checkpoint(*args)
-    except Exception as e:  # noqa: BLE001 — deliberate catch-all at the epoch boundary
-        print(f"WARNING: checkpoint save failed ({type(e).__name__}: {e}); "
-              "continuing — next epoch will retry", flush=True)
+    unguarded. Rank 0 writes; every rank waits for it at a barrier."""
+    if mesh.is_main:
+        try:
+            save_checkpoint(*args)
+        except Exception as e:  # noqa: BLE001 — deliberate catch-all at the epoch boundary
+            print(f"WARNING: checkpoint save failed ({type(e).__name__}: {e}); "
+                  "continuing — next epoch will retry", flush=True)
+    mesh.barrier()
 
 
 def _make_ema(decay: float):
@@ -183,8 +197,10 @@ def _parameters_swapped(model, values: list[torch.Tensor]):
                 p.copy_(v)
 
 
-def _make_loaders(config: Config, canvas: int, for_train_model: str = "destr"):
-    """The train and valid loaders of the JAX driver (driver.py:130-197):
+def _make_loaders(config: Config, canvas: int, for_train_model: str = "destr", mesh=None):
+    """The train and valid loaders of the JAX driver (driver.py:130-197),
+    each making this rank's rows of a global batch on a data-parallel
+    ``mesh``:
     under letterbox training or letterbox eval the synthetic set emits the
     aspect ratios (1.0, 0.7, 1.4); the valid split's dataset seed is
     ``seed + 10_000`` (``build_dataset``); the valid loader augments once,
@@ -204,7 +220,8 @@ def _make_loaders(config: Config, canvas: int, for_train_model: str = "destr"):
                       aspect_ratios=aspects)
         for split, n in (("train", data.num_train_samples), (valid_split, data.num_valid_samples))
     ]
-    common = dict(batch_size=config.train.batch_size, canvas_size=canvas, max_targets=data.max_targets)
+    common = dict(batch_size=config.train.batch_size, canvas_size=canvas, max_targets=data.max_targets,
+                  mesh=mesh)
     train_loader = DetectionLoader(datasets[0], augment_factor=data.augment_factor, shuffle=True,
                                    seed=config.train.seed, letterbox=train_letterbox, **common)
     # the reference shuffles the val loader too (train.py:284-290)
@@ -227,24 +244,31 @@ def _profile_summary(path: str) -> dict:
     return {"path": path, **parsed}
 
 
-def _device_cached(train_loader, valid_loader, device: torch.device):
+def _device_cached(train_loader, valid_loader, device: torch.device, say=print):
     """Both loaders served from device memory (``--device_cache``), and the
-    caches' bytes and build seconds, printed."""
+    caches' bytes and build seconds, printed (``say``)."""
     train_loader = DeviceCachedLoader(train_loader, device)
     valid_loader = DeviceCachedLoader(valid_loader, device)
     info = {name: {"bytes": c.nbytes, "build_seconds": c.build_seconds}
             for name, c in (("train", train_loader), ("valid", valid_loader))}
-    print("device cache: " + ", ".join(f"{name} {v['bytes'] / 1e9:.3f} GB in {v['build_seconds']:.1f} s"
-                                       for name, v in info.items()), flush=True)
+    say("device cache: " + ", ".join(f"{name} {v['bytes'] / 1e9:.3f} GB in {v['build_seconds']:.1f} s"
+                                     for name, v in info.items()), flush=True)
     return train_loader, valid_loader, info
+
+
+def _gathered_targets(batch: dict, mesh) -> dict:
+    """The batch's targets, of the whole global batch on a mesh."""
+    return {k: batch[k] if mesh is None else mesh.all_gather(batch[k]) for k in ("boxes", "labels", "valid")}
 
 
 def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
                coco_metric: Optional[CocoAveragePrecision], device: torch.device, resize_to: int,
-               out_size: int) -> tuple[dict, float, Optional[float], float]:
+               out_size: int, mesh=None) -> tuple[dict, float, Optional[float], float]:
     """One validation pass over ``loader``'s raw batches (driver.py:298-323):
     (the means of the eval step's metrics, mAP, COCO AP or None, host
-    seconds; the last batch's metric update waits for the device)."""
+    seconds; the last batch's metric update waits for the device). On a
+    ``mesh`` the eval step gives the global batch's outputs and the targets
+    are gathered, so the metrics are one process's."""
     t0 = time.perf_counter()
     metric_state = metric.init_state()
     if coco_metric is not None:
@@ -253,7 +277,7 @@ def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
     for raw in loader:
         batch = _eval_batch(raw, device, resize_to, out_size)
         outputs, m = eval_step(state, batch)
-        targets = {"boxes": batch["boxes"], "labels": batch["labels"], "valid": batch["valid"]}
+        targets = _gathered_targets(batch, mesh)
         metric_state = metric.update(metric_state, outputs, targets)
         if coco_metric is not None:
             coco_metric.update(outputs, targets)
@@ -265,10 +289,11 @@ def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
 
 
 def _ssd_val_sweep(state, loader, eval_step, metric: MeanAveragePrecision, device: torch.device,
-                   out_size: int) -> tuple[dict, float, None, float]:
+                   out_size: int, mesh=None) -> tuple[dict, float, None, float]:
     """SSD's validation pass (driver.py:529-554): the stretch eval transform,
     the eval step, and the reference mAP of its decoded detections against
-    the targets in xyxy; (loss means, mAP, None, host seconds)."""
+    the targets in xyxy, gathered over a ``mesh``; (loss means, mAP, None,
+    host seconds)."""
     t0 = time.perf_counter()
     metric_state = metric.init_state()
     val_metrics: list = []
@@ -276,8 +301,8 @@ def _ssd_val_sweep(state, loader, eval_step, metric: MeanAveragePrecision, devic
         b = _to_device(raw, device)
         batch = ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=out_size)
         _, m, detections = eval_step(state, batch)
-        metric_state = metric.update(metric_state, detections, {
-            "boxes": cxcyhw_to_xyxy(batch["boxes"]), "labels": batch["labels"], "valid": batch["valid"]})
+        targets = _gathered_targets(batch, mesh)
+        metric_state = metric.update(metric_state, detections, {**targets, "boxes": cxcyhw_to_xyxy(targets["boxes"])})
         val_metrics.append(m)
     val_means = {k: float(torch.stack([m[k] for m in val_metrics]).float().mean())
                  for k in val_metrics[0]} if val_metrics else {}
@@ -291,12 +316,14 @@ class _Run:
     state: TrainState
     train_step: Callable[[TrainState, dict], dict]  # the per-step path
     step_core: Callable[[TrainState, dict], dict]  # the captured path's body
-    transform: Callable[[dict, torch.Generator], dict]  # device batch, draws -> model batch
+    transform: Callable[..., dict]  # (device batch, draws[, mesh: the global batch's draws]) -> model batch
     sweep: Callable[[], tuple]  # one validation pass of ``state``: (means, mAP, COCO or None, seconds)
     aug_offset: int  # the augmentation seed's offset (_aug_seed)
     val_key: str  # the validation loss that picks the best checkpoints
     val_label: str  # its name in the epoch line
     profile_dir: Optional[str]  # trace steps 2-4 of epoch 0 here (and run per step)
+    mesh: Mesh  # the run's mesh (of one rank on a single device)
+    step_mesh: Optional[Mesh]  # the mesh the steps reduce over: None on one rank (JAX's step_mesh)
 
 
 def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_info) -> dict:
@@ -310,7 +337,9 @@ def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_in
     parsed trace under profile_dir, or None)}."""
     cfg_t = config.train
     state, model = run.state, run.state.model
-    logger = MetricLogger(cfg_t.log_dir)
+    main = run.mesh.is_main
+    say = print if main else _quiet
+    logger = MetricLogger(cfg_t.log_dir if main else None, echo=main)
     best_val = math.inf
     if cfg_t.resume:
         restored = restore_checkpoint(cfg_t.checkpoint_dir, cfg_t.resume_from, state)
@@ -328,11 +357,11 @@ def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_in
     epoch_runner = None
     if cfg_t.epoch_scan and not run.profile_dir:  # profiling needs per-step
         if not config.data.device_cache:
-            print("epoch_scan ignored: requires --device_cache", flush=True)
+            say("epoch_scan ignored: requires --device_cache", flush=True)
         else:
             epoch_runner = EpochRunner(
                 state, run.step_core, run.transform, train_loader.data, aug_seed, len(train_loader),
-                ema=None if ema_params is None else (ema_params, ema_update),
+                ema=None if ema_params is None else (ema_params, ema_update), mesh=run.step_mesh,
             )
     trace, profile = None, None
 
@@ -357,12 +386,12 @@ def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_in
                 train_loader.advance_epoch()
             else:
                 for step_in_epoch, raw in enumerate(train_loader):
-                    if run.profile_dir and epoch == 0 and step_in_epoch == _PROFILE_STEPS[0]:
+                    if run.profile_dir and main and epoch == 0 and step_in_epoch == _PROFILE_STEPS[0]:
                         trace = StepTrace(run.profile_dir)
                         trace.start()
                     with trace.step(state.step) if trace is not None else contextlib.nullcontext():
                         aug_gen.manual_seed(aug_seed(state.step))
-                        batch = run.transform(_to_device(raw, device), aug_gen)
+                        batch = run.transform(_to_device(raw, device), aug_gen, run.step_mesh)
                         metrics = run.train_step(state, batch)
                         if ema_params is not None:
                             ema_update(ema_params, model)
@@ -408,30 +437,32 @@ def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_in
                 history.append(record)
 
             # ---- divergence halt: never checkpoint non-finite parameters
-            if not _params_finite(model):
-                _halt_diverged(cfg_t.save_as, epoch)
+            if not _params_finite(model):  # the same on every rank: the parameters are replicated
+                if main:
+                    _halt_diverged(cfg_t.save_as, epoch)
                 break
 
             # ---- best checkpoint on the lowest val loss (train.py:123-128)
             if val_loss is not None and val_loss < best_val:
                 best_val = val_loss
-                _try_save(cfg_t.checkpoint_dir, cfg_t.save_as, state, train_loader.state_dict(), best_val)
+                _try_save(run.mesh, cfg_t.checkpoint_dir, cfg_t.save_as, state, train_loader.state_dict(), best_val)
             if ema_val_loss is not None and ema_val_loss < best_ema_val:
                 best_ema_val = ema_val_loss
                 with _parameters_swapped(model, ema_params):
-                    _try_save(cfg_t.checkpoint_dir, cfg_t.save_as + "_ema", state, train_loader.state_dict(),
-                              best_ema_val)
+                    _try_save(run.mesh, cfg_t.checkpoint_dir, cfg_t.save_as + "_ema", state,
+                              train_loader.state_dict(), best_ema_val)
             if do_val or (epoch + 1) % max(cfg_t.save_interval, 1) == 0 or epoch == cfg_t.epochs - 1:
-                _try_save(cfg_t.checkpoint_dir, cfg_t.save_as + "_last", state, train_loader.state_dict(),
-                          best_val)
+                _try_save(run.mesh, cfg_t.checkpoint_dir, cfg_t.save_as + "_last", state,
+                          train_loader.state_dict(), best_val)
             ema_note = f" ema_val={ema_val_loss:.4f} ema_mAP={ema_map:.4f}" if ema_val_loss is not None else ""
             val_note = f" {run.val_label}={val_loss:.4f} mAP={last_map:.4f}" if do_val else ""
-            print(f"epoch {epoch}: {time.time() - t0:.1f}s{val_note}{ema_note}", flush=True)
+            say(f"epoch {epoch}: {time.time() - t0:.1f}s{val_note}{ema_note}", flush=True)
     except KeyboardInterrupt:
         # crash / preemption recovery: a resumable checkpoint before exiting
-        save_checkpoint(cfg_t.checkpoint_dir, cfg_t.save_as + "_interrupt", state,
-                        train_loader.state_dict(), best_val)
-        print(f"interrupted: checkpoint saved as {cfg_t.save_as}_interrupt", flush=True)
+        if main:
+            save_checkpoint(cfg_t.checkpoint_dir, cfg_t.save_as + "_interrupt", state,
+                            train_loader.state_dict(), best_val)
+            print(f"interrupted: checkpoint saved as {cfg_t.save_as}_interrupt", flush=True)
         raise
     finally:
         logger.close()
@@ -440,58 +471,83 @@ def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_in
             "device_cache": cache_info, "epoch_scan": epoch_runner is not None, "profile": profile}
 
 
-def train_destr(config: Config, device: str | torch.device | None = None) -> dict:
+def _mesh_of(config: Config, device, mesh: Optional[Mesh]) -> tuple[Mesh, Optional[Mesh], torch.device]:
+    """(the run's mesh, the steps' mesh, the device): ``mesh`` or the
+    default one (:func:`_default_mesh`); the steps' is None on one rank
+    (driver.py:225, 468)."""
+    if mesh is None:
+        mesh = _default_mesh(config.train, resolve_device(device))
+    return mesh, (mesh if mesh.size > 1 else None), mesh.device
+
+
+def _idle(mesh: Mesh) -> dict:
+    print(f"rank outside the {mesh.size}-rank data axis: idle", flush=True)
+    return {"state": None, "idle": True}
+
+
+def train_destr(config: Config, device: str | torch.device | None = None, mesh: Optional[Mesh] = None) -> dict:
     """Train and validate DESTR on ``device`` (the GPU unless "cpu" is asked
-    for); returns :func:`_fit`'s dict."""
-    _refuse_later_slices(config)
-    device = resolve_device(device)
+    for) over ``mesh`` (default: :func:`_default_mesh`; its device is the
+    run's); returns :func:`_fit`'s dict, or {"state": None, "idle": True}
+    on a rank outside the data axis."""
+    mesh, step_mesh, device = _mesh_of(config, device, mesh)
+    if not mesh.active:
+        return _idle(mesh)
     cfg_t = config.train
+    destr_cfg = dataclasses.replace(config.destr, bn_axis_name="data") if step_mesh is not None else config.destr
     canvas = int(cfg_t.image_size * 672 / 640)  # reference eval geometry
-    train_loader, valid_loader = _make_loaders(config, canvas, "destr")
+    train_loader, valid_loader = _make_loaders(config, canvas, "destr", step_mesh)
     cache_info = None
     if config.data.device_cache:
-        train_loader, valid_loader, cache_info = _device_cached(train_loader, valid_loader, device)
-    torch.manual_seed(cfg_t.seed)  # the model's initial weights
-    model = build_destr(config.destr, device)
+        train_loader, valid_loader, cache_info = _device_cached(train_loader, valid_loader, device,
+                                                                print if mesh.is_main else _quiet)
+    torch.manual_seed(cfg_t.seed)  # the model's initial weights, the same on every rank
+    model = build_destr(destr_cfg, device, mesh=step_mesh)
     state = create_destr_state(model, cfg_t, steps_per_epoch=len(train_loader))
     metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
     coco_metric = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1)) if cfg_t.coco_eval else None
     out_size = cfg_t.image_size
-    sweep = (state, valid_loader, make_destr_eval_step(cfg_t), metric, coco_metric, device, canvas, out_size)
+    sweep = (state, valid_loader, make_destr_eval_step(cfg_t, step_mesh), metric, coco_metric, device, canvas,
+             out_size, step_mesh)
     run = _Run(
-        state, make_destr_train_step(cfg_t), make_destr_step_core(cfg_t),
-        lambda raw, gen: destr_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"], gen,
-                                               raw.get("content_hw"), out_size=out_size),
+        state, make_destr_train_step(cfg_t, step_mesh), make_destr_step_core(cfg_t, step_mesh),
+        lambda raw, gen, mesh=None: destr_train_transform(
+            raw["images"], raw["boxes"], raw["labels"], raw["valid"], gen, raw.get("content_hw"),
+            out_size=out_size, mesh=mesh),
         lambda: _val_sweep(*sweep), aug_offset=7, val_key="loss_model", val_label="val_model",
-        profile_dir=cfg_t.profile_dir,
+        profile_dir=cfg_t.profile_dir, mesh=mesh, step_mesh=step_mesh,
     )
     return _fit(config, device, run, train_loader, cache_info)
 
 
-def train_ssd(config: Config, device: str | torch.device | None = None) -> dict:
+def train_ssd(config: Config, device: str | torch.device | None = None, mesh: Optional[Mesh] = None) -> dict:
     """Train and validate SSD on ``device`` (the GPU unless "cpu" is asked
-    for), at ``config.ssd``'s size on canvases of ``1.28 x`` it (the random
-    patch's headroom); returns :func:`_fit`'s dict. ``profile_dir`` is not
-    read, as in the JAX SSD driver."""
-    _refuse_later_slices(config)
-    device = resolve_device(device)
-    cfg_t, ssd_cfg = config.train, config.ssd
+    for) over ``mesh`` (as :func:`train_destr`), at ``config.ssd``'s size on
+    canvases of ``1.28 x`` it (the random patch's headroom); returns
+    :func:`_fit`'s dict. ``profile_dir`` is not read, as in the JAX SSD
+    driver."""
+    mesh, step_mesh, device = _mesh_of(config, device, mesh)
+    if not mesh.active:
+        return _idle(mesh)
+    cfg_t = config.train
+    ssd_cfg = dataclasses.replace(config.ssd, bn_axis_name="data") if step_mesh is not None else config.ssd
     canvas = int(ssd_cfg.image_size * 1.28)
-    train_loader, valid_loader = _make_loaders(config, canvas, "ssd")
+    train_loader, valid_loader = _make_loaders(config, canvas, "ssd", step_mesh)
     cache_info = None
     if config.data.device_cache:
-        train_loader, valid_loader, cache_info = _device_cached(train_loader, valid_loader, device)
-    torch.manual_seed(cfg_t.seed)  # the model's initial weights
-    model = build_ssd(ssd_cfg, device)
+        train_loader, valid_loader, cache_info = _device_cached(train_loader, valid_loader, device,
+                                                                print if mesh.is_main else _quiet)
+    torch.manual_seed(cfg_t.seed)  # the model's initial weights, the same on every rank
+    model = build_ssd(ssd_cfg, device, mesh=step_mesh)
     state = create_ssd_state(model, cfg_t, steps_per_epoch=len(train_loader))
-    eval_step = make_ssd_eval_step(cfg_t, ssd_cfg)
+    eval_step = make_ssd_eval_step(cfg_t, ssd_cfg, step_mesh)
     metric = MeanAveragePrecision(num_cls=ssd_cfg.num_cls)
     out_size = ssd_cfg.image_size
     run = _Run(
-        state, make_ssd_train_step(cfg_t, ssd_cfg), make_ssd_step_core(cfg_t, ssd_cfg),
-        lambda raw, gen: ssd_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"], gen,
-                                             out_size=out_size),
-        lambda: _ssd_val_sweep(state, valid_loader, eval_step, metric, device, out_size),
-        aug_offset=13, val_key="loss", val_label="val", profile_dir=None,
+        state, make_ssd_train_step(cfg_t, ssd_cfg, step_mesh), make_ssd_step_core(cfg_t, ssd_cfg, step_mesh),
+        lambda raw, gen, mesh=None: ssd_train_transform(raw["images"], raw["boxes"], raw["labels"], raw["valid"],
+                                                        gen, out_size=out_size, mesh=mesh),
+        lambda: _ssd_val_sweep(state, valid_loader, eval_step, metric, device, out_size, step_mesh),
+        aug_offset=13, val_key="loss", val_label="val", profile_dir=None, mesh=mesh, step_mesh=step_mesh,
     )
     return _fit(config, device, run, train_loader, cache_info)

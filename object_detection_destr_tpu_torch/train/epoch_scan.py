@@ -22,6 +22,19 @@ one), then one step is captured (nothing runs) and replayed from the second
 step on. On a CUDA device the runner captures or raises; on the CPU it runs
 the same body uncaptured, step by step, which is what the CPU tests hold
 against the per-step loop.
+
+Over a data-parallel mesh (JAX: one ``shard_map`` over the epoch,
+epoch_scan.py:96-111) the index matrix is the global batches' and rank r
+replays on its columns of each row (``P(None, "data")``); the step core,
+built with the same mesh, holds the gradient, criterion and BatchNorm
+all-reduces, and both the dropout and the augmentation seeds fold in the
+rank on a mesh above one rank (epoch_scan.py:79-81: each rank draws its own
+augmentation, a different but equally distributed stream from the per-step
+path's global draws). The captured step holds those all-reduces, so the
+group must be NCCL: the eager warm-up runs them once before the capture, so
+that the communicator exists, and the capture then records them. A gloo
+group on the GPU cannot be captured and the runner refuses it (it does not
+replay uncaptured).
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import fold_seed
 from .state import TrainState
 
 __all__ = ["EpochRunner"]
@@ -52,15 +66,20 @@ class EpochRunner:
         aug_seed: the augmentation generator's seed at a step.
         steps_per_epoch: the metric buffers' length (the longest epoch).
         ema: (EMA parameters, ``update(ema, model)``) or None.
+        mesh: the data-parallel mesh the step core was built with, or None.
     """
 
     def __init__(self, state: TrainState, step_core: Callable, transform: Callable, data: dict,
-                 aug_seed: Callable[[int], int], steps_per_epoch: int, ema: Optional[tuple] = None):
+                 aug_seed: Callable[[int], int], steps_per_epoch: int, ema: Optional[tuple] = None,
+                 mesh=None):
         self.state, self.core, self.transform, self.data = state, step_core, transform, data
         self.aug_seed = aug_seed
         self.steps_per_epoch = steps_per_epoch
         self.ema = ema
+        self.mesh = mesh
         self.device = next(state.model.parameters()).device
+        if self.device.type == "cuda" and mesh is not None and mesh.group is not None and mesh.backend != "nccl":
+            raise ValueError(f"a {mesh.backend} group on the GPU cannot be captured: the epoch runner needs NCCL")
         self.aug_generator = torch.Generator(device=self.device)
         self._idx: Optional[torch.Tensor] = None  # the step's index row, (B,)
         self._slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
@@ -90,19 +109,31 @@ class EpochRunner:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.state.rng.generator)
         graph.register_generator_state(self.aug_generator)
-        with torch.cuda.graph(graph):
-            self._body()
+        if self.mesh is None or self.mesh.group is None:
+            with torch.cuda.graph(graph):
+                self._body()
+        else:
+            # the warm-up's collectives have made the communicator; with them
+            # finished, no other thread (NCCL's watchdog) touches the device
+            # while this one captures
+            torch.cuda.synchronize(self.device)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._body()
         self.graph = graph
 
     def run(self, idx: np.ndarray, base_step: int, after_step: Optional[Callable[[], None]] = None,
             step_scope: Callable[[int], contextlib.AbstractContextManager] = lambda step: contextlib.nullcontext(),
             ) -> dict[str, np.ndarray]:
         """Steps ``base_step, base_step + 1, ...`` on the rows of ``idx`` (n,
-        B) int64 set indices; returns each metric's n values (one read from
-        the device, which waits for the epoch). ``after_step()`` runs on the
+        B) int64 set indices (on a mesh the global batches, of which this
+        rank takes its columns); returns each metric's n values (one read
+        from the device, which waits for the epoch). ``after_step()`` runs on the
         host after each step is enqueued (the driver's step timer), and each
         step's host work runs inside ``step_scope(step)`` (a profiler range)."""
         n = int(idx.shape[0])
+        rank = None
+        if self.mesh is not None:
+            idx, rank = idx[:, self.mesh.rows(idx.shape[1])], self.mesh.fold_rank
         if n > self.steps_per_epoch:
             raise ValueError(f"{n} steps, more than the runner's {self.steps_per_epoch}")
         if self._idx is None:
@@ -115,8 +146,8 @@ class EpochRunner:
             with step_scope(step):
                 self._idx.copy_(order[i])
                 self._slot.fill_(i)
-                self.state.rng.begin_step(step)
-                self.aug_generator.manual_seed(self.aug_seed(step))
+                self.state.rng.begin_step(step, rank)
+                self.aug_generator.manual_seed(fold_seed(self.aug_seed(step), rank))
                 if self.device.type != "cuda":
                     self._body()
                 elif self.graph is None:

@@ -27,9 +27,11 @@ __all__ = ["MetricLogger"]
 class MetricLogger:
     """Running means of step metrics, printed and appended to
     ``log_dir/metrics.jsonl`` at each flush, and TensorBoard scalars beside
-    them."""
+    them. On a data-parallel rank other than 0 the trainer gives no
+    ``log_dir`` and ``echo=False``: that rank writes and prints nothing."""
 
-    def __init__(self, log_dir: Optional[str] = None):
+    def __init__(self, log_dir: Optional[str] = None, echo: bool = True):
+        self.echo = echo
         self._jsonl = None
         self._tb = None
         if log_dir:
@@ -65,13 +67,14 @@ class MetricLogger:
         if self._tb:
             for k, v in means.items():
                 self._tb.add_scalar(f"Loss/{prefix}/{k}", v, int(last_step))
-        if echo:
+        if echo and self.echo:
             body = " ".join(f"{k}={v:.4f}" for k, v in means.items())
             print(f"[{prefix} step {last_step}] {body}", flush=True)
         return means
 
     def scalar(self, tag: str, value: float, step: int) -> None:
-        print(f"{tag}={value:.4f} (step {step})", flush=True)
+        if self.echo:
+            print(f"{tag}={value:.4f} (step {step})", flush=True)
         if self._tb:
             self._tb.add_scalar(tag, value, step)
         if self._jsonl:

@@ -53,7 +53,11 @@ as they were. The reset is ``(1 - emit) * acc`` and the parameters move by
 ``emit * update``, so, as in optax, a non-finite mini-step leaves the
 accumulator non-finite for good and each later update is rejected until
 ``skip_nonfinite`` is exceeded. The lr schedule counts applied updates, not
-mini-steps (ROADMAP.md, notes on the JAX package).
+mini-steps (ROADMAP.md, notes on the JAX package). Over a data-parallel
+mesh the step all-reduces the gradients before :meth:`AdamW.step`, so each
+mini-step's gradient is already the global batch's, as JAX reduces inside
+every step; the accumulator, the mini-step count and the moments stay
+replicated across the ranks, in every layout.
 
 Everything a step decides lives on the device, so the host never waits for
 it and a CUDA graph can capture the step (``train/epoch_scan.py``): the

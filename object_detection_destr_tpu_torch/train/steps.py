@@ -20,6 +20,19 @@ step, and the step count. Loss wiring as the reference
 
 and for SSD ``ssd_criterion``'s ``coef * class + (1 - coef) * local``
 (train_ssd.py:108-134), the same core / wrapper split around it.
+
+Every factory takes an optional data-parallel ``mesh`` (``parallel.Mesh``),
+as JAX's take ``mesh=`` (steps.py:41-62): the batch is then this rank's rows
+of the global batch and the step runs the collectives over the mesh, also
+on a mesh of one rank. DESTR's criterion reduces over the global batch and
+its gradients are summed (steps.py:195-202); SSD averages its gradients and
+metrics (steps.py:290-298) and its eval step its losses (steps.py:333). The
+all-reduce of the gradients sits between ``backward`` and the BatchNorm
+guard and optimizer update, so the clip and the finite check see the global
+gradient. On a mesh above one rank the dropout stream folds in the rank.
+The eval steps return the model's outputs of the whole global batch, in
+batch order (``out_specs=P("data")``), and the global losses. Without a
+mesh a step is the single device's.
 """
 
 from __future__ import annotations
@@ -105,10 +118,30 @@ def _guard_stats(model, old_stats: dict, cfg: TrainConfig) -> None:
             buf.copy_(torch.where(torch.isfinite(buf), buf, old_stats[name]))
 
 
-def make_destr_step_core(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
+def _pmean_metrics(metrics: dict, mesh) -> dict:
+    """The metrics averaged over the mesh in one all-reduce (detached)."""
+    if mesh is None:
+        return metrics
+    keys = list(metrics)
+    total = mesh.all_reduce_(torch.stack([metrics[k].detach().float() for k in keys]))
+    return dict(zip(keys, (total / mesh.size).unbind()))
+
+
+def _gathered(tree, mesh):
+    """A dict of tensors (or of lists of tensors), each with its leading
+    axis gathered over the mesh in rank order."""
+    if mesh is None:
+        return tree
+    return {k: [mesh.all_gather(t) for t in v] if isinstance(v, (list, tuple)) else mesh.all_gather(v)
+            for k, v in tree.items()}
+
+
+def make_destr_step_core(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, dict], dict]:
     """``core(state, batch) -> metrics``: the device work of one step,
     updating the model and the optimizer in place and nothing on the host
-    (not the step count; the dropout stream as the caller seeded it).
+    (not the step count; the dropout stream as the caller seeded it). With
+    a ``mesh``, ``batch`` is this rank's rows and the metrics are the global
+    batch's.
 
     ``batch``: {"images": (B, S, S, 3) float32 normalized, "boxes": (B, T, 4)
     xyxy, "labels": (B, T), "valid": (B, T) bool, optional "pixel_valid"}.
@@ -124,12 +157,15 @@ def make_destr_step_core(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]
         model_out, det_out = model(batch["images"], batch.get("pixel_valid"), train=True, rng=state.rng)
         targets = _destr_targets(batch)
         rows_model, rows_det = _match_pair(model_out, det_out, targets)
-        l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm)
-        l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm)
+        l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm, mesh=mesh)
+        l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm, mesh=mesh)
         loss_model = _weighted(l_model, cfg)
         loss_det = _weighted(l_det, cfg)
         loss = cfg.model_loss_weight * loss_model + cfg.det_loss_weight * loss_det
         loss.backward()
+        if mesh is not None:
+            # each rank's gradient is its data's share of the global loss'
+            mesh.all_reduce_grads(model.parameters())
         _guard_stats(model, old_stats, cfg)
         state.optimizer.step()
         return {
@@ -143,13 +179,14 @@ def make_destr_step_core(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]
     return core
 
 
-def _step_wrapper(core: Callable[[TrainState, dict], dict]) -> Callable[[TrainState, dict], dict]:
+def _step_wrapper(core: Callable[[TrainState, dict], dict], mesh=None) -> Callable[[TrainState, dict], dict]:
     """``train_step(state, batch) -> metrics``, updating ``state`` in place:
-    the dropout stream reseeded for ``state.step``, ``core``'s device work,
-    then ``state.step + 1``."""
+    the dropout stream reseeded for ``state.step`` (and the rank, on a mesh
+    above one rank), ``core``'s device work, then ``state.step + 1``."""
+    rank = None if mesh is None else mesh.fold_rank
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        state.rng.begin_step(state.step)
+        state.rng.begin_step(state.step, rank)
         metrics = core(state, batch)
         state.step += 1
         return metrics
@@ -157,12 +194,12 @@ def _step_wrapper(core: Callable[[TrainState, dict], dict]) -> Callable[[TrainSt
     return train_step
 
 
-def make_destr_train_step(cfg: TrainConfig) -> Callable[[TrainState, dict], dict]:
+def make_destr_train_step(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, dict], dict]:
     """:func:`make_destr_step_core` wrapped with the step's host bookkeeping."""
-    return _step_wrapper(make_destr_step_core(cfg))
+    return _step_wrapper(make_destr_step_core(cfg, mesh), mesh)
 
 
-def make_destr_eval_step(cfg: TrainConfig) -> Callable[[TrainState, dict], tuple[dict, dict]]:
+def make_destr_eval_step(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, dict], tuple[dict, dict]]:
     """``eval_step(state, batch) -> (model_out, metrics)``.
 
     The model runs in eval mode (BatchNorm running statistics, no dropout)
@@ -184,15 +221,15 @@ def make_destr_eval_step(cfg: TrainConfig) -> Callable[[TrainState, dict], tuple
             model.train(was_training)
         targets = _destr_targets(batch)
         rows_model, rows_det = _match_pair(model_out, det_out, targets)
-        l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm)
-        l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm)
+        l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm, mesh=mesh)
+        l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm, mesh=mesh)
         metrics = {
             "loss_model": _weighted(l_model, cfg),
             "loss_det": _weighted(l_det, cfg),
             "loss_class": l_model["class"],
             "loss_ciou": l_model["ciou"],
         }
-        return model_out, metrics
+        return _gathered(model_out, mesh), metrics
 
     return eval_step
 
@@ -218,7 +255,7 @@ def _anchors_on(ssd_cfg: SSDConfig) -> Callable[[torch.device], torch.Tensor]:
     return on
 
 
-def make_ssd_step_core(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainState, dict], dict]:
+def make_ssd_step_core(cfg: TrainConfig, ssd_cfg: SSDConfig, mesh=None) -> Callable[[TrainState, dict], dict]:
     """``core(state, batch) -> metrics``: one SSD step's device work (forward
     in train mode, ``ssd_criterion`` with the config's mining, backward,
     update), as :func:`make_destr_step_core`. ``batch``: {"images": (B, S,
@@ -236,19 +273,23 @@ def make_ssd_step_core(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainS
         losses = ssd_criterion(outputs, _destr_targets(batch), anchors(batch["images"].device),
                                loss_coef=cfg.coef_class_loss, mining=ssd_cfg.hard_neg_mining)
         losses["loss"].backward()
+        if mesh is not None:
+            # SSD losses are per-image means, so the global loss is the pmean
+            # of equal-size shard means
+            mesh.all_reduce_grads(model.parameters(), mean=True)
         _guard_stats(model, old_stats, cfg)
         state.optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return _pmean_metrics({k: v.detach() for k, v in losses.items()}, mesh)
 
     return core
 
 
-def make_ssd_train_step(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainState, dict], dict]:
+def make_ssd_train_step(cfg: TrainConfig, ssd_cfg: SSDConfig, mesh=None) -> Callable[[TrainState, dict], dict]:
     """:func:`make_ssd_step_core` wrapped with the step's host bookkeeping."""
-    return _step_wrapper(make_ssd_step_core(cfg, ssd_cfg))
+    return _step_wrapper(make_ssd_step_core(cfg, ssd_cfg, mesh), mesh)
 
 
-def make_ssd_eval_step(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainState, dict], tuple]:
+def make_ssd_eval_step(cfg: TrainConfig, ssd_cfg: SSDConfig, mesh=None) -> Callable[[TrainState, dict], tuple]:
     """``eval_step(state, batch) -> (outputs, losses, detections)``: the
     model in eval mode (running statistics) without gradients, its
     ``ssd_criterion`` losses, and the detections in the metric's contract,
@@ -270,6 +311,6 @@ def make_ssd_eval_step(cfg: TrainConfig, ssd_cfg: SSDConfig) -> Callable[[TrainS
                                mining=ssd_cfg.hard_neg_mining)
         detections = {"pred_class": _flatten_scales(outputs["conf"]),
                       "pred_boxes": decode_ssd_boxes(_flatten_scales(outputs["boxes"]), flat)}
-        return outputs, losses, detections
+        return _gathered(outputs, mesh), _pmean_metrics(losses, mesh), _gathered(detections, mesh)
 
     return eval_step

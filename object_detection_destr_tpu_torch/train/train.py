@@ -8,6 +8,7 @@ versions stand in for them there).
 
 from __future__ import annotations
 
+from ..parallel.mesh import launched
 from .arg_parser import config_from_args, get_parser
 from .driver import train_destr
 
@@ -15,7 +16,8 @@ from .driver import train_destr
 def main(argv=None) -> dict:
     args = get_parser("destr").parse_args(argv)
     config = config_from_args(args, "destr")
-    return train_destr(config, device=args.device)
+    with launched(args.device) as device:
+        return train_destr(config, device=device)
 
 
 if __name__ == "__main__":

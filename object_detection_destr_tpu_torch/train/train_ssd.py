@@ -8,6 +8,7 @@ closes only at ``--image_size 300`` (the default).
 
 from __future__ import annotations
 
+from ..parallel.mesh import launched
 from .arg_parser import config_from_args, get_parser
 from .driver import train_ssd
 
@@ -15,7 +16,8 @@ from .driver import train_ssd
 def main(argv=None) -> dict:
     args = get_parser("ssd").parse_args(argv)
     config = config_from_args(args, "ssd")
-    return train_ssd(config, device=args.device)
+    with launched(args.device) as device:
+        return train_ssd(config, device=device)
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ def test_port_imports_no_jax():
                  "train.optim", "train.state", "train.steps", "train.driver", "train.train",
                  "train.checkpoint", "losses.metrics", "infer.evaluate", "models.ssd.model", "ops.nms",
                  "infer.predict", "infer.cli", "train.train_ssd", "runtime.native", "train.logging_utils",
-                 "models.import_weights"):
+                 "models.import_weights", "parallel", "parallel.mesh"):
         assert f"object_detection_destr_tpu_torch.{name}" in result["modules"], name
 
 
