@@ -3475,13 +3475,13 @@ DP_STEPS = 2  # steps held so, and the 2-rank run's steps
 # its sharded step against one device (tests/test_parallel.py: metrics and the
 # BatchNorm mean rtol 2e-4, updated heads 2e-3), Adam's first moment as a norm
 DP_TOL = {"losses": 2e-4, "m": 2e-3, "bn": 2e-4}
-
-
-def _bn_mesh(model, mesh) -> None:
-    """The mesh the model's flax BatchNorms sync over (None: each rank's batch)."""
-    for module in model.modules():
-        if hasattr(module, "bn_mesh"):
-            module.bn_mesh = mesh
+# 2 bfloat16 gloo ranks against the float32 process: the change of Adam's
+# first moment no farther than this times one bfloat16 process's (bfloat16's
+# own distance from float32)
+DP_BF16_FACTOR = 2.0
+# runs of the 2 bfloat16 ranks so held: a rank whose backward all-reduces
+# came in another order than its partner's failed about one run in four
+DP_BF16_REPEATS = 3
 
 
 def _close_group(group) -> None:
@@ -3514,6 +3514,7 @@ def dp_one_rank(torch, kernels, setup, mesh_core, per_step, label, exact=False):
     device time of the NCCL all-reduce kernels."""
     import torch.distributed as tdist
 
+    from object_detection_destr_tpu_torch.models.destr.mini_detector import sync_batch_norms
     from object_detection_destr_tpu_torch.parallel.mesh import Mesh, group_from_store
     from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
 
@@ -3530,11 +3531,11 @@ def dp_one_rank(torch, kernels, setup, mesh_core, per_step, label, exact=False):
             runners["no mesh"] = EpochRunner(state, setup["step_core"], transform, cache.data, setup["aug_seed"],
                                              len(cache))
             runners["no mesh"].run(rows_from(0, 1), 0)
-            _bn_mesh(state.model, mesh)
+            sync_batch_norms(state.model, "data", mesh)
             runners["mesh"] = EpochRunner(state, mesh_core(mesh), transform, cache.data, setup["aug_seed"],
                                           len(cache), mesh=mesh)
             runners["mesh"].run(rows_from(1, 1), 1)
-            _bn_mesh(state.model, None)  # the eager steps below are the no-mesh step's
+            sync_batch_norms(state.model, None, None)  # the eager steps below are the no-mesh step's
             capture_counts = [k.launches for k in kernels]
             if any(r.graph is None for r in runners.values()) or state.step != 2:
                 raise AssertionError(f"data parallel {label}: no graph captured, or {state.step} steps")
@@ -3588,6 +3589,16 @@ def dp_one_rank(torch, kernels, setup, mesh_core, per_step, label, exact=False):
     nccl = {k: v for k, v in window["device_time"].items() if "nccl" in k.lower()}
     nccl_ms = sum(v["seconds"] for v in nccl.values()) * 1e3 / 3
     nccl_launches = sum(v["count"] for v in nccl.values()) / 3  # a 1-rank communicator may launch none
+    # where the mesh step's device time goes: each kernel's ms and launches a
+    # step in the mesh window minus the no-mesh window, the largest first
+    zero = {"seconds": 0.0, "count": 0}
+    diff = {name: ((windows["mesh"]["device_time"].get(name, zero)["seconds"]
+                    - windows["no mesh"]["device_time"].get(name, zero)["seconds"]) * 1e3 / 3,
+                   (windows["mesh"]["device_time"].get(name, zero)["count"]
+                    - windows["no mesh"]["device_time"].get(name, zero)["count"]) / 3)
+            for name in set(windows["mesh"]["device_time"]) | set(windows["no mesh"]["device_time"])}
+    by_kernel = [[name[:120], ms, n] for name, (ms, n) in sorted(diff.items(), key=lambda kv: -abs(kv[1][0]))[:10]]
+    kernel_sum = [sum(ms for ms, _ in diff.values()), sum(n for _, n in diff.values())]
     out = {"captured_ms": statistics.median(times["mesh"]), "no_mesh_captured_ms": statistics.median(times["no mesh"]),
            "captured_ms_all": times["mesh"], "no_mesh_captured_ms_all": times["no mesh"],
            "nccl_ms_per_step": nccl_ms, "nccl_launches_per_step": nccl_launches, "nccl_kernels": sorted(nccl),
@@ -3595,7 +3606,8 @@ def dp_one_rank(torch, kernels, setup, mesh_core, per_step, label, exact=False):
            "step_busy_ms": window["step_busy_ms"], "step_period_ms": window["step_period_ms"],
            "no_mesh_step_busy_ms": windows["no mesh"]["step_busy_ms"],
            "no_mesh_step_period_ms": windows["no mesh"]["step_period_ms"],
-           "no_mesh_idle_share": windows["no mesh"]["idle_share"], "capture_counts": capture_counts, "spread": spread}
+           "no_mesh_idle_share": windows["no mesh"]["idle_share"], "capture_counts": capture_counts, "spread": spread,
+           "mesh_minus_no_mesh_by_kernel": by_kernel, "mesh_minus_no_mesh_kernels": kernel_sum}
     log(f"data parallel {label}, explicit 1-rank NCCL mesh, captured by EpochRunner{' (cuDNN deterministic engines)' if exact else ''}: "
         f"replay against {DP_EAGER_RUNS} no-mesh eager steps from one cloned state at steps 2-{1 + DP_STEPS} "
         f"{json.dumps(_rounded(spread))}; captured step ms (CUDA events, in turns N M M N, 3 each) mesh "
@@ -3605,23 +3617,33 @@ def dp_one_rank(torch, kernels, setup, mesh_core, per_step, label, exact=False):
         f"device busy {out['step_busy_ms']:.2f} ms of a {out['step_period_ms']:.2f} ms step, idle share "
         f"{out['idle_share']:.4f} (no mesh: busy {out['no_mesh_step_busy_ms']:.2f} of "
         f"{out['no_mesh_step_period_ms']:.2f}, idle share {out['no_mesh_idle_share']:.4f}); launches a step "
-        f"#1/#2/#3/#4/#9/#8 {window['per_step']}; wrapper calls of the warm-ups and captures {capture_counts}")
+        f"#1/#2/#3/#4/#9/#8 {window['per_step']}; wrapper calls of the warm-ups and captures {capture_counts}; "
+        f"mesh minus no mesh, device ms and launches a step: all kernels {kernel_sum[0]:.3f} ms, "
+        f"{kernel_sum[1]:.1f}; the largest {json.dumps(_rounded(by_kernel))}")
     return out
 
 
 def dp_two_gloo_ranks(torch, kernels, seed):
     """Phase 16 (b): two gloo thread-ranks on the one card, each on a CUDA
-    stream of its own, eager: the DESTR recipe at full width, dropout 0, in
-    float32 (bfloat16 rounds differently at a batch of 8 than of 16, so
-    only float32 can show the two equal to one process), global B=16 (8 a
-    rank), DP_STEPS steps, against one process on the same weights and
-    batches. The ranks' parameters and BatchNorm statistics must
-    be bit-identical; against one process the losses within DP_TOL
-    ["losses"] relative, Adam's first moment within DP_TOL["m"] of its norm,
-    the BatchNorm statistics within DP_TOL["bn"] of each one's largest
-    value, the parameters within 2 x lr_max a step (+1e-6). Each rank's
-    launches of #1/#2/#9 are read off the wrappers' counts by stream."""
+    stream of its own, eager: the DESTR recipe at full width, dropout 0,
+    global B=16 (8 a rank), DP_STEPS steps, against one process on the same
+    weights and batches, in float32 (TF32 off) and in bfloat16. Every run's
+    step i starts from the float32 process's state before its step i, so
+    each comparison is of one step: the discrete choices (top-k, matching)
+    of later steps do not flip on parameters that float32 noise has moved.
+    In each dtype the ranks' parameters, losses and BatchNorm statistics
+    must be bit-identical. Float32 against the float32 process: the losses
+    within DP_TOL["losses"] relative, the step's change of Adam's first
+    moment within DP_TOL["m"] of its norm, the BatchNorm statistics within
+    DP_TOL["bn"] of each one's largest value, the parameters within 2 x
+    lr_max (+1e-6). Bfloat16 rounds otherwise at a batch of 8 than of 16,
+    so its two ranks are held to its noise floor, in DP_BF16_REPEATS runs:
+    their change of the moment no farther from the float32 process's than
+    DP_BF16_FACTOR times one bfloat16 process's (the losses, a few scalars
+    of that noise, are printed). Each rank's launches of #1/#2/#9 are read off the wrappers'
+    counts by stream."""
     import copy
+    import dataclasses
 
     import torch.distributed as tdist
 
@@ -3631,87 +3653,147 @@ def dp_two_gloo_ranks(torch, kernels, seed):
     from object_detection_destr_tpu_torch.train.state import create_destr_state
     from object_detection_destr_tpu_torch.train.steps import make_destr_train_step
 
-    config = recipe_config(["--seed", str(seed), "--dropout", "0", "--compute_dtype", "float32"])
+    config = recipe_config(["--seed", str(seed), "--compute_dtype", "float32"])
     cfg = config.train
     batches = [{k: v for k, v in train_batch(torch, TRAIN_B, seed + i).items() if k != "pixel_valid"}
                for i in range(DP_STEPS)]
     torch.manual_seed(seed)
-    template = build_destr(config.destr, "cuda")
-    copies = [copy.deepcopy(template) for _ in range(2)]
+    template = build_destr(dataclasses.replace(config.destr, dropout=0.0), "cuda")
+
+    def model_in(dtype):
+        model = copy.deepcopy(template)
+        model.config = dataclasses.replace(model.config, compute_dtype=dtype)
+        return model
 
     def bn_stats(model):
         return {k: v.detach().clone() for k, v in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
 
-    one_state = create_destr_state(template, cfg)
+    def flat_m(state):
+        return torch.cat([m.reshape(-1) for m in state.optimizer._m.values()])
+
+    def sample(state, metrics, m_before):
+        out = _dp_sample(torch, state, metrics)
+        out["m"] = out["m"] - m_before  # the step's change of the moment
+        return out
+
+    # the float32 process, and its state before each step
+    f32_state = create_destr_state(model_in("float32"), cfg)
     step = make_destr_train_step(cfg)
-    one = [_dp_sample(torch, one_state, step(one_state, b)) for b in batches]
-    one_bn = bn_stats(template)
-    torch.cuda.synchronize()
+    starts, f32_one = [], {"samples": []}
+    for b in batches:
+        starts.append([t.detach().clone() for t in _state_tensors(f32_state)])
+        m_before = flat_m(f32_state)
+        f32_one["samples"].append(sample(f32_state, step(f32_state, b), m_before))
+    f32_one["bn"] = bn_stats(f32_state.model)
 
-    store = tdist.PrefixStore("dp_two_gloo_ranks", tdist.HashStore())
-    results, errors = [None, None], [None, None]
-    for k in kernels:
-        k.launches_by_stream.clear()
+    def one_process(dtype):
+        state = create_destr_state(model_in(dtype), cfg)
+        samples = []
+        for i, b in enumerate(batches):
+            _restore(torch, state, starts[i], i)
+            m_before = flat_m(state)
+            samples.append(sample(state, step(state, b), m_before))
+        torch.cuda.synchronize()
+        return {"samples": samples}
 
-    def rank_main(r):
-        group = None
-        try:
-            group = group_from_store(store, r, 2, "gloo")
-            mesh = Mesh(group, r, 2, torch.device("cuda", torch.cuda.current_device()), "gloo")
-            model = sync_batch_norms(copies[r], "data", mesh)
-            stream = torch.cuda.Stream()
-            with torch.cuda.stream(stream):
-                state = create_destr_state(model, cfg)
-                rank_step = make_destr_train_step(cfg, mesh)
-                samples = [_dp_sample(torch, state, rank_step(state, shard_batch(b, mesh))) for b in batches]
-                stream.synchronize()
-            results[r] = {"samples": samples, "bn": bn_stats(model), "stream": stream.cuda_stream}
-        except BaseException as e:  # noqa: BLE001 — handed to the phase, which raises it
-            errors[r] = e
-        finally:
-            if group is not None:
-                _close_group(group)
+    def two_ranks(dtype):
+        copies = [model_in(dtype) for _ in range(2)]
+        store = tdist.PrefixStore(f"dp_two_gloo_ranks_{dtype}", tdist.HashStore())
+        results, errors = [None, None], [None, None]
+        for k in kernels:
+            k.launches_by_stream.clear()
+        torch.cuda.synchronize()
 
-    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True) for r in range(2)]
+        def rank_main(r):
+            group = None
+            try:
+                group = group_from_store(store, r, 2, "gloo")
+                mesh = Mesh(group, r, 2, torch.device("cuda", torch.cuda.current_device()), "gloo")
+                model = sync_batch_norms(copies[r], "data", mesh)
+                stream = torch.cuda.Stream()
+                with torch.cuda.stream(stream):
+                    state = create_destr_state(model, cfg)
+                    rank_step = make_destr_train_step(cfg, mesh)
+                    samples = []
+                    for i, b in enumerate(batches):
+                        _restore(torch, state, starts[i], i)
+                        m_before = flat_m(state)
+                        samples.append(sample(state, rank_step(state, shard_batch(b, mesh)), m_before))
+                    stream.synchronize()
+                results[r] = {"samples": samples, "bn": bn_stats(model), "stream": stream.cuda_stream}
+            except BaseException as e:  # noqa: BLE001 — handed to the phase, which raises it
+                errors[r] = e
+            finally:
+                if group is not None:
+                    _close_group(group)
+
+        threads = [threading.Thread(target=rank_main, args=(r,), daemon=True) for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"data parallel, 2 gloo ranks, {dtype}: a rank did not finish in 300 s")
+        for e in errors:
+            if e is not None:
+                raise e
+        r0, r1 = results
+        for a, b in zip(r0["samples"], r1["samples"]):
+            if not torch.equal(a["params"], b["params"]) or a["losses"] != b["losses"]:
+                raise AssertionError(f"data parallel, 2 gloo ranks, {dtype}: the ranks' parameters or losses differ")
+        if any(not torch.equal(v, r1["bn"][k]) for k, v in r0["bn"].items()):
+            raise AssertionError(f"data parallel, 2 gloo ranks, {dtype}: the ranks' BatchNorm statistics differ")
+        per_rank = [[k.launches_by_stream.get(res["stream"], 0) for k in kernels[:5]] for res in results]
+        want = [n * DP_STEPS for n in (18, 18, 0, 0, 1)]
+        if any(p != want for p in per_rank):
+            raise AssertionError(f"data parallel, 2 gloo ranks, {dtype}: launches #1/#2/#3/#4/#9 by rank "
+                                 f"{per_rank}, not {want}")
+        return r0, per_rank
+
+    def apart(mine, ref):
+        """Two runs apart at each step: the losses' largest relative
+        difference, the change of Adam's first moment relative to its norm."""
+        return [{"losses": max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(x["losses"], y["losses"])),
+                 "m": float((x["m"] - y["m"]).norm() / y["m"].norm().clamp_min(1e-30))}
+                for x, y in zip(mine["samples"], ref["samples"])]
+
     t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(300)
-    seconds = time.perf_counter() - t0
-    if any(t.is_alive() for t in threads):
-        raise AssertionError("data parallel, 2 gloo ranks: a rank did not finish in 300 s")
-    for e in errors:
-        if e is not None:
-            raise e
-    r0, r1 = results
-    for a, b in zip(r0["samples"], r1["samples"]):
-        if not torch.equal(a["params"], b["params"]) or a["losses"] != b["losses"]:
-            raise AssertionError("data parallel, 2 gloo ranks: the ranks' parameters or losses differ")
-    if any(not torch.equal(v, r1["bn"][k]) for k, v in r0["bn"].items()):
-        raise AssertionError("data parallel, 2 gloo ranks: the ranks' BatchNorm statistics differ")
+    f32_ranks, per_rank = two_ranks("float32")
+    bf16_one = one_process("bfloat16")
+    bf16_runs = [two_ranks("bfloat16") for _ in range(DP_BF16_REPEATS)]
+    (bf16_ranks, bf16_per_rank), seconds = bf16_runs[0], time.perf_counter() - t0
+
     lr_max = max(cfg.lr, cfg.lr_backbone)
-    dist_out = []
-    for i, (mine, ref) in enumerate(zip(r0["samples"], one)):
-        d = {"losses": max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(mine["losses"], ref["losses"])),
-             "m": float((mine["m"] - ref["m"]).norm() / ref["m"].norm().clamp_min(1e-30)),
-             "params": float((mine["params"] - ref["params"]).abs().max())}
-        dist_out.append(d)
-        if d["losses"] > DP_TOL["losses"] or d["m"] > DP_TOL["m"] or d["params"] > 2 * lr_max * (i + 1) + 1e-6:
+    dist_out = apart(f32_ranks, f32_one)
+    for i, (d, mine, ref) in enumerate(zip(dist_out, f32_ranks["samples"], f32_one["samples"])):
+        d["params"] = float((mine["params"] - ref["params"]).abs().max())
+        if d["losses"] > DP_TOL["losses"] or d["m"] > DP_TOL["m"] or d["params"] > 2 * lr_max + 1e-6:
             raise AssertionError(f"data parallel, 2 gloo ranks against one process at step {i}: {d}")
-    bn = max(float((r0["bn"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30)) for k, v in one_bn.items())
+    bn = max(float((f32_ranks["bn"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+             for k, v in f32_one["bn"].items())
     if bn > DP_TOL["bn"]:
         raise AssertionError(f"data parallel, 2 gloo ranks: BatchNorm statistics {bn} from one process's")
-    per_rank = [[k.launches_by_stream.get(res["stream"], 0) for k in kernels[:5]] for res in results]
-    want = [n * DP_STEPS for n in (18, 18, 0, 0, 1)]
-    if any(p != want for p in per_rank):
-        raise AssertionError(f"data parallel, 2 gloo ranks: launches #1/#2/#3/#4/#9 by rank {per_rank}, not {want}")
-    out = {"seconds": seconds, "against_one_process": dist_out, "bn_rel": bn, "launches_per_rank": per_rank}
-    log(f"data parallel, 2 gloo thread-ranks on one card (eager, float32, global B={TRAIN_B}, dropout 0, {DP_STEPS} steps, "
-        f"{seconds:.1f} s): parameters, losses and BatchNorm statistics bit-identical across ranks; against one "
-        f"process: {json.dumps(_rounded(dist_out))}, BatchNorm statistics {bn:.3e} of their largest (limits "
-        f"{DP_TOL}); launches #1/#2/#3/#4/#9 by rank {per_rank}")
-    del template, copies, one_state
+    bf16 = {"one_process_to_f32": apart(bf16_one, f32_one),
+            "ranks_to_f32": [apart(ranks, f32_one) for ranks, _ in bf16_runs],
+            "ranks_to_one_process": apart(bf16_ranks, bf16_one)}
+    for k, run in enumerate(bf16["ranks_to_f32"]):
+        for i, (floor, ranks) in enumerate(zip(bf16["one_process_to_f32"], run)):
+            if ranks["m"] > DP_BF16_FACTOR * floor["m"]:
+                raise AssertionError(f"data parallel, 2 bfloat16 gloo ranks, run {k}, step {i}: Adam's first "
+                                     f"moment {ranks['m']} from the float32 process's, over {DP_BF16_FACTOR} x "
+                                     f"one bfloat16 process's {floor['m']}")
+    out = {"seconds": seconds, "against_one_process": dist_out, "bn_rel": bn, "launches_per_rank": per_rank,
+           "bf16": bf16, "bf16_launches_per_rank": bf16_per_rank}
+    log(f"data parallel, 2 gloo thread-ranks on one card (eager, global B={TRAIN_B}, dropout 0, {DP_STEPS} steps "
+        f"each from the float32 process's state, float32 and bfloat16, {seconds:.1f} s): parameters, losses and "
+        f"BatchNorm statistics bit-identical across ranks in both; float32 against one process: "
+        f"{json.dumps(_rounded(dist_out))}, BatchNorm statistics {bn:.3e} of their largest (limits {DP_TOL}); "
+        f"bfloat16 (losses, the moment's change) one process to the float32 process "
+        f"{json.dumps(_rounded(bf16['one_process_to_f32']))}, the 2 ranks to it in {DP_BF16_REPEATS} runs "
+        f"{json.dumps(_rounded(bf16['ranks_to_f32']))} (the moment's limit {DP_BF16_FACTOR} x the former), the "
+        f"2 ranks to the bfloat16 process {json.dumps(_rounded(bf16['ranks_to_one_process']))}; launches "
+        f"#1/#2/#3/#4/#9 by rank float32 {per_rank}, bfloat16 {bf16_per_rank}")
+    del template, starts, f32_state
     return out
 
 
@@ -3764,10 +3846,19 @@ def main(argv=None) -> int:
                fa.flash_attention_unpacked_dq, fa.flash_attention_unpacked_dkv]
 
     t_start = time.perf_counter()
+    phase_seconds, last = {}, [t_start]
+
+    def clock(name):
+        """The seconds since the previous clock, added to ``name``'s."""
+        now = time.perf_counter()
+        phase_seconds[name] = phase_seconds.get(name, 0.0) + now - last[0]
+        last[0] = now
+
     try:
         card = phase_device(torch)
         one_bf16 = one_bf16_backward(fa)
         phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, fa.TWO_PASS_LIBRARY, auction.LIBRARY, one_bf16.library])
+        clock("device and build")
         phase_plan(torch, fa)
         warm_clocks(torch)
         flash_rows = phase_flash(torch, args.seed)
@@ -3778,6 +3869,7 @@ def main(argv=None) -> int:
         api_counts = phase_unpacked_api(torch, kernels, args.seed)
         auction_rows, l2 = phase_auction(torch, args.seed)
         assign_rows, assign_counts = phase_assignment(torch, kernels, args.seed, l2)
+        clock("kernels (3-5)")
         runs = {}
         for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0, 0, 0, 0)),
                                                 ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0, 0, 0, 0))):
@@ -3789,18 +3881,23 @@ def main(argv=None) -> int:
             runs[label] = (counts, step_ms)
             del state
             torch.cuda.empty_cache()
+            clock("train (6)")
         captured = {}
         for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0)),
                                                 ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0))):
             captured[label] = phase_captured_train(torch, kernels, destr_capture_setup(torch, args.seed, extra),
                                                    per_step_launches, label)
+        clock("captured train (6a)")
         val_counts, val_timing = phase_validation(torch, kernels, args.seed)
+        clock("validation (6b)")
         torch.cuda.empty_cache()
         scan = phase_train_scan(torch, args.seed)
+        clock("epoch scan (6c)")
         torch.cuda.empty_cache()
         for destr in (None, {"hidden_dim": 512}):
             phase_train_compare(torch, kernels, args.seed, destr)
             torch.cuda.empty_cache()
+            clock("train compare (7)")
         gen = torch.Generator().manual_seed(args.seed)
         images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
                   for h, w in REQUEST_SIZES]
@@ -3808,20 +3905,26 @@ def main(argv=None) -> int:
             torch, fa.flash_attention_fwd, args.seed, images
         )
         phase_whole_model(torch, service, variables, images)
+        clock("serving (8-9)")
         ssd_images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
                       for h, w in SSD_REQUEST_SIZES]
         ssd_service, ssd_serve = phase_ssd_serving(torch, kernels, args.seed, ssd_images)
         cli_worst = phase_cli(torch, {"destr": (service, images), "ssd": (ssd_service, ssd_images)})
+        clock("ssd serving, cli (10-11)")
         del service, ssd_service, variables
         torch.cuda.empty_cache()
         ssd_train = phase_ssd_train(torch, kernels, args.seed)
         ssd_val = phase_ssd_validation(torch, kernels, args.seed)
+        clock("ssd train, validation (12-13)")
         torch.cuda.empty_cache()
         real = phase_real_data(torch, kernels, args.seed)
+        clock("real data (14)")
         torch.cuda.empty_cache()
         imported = phase_import(torch, kernels, args.seed, card)
+        clock("import (15)")
         torch.cuda.empty_cache()
         dp = phase_data_parallel(torch, kernels, args.seed, card)
+        clock("data parallel (16)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4070,7 +4173,8 @@ def main(argv=None) -> int:
         f"{dp['destr']['captured_ms']:.2f} (no mesh {dp['destr']['no_mesh_captured_ms']:.2f}, NCCL "
         f"{dp['destr']['nccl_ms_per_step']:.4f}), SSD {dp['ssd']['captured_ms']:.2f} (no mesh "
         f"{dp['ssd']['no_mesh_captured_ms']:.2f}, cuDNN deterministic), 2 gloo ranks {dp['two_ranks']['seconds']:.1f} s, "
-        f"phase {dp['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card})")
+        f"phase {dp['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
+        f"{json.dumps(_rounded(phase_seconds))}")
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
         entry["data_parallel"] = {
             "launches_per_rank": [rank[index] for rank in dp["two_ranks"]["launches_per_rank"]],

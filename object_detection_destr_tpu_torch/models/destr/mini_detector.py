@@ -10,7 +10,10 @@ flax's momentum 0.9 (torch's 0.1) and that same biased variance. With
 ``bn_axis_name`` set (flax ``BatchNorm(axis_name=...)``, JAX
 mini_detector.py:51-54, model.py:103) the mean and the mean of squares are
 pmeaned over the data-parallel mesh first, so every rank normalizes with
-the global batch's statistics and keeps the same running ones. The
+the global batch's statistics and keeps the same running ones; the three
+stacks then run layer by layer, one pmean a layer for all three
+(:func:`synced_stacks`), so that their backward all-reduces form one
+chain. The
 cls/bbox/pos heads are the model's shared modules, passed in at call time so
 each has one set of parameters, and run in float32. The selected queries and
 centres are detached, as the JAX package stop-gradients them
@@ -25,34 +28,56 @@ from torch import nn
 from ...ops.topk import masked_topk_with_recycle
 from .layers import f32_head
 
-__all__ = ["ConvBnStack", "MiniDetector", "batch_norm", "sync_batch_norms"]
+__all__ = ["ConvBnStack", "MiniDetector", "batch_norm", "sync_batch_norms", "synced_batch_norms", "synced_stacks"]
 
 BN_MOMENTUM = 0.9  # flax: new = momentum * running + (1 - momentum) * batch
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, mesh=None) -> torch.Tensor:
-    """flax ``nn.BatchNorm`` over NCHW ``x`` (statistics over N, H, W, and
-    over the ranks of ``mesh``, a ``parallel.Mesh``, where one is given).
-
-    In training the running statistics are updated in place (without
-    autograd); the result is in ``x``'s dtype. The statistics' pmean is
-    differentiable (its backward sums over the mesh), so the gradient of
-    ``x`` counts every rank's use of the global statistics, as JAX's does.
-    """
-    xf = x.float()
+def _normalize(x: torch.Tensor, xf: torch.Tensor, bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+               train: bool) -> torch.Tensor:
+    """``xf`` (``x`` in float32) normalized with ``mean`` / ``var``, in
+    ``x``'s dtype; in training the running statistics move towards them
+    first (in place, without autograd)."""
     if train:
-        mean, mean_sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
-        if mesh is not None:
-            mean, mean_sq = mesh.pmean(torch.stack([mean, mean_sq]))
-        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
             bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
-    else:
-        mean, var = bn.running_mean, bn.running_var
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     return y.to(x.dtype)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, mesh=None) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` over NCHW ``x`` (statistics over N, H, W, and
+    over the ranks of ``mesh``, a ``parallel.Mesh``, where one is given:
+    :func:`synced_batch_norms`).
+
+    In training the running statistics are updated in place (without
+    autograd); the result is in ``x``'s dtype.
+    """
+    if train and mesh is not None:
+        return synced_batch_norms([x], [bn], True, mesh)[0]
+    xf = x.float()
+    if train:
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    return _normalize(x, xf, bn, mean, var, train)
+
+
+def synced_batch_norms(xs: list[torch.Tensor], bns: list[nn.BatchNorm2d], train: bool, mesh) -> list[torch.Tensor]:
+    """:func:`batch_norm` of each NCHW ``xs[i]`` with ``bns[i]`` over
+    ``mesh``, the means and means of squares of all of them pmeaned in one
+    collective. The pmean is differentiable (its backward sums over the
+    mesh), so the gradient of each ``x`` counts every rank's use of the
+    global statistics, as JAX's does."""
+    if not train:
+        return [batch_norm(x, bn, False) for x, bn in zip(xs, bns)]
+    xfs = [x.float() for x in xs]
+    stats = mesh.pmean(torch.stack([torch.stack([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))]) for xf in xfs]))
+    return [_normalize(x, xf, bn, mean, torch.clamp(mean_sq - mean * mean, min=0.0), True)
+            for x, xf, bn, (mean, mean_sq) in zip(xs, xfs, bns, stats.unbind(0))]
 
 
 class ConvBnStack(nn.Module):
@@ -74,19 +99,35 @@ class ConvBnStack(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+def synced_stacks(stacks: list[ConvBnStack], inputs: list[torch.Tensor], train: bool, mesh) -> list[torch.Tensor]:
+    """The ``stacks`` on their NHWC ``inputs`` over ``mesh``, layer by layer,
+    with one pmean a layer for the statistics of every stack
+    (:func:`synced_batch_norms`). The backward of a pmean all-reduces, and
+    a rank's collectives must come in its partners' order: the stacks'
+    reductions one by one would be independent branches of the autograd
+    graph, which one rank's backward may reach in another order than
+    another's (where those reductions run on the rank's thread and the
+    convolutions' backward on the device's autograd thread, as for
+    thread-ranks sharing a card). One reduction a layer makes a single
+    chain, each layer's waiting for the next one's."""
+    xs = [x.permute(0, 3, 1, 2) for x in inputs]
+    for i in range(stacks[0].num_layers):
+        xs = synced_batch_norms([getattr(s, f"conv{i}")(x) for s, x in zip(stacks, xs)],
+                                [getattr(s, f"bn{i}") for s in stacks], train, mesh)
+    return [x.permute(0, 2, 3, 1) for x in xs]
+
+
 def sync_batch_norms(model: nn.Module, axis_name, mesh) -> nn.Module:
     """Give every flax BatchNorm of ``model`` (each module with a
     ``bn_mesh``) the mesh its statistics sync over when the config's
-    ``bn_axis_name`` is set; returns the model. Without the axis name the
-    statistics stay the local batch's. The axis name without a mesh is
+    ``bn_axis_name`` is set, or none when it is not (the statistics are then
+    the local batch's); returns the model. The axis name without a mesh is
     refused, as flax refuses an unbound axis."""
-    if axis_name is None:
-        return model
-    if mesh is None:
+    if axis_name is not None and mesh is None:
         raise ValueError(f"bn_axis_name={axis_name!r} needs the mesh of that axis")
     for module in model.modules():
         if hasattr(module, "bn_mesh"):
-            module.bn_mesh = mesh
+            module.bn_mesh = None if axis_name is None else mesh
     return model
 
 
@@ -111,11 +152,18 @@ class MiniDetector(nn.Module):
         def mask_tokens(t):
             return torch.where(flat_valid, t.reshape(b, h * w, c), 0.0)
 
-        cls_feats = mask_tokens(self.cls_conv(features, train))
+        stacks, inputs = (self.cls_conv, self.pos_conv, self.reg_conv), (features, fine_pos, features)
+        mesh = self.cls_conv.bn_mesh
+        synced = None if mesh is None else synced_stacks(list(stacks), list(inputs), train, mesh)
+
+        def stack(i):
+            return stacks[i](inputs[i], train) if synced is None else synced[i]
+
+        cls_feats = mask_tokens(stack(0))
         det_class = f32_head(cls_embed, cls_feats)  # (B, HW, num_cls) logits
-        pos_feats = mask_tokens(self.pos_conv(fine_pos, train))
+        pos_feats = mask_tokens(stack(1))
         center_offset = f32_head(pos_head, pos_feats)  # (B, HW, 2)
-        reg_feats = mask_tokens(self.reg_conv(features, train))
+        reg_feats = mask_tokens(stack(2))
         bbox = f32_head(bbox_embed, reg_feats)  # (B, HW, 4)
         bbox = torch.cat([bbox[..., :2] + center_offset, bbox[..., 2:]], dim=-1)
         det_boxes = torch.sigmoid(bbox)

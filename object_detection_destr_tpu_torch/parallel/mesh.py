@@ -106,6 +106,7 @@ class Mesh:
             raise ValueError(f"a mesh of size {size} needs a process group")
         self.group, self.rank, self.size = group, rank, size
         self.device, self.backend, self.active = torch.device(device), backend, active
+        self._grad_buffer = None  # (the parameters' ids, the flat buffer, a view a parameter)
 
     def __repr__(self) -> str:
         return (f"Mesh(rank={self.rank}, size={self.size}, device={self.device}, backend={self.backend}, "
@@ -178,15 +179,28 @@ class Mesh:
 
     def all_reduce_grads(self, params, mean: bool = False) -> None:
         """Sum (``mean``: average) the gradient of every parameter that has
-        one over the mesh, in one collective on a flat buffer."""
+        one over the mesh, in one collective on a flat float32 buffer that
+        the mesh keeps from step to step (a captured step's is static). The
+        gradients are copied in, reduced in place, and each float32
+        parameter's ``.grad`` becomes its view of the buffer."""
         if self.group is None:
             return
-        grads = [p.grad for p in params if p.grad is not None]
-        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        params = [p for p in params if p.grad is not None]
+        key = tuple(id(p) for p in params)
+        if self._grad_buffer is None or self._grad_buffer[0] != key:
+            flat = torch.empty(sum(p.numel() for p in params), dtype=torch.float32, device=params[0].grad.device)
+            views = [part.view_as(p) for part, p in zip(flat.split([p.numel() for p in params]), params)]
+            self._grad_buffer = (key, flat, views)
+        _, flat, views = self._grad_buffer
+        torch._foreach_copy_(views, [p.grad for p in params])
         self.all_reduce_(flat)
         if mean:
             flat.div_(self.size)
-        torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(grads, flat.split([g.numel() for g in grads]))])
+        for p, view in zip(params, views):
+            if p.dtype == flat.dtype:
+                p.grad = view
+            else:
+                p.grad.copy_(view)
 
     def barrier(self) -> None:
         """Every rank waits here for the others (an all-reduce read back)."""

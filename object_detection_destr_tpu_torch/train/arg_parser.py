@@ -138,8 +138,6 @@ def get_parser(model_name: str = "destr") -> argparse.ArgumentParser:
         p.add_argument("--hidden_dim", type=int, default=256)
         p.add_argument("--ffn_dim", type=int, default=2048)
         p.add_argument("--num_heads", type=int, default=8)
-        p.add_argument("--dropout", type=float, default=0.3,
-                       help="transformer dropout rate (config.py: DestrConfig.dropout)")
         p.add_argument("--backbone", type=str, default="resnet50",
                        choices=["resnet50", "resnet101"])
         p.add_argument("--dilation", action="store_true")
@@ -221,7 +219,6 @@ def config_from_args(args: argparse.Namespace, model_name: str) -> Config:
         hidden_dim=getattr(args, "hidden_dim", 256),
         ffn_dim=getattr(args, "ffn_dim", 2048),
         num_heads=getattr(args, "num_heads", 8),
-        dropout=getattr(args, "dropout", 0.3),
         num_encoder_blocks=getattr(args, "num_encoder_blocks", 6),
         num_decoder_blocks=getattr(args, "num_decoder_blocks", 6),
         top_k=getattr(args, "top_k", 300),
