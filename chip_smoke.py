@@ -5,7 +5,9 @@ serving path; SSD300's serving, training, validation and the batch CLI;
 training on image files with the JAX package's options (letterbox,
 gradient accumulation, bfloat16 moments, optimizer layouts, remat);
 training and serving from torch weights, and the captured step profiled by
-kernel; data-parallel training over explicit process groups; and hold each
+kernel; data-parallel training over explicit process groups; the JAX
+package's tools on the port (val noise, the divergence post-mortem, the
+flash probe, the loader bench, the convolution roofline); and hold each
 hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
@@ -213,6 +215,24 @@ Phases (any failure exits non-zero and prints no result):
      on the same weights and batches: parameters, losses and BatchNorm
      statistics bit-identical across ranks, near one process's (DP_TOL),
      18 / 18 / 1 launches of #1 / #2 / #9 a rank-step counted by stream.
+ 17. tools (the JAX package's tools/ on the port, each from its
+     tools/*_torch.py in this process): (a) val_noise on phase 6b's best
+     checkpoint (32 images, 2 valid-loader orders, 200 resamples): the
+     metric state the same in both orders, the per-image rows summing back
+     to the sweep's mAP and COCO AP, 18 #1 and 1 #9 launches a batch; (b)
+     the production recipe (hidden 256, B=16, bf16, dropout 0.3) trained an
+     epoch of 2 steps to pm_last and resumed from it 4 times for 2 more,
+     logging every step; postmortem_divergence replays those 2 steps from
+     pm_last: its first step's losses equal to every resume's (1e-6, the
+     log's rounding), its losses no farther from the nearest resume's than
+     twice the largest gap between two resumes plus 1e-6 (kernel #2's
+     atomic dQ makes no two runs of a later step bit-equal, and the next
+     step's discrete choices amplify that), 18 / 18 / 1 launches of #1 /
+     #2 / #9 a step; (c) probe_flash at its defaults (Sq = Sk = 7056, B=1, 8 heads
+     of 32, dropout 0.1): #1 and #1 + #2 device times against their bound
+     and SDPA's; (d) bench_loader on 256 written 600x800 JPEGs (COCO
+     layout); (e) roofline_conv at B=16, 640 px against the convolution
+     category of phase 15 (d)'s trace.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors and #3's and
@@ -1478,13 +1498,13 @@ VALID_SAMPLES = 32  # two validation batches
 EAGER_RUNS = 5  # eager samples a captured one is held against (their pairwise distances give the spread)
 
 
-def phase_validation(torch, kernels, seed):
+def phase_validation(torch, kernels, seed, ckpt):
     """The validation path through the trainer's and the evaluator's entry
     points: the production recipe with a 32-image validation split, the
-    parameter EMA, COCO AP and checkpoints, for one epoch of 4 steps; then
-    ``infer.evaluate.main`` on the best checkpoint; then a resume from
-    ``_last`` for one more epoch. Returns the launches of the training run
-    and what was timed."""
+    parameter EMA, COCO AP and checkpoints in ``ckpt`` (kept for phase 17),
+    for one epoch of 4 steps; then ``infer.evaluate.main`` on the best
+    checkpoint; then a resume from ``_last`` for one more epoch. Returns the
+    launches of the training run and what was timed."""
     from object_detection_destr_tpu_torch.infer import evaluate
     from object_detection_destr_tpu_torch.losses.metrics import CocoAveragePrecision, MeanAveragePrecision
     from object_detection_destr_tpu_torch.train import train as train_cli
@@ -1492,82 +1512,78 @@ def phase_validation(torch, kernels, seed):
     from object_detection_destr_tpu_torch.train.driver import _eval_batch, _make_ema, _make_loaders
     from object_detection_destr_tpu_torch.train.steps import make_destr_eval_step
 
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        base = TRAIN_ARGS + ["--seed", str(seed), "--num_valid_samples", str(VALID_SAMPLES), "--checkpoint_dir", ckpt,
-                             "--log_dir", os.path.join(ckpt, "runs")]
-        argv = base + ["--ema_decay", "0.999", "--coco_eval", "--save_as", "smoke"]
-        reset_counts(kernels)  # the validation path starts here
-        t0 = time.perf_counter()
-        result = train_cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = [k.launches for k in kernels]  # read just after the path
-        state, history = result["state"], result["history"]
-        batches = 2 * (VALID_SAMPLES // TRAIN_B)  # the live and the EMA sweep
-        want = [18 * TRAIN_STEPS + 18 * batches, 18 * TRAIN_STEPS, 0, 0, TRAIN_STEPS + batches, 0, 0, 0, 0]
-        if state.step != TRAIN_STEPS or counts != want:
-            raise AssertionError(f"{state.step} steps and {batches} validation batches launched "
-                                 f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
-        files = sorted(f for f in os.listdir(ckpt) if f.startswith("smoke"))
-        if files != ["smoke", "smoke_ema", "smoke_last"]:
-            raise AssertionError(f"checkpoints {files}, not smoke, smoke_ema and smoke_last")
-        record = history[0]
-        scalars = [record["mAP"], record["coco_mAP"], record["ema_mAP"], record["ema_coco_mAP"],
-                   *record["valid"].values(), *record["valid_ema"].values()]
-        if not all(math.isfinite(v) for v in scalars):
-            raise AssertionError(f"non-finite validation scalars: {record}")
+    base = TRAIN_ARGS + ["--seed", str(seed), "--num_valid_samples", str(VALID_SAMPLES), "--checkpoint_dir", ckpt,
+                         "--log_dir", os.path.join(ckpt, "runs")]
+    argv = base + ["--ema_decay", "0.999", "--coco_eval", "--save_as", "smoke"]
+    reset_counts(kernels)  # the validation path starts here
+    t0 = time.perf_counter()
+    result = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]  # read just after the path
+    state, history = result["state"], result["history"]
+    batches = 2 * (VALID_SAMPLES // TRAIN_B)  # the live and the EMA sweep
+    want = [18 * TRAIN_STEPS + 18 * batches, 18 * TRAIN_STEPS, 0, 0, TRAIN_STEPS + batches, 0, 0, 0, 0]
+    if state.step != TRAIN_STEPS or counts != want:
+        raise AssertionError(f"{state.step} steps and {batches} validation batches launched "
+                             f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
+    files = sorted(f for f in os.listdir(ckpt) if f.startswith("smoke"))
+    if files != ["smoke", "smoke_ema", "smoke_last"]:
+        raise AssertionError(f"checkpoints {files}, not smoke, smoke_ema and smoke_last")
+    record = history[0]
+    scalars = [record["mAP"], record["coco_mAP"], record["ema_mAP"], record["ema_coco_mAP"],
+               *record["valid"].values(), *record["valid_ema"].values()]
+    if not all(math.isfinite(v) for v in scalars):
+        raise AssertionError(f"non-finite validation scalars: {record}")
 
-        # the evaluator on the best checkpoint, before anything can overwrite it
-        before = kernels[0].launches
-        evaluated = evaluate.main(base + ["--resume_from", "smoke"])
-        eval_launches = kernels[0].launches - before
-        if abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != VALID_SAMPLES:
-            raise AssertionError(f"evaluate: map {evaluated['map']} over {evaluated['n_images']} images, the "
-                                 f"driver's epoch-0 mAP {record['mAP']}")
+    # the evaluator on the best checkpoint, before anything can overwrite it
+    before = kernels[0].launches
+    evaluated = evaluate.main(base + ["--resume_from", "smoke"])
+    eval_launches = kernels[0].launches - before
+    if abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != VALID_SAMPLES:
+        raise AssertionError(f"evaluate: map {evaluated['map']} over {evaluated['n_images']} images, the "
+                             f"driver's epoch-0 mAP {record['mAP']}")
 
-        # where a validation batch goes (the host loader, the transform, the
-        # eval step, the metrics), the EMA update and a checkpoint
-        config = recipe_config(["--num_valid_samples", str(VALID_SAMPLES)])
-        _, valid_loader = _make_loaders(config, 672, "destr")
-        t0 = time.perf_counter()
-        raws = list(valid_loader)  # the letterboxed host batches of one sweep
-        loader_s = time.perf_counter() - t0
-        transform_ms = time_cuda(torch, lambda: _eval_batch(raws[0], torch.device("cuda"), 672, 640))
-        batch = _eval_batch(raws[0], torch.device("cuda"), 672, 640)
-        eval_step = make_destr_eval_step(config.train)
-        val_batch_ms = time_cuda(torch, lambda: eval_step(state, batch))
-        outputs, _ = eval_step(state, batch)
-        targets = {k: batch[k] for k in ("boxes", "labels", "valid")}
-        metric, coco = MeanAveragePrecision(1, num_pred=300), CocoAveragePrecision(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metric.update(metric.init_state(), outputs, targets)
-        map_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        coco.update(outputs, targets)
-        coco_ms = (time.perf_counter() - t0) * 1e3
-        init, update = _make_ema(0.999)
-        ema = init(state.model)
-        ema_ms = time_cuda(torch, lambda: update(ema, state.model))
-        del ema
-        t0 = time.perf_counter()
-        path = save_checkpoint(ckpt, "timed", state, {"epoch": 1, "step": 0}, 1.0)
-        save_s = time.perf_counter() - t0
-        size_mb = os.path.getsize(path) / 1e6
-        n_params = sum(p.numel() for p in state.model.parameters())
-        del state, result
-        torch.cuda.empty_cache()
+    # where a validation batch goes (the host loader, the transform, the
+    # eval step, the metrics), the EMA update and a checkpoint
+    config = recipe_config(["--num_valid_samples", str(VALID_SAMPLES)])
+    _, valid_loader = _make_loaders(config, 672, "destr")
+    t0 = time.perf_counter()
+    raws = list(valid_loader)  # the letterboxed host batches of one sweep
+    loader_s = time.perf_counter() - t0
+    transform_ms = time_cuda(torch, lambda: _eval_batch(raws[0], torch.device("cuda"), 672, 640))
+    batch = _eval_batch(raws[0], torch.device("cuda"), 672, 640)
+    eval_step = make_destr_eval_step(config.train)
+    val_batch_ms = time_cuda(torch, lambda: eval_step(state, batch))
+    outputs, _ = eval_step(state, batch)
+    targets = {k: batch[k] for k in ("boxes", "labels", "valid")}
+    metric, coco = MeanAveragePrecision(1, num_pred=300), CocoAveragePrecision(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metric.update(metric.init_state(), outputs, targets)
+    map_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    coco.update(outputs, targets)
+    coco_ms = (time.perf_counter() - t0) * 1e3
+    init, update = _make_ema(0.999)
+    ema = init(state.model)
+    ema_ms = time_cuda(torch, lambda: update(ema, state.model))
+    del ema
+    t0 = time.perf_counter()
+    path = save_checkpoint(ckpt, "timed", state, {"epoch": 1, "step": 0}, 1.0)
+    save_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(path) / 1e6
+    n_params = sum(p.numel() for p in state.model.parameters())
+    del state, result
+    torch.cuda.empty_cache()
 
-        # resume from _last: the step counter and the loader go on
-        resumed = train_cli.main(base + ["--save_as", "smoke", "--resume", "--resume_from", "smoke_last",
-                                         "--epochs", "1"])
-        torch.cuda.synchronize()
-        if resumed["state"].step != 2 * TRAIN_STEPS or resumed["history"][-1]["step"] != 2 * TRAIN_STEPS:
-            raise AssertionError(f"the resumed run ended at step {resumed['state'].step}, not {2 * TRAIN_STEPS}")
-        del resumed
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    # resume from _last: the step counter and the loader go on
+    resumed = train_cli.main(base + ["--save_as", "smoke", "--resume", "--resume_from", "smoke_last",
+                                     "--epochs", "1"])
+    torch.cuda.synchronize()
+    if resumed["state"].step != 2 * TRAIN_STEPS or resumed["history"][-1]["step"] != 2 * TRAIN_STEPS:
+        raise AssertionError(f"the resumed run ended at step {resumed['state'].step}, not {2 * TRAIN_STEPS}")
+    del resumed
     sweep_s = record["seconds"]
     timing = {"val_batch_ms": val_batch_ms, "val_images_per_sec": VALID_SAMPLES / sweep_s[0],
               "sweep_seconds": sweep_s, "ema_update_ms": ema_ms, "checkpoint_mb": size_mb,
@@ -3157,7 +3173,7 @@ def repo_module(name, relpath):
     return module
 
 
-def _beside_card(card, label, fn, *args):
+def _beside_card(card, label, fn, *args, phase="import"):
     """``fn(*args)``, what it prints printed again line by line beside the
     card's name and power limit."""
     import io
@@ -3168,7 +3184,7 @@ def _beside_card(card, label, fn, *args):
             return fn(*args)
     finally:
         for line in printed.getvalue().splitlines():
-            log(f"import ({card}) {label} | {line}")
+            log(f"{phase} ({card}) {label} | {line}")
 
 
 def _seeded_bn_stats_(torch, module, seed):
@@ -3823,6 +3839,148 @@ def phase_data_parallel(torch, kernels, seed, card):
     return out
 
 
+NOISE_ORDERS, NOISE_BOOTSTRAP = 2, 200  # phase 17 (a): val_noise's valid-loader orders and resamples
+PM_STEPS = 2  # phase 17 (b): the epoch's steps, each resume's and the replay's
+# resumes the replay is held against: with 2, a replay within twice their gap
+# failed 19 % of draws from 10 measured runs of the second step (PERF.md), with
+# 4 and the nearest resume 0.2 %
+PM_RESUMES = 4
+PM_KEYS = {"loss": "loss", "loss_model": "loss_model", "loss_det": "loss_det", "loss_class": "m_class",
+           "loss_ciou": "m_ciou"}  # the trainer's logged metric -> the post-mortem row's key
+LOADER_IMAGES = 256  # phase 17 (d): the JPEG corpus
+
+
+def _train_log(path) -> dict:
+    """{step: the train metrics logged at it} of a metrics.jsonl."""
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    return {r["step"]: r for r in records if r.get("prefix") == "train"}
+
+
+def tools_val_noise(torch, kernels, ckpt, card):
+    """(a) tools/val_noise_torch.py on phase 6b's best checkpoint."""
+    tool = repo_module("val_noise_torch", os.path.join("tools", "val_noise_torch.py"))
+    argv = TRAIN_ARGS + ["--num_valid_samples", str(VALID_SAMPLES), "--checkpoint_dir", ckpt, "--resume_from",
+                         "smoke", "--log_dir", "", "--orders", str(NOISE_ORDERS), "--bootstrap", str(NOISE_BOOTSTRAP)]
+    reset_counts(kernels)  # the tool's sweeps start here
+    t0 = time.perf_counter()
+    out = _beside_card(card, "val_noise", tool.main, argv, phase="tools")
+    seconds = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    batches = NOISE_ORDERS * (VALID_SAMPLES // TRAIN_B)
+    want = [18 * batches, 0, 0, 0, batches, 0, 0, 0, 0]
+    if not (out["order_invariant"] and out["per_image_rows_reproduce_sweep"]) or counts != want \
+            or out["n_images"] != VALID_SAMPLES:
+        raise AssertionError(f"val_noise: {out}; launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, not {want}")
+    log(f"tools ({card}): val_noise on smoke, {VALID_SAMPLES} images x {NOISE_ORDERS} orders in {seconds:.1f} s: "
+        f"order_invariant {out['order_invariant']}, per_image_rows_reproduce_sweep "
+        f"{out['per_image_rows_reproduce_sweep']}, launches {counts} (18 #1 and 1 #9 a batch, {batches} batches)")
+    return {**out, "launches": counts, "seconds": seconds}
+
+
+def tools_postmortem(torch, kernels, seed, card, work):
+    """(b) the trainer runs an epoch of PM_STEPS steps to ``pm_last`` and
+    resumes from it PM_RESUMES times for PM_STEPS more, logging every step;
+    tools/postmortem_divergence_torch.py replays those steps from
+    ``pm_last``. The restored step is deterministic on the card: the
+    replay's first step's losses equal every resume's (to the log's
+    rounding, 1e-6). Later steps are not: kernel #2 adds dQ with atomics,
+    and the next forward's discrete choices (top-k, pairs, matches) amplify
+    the difference (0.4 % of the loss between resumes, with deterministic
+    cuDNN too; PERF.md). So the replay's gap to the nearest resume,
+    over all steps and losses, must stay within twice the largest gap
+    between two resumes plus 1e-6. 18 / 18 / 1 launches of #1 / #2 / #9 a
+    replayed step."""
+    from object_detection_destr_tpu_torch.train import train as train_cli
+
+    tool = repo_module("postmortem_divergence_torch", os.path.join("tools", "postmortem_divergence_torch.py"))
+    base = TRAIN_ARGS + ["--seed", str(seed), "--num_train_samples", str(PM_STEPS * TRAIN_B), "--num_valid_samples",
+                         "0", "--checkpoint_dir", work]
+    train_cli.main(base + ["--save_as", "pm", "--log_dir", ""])
+    torch.cuda.empty_cache()
+    logs = []
+    for r in range(PM_RESUMES):
+        run_dir = os.path.join(work, f"resume{r}")
+        train_cli.main(base + ["--save_as", f"resume{r}", "--resume", "--resume_from", "pm_last", "--log_dir", run_dir])
+        os.remove(os.path.join(work, f"resume{r}_last"))
+        log_ = _train_log(os.path.join(run_dir, "metrics.jsonl"))
+        logs.append([[log_[s][k] for k in PM_KEYS] for s in sorted(log_)])
+        torch.cuda.empty_cache()
+    reset_counts(kernels)  # the replay starts here
+    t0 = time.perf_counter()
+    out = _beside_card(card, "postmortem", tool.main, base + ["--resume", "--resume_from", "pm_last", "--log_dir",
+                                                              "", "--steps", str(PM_STEPS), "--out",
+                                                              os.path.join(work, "postmortem.jsonl")], phase="tools")
+    seconds = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    rows = out["rows"]
+    steps = [row["step"] for row in rows]
+    if steps != [PM_STEPS + i for i in range(PM_STEPS)] or any(len(log_) != PM_STEPS for log_ in logs):
+        raise AssertionError(f"postmortem: replayed steps {steps}, the trainer logged {[len(g) for g in logs]} steps")
+    # the replay's values rounded as the trainer's log rounds them (train/logging_utils.py)
+    replay = [[round(row[key], 6) for key in PM_KEYS.values()] for row in rows]
+    gap = lambda a, b, upto=PM_STEPS: max(abs(x - y) for ra, rb in zip(a[:upto], b[:upto]) for x, y in zip(ra, rb))
+    first_gap = max(gap(replay, log_, 1) for log_ in logs)
+    replay_gap = min(gap(replay, log_) for log_ in logs)
+    resume_gap = max(gap(a, b) for a in logs for b in logs)
+    want = [18 * PM_STEPS, 18 * PM_STEPS, 0, 0, PM_STEPS, 0, 0, 0, 0]
+    if (first_gap > 1e-6 or replay_gap > 2 * resume_gap + 1e-6 or counts != want
+            or out["first_nonfinite_step"] is not None):
+        raise AssertionError(f"postmortem: the replay's first step {first_gap} from the resumes' (limit 1e-6), its "
+                             f"losses {replay_gap} from the nearest resume, the resumes up to {resume_gap} apart "
+                             f"(limit twice that + 1e-6); launches {counts}, not {want}; first non-finite step "
+                             f"{out['first_nonfinite_step']}")
+    keep = ("loss", "grad_norm", "update_norm", "g_backbone", "u_backbone", "min_gt_area", "min_pred_area")
+    log(f"tools ({card}): postmortem replayed steps {steps} from pm_last in {seconds:.1f} s: its first step's losses "
+        f"{first_gap:.1e} from every resume's, its losses {replay_gap:.3e} from the nearest of {PM_RESUMES} resumes, "
+        f"which are up to {resume_gap:.3e} apart; loss by step, resumes "
+        + ", ".join("/".join(f"{r[0]:.6f}" for r in log_) for log_ in logs)
+        + f", replay {'/'.join(f'{r[0]:.6f}' for r in replay)}; launches {counts} (18 / 18 / 1 a step); rows "
+        + "; ".join(" ".join(f"{k}={row[k]:.6g}" for k in ("step",) + keep) for row in rows))
+    return {"first_gap": first_gap, "replay_gap": replay_gap, "resume_gap": resume_gap, "launches": counts,
+            "per_step": [c / PM_STEPS for c in counts], "seconds": seconds,
+            "rows": [{k: row[k] for k in ("step",) + keep} for row in rows]}
+
+
+def phase_tools(torch, kernels, seed, card, ckpt):
+    """Phase 17, the JAX side's tools on the port: (a) val_noise on phase
+    6b's checkpoint, (b) the post-mortem replay against the trainer's own
+    resumes, (c) probe_flash at its defaults, (d) bench_loader on a written
+    JPEG corpus, (e) the convolution roofline beside phase 15 (d)'s trace."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_",
+                            dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build"))
+    try:
+        out = {"val_noise": tools_val_noise(torch, kernels, ckpt, card)}
+        torch.cuda.empty_cache()
+        out["postmortem"] = tools_postmortem(torch, kernels, seed, card, work)
+        torch.cuda.empty_cache()
+        probe = repo_module("probe_flash_torch", os.path.join("tools", "probe_flash_torch.py"))
+        out["probe_flash"] = _beside_card(card, "probe_flash", probe.main, [], phase="tools")
+        loader = repo_module("bench_loader_torch", os.path.join("tools", "bench_loader_torch.py"))
+        corpus = os.path.join(work, "corpus")
+        loader.build_synthetic_coco(corpus, LOADER_IMAGES, (600, 800))
+        out["bench_loader"] = _beside_card(card, "bench_loader", loader.main, ["--root", corpus], phase="tools")
+        roofline = repo_module("roofline_conv_torch", os.path.join("tools", "roofline_conv_torch.py"))
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build", "traces", "profile_step")
+        out["roofline"] = _beside_card(card, "roofline", roofline.main, ["--batch", str(TRAIN_B), "--image", "640",
+                                                                          "--profile", trace_dir], phase="tools")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    probe, roof = out["probe_flash"], out["roofline"]
+    if not (math.isfinite(probe["fwd_ms"]) and math.isfinite(probe["fwd_bwd_ms"]) and roof["measured_conv_ms"] > 0
+            and out["bench_loader"]["value"] > 0):
+        raise AssertionError(f"tools: probe_flash {probe}, roofline {roof}, bench_loader {out['bench_loader']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tools ({card}): probe_flash Sq=Sk={probe['sq']} B={probe['b']}: #1 {probe['fwd_ms']:.4f} ms (bound "
+        f"{probe['fwd_bound_ms']:.4f}, SDPA {probe['sdpa_fwd_ms']:.4f}), #1 + {probe['backward_plan']} backward "
+        f"{probe['fwd_bwd_ms']:.4f} ms (bound {probe['fwd_bwd_bound_ms']:.4f}, SDPA {probe['sdpa_fwd_bwd_ms']:.4f}); "
+        f"bench_loader {out['bench_loader']['value']} images/s ({out['bench_loader']['path']}); roofline at B={TRAIN_B}: "
+        f"convolutions' bound {roof['conv_only_bound_ms']:.3f} ms ({roof['bound_ms']:.3f} with the residual adds) "
+        f"against {roof['measured_conv_ms']:.3f} ms traced in phase 15 (d); phase {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3847,6 +4005,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     phase_seconds, last = {}, [t_start]
+    val_ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")  # phase 6b's checkpoints, read again in phase 17
 
     def clock(name):
         """The seconds since the previous clock, added to ``name``'s."""
@@ -3888,7 +4047,7 @@ def main(argv=None) -> int:
             captured[label] = phase_captured_train(torch, kernels, destr_capture_setup(torch, args.seed, extra),
                                                    per_step_launches, label)
         clock("captured train (6a)")
-        val_counts, val_timing = phase_validation(torch, kernels, args.seed)
+        val_counts, val_timing = phase_validation(torch, kernels, args.seed, val_ckpt)
         clock("validation (6b)")
         torch.cuda.empty_cache()
         scan = phase_train_scan(torch, args.seed)
@@ -3925,10 +4084,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         dp = phase_data_parallel(torch, kernels, args.seed, card)
         clock("data parallel (16)")
+        torch.cuda.empty_cache()
+        tools = phase_tools(torch, kernels, args.seed, card, val_ckpt)
+        clock("tools (17)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(val_ckpt, ignore_errors=True)
 
     def step_rows(sites):
         """A training step's cells: B=16, bfloat16, dropout 0.3, masked as
@@ -4173,7 +4337,12 @@ def main(argv=None) -> int:
         f"{dp['destr']['captured_ms']:.2f} (no mesh {dp['destr']['no_mesh_captured_ms']:.2f}, NCCL "
         f"{dp['destr']['nccl_ms_per_step']:.4f}), SSD {dp['ssd']['captured_ms']:.2f} (no mesh "
         f"{dp['ssd']['no_mesh_captured_ms']:.2f}, cuDNN deterministic), 2 gloo ranks {dp['two_ranks']['seconds']:.1f} s, "
-        f"phase {dp['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
+        f"phase {dp['seconds']:.1f} s; tools: val_noise {tools['val_noise']['seconds']:.1f} s, postmortem replay gap "
+        f"{tools['postmortem']['replay_gap']:.3e} (resumes {tools['postmortem']['resume_gap']:.3e}), probe_flash "
+        f"#1 {tools['probe_flash']['fwd_ms']:.4f} ms, #1 + backward {tools['probe_flash']['fwd_bwd_ms']:.4f} ms, "
+        f"loader {tools['bench_loader']['value']} images/s, convolutions {tools['roofline']['measured_conv_ms']:.3f} "
+        f"ms against a {tools['roofline']['conv_only_bound_ms']:.3f} ms bound, phase {tools['seconds']:.1f} s; "
+        f"total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
         f"{json.dumps(_rounded(phase_seconds))}")
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
         entry["data_parallel"] = {
@@ -4182,6 +4351,19 @@ def main(argv=None) -> int:
             "per": f"phase 16: launches_per_rank, each of 2 gloo thread-ranks on the card over {DP_STEPS} eager "
                    f"float32 steps (B=8 a rank, global {TRAIN_B}), counted by the rank's CUDA stream; "
                    "one_rank_mesh_per_step, a replayed step over an explicit 1-rank NCCL mesh (trace)"}
+    pm, probe = tools["postmortem"], tools["probe_flash"]
+    entries[0]["tools"] = {"val_noise_launches": tools["val_noise"]["launches"][0],
+                           "postmortem_per_step": pm["per_step"][0],
+                           "probe_flash": {k: probe[k] for k in ("sq", "b", "heads", "rate", "fwd_ms", "fwd_bound_ms",
+                                                                 "sdpa_fwd_ms")},
+                           "per": "phase 17: val_noise's sweeps (18 a batch), a post-mortem replayed step; "
+                                  "probe_flash's device ms of one launch (CUDA graph, best of 3) at Sk = Sq, no mask"}
+    entries[1]["tools"] = {"postmortem_per_step": pm["per_step"][1],
+                           "probe_flash": {k: probe[k] for k in ("sq", "b", "heads", "rate", "backward_plan",
+                                                                 "fwd_bwd_ms", "fwd_bwd_bound_ms", "sdpa_fwd_bwd_ms")},
+                           "per": "phase 17: a post-mortem replayed step; probe_flash's #1 + #2 device ms"}
+    entries[5]["tools"] = {"val_noise_launches": tools["val_noise"]["launches"][4],
+                           "postmortem_per_step": pm["per_step"][4]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,32 +160,14 @@ class CocoAveragePrecision:
         self._tp: list[np.ndarray] = []  # (B, C, K, n_iou)
         self._num_gts = np.zeros((self.num_cls,), np.int64)
 
-    @torch.no_grad()
     def update(self, outputs: Mapping, targets: Mapping) -> None:
         """Per image and class, the top ``max_dets`` records: (score, hit at
-        each IoU threshold) (metrics.py:245-291)."""
-        logits = torch.as_tensor(outputs["pred_class"]).float()
-        pred_xyxy = cxcyhw_to_xyxy(torch.as_tensor(outputs["pred_boxes"]).float())
-        gt_xyxy = torch.as_tensor(targets["boxes"], device=logits.device).float()
-        labels = torch.as_tensor(targets["labels"], device=logits.device).int()
-        valid = torch.as_tensor(targets["valid"], device=logits.device)
-        probs = torch.sigmoid(logits)
-        b, n = probs.shape[:2]
-        k = min(self.max_dets, n)
-        thresholds = np.asarray(self.IOU_THRESHOLDS, np.float32)
-        scores = np.full((b, self.num_cls, self.max_dets), -1.0, np.float32)
-        tps = np.zeros((b, self.num_cls, self.max_dets, len(thresholds)), np.float32)
-        for cls in range(self.num_cls):
-            top_s, top_i = stable_topk(probs[..., cls], k)  # lax.top_k's tie order
-            top_boxes = torch.gather(pred_xyxy, 1, top_i[..., None].expand(-1, -1, 4))
-            gvalid = valid & (labels == cls)
-            iou = torch.where(gvalid[:, None, :], pairwise_iou(top_boxes, gt_xyxy), -1.0)
-            hits = _greedy_ranks(iou.cpu().numpy(), np.full((b,), k), thresholds, skip_matched=True)
-            scores[:, cls, :k] = top_s.cpu().numpy()
-            tps[:, cls, :k] = hits
-            self._num_gts[cls] += int(gvalid.sum())
+        each IoU threshold) (metrics.py:200-211)."""
+        scores, tps, n_gt = _coco_batch_records(outputs, targets, num_cls=self.num_cls, max_dets=self.max_dets,
+                                                iou_thresholds=self.IOU_THRESHOLDS)
         self._scores.append(scores)
         self._tp.append(tps)
+        self._num_gts += n_gt.sum(axis=0)
 
     def compute(self) -> float:
         if not self._scores:
@@ -216,3 +198,34 @@ class CocoAveragePrecision:
                 pr = np.where(idx < len(precision), precision[np.minimum(idx, len(precision) - 1)], 0.0)
                 aps.append(pr.mean())
         return float(np.mean(aps)) if aps else 0.0
+
+
+@torch.no_grad()
+def _coco_batch_records(outputs: Mapping, targets: Mapping, *, num_cls: int, max_dets: int,
+                        iou_thresholds) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-image, per-class top-``max_dets`` detection records for COCO AP
+    (metrics.py:245-291): host numpy (scores (B, C, K) float32, -1 in padded
+    slots; tp (B, C, K, n_iou) float32 hit flags; n_gt (B, C) int64 valid
+    ground truths of the class in each image)."""
+    logits = torch.as_tensor(outputs["pred_class"]).float()
+    pred_xyxy = cxcyhw_to_xyxy(torch.as_tensor(outputs["pred_boxes"]).float())
+    gt_xyxy = torch.as_tensor(targets["boxes"], device=logits.device).float()
+    labels = torch.as_tensor(targets["labels"], device=logits.device).int()
+    valid = torch.as_tensor(targets["valid"], device=logits.device)
+    probs = torch.sigmoid(logits)
+    b, n = probs.shape[:2]
+    k = min(max_dets, n)
+    thresholds = np.asarray(iou_thresholds, np.float32)
+    scores = np.full((b, num_cls, max_dets), -1.0, np.float32)
+    tps = np.zeros((b, num_cls, max_dets, len(thresholds)), np.float32)
+    n_gt = np.zeros((b, num_cls), np.int64)
+    for cls in range(num_cls):
+        top_s, top_i = stable_topk(probs[..., cls], k)  # lax.top_k's tie order
+        top_boxes = torch.gather(pred_xyxy, 1, top_i[..., None].expand(-1, -1, 4))
+        gvalid = valid & (labels == cls)
+        iou = torch.where(gvalid[:, None, :], pairwise_iou(top_boxes, gt_xyxy), -1.0)
+        hits = _greedy_ranks(iou.cpu().numpy(), np.full((b,), k), thresholds, skip_matched=True)
+        scores[:, cls, :k] = top_s.cpu().numpy()
+        tps[:, cls, :k] = hits
+        n_gt[:, cls] = gvalid.sum(-1).cpu().numpy()
+    return scores, tps, n_gt

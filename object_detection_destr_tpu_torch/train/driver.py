@@ -263,12 +263,15 @@ def _gathered_targets(batch: dict, mesh) -> dict:
 
 def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
                coco_metric: Optional[CocoAveragePrecision], device: torch.device, resize_to: int,
-               out_size: int, mesh=None) -> tuple[dict, float, Optional[float], float]:
+               out_size: int, mesh=None, on_batch: Optional[Callable[[dict, dict, dict], None]] = None
+               ) -> tuple[dict, float, Optional[float], float]:
     """One validation pass over ``loader``'s raw batches (driver.py:298-323):
     (the means of the eval step's metrics, mAP, COCO AP or None, host
     seconds; the last batch's metric update waits for the device). On a
     ``mesh`` the eval step gives the global batch's outputs and the targets
-    are gathered, so the metrics are one process's."""
+    are gathered, so the metrics are one process's. ``on_batch(outputs,
+    targets, metric_state)``, where given, sees each batch after the metrics'
+    updates (``tools/val_noise_torch.py`` reads per-image records there)."""
     t0 = time.perf_counter()
     metric_state = metric.init_state()
     if coco_metric is not None:
@@ -281,6 +284,8 @@ def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
         metric_state = metric.update(metric_state, outputs, targets)
         if coco_metric is not None:
             coco_metric.update(outputs, targets)
+        if on_batch is not None:
+            on_batch(outputs, targets, metric_state)
         val_metrics.append(m)
     val_means = {k: float(torch.stack([m[k] for m in val_metrics]).float().mean())
                  for k in val_metrics[0]} if val_metrics else {}
@@ -324,6 +329,14 @@ class _Run:
     profile_dir: Optional[str]  # trace steps 2-4 of epoch 0 here (and run per step)
     mesh: Mesh  # the run's mesh (of one rank on a single device)
     step_mesh: Optional[Mesh]  # the mesh the steps reduce over: None on one rank (JAX's step_mesh)
+
+    def eager_step(self, raw: dict, device: torch.device, gen: torch.Generator, seed: int) -> dict:
+        """One step of the per-step loop: the transform's generator reseeded
+        for the step (:func:`_aug_seed` of ``seed``), the batch on the device
+        through the train transform, the train step; returns its metrics."""
+        gen.manual_seed(_aug_seed(seed, self.state.step, self.aug_offset))
+        batch = self.transform(_to_device(raw, device), gen, self.step_mesh)
+        return self.train_step(self.state, batch)
 
 
 def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_info) -> dict:
@@ -390,9 +403,7 @@ def _fit(config: Config, device: torch.device, run: _Run, train_loader, cache_in
                         trace = StepTrace(run.profile_dir)
                         trace.start()
                     with trace.step(state.step) if trace is not None else contextlib.nullcontext():
-                        aug_gen.manual_seed(aug_seed(state.step))
-                        batch = run.transform(_to_device(raw, device), aug_gen, run.step_mesh)
-                        metrics = run.train_step(state, batch)
+                        metrics = run.eager_step(raw, device, aug_gen, cfg_t.seed)
                         if ema_params is not None:
                             ema_update(ema_params, model)
                     timer.step()
@@ -493,6 +504,15 @@ def train_destr(config: Config, device: str | torch.device | None = None, mesh: 
     mesh, step_mesh, device = _mesh_of(config, device, mesh)
     if not mesh.active:
         return _idle(mesh)
+    return _fit(config, device, *_destr_run(config, mesh, step_mesh, device))
+
+
+def _destr_run(config: Config, mesh: Mesh, step_mesh: Optional[Mesh], device: torch.device,
+               observer: Optional[Callable[[dict], None]] = None):
+    """(the DESTR trainer's :class:`_Run`, its train loader, the device
+    cache's info or None): the loaders, the model from the seed, the state
+    and the steps of :func:`train_destr`; ``observer`` goes to the per-step
+    path's train step (``make_destr_train_step``)."""
     cfg_t = config.train
     destr_cfg = dataclasses.replace(config.destr, bn_axis_name="data") if step_mesh is not None else config.destr
     canvas = int(cfg_t.image_size * 672 / 640)  # reference eval geometry
@@ -510,14 +530,14 @@ def train_destr(config: Config, device: str | torch.device | None = None, mesh: 
     sweep = (state, valid_loader, make_destr_eval_step(cfg_t, step_mesh), metric, coco_metric, device, canvas,
              out_size, step_mesh)
     run = _Run(
-        state, make_destr_train_step(cfg_t, step_mesh), make_destr_step_core(cfg_t, step_mesh),
+        state, make_destr_train_step(cfg_t, step_mesh, observer), make_destr_step_core(cfg_t, step_mesh),
         lambda raw, gen, mesh=None: destr_train_transform(
             raw["images"], raw["boxes"], raw["labels"], raw["valid"], gen, raw.get("content_hw"),
             out_size=out_size, mesh=mesh),
         lambda: _val_sweep(*sweep), aug_offset=7, val_key="loss_model", val_label="val_model",
         profile_dir=cfg_t.profile_dir, mesh=mesh, step_mesh=step_mesh,
     )
-    return _fit(config, device, run, train_loader, cache_info)
+    return run, train_loader, cache_info
 
 
 def train_ssd(config: Config, device: str | torch.device | None = None, mesh: Optional[Mesh] = None) -> dict:

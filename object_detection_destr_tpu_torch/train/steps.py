@@ -37,7 +37,7 @@ mesh a step is the single device's.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -136,7 +136,8 @@ def _gathered(tree, mesh):
             for k, v in tree.items()}
 
 
-def make_destr_step_core(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, dict], dict]:
+def make_destr_step_core(cfg: TrainConfig, mesh=None,
+                         observer: Optional[Callable[[dict], None]] = None) -> Callable[[TrainState, dict], dict]:
     """``core(state, batch) -> metrics``: the device work of one step,
     updating the model and the optimizer in place and nothing on the host
     (not the step count; the dropout stream as the caller seeded it). With
@@ -146,6 +147,14 @@ def make_destr_step_core(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, d
     ``batch``: {"images": (B, S, S, 3) float32 normalized, "boxes": (B, T, 4)
     xyxy, "labels": (B, T), "valid": (B, T) bool, optional "pixel_valid"}.
     Metrics are detached device scalars.
+
+    ``observer``, where given, is called once a step after the update with
+    what the step computed on the way, detached: {"model_out", "targets",
+    "l_model", "l_det" (each criterion's unweighted components), "loss",
+    "loss_model", "loss_det", "optimizer" (``AdamW.step``'s grad_norm,
+    finite, applied)}. The gradients stay in the parameters' ``.grad`` until
+    the next step. It reads; the step's values do not depend on it
+    (``tools/postmortem_divergence_torch.py``).
     """
 
     def core(state: TrainState, batch: dict) -> dict:
@@ -167,7 +176,12 @@ def make_destr_step_core(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, d
             # each rank's gradient is its data's share of the global loss'
             mesh.all_reduce_grads(model.parameters())
         _guard_stats(model, old_stats, cfg)
-        state.optimizer.step()
+        update = state.optimizer.step()
+        if observer is not None:
+            detached = lambda tree: {k: v.detach() for k, v in tree.items()}
+            observer({"model_out": detached(model_out), "targets": targets, "l_model": detached(l_model),
+                      "l_det": detached(l_det), "loss": loss.detach(), "loss_model": loss_model.detach(),
+                      "loss_det": loss_det.detach(), "optimizer": update})
         return {
             "loss": loss.detach(),
             "loss_model": loss_model.detach(),
@@ -194,9 +208,11 @@ def _step_wrapper(core: Callable[[TrainState, dict], dict], mesh=None) -> Callab
     return train_step
 
 
-def make_destr_train_step(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, dict], dict]:
-    """:func:`make_destr_step_core` wrapped with the step's host bookkeeping."""
-    return _step_wrapper(make_destr_step_core(cfg, mesh), mesh)
+def make_destr_train_step(cfg: TrainConfig, mesh=None,
+                          observer: Optional[Callable[[dict], None]] = None) -> Callable[[TrainState, dict], dict]:
+    """:func:`make_destr_step_core` (with its ``observer``) wrapped with the
+    step's host bookkeeping."""
+    return _step_wrapper(make_destr_step_core(cfg, mesh, observer), mesh)
 
 
 def make_destr_eval_step(cfg: TrainConfig, mesh=None) -> Callable[[TrainState, dict], tuple[dict, dict]]:

@@ -1,5 +1,5 @@
-"""The port, chip_smoke.py, tools/profile_step_torch.py and
-tools/trace_window_check.py import no JAX, no flax, no orbax and nothing of
+"""The port, chip_smoke.py and the port's tools (tools/*_torch.py and
+tools/trace_window_check.py) import no JAX, no flax, no orbax and nothing of
 the JAX package. Checked in a fresh interpreter, because this test process
 has JAX loaded already (tests/conftest.py)."""
 
@@ -18,7 +18,8 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
     names.append(info.name)
 import chip_smoke
-for tool in ("profile_step_torch", "trace_window_check"):
+for tool in ("profile_step_torch", "trace_window_check", "val_noise_torch", "postmortem_divergence_torch",
+             "probe_flash_torch", "roofline_conv_torch", "bench_loader_torch"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 forbidden = sorted(m for m in sys.modules
