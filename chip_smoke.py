@@ -7,8 +7,9 @@ gradient accumulation, bfloat16 moments, optimizer layouts, remat);
 training and serving from torch weights, and the captured step profiled by
 kernel; data-parallel training over explicit process groups; the JAX
 package's tools on the port (val noise, the divergence post-mortem, the
-flash probe, the loader bench, the convolution roofline); and hold each
-hand-written CUDA kernel against its plain PyTorch version.
+flash probe, the loader bench, the convolution roofline); the port's
+launchers, scripts/*_torch.sh, as subprocesses; and hold each hand-written
+CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -233,6 +234,22 @@ Phases (any failure exits non-zero and prints no result):
      and SDPA's; (d) bench_loader on 256 written 600x800 JPEGs (COCO
      layout); (e) roofline_conv at B=16, 640 px against the convolution
      category of phase 15 (d)'s trace.
+ 18. launchers: scripts/train_prod_synth_torch.sh (640 px, 6+6 blocks,
+     top_k 300, B=16, bf16, EMA, COCO AP, --epoch_scan) and
+     scripts/train_prod_ssd_torch.sh (300 px, B=32) as subprocesses, each
+     cut to one epoch of 2 steps and 32 validation images, with its
+     checkpoints and logs in a temporary directory; then infer.evaluate on
+     the DESTR checkpoint. Each subprocess runs in its own process group,
+     killed past its time limit, under a python first on PATH that counts
+     the nine wrappers' launches in that process: exit code 0; the recipes'
+     tags in metrics.jsonl (Metric/coco_mAP, Metric/ema_mAP, ...) and train
+     records at steps 1 and 2; the best, _ema (DESTR) and _last
+     checkpoints; 108 / 36 / 6 launches of #1 / #2 / #9 in DESTR's run (the
+     epoch runner's warm-up step and capture, 18 / 18 / 1 each, and 4
+     validation batches, 18 / 0 / 1 each), none of the nine in SSD's; the
+     evaluator's one JSON line with map and coco_map equal to the trainer's
+     logged values (within 1e-5, its printing's rounding) and 18 #1
+     launches a batch.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors and #3's and
@@ -3981,6 +3998,144 @@ def phase_tools(torch, kernels, seed, card, ckpt):
     return out
 
 
+LAUNCH_TIMEOUT_S = 300  # phase 18: each subprocess, its process group killed past it
+LAUNCHER_VALID = 32  # phase 18: two validation batches of 16
+# phase 18's cuts of the recipes: one epoch of 2 steps each, the widths kept
+LAUNCHER_CUTS = {
+    "train_prod_synth_torch.sh": ["--epochs", "1", "--num_train_samples", "32", "--num_valid_samples",
+                                  str(LAUNCHER_VALID), "--epoch_scan", "--log_interval", "1"],
+    "train_prod_ssd_torch.sh": ["--epochs", "1", "--num_train_samples", "64", "--num_valid_samples",
+                                str(LAUNCHER_VALID), "--log_interval", "1"],
+}
+LAUNCHER_TAGS = {
+    "train_prod_synth_torch.sh": ("Perf/images_per_sec", "Loss/valid/loss_model", "Metric/mAP", "Metric/coco_mAP",
+                                  "Loss/valid_ema/loss_model", "Metric/ema_mAP", "Metric/ema_coco_mAP"),
+    "train_prod_ssd_torch.sh": ("Perf/images_per_sec", "Loss/valid/loss", "Metric/mAP"),
+}
+LAUNCHER_CHECKPOINTS = {"train_prod_synth_torch.sh": ("prod_r4", "prod_r4_ema", "prod_r4_last"),
+                        "train_prod_ssd_torch.sh": ("ssd_prod", "ssd_prod_last")}
+# the interpreter the launchers find first on PATH in phase 18: it runs
+# ``python -m MODULE ...`` as python would and writes the nine wrappers'
+# launch counts of that process to $CHIP_SMOKE_LAUNCHES at its end
+LAUNCH_COUNTING_PYTHON = """#!{python}
+import json, os, runpy, sys
+if sys.argv[1:2] != ["-m"]:
+    os.execv(sys.executable, [sys.executable, *sys.argv[1:]])
+module = sys.argv[2]
+sys.argv = [module, *sys.argv[3:]]
+sys.path.insert(0, os.getcwd())
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+finally:
+    from {pkg}.ops.cuda import auction, flash_attention as fa
+    kernels = [fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_dq, fa.flash_attention_dkv,
+               auction.fused_auction, auction.auction_kernel, fa.flash_attention_unpacked_fwd,
+               fa.flash_attention_unpacked_dq, fa.flash_attention_unpacked_dkv]
+    with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
+        json.dump([k.launches for k in kernels], f)
+"""
+
+
+def run_launched(cmd, work, label, card) -> tuple[list, str, float]:
+    """``cmd`` in its own process group with the launch-counting python
+    first on PATH, killed with its group after LAUNCH_TIMEOUT_S; returns
+    (its nine launch counts, its stdout, its seconds). Fails on a non-zero
+    exit or a timeout."""
+    import signal
+
+    counts_path = os.path.join(work, f"{label}_launches.json")
+    env = {**os.environ, "PATH": os.path.join(work, "bin") + os.pathsep + os.environ.get("PATH", ""),
+           "CHIP_SMOKE_LAUNCHES": counts_path}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"launchers: {label} passed its {LAUNCH_TIMEOUT_S} s limit; its output ends:\n"
+                             + out[-4000:])
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launchers: {label} exited {proc.returncode}; its output ends:\n{out[-4000:]}")
+    with open(counts_path) as f:
+        counts = json.load(f)
+    log(f"launchers ({card}) {label}: exit 0 in {seconds:.1f} s, launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}")
+    return counts, out, seconds
+
+
+def phase_launchers(card):
+    """Phase 18, the port's launchers: scripts/train_prod_synth_torch.sh and
+    scripts/train_prod_ssd_torch.sh run as subprocesses with LAUNCHER_CUTS
+    appended (the recipes' widths kept), then infer.evaluate on the DESTR
+    checkpoint they wrote; each subprocess's exit code, tags, checkpoints
+    and launch counts checked."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, PKG, "_build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_launchers_", dir=os.path.join(root, PKG, "_build"))
+    out = {}
+    try:
+        os.makedirs(os.path.join(work, "bin"))
+        shim = os.path.join(work, "bin", "python")
+        with open(shim, "w") as f:
+            f.write(LAUNCH_COUNTING_PYTHON.format(python=sys.executable, pkg=PKG))
+        os.chmod(shim, 0o755)
+        logged = {}
+        for script, cut in LAUNCHER_CUTS.items():
+            ckpt, logs = os.path.join(work, script + ".ckpt"), os.path.join(work, script + ".runs")
+            counts, _, seconds = run_launched(["bash", os.path.join(root, "scripts", script), *cut,
+                                               "--checkpoint_dir", ckpt, "--log_dir", logs], work, script, card)
+            with open(os.path.join(logs, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            tags = {r["tag"]: r["value"] for r in records if "tag" in r}
+            train_steps = sorted(r["step"] for r in records if r.get("prefix") == "train")
+            missing = [t for t in LAUNCHER_TAGS[script] if t not in tags]
+            absent = [n for n in LAUNCHER_CHECKPOINTS[script] if not os.path.exists(os.path.join(ckpt, n))]
+            values = [tags[t] for t in LAUNCHER_TAGS[script] if t in tags]
+            if missing or absent or train_steps != [1, 2] or not all(math.isfinite(v) for v in values):
+                raise AssertionError(f"launchers: {script}: tags missing {missing}, checkpoints missing {absent}, "
+                                     f"train steps logged {train_steps}, values {values}")
+            # DESTR: the epoch runner's eager warm-up step and its capture (a
+            # replay calls no wrapper), 18 / 18 / 1 each, and the live and
+            # EMA sweeps, 18 #1 and 1 #9 a batch; SSD: none of the nine
+            sweeps = 2 * (LAUNCHER_VALID // TRAIN_B)
+            want = ([18 * (2 + sweeps), 18 * 2, 0, 0, 2 + sweeps, 0, 0, 0, 0]
+                    if script == "train_prod_synth_torch.sh" else list(NO_LAUNCHES))
+            if counts != want:
+                raise AssertionError(f"launchers: {script} launches {counts}, not {want}")
+            logged[script] = tags
+            out[script] = {"seconds": seconds, "launches": counts,
+                           "tags": {t: tags[t] for t in LAUNCHER_TAGS[script]}}
+        # the evaluator on the DESTR launcher's best checkpoint, the recipe's shape flags
+        script = "train_prod_synth_torch.sh"
+        counts, printed, seconds = run_launched(
+            [shim, "-m", f"{PKG}.infer.evaluate", "--dataset", "synthetic", "--synthetic_size", "672",
+             "--image_size", "640", "--batch_size", str(TRAIN_B), "--compute_dtype", "bfloat16",
+             "--num_encoder_blocks", "6", "--num_decoder_blocks", "6", "--top_k", "300",
+             "--num_valid_samples", str(LAUNCHER_VALID), "--checkpoint_dir", os.path.join(work, script + ".ckpt"),
+             "--resume_from", "prod_r4"], work, "evaluate", card)
+        result = json.loads(printed.strip().splitlines()[-1])
+        batches = LAUNCHER_VALID // TRAIN_B
+        # the evaluator prints to 5 places; the trainer's sweep on the same weights is the same computation
+        gaps = [abs(result["map"] - logged[script]["Metric/mAP"]),
+                abs(result["coco_map"] - logged[script]["Metric/coco_mAP"])]
+        if result["n_images"] != LAUNCHER_VALID or counts != [18 * batches] + [0] * 8 or max(gaps) > 1e-5:
+            raise AssertionError(f"launchers: evaluate printed {result}, launches {counts} (18 #1 a batch "
+                                 f"expected), gaps to the trainer's mAP / COCO AP {gaps}")
+        out["evaluate"] = {"seconds": seconds, "launches": counts, "map": result["map"],
+                           "coco_map": result["coco_map"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launchers ({card}): train_prod_synth_torch.sh {out['train_prod_synth_torch.sh']['seconds']:.1f} s, "
+        f"train_prod_ssd_torch.sh {out['train_prod_ssd_torch.sh']['seconds']:.1f} s, evaluate "
+        f"{out['evaluate']['seconds']:.1f} s (map {out['evaluate']['map']}, coco_map "
+        f"{out['evaluate']['coco_map']}, the trainer's logged values within 1e-5); phase {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4087,6 +4242,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         tools = phase_tools(torch, kernels, args.seed, card, val_ckpt)
         clock("tools (17)")
+        torch.cuda.empty_cache()  # the launchers' processes share the card with this one
+        launchers = phase_launchers(card)
+        clock("launchers (18)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4342,7 +4500,9 @@ def main(argv=None) -> int:
         f"#1 {tools['probe_flash']['fwd_ms']:.4f} ms, #1 + backward {tools['probe_flash']['fwd_bwd_ms']:.4f} ms, "
         f"loader {tools['bench_loader']['value']} images/s, convolutions {tools['roofline']['measured_conv_ms']:.3f} "
         f"ms against a {tools['roofline']['conv_only_bound_ms']:.3f} ms bound, phase {tools['seconds']:.1f} s; "
-        f"total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
+        f"launchers: prod DESTR {launchers['train_prod_synth_torch.sh']['seconds']:.1f} s, prod SSD "
+        f"{launchers['train_prod_ssd_torch.sh']['seconds']:.1f} s, evaluate {launchers['evaluate']['seconds']:.1f} s, "
+        f"phase {launchers['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
         f"{json.dumps(_rounded(phase_seconds))}")
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
         entry["data_parallel"] = {
@@ -4364,6 +4524,12 @@ def main(argv=None) -> int:
                            "per": "phase 17: a post-mortem replayed step; probe_flash's #1 + #2 device ms"}
     entries[5]["tools"] = {"val_noise_launches": tools["val_noise"]["launches"][4],
                            "postmortem_per_step": pm["per_step"][4]}
+    prod = launchers["train_prod_synth_torch.sh"]["launches"]
+    for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
+        entry["launchers"] = {"train_prod_synth_torch": prod[index], "evaluate": launchers["evaluate"]["launches"][index],
+                              "per": "phase 18, counted in the subprocesses: scripts/train_prod_synth_torch.sh, one "
+                                     "epoch of 2 steps with --epoch_scan (eager warm-up and capture) and its live and "
+                                     "EMA sweeps; infer.evaluate on its checkpoint, 2 batches"}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
