@@ -1,5 +1,5 @@
 """Drive the PyTorch port on one NVIDIA GPU: its DESTR training step at
-hidden width 256 and 512, its validation sweep, checkpoints, resume and
+hidden width 256, 512 and 1024, its validation sweep, checkpoints, resume and
 evaluator, its head-major flash-attention API, its L1-cost matcher and its
 serving path; SSD300's serving, training, validation and the batch CLI;
 training on image files with the JAX package's options (letterbox,
@@ -19,7 +19,10 @@ Phases (any failure exits non-zero and prints no result):
   2. build: compile the four csrc/*.cu files (and the measurement copy of
      #2) with nvcc at once (timed); the fused backward's shared-memory size
      as the library counts it equal to its Python mirror (which plans the
-     backward), and the plan of each call site printed;
+     backward), the forward's and the two-pass kernels' launch plans as the
+     libraries export them equal to their Python mirrors at head widths
+     16-4096 in both dtypes, every plan within the card's shared memory,
+     and the plan of each call site printed;
   3. flash attention, kernels #1-#4 against their plain versions: the
      training step's three call-site shapes at hidden 256 and at hidden 512
      (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the path;
@@ -44,6 +47,16 @@ Phases (any failure exits non-zero and prints no result):
      gradient errors with its hi / lo bf16 pairs and with one bf16 for dS
      and P keep (a copy of #2 built for that measurement only, with
      -DODTT_FLASH_BWD_ONE_BF16);
+  3d. heads past 1024 (phase_beyond_1024): hidden 1024's sites (encoder
+     self 400x400, 8 heads of 128; decoder self 300x300, 8 of 256; cross
+     600x400, one head of d 2048, dv 1024), hidden 768's cross (d 1536),
+     an odd width (d 1040, dv 520) and hidden 1024's cross at Sk 7056
+     (B=1), each in float32 and bfloat16 at dropout 0 and 0.3, packed (#1
+     and the plan's backward: #2 at d 128 / 256, the two-pass #3 + #4, wide
+     class, past 1024) and head-major (#5-#7, bit-equal to the packed
+     launches), against the plain versions; the bf16 dropout-0.3 step cells
+     timed with SDPA (or its refusal) and the bound, the others checked
+     only; hidden 1024's float32 B=1 request cells on the device;
   3a. the head-major (B, h, S, d) kernels #5 (forward), #6 (dQ) and #7
      (dK / dV) against their plain versions at the call-site shapes of both
      widths (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the
@@ -85,9 +98,11 @@ Phases (any failure exits non-zero and prints no result):
      updated parameters, exactly 18 / 18 / 0 / 0 / 1 launches of #1 / #2 /
      #3 / #4 / #9 a step, the median step time from CUDA events after the
      first step; then three more steps of the same train step with CUDA
-     events around its parts; the same with --hidden_dim 512, 18 / 12 / 6 /
-     6 / 1 launches a step (the cross-attention's backward is two-pass);
-  6a. the captured step at both widths on device-cached batches: the epoch
+     events around its parts; the same with --hidden_dim 512 and with
+     --hidden_dim 1024, 18 / 12 / 6 / 6 / 1 launches a step (the
+     cross-attention's backward is two-pass; at 1024 its d 2048 head takes
+     the wide class);
+  6a. the captured step at the three widths on device-cached batches: the epoch
      runner takes step 0 (eager warm-up, CUDA-graph capture); at each of
      steps 1-4, from one cloned state, five eager steps (the first once
      under torch.cuda.set_sync_debug_mode("error")), a replay with the
@@ -117,7 +132,7 @@ Phases (any failure exits non-zero and prints no result):
      the 4-step epoch; 18 / 18 / 0 / 0 / 1 launches a step), the cache's
      bytes and build time;
   7. one whole train step, kernels against plain versions: B=4, float32,
-     dropout 0, the same weights and batch, at hidden 256 and 512; the
+     dropout 0, the same weights and batch, at hidden 256, 512 and 1024; the
      kernel run's discrete choices (pairs, top-k indices, matcher rows) must
      be near-ties where the plain run's differ and are then replayed in it;
      loss, gradients and updated parameters compared;
@@ -127,6 +142,13 @@ Phases (any failure exits non-zero and prints no result):
      detections equal; latencies of both; a torch.profiler trace of 4
      requests of each: 18 #1 launches a request, device busy time, idle
      share;
+  8a. hidden 1024 (phase_h1024_service): train.main with the recipe and
+     --hidden_dim 1024, 2 steps and a 16-image validation batch (18 / 12 /
+     6 / 6 / 1 launches a step, 18 / 0 / 0 / 0 / 1 the batch), its
+     checkpoint; infer.evaluate.main on it reproduces the driver's mAP
+     (1e-6, 18 #1 launches); build_service restores it and serves phase 8's
+     requests, every #1 call float32, the cross-attention's at d 2048, dv
+     1024;
   9. whole model forward, kernel against plain, discrete choices
      (top-k, pairs) recorded and replayed as in phase 7;
  10. serve-ssd-300: build_service --model ssd (seeded random weights, the
@@ -261,7 +283,9 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -308,6 +332,21 @@ WIDE_SITES = [
 ]
 WIDE_CROSS = WIDE_SITES[2]
 WIDE_LONG = ("cross_cls_reg_wide_7056", 600, 7056, 1, 1024, 512, True)
+# the same call sites with --hidden_dim 1024: the merged cross-attention's
+# head is 2048 wide (dv 1024), past the 1024 the kernels once took
+H1024_ARGS = ["--hidden_dim", "1024"]
+H1024_SITES = [
+    ("encoder_self_h1024", 400, 400, 8, 128, 128, True),
+    ("decoder_self_h1024", 300, 300, 8, 256, 256, False),
+    ("cross_cls_reg_h1024", 600, 400, 1, 2048, 1024, True),
+]
+H1024_CROSS = H1024_SITES[2]
+H1024_PER_STEP = (18, 12, 6, 6, 1, 0, 0, 0, 0)
+# beside them: hidden 768's cross-attention, an odd width past 1024, and
+# hidden 1024's cross-attention at the dilated configuration's Sk
+BEYOND_SITES = [("cross_cls_reg_h768", 600, 400, 1, 1536, 768, True),
+                ("cross_odd_1040", 600, 400, 1, 1040, 520, True)]
+H1024_LONG = ("cross_cls_reg_h1024_7056", 600, 7056, 1, 2048, 1024, True)
 BLOCKS = 6  # encoder and decoder blocks of the served and trained model
 TRAIN_B = 16
 RATE = 0.3
@@ -448,7 +487,7 @@ def ptxas_usage(build_log):
             names = [mangled[m.end():m.end() + int(m.group()[i:])] for m in re.finditer(r"\d+", mangled)
                      for i in range(len(m.group()))]
             names = [n for n in names if n.endswith("_kernel") and n[0].isalpha()]
-            args = re.findall(r"Li(\d+)E", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)  # int and bool template arguments
             kernel = (names[-1] if names else mangled) + (f"<{', '.join(args)}>" if args else "")
             spilled = 0
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -473,13 +512,42 @@ def phase_plan(torch, fa) -> None:
             if counted != mirrored:
                 raise AssertionError(f"fused backward at d={d} dv={dv} itemsize={itemsize}: the library counts "
                                      f"{counted} bytes of shared memory, the plan's mirror {mirrored}")
+    sites = PATH_SITES + WIDE_SITES + H1024_SITES + BEYOND_SITES
     plans = {name: {str(dt).split(".")[-1]: fa.backward_plan(d, dv, dt, optin) for dt in (torch.float32, torch.bfloat16)}
-             for name, _, _, _, d, dv, _ in PATH_SITES + WIDE_SITES}
-    want = {name: "two_pass" if name == WIDE_CROSS[0] else "fused" for name in plans}
+             for name, _, _, _, d, dv, _ in sites}
+    want = {name: "fused" if d <= 512 else "two_pass" for name, _, _, _, d, _, _ in sites}
     if any(set(p.values()) != {want[name]} for name, p in plans.items()):
         raise AssertionError(f"backward plans {plans}, expected {want}")
+    # the forward's and the two-pass kernels' launch plans as the libraries
+    # dispatch them, against the Python mirrors, at head widths 16-4096
+    fwd, two_pass = fa.FWD_LIBRARY.library(), fa.TWO_PASS_LIBRARY.library()
+    out = (ctypes.c_longlong * 5)()
+    widths = sorted(set(range(16, 4097, 48)) | {32, 64, 128, 256, 512, 520, 768, 1024, 1040, 1536, 1816, 2048, 4096})
+    largest = 0
+    for d in widths:
+        for dv in widths:
+            for code, dt in enumerate((torch.float32, torch.bfloat16)):
+                if fwd.odtt_flash_fwd_plan(code, d, dv, out) != 0 or tuple(out[:4]) != fa.forward_plan(d, dv, dt):
+                    raise AssertionError(f"forward plan at d={d} dv={dv} {dt}: library {tuple(out[:4])}, mirror "
+                                         f"{fa.forward_plan(d, dv, dt)}")
+                largest = max(largest, out[3])
+                for dq in (1, 0):
+                    p = fa.two_pass_plan(d, dv, dt, bool(dq))
+                    mirror = (fa._TWO_PASS_KERNELS.index(p.kernel), *p[1:])
+                    if two_pass.odtt_flash_two_pass_plan(code, dq, d, dv, out) != 0 or tuple(out[:5]) != mirror:
+                        raise AssertionError(f"two-pass plan at d={d} dv={dv} {dt} dq={dq}: library {tuple(out[:5])}, "
+                                             f"mirror {mirror}")
+                    largest = max(largest, out[4])
+    if largest > optin:
+        raise AssertionError(f"a plan takes {largest} bytes of shared memory, over the card's {optin}")
+    site_plans = {name: {str(dt).split(".")[-1]: (fa.forward_plan(d, dv, dt).chunks, fa.two_pass_plan(d, dv, dt, True),
+                                                  fa.two_pass_plan(d, dv, dt, False))
+                         for dt in (torch.float32, torch.bfloat16)}
+                  for name, _, _, _, d, dv, _ in H1024_SITES + BEYOND_SITES}
     log(f"plan: {optin} bytes of shared memory a block (opt-in); the fused backward's layout equals the library's "
-        f"count at 12 widths; backward by call site {plans}")
+        f"count at 12 widths; backward by call site {plans}; the forward and two-pass launch plans equal the "
+        f"libraries' at {len(widths) ** 2} width pairs (16-4096) x 2 dtypes, the largest {largest} bytes; past 1024 "
+        f"(forward dv chunks, dq plan, dkv plan): {site_plans}")
 
 
 def warm_clocks(torch) -> None:
@@ -512,6 +580,11 @@ def bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dtype_name, kind="fwd"):
     peak = F32_3XTF32_PEAK if dtype_name == "float32" else BF16_PEAK
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ms_or_note(row, key):
+    """A row's ``key``_ms printed, or the reason it has none."""
+    return f"{row[key + '_ms']:.4f}" if row[key + "_ms"] is not None else f"none ({row[key + '_note']})"
 
 
 def _rel(a, ref):
@@ -547,13 +620,24 @@ def kernel_keep_mask(torch, fa, b, sq, sk, h, d, dv, dtype, rate, seed, operands
     return keep.permute(0, 2, 1, 3)
 
 
-def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing, fully_masked_entry=False):
+def sdpa_ms(torch, timer, fn):
+    """``timer``'s ms of one SDPA call, or (None, the reason SDPA gave)."""
+    try:
+        return timer(torch, fn), None
+    except (torch.cuda.OutOfMemoryError, RuntimeError) as exc:
+        torch.cuda.empty_cache()
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+
+
+def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing, fully_masked_entry=False,
+               timed=True):
     """One shape cell of kernel #1 against its plain version and, with
     ``backward``, of the backward the plan picks for the card ("plan"),
     kernel #2 ("fused"), kernels #3 + #4 ("two_pass"), or both, then also
     held against each other ("both"). The plain forward runs one batch
     entry at a time where its (B, h, Sq, Sk) scores would pass 2 GiB (no
-    dropout there). ``fully_masked_entry`` masks every key of batch entry 0."""
+    dropout there). ``fully_masked_entry`` masks every key of batch entry 0.
+    ``timed`` False checks the cell without timing it."""
     import torch.nn.functional as F
 
     from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
@@ -605,16 +689,14 @@ def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing,
         bias = torch.zeros(b, 1, 1, sk, device="cuda", dtype=dtype)
         bias.masked_fill_(~mask[:, None, None, :], -1e9)
     timer = device_ms if graph_timing else time_cuda
-    row["ms"] = timer(torch, lambda: fa.flash_attention_fwd(q, k, v, h, mask, None, rate, seed))
-    if graph_timing:
-        time_cuda(torch, plain, reps=1)  # warm the allocator outside the graph
-    row["plain_ms"] = timer(torch, plain)
-    try:
-        row["library_ms"] = timer(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=bias, dropout_p=rate))
-    except torch.cuda.OutOfMemoryError:
-        row["library_ms"] = None
     row["bound_ms"], row["bound_by"] = bound_ms(b, sq, sk, h, d, dv, q.element_size(), masked, dname)
+    if timed:
+        row["ms"] = timer(torch, lambda: fa.flash_attention_fwd(q, k, v, h, mask, None, rate, seed))
+        if graph_timing:
+            time_cuda(torch, plain, reps=1)  # warm the allocator outside the graph
+        row["plain_ms"] = timer(torch, plain)
+        row["library_ms"], row["library_note"] = sdpa_ms(torch, timer, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias, dropout_p=rate))
 
     if backward:
         optin = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
@@ -648,35 +730,39 @@ def flash_cell(torch, gen, site, b, dtype, rate, masked, backward, graph_timing,
             F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias, dropout_p=rate).backward(doh)
 
         itemsize = q.element_size()
-        timed = {"bwd": (fa.flash_attention_bwd, fa.flash_attention_packed_backward_reference),
+        pairs = {"bwd": (fa.flash_attention_bwd, fa.flash_attention_packed_backward_reference),
                  "dq": (fa.flash_attention_dq, fa.flash_attention_dq_reference),
                  "dkv": (fa.flash_attention_dkv, fa.flash_attention_dkv_reference)}
         kinds = {"fused": ["bwd"], "two_pass": ["dq", "dkv"], "both": ["bwd", "dq", "dkv"]}[plan]
         for kind in kinds:
-            kernel, reference = timed[kind]
-            row[f"{kind}_ms"] = time_cuda(torch, lambda: kernel(*args))
-            row[f"{kind}_plain_ms"] = time_cuda(torch, lambda: reference(*args))
+            kernel, reference = pairs[kind]
             row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms(b, sq, sk, h, d, dv, itemsize, masked,
                                                                        dname, kind)
-        row["bwd_library_ms"] = time_cuda(torch, library_fwd_bwd)
+            if timed:
+                row[f"{kind}_ms"] = time_cuda(torch, lambda: kernel(*args))
+                row[f"{kind}_plain_ms"] = time_cuda(torch, lambda: reference(*args))
+        if timed:
+            row["bwd_library_ms"], row["bwd_library_note"] = sdpa_ms(torch, time_cuda, library_fwd_bwd)
     row["ok"] = ok
-    lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
     msg = (f"flash {name:23s} B={b:<2d} {dname:8s} rate={rate} masked={int(masked)}"
            + (" (entry 0 fully masked)" if fully_masked_entry else "")
-           + f" fwd rel_err={row['rel_err']:.2e} lse_err={row['lse_err']:.2e} ms={row['ms']:.4f} "
-           f"plain_ms={row['plain_ms']:.4f} sdpa_ms={lib} bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
-           + (" (device, CUDA graph)" if graph_timing else " (eager calls)"))
+           + f" fwd rel_err={row['rel_err']:.2e} lse_err={row['lse_err']:.2e}")
+    if timed:
+        msg += (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} sdpa_ms={_ms_or_note(row, 'library')} "
+                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+                + (" (device, CUDA graph)" if graph_timing else " (eager calls)"))
     if rate:
         msg += f" kernel kept={row['kept']:.5f} equal to the plain mask={row['keep_equal']}"
     if backward:
         msg += (f" | bwd {row['bwd_plan']} rel_err " + " ".join(f"{n}={e:.2e}" for n, e in row["bwd_rel_err"].items()))
         if "two_pass_vs_fused" in row:
             msg += " two-pass vs #2 " + " ".join(f"{n}={e:.2e}" for n, e in row["two_pass_vs_fused"].items())
-        for kind in kinds:
-            msg += (f" {kind}_ms={row[f'{kind}_ms']:.4f} plain_ms={row[f'{kind}_plain_ms']:.4f} "
-                    f"bound_ms={row[f'{kind}_bound_ms']:.4f} ({row[f'{kind}_bound_by']})")
-        msg += f" sdpa_fwd_bwd_ms={row['bwd_library_ms']:.4f}"
-    log(msg + (" OK" if ok else " FAIL"))
+        if timed:
+            for kind in kinds:
+                msg += (f" {kind}_ms={row[f'{kind}_ms']:.4f} plain_ms={row[f'{kind}_plain_ms']:.4f} "
+                        f"bound_ms={row[f'{kind}_bound_ms']:.4f} ({row[f'{kind}_bound_by']})")
+            msg += f" sdpa_fwd_bwd_ms={_ms_or_note(row, 'bwd_library')}"
+    log(msg + ("" if timed else " (checked, not timed)") + (" OK" if ok else " FAIL"))
     torch.cuda.empty_cache()
     return row
 
@@ -708,6 +794,38 @@ def phase_flash(torch, seed):
     return rows
 
 
+def phase_beyond_1024(torch, seed):
+    """Kernels #1, #3, #4 and #5, #6, #7 past head width 1024 (d 1536, 2048
+    and 1040; Sk 400 and 7056) and at hidden 1024's self-attention widths:
+    each site in float32 and bfloat16, at dropout 0 and 0.3, packed (#1 and
+    the plan's backward, #2 or #3 + #4) and head-major (#5-#7, bit-equal to
+    the packed launches), against the plain versions; B=16, Sk 7056 at B=1;
+    a fully masked batch entry in the float32 dropout-0 cell of hidden
+    1024's cross-attention. Timed (eager calls): the training step's
+    bfloat16 dropout-0.3 cells of the hidden-1024 sites and the head-major
+    cross cell; the rest is checked only. Then a hidden-1024 request's
+    float32 B=1 forward cells (device time). Returns (packed rows, head-major
+    rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    rows, unpacked = [], []
+    for site in H1024_SITES + BEYOND_SITES + [H1024_LONG]:
+        b = 1 if site is H1024_LONG else TRAIN_B
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, RATE):
+                step_cell = site in H1024_SITES and dtype is torch.bfloat16 and rate == RATE
+                full = site is H1024_CROSS and dtype is torch.float32 and not rate
+                rows.append(flash_cell(torch, gen, site, b, dtype, rate, site[-1], "plan", False, full,
+                                       timed=step_cell))
+                unpacked.append(unpacked_cell(torch, gen, site, b, dtype, rate,
+                                              timed=step_cell and site is H1024_CROSS))
+    for site in H1024_SITES:  # a hidden-1024 request's launches
+        rows.append(flash_cell(torch, gen, site, 1, torch.float32, 0.0, site[-1], None, True))
+    failed = [r for r in rows + unpacked if not r["ok"]]
+    if failed:
+        raise AssertionError(f"{len(failed)} flash-attention cells past 1024 out of tolerance: {failed[:2]}")
+    return rows, unpacked
+
+
 def phase_dropout_share(torch, seed, flash_rows):
     """The bfloat16 step cells of the path sites at both widths (B=16,
     masked as on the path): the tensor-core #1, and #2 or #3 and #4 as the
@@ -722,7 +840,7 @@ def phase_dropout_share(torch, seed, flash_rows):
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     rows = []
-    for name, sq, sk, h, d, dv, masked in PATH_SITES + WIDE_SITES:
+    for name, sq, sk, h, d, dv, masked in PATH_SITES + WIDE_SITES + H1024_SITES:
         q, k, v, dout = (torch.randn(TRAIN_B, s, h * w, generator=gen, device="cuda").to(torch.bfloat16)
                          for s, w in ((sq, d), (sk, d), (sk, dv), (sq, dv)))
         mask = None
@@ -742,15 +860,17 @@ def phase_dropout_share(torch, seed, flash_rows):
                 row[f"{kind}_ms_{rate}"] = device_ms(torch, lambda: kernel(*args))
         eager = next(r for r in flash_rows if r["site"] == name and r["b"] == TRAIN_B and r["dtype"] == "bfloat16"
                      and r["rate"] == RATE and r.get("bwd_plan") in ("fused", "two_pass"))
+        def recorded(kind):
+            ms = CUDA_CORE_RECORDED_MS[kind].get(name)
+            return "" if ms is None else f"; CUDA-core kernel's recorded eager time {ms:.4f}, not this run"
         msg = (f"bf16 tensor cores {name:19s} #1 device ms rate 0 / {RATE}: {row['fwd_ms_0.0']:.4f} / "
-               f"{row[f'fwd_ms_{RATE}']:.4f} (eager {eager['ms']:.4f}, SDPA eager {eager['library_ms']:.4f}; "
-               f"CUDA-core kernel's recorded eager time {CUDA_CORE_RECORDED_MS['fwd'][name]:.4f}, not this run)")
+               f"{row[f'fwd_ms_{RATE}']:.4f} (eager {eager['ms']:.4f}, SDPA eager {_ms_or_note(eager, 'library')}"
+               f"{recorded('fwd')})")
         for kind, label in (("bwd", "#2"),) if row["fused"] else (("dq", "#3"), ("dkv", "#4")):
             msg += (f"; {label} device ms rate 0 / {RATE}: {row[f'{kind}_ms_0.0']:.4f} / "
                     f"{row[f'{kind}_ms_{RATE}']:.4f} (eager {eager[f'{kind}_ms']:.4f}, plain eager "
                     f"{eager[f'{kind}_plain_ms']:.4f}, bound {eager[f'{kind}_bound_ms']:.4f}, SDPA forward + backward "
-                    f"eager {eager['bwd_library_ms']:.4f}; CUDA-core kernel's recorded eager time "
-                    f"{CUDA_CORE_RECORDED_MS[kind][name]:.4f}, not this run)")
+                    f"eager {_ms_or_note(eager, 'bwd_library')}{recorded(kind)})")
         log(msg)
         rows.append(row)
         del q, k, v, dout, out, lse
@@ -808,12 +928,13 @@ def phase_split(torch, seed, one_bf16):
     return rows
 
 
-def unpacked_cell(torch, gen, site, b, dtype, rate):
+def unpacked_cell(torch, gen, site, b, dtype, rate, timed=True):
     """One (B, h, S, d) cell: kernel #5 against its plain version and #6 / #7
     (``flash_attention_unpacked_dq`` / ``_dkv``) against theirs, each also
     against the packed kernels (#1, #3, #4) on the same logical inputs
     transposed to (B, S, h*d): the same launches on other strides, so out,
-    lse, dQ, dK and dV must be bit-equal. Masked as on the path."""
+    lse, dQ, dK and dV must be bit-equal. Masked as on the path. ``timed``
+    False checks the cell without timing it."""
     import torch.nn.functional as F
 
     from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
@@ -859,30 +980,35 @@ def unpacked_cell(torch, gen, site, b, dtype, rate):
         bias = torch.zeros(b, 1, 1, sk, device="cuda", dtype=dtype)
         bias.masked_fill_(~mask[:, None, None, :], -1e9)
     itemsize = q.element_size()
-    row["ms"] = time_cuda(torch, lambda: fa.flash_attention_unpacked_fwd(q, k, v, mask, None, rate, seed))
-    row["plain_ms"] = time_cuda(torch, lambda: fa.flash_attention_reference(q, k, v, mask, None, rate, seed))
-    row["library_ms"] = time_cuda(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                                                dropout_p=rate))
     row["bound_ms"], row["bound_by"] = bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dname)
-    timed = {"dq": (fa.flash_attention_unpacked_dq, fa.flash_attention_unpacked_dq_reference),
-             "dkv": (fa.flash_attention_unpacked_dkv, fa.flash_attention_unpacked_dkv_reference)}
-    for kind, (kernel, reference) in timed.items():
-        row[f"{kind}_ms"] = time_cuda(torch, lambda: kernel(*args))
-        row[f"{kind}_plain_ms"] = time_cuda(torch, lambda: reference(*args))
+    kernels = {"dq": (fa.flash_attention_unpacked_dq, fa.flash_attention_unpacked_dq_reference),
+               "dkv": (fa.flash_attention_unpacked_dkv, fa.flash_attention_unpacked_dkv_reference)}
+    for kind in kernels:
         row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms(b, sq, sk, h, d, dv, itemsize, masked, dname,
                                                                    kind)
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-    row["bwd_library_ms"] = time_cuda(torch, lambda: F.scaled_dot_product_attention(
-        qg, kg, vg, attn_mask=bias, dropout_p=rate).backward(dout))
     row["ok"] = ok
-    log(f"unpacked {name:23s} B={b:<2d} {dname:8s} rate={rate} masked={int(masked)} #5 rel_err={row['rel_err']:.2e} "
-        f"lse_err={row['lse_err']:.2e} " + " ".join(f"#{6 if n == 'dq' else 7} {n}={e:.2e}"
-                                                    for n, e in row["bwd_rel_err"].items())
-        + f"; bit-equal to #1/#3/#4 on the packed layout {row['equal_to_packed']}; ms #5={row['ms']:.4f} "
-        f"#6={row['dq_ms']:.4f} #7={row['dkv_ms']:.4f} plain_ms {row['plain_ms']:.4f} / {row['dq_plain_ms']:.4f} / "
-        f"{row['dkv_plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} sdpa_fwd_bwd_ms={row['bwd_library_ms']:.4f} "
-        f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) / {row['dq_bound_ms']:.4f} / {row['dkv_bound_ms']:.4f} "
-        f"(eager calls)" + (" OK" if ok else " FAIL"))
+    msg = (f"unpacked {name:23s} B={b:<2d} {dname:8s} rate={rate} masked={int(masked)} #5 rel_err={row['rel_err']:.2e} "
+           f"lse_err={row['lse_err']:.2e} " + " ".join(f"#{6 if n == 'dq' else 7} {n}={e:.2e}"
+                                                       for n, e in row["bwd_rel_err"].items())
+           + f"; bit-equal to #1/#3/#4 on the packed layout {row['equal_to_packed']}")
+    if timed:
+        row["ms"] = time_cuda(torch, lambda: fa.flash_attention_unpacked_fwd(q, k, v, mask, None, rate, seed))
+        row["plain_ms"] = time_cuda(torch, lambda: fa.flash_attention_reference(q, k, v, mask, None, rate, seed))
+        row["library_ms"], row["library_note"] = sdpa_ms(torch, time_cuda, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, dropout_p=rate))
+        for kind, (kernel, reference) in kernels.items():
+            row[f"{kind}_ms"] = time_cuda(torch, lambda: kernel(*args))
+            row[f"{kind}_plain_ms"] = time_cuda(torch, lambda: reference(*args))
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        row["bwd_library_ms"], row["bwd_library_note"] = sdpa_ms(torch, time_cuda, lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=bias, dropout_p=rate).backward(dout))
+        msg += (f"; ms #5={row['ms']:.4f} #6={row['dq_ms']:.4f} #7={row['dkv_ms']:.4f} plain_ms {row['plain_ms']:.4f} / "
+                f"{row['dq_plain_ms']:.4f} / {row['dkv_plain_ms']:.4f} sdpa_ms={_ms_or_note(row, 'library')} "
+                f"sdpa_fwd_bwd_ms={_ms_or_note(row, 'bwd_library')} bound_ms {row['bound_ms']:.4f} "
+                f"({row['bound_by']}) / {row['dq_bound_ms']:.4f} / {row['dkv_bound_ms']:.4f} (eager calls)")
+    else:
+        msg += " (checked, not timed)"
+    log(msg + (" OK" if ok else " FAIL"))
     torch.cuda.empty_cache()
     return row
 
@@ -1694,7 +1820,30 @@ def forward_parts(torch, model, images, reps=6):
     return {name: statistics.median(s.elapsed_time(e) for s, e in spans[name][1:]) for name in names}
 
 
-def phase_serving(torch, kernel, seed, images):
+@contextlib.contextmanager
+def forward_widths(kernel, widths):
+    """Count the (dtype, d, dv) of each call of the forward wrapper
+    ``kernel`` (its class's ``_run``) into the Counter ``widths``."""
+    cls = type(kernel)
+    original = cls._run
+
+    def recorded(self, query, key, value, num_heads, *args, **kwargs):
+        h = num_heads or 1
+        widths[(str(query.dtype).split(".")[-1], query.shape[-1] // h, value.shape[-1] // h)] += 1
+        return original(self, query, key, value, num_heads, *args, **kwargs)
+
+    cls._run = recorded
+    try:
+        yield widths
+    finally:
+        cls._run = original
+
+
+def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 256"):
+    """Serving through infer.server's build_service: seeded random weights
+    written as flax .npz (or ``service_args``, a trained checkpoint and its
+    shape flags), the predict captured, requests as replays and eagerly,
+    traced, timed, and the HTTP front end."""
     from object_detection_destr_tpu_torch.config import DestrConfig
     from object_detection_destr_tpu_torch.infer.server import _make_handler, build_service, get_parser
     from object_detection_destr_tpu_torch.models.convert import (
@@ -1703,28 +1852,35 @@ def phase_serving(torch, kernel, seed, images):
     )
     from object_detection_destr_tpu_torch.models.destr.model import build_destr
 
-    weights_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "object_detection_destr_tpu_torch", "_build"
-    )
-    os.makedirs(weights_dir, exist_ok=True)
     start = time.perf_counter()
-    source = build_destr(DestrConfig(), "cuda")
-    randomize_(torch, source, seed)
-    variables = flax_variables_from_state_dict(source)
-    del source
-    save_variables_npz(variables, os.path.join(weights_dir, "chip_smoke_weights.npz"))
-    args = get_parser().parse_args(
-        ["--checkpoint_dir", weights_dir, "--weights", "chip_smoke_weights.npz",
-         "--score_thresh", "0.0"]
-    )
+    variables = None
+    if service_args is None:
+        weights_dir = os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "object_detection_destr_tpu_torch", "_build"
+        )
+        os.makedirs(weights_dir, exist_ok=True)
+        source = build_destr(DestrConfig(), "cuda")
+        randomize_(torch, source, seed)
+        variables = flax_variables_from_state_dict(source)
+        del source
+        save_variables_npz(variables, os.path.join(weights_dir, "chip_smoke_weights.npz"))
+        service_args = ["--checkpoint_dir", weights_dir, "--weights", "chip_smoke_weights.npz", "--score_thresh", "0.0"]
+    args = get_parser().parse_args(service_args)
     kernel.launches = 0  # the main path starts here: the service's warm-up forward and capture, then requests
-    service = build_service(args)  # default: GPU, 640px, letterbox, full width, the predict captured
+    with forward_widths(kernel, collections.Counter()) as widths:
+        service = build_service(args)  # default: GPU, 640px, letterbox, the predict captured
     built = kernel.launches
-    log(f"serving: weights written and service built (warm-up forward and CUDA-graph capture) in "
+    log(f"serving {label}: weights ready and service built (warm-up forward and CUDA-graph capture) in "
         f"{time.perf_counter() - start:.1f} s ({sum(p.numel() for p in service.model.parameters()) / 1e6:.1f} M "
-        f"parameters); #1's wrapper called {built} times (the warm-up forward's and the capture's)")
-    if service.graph is None or built != 2 * 3 * BLOCKS:
+        f"parameters); #1's wrapper called {built} times (the warm-up forward's and the capture's), by (dtype, d, "
+        f"dv) {dict(widths)}")
+    if service.graph is None or built != 2 * 3 * BLOCKS or sum(widths.values()) != built:
         raise AssertionError(f"the service captured no graph, or called #1 {built} times building it")
+    hidden = args.hidden_dim
+    want_widths = {("float32", hidden // 8, hidden // 8), ("float32", 2 * hidden // 8, 2 * hidden // 8),
+                   ("float32", 2 * hidden, hidden)}
+    if set(widths) != want_widths or set(widths.values()) != {2 * BLOCKS}:
+        raise AssertionError(f"#1 served at (dtype, d, dv) {dict(widths)}, not {sorted(want_widths)} 12 times each")
 
     def check(dets):
         if len(dets["scores"]) != 300:
@@ -1761,18 +1917,18 @@ def phase_serving(torch, kernel, seed, images):
             for i, image in enumerate(images):
                 with scope(i):
                     predict(image)
-        windows[kind] = traced(torch, f"serve_{kind}", len(images), requests)
+        windows[kind] = traced(torch, f"serve_{kind}_{label.replace(' ', '_')}", len(images), requests)
         if windows[kind]["per_step"] != [3.0 * BLOCKS, 0, 0, 0, 0, 0]:
             raise AssertionError(f"a traced {kind} request launched #1/#2/#3/#4/#9/#8 {windows[kind]['per_step']} "
                                  f"(launch lead {windows[kind]['launch_lead_s']} s)")
-    log(f"serving: {len(latencies)} captured requests (graph replays, #1's wrapper not called), detections scoring "
+    log(f"serving {label}: {len(latencies)} captured requests (graph replays, #1's wrapper not called), detections scoring "
         f">= 0.5 {dict(zip(['x'.join(map(str, im.shape[:2])) for im in images], counts))}; the eager forward "
         f"gives the same detections on every request")
-    log(f"serving: request latency ms captured median={statistics.median(latencies):.2f} "
+    log(f"serving {label}: request latency ms captured median={statistics.median(latencies):.2f} "
         f"min={min(latencies):.2f} max={max(latencies):.2f} (all: {', '.join(f'{t:.2f}' for t in latencies)}); "
         f"eager median={statistics.median(eager_latencies):.2f} max={max(eager_latencies):.2f} (all: "
         f"{', '.join(f'{t:.2f}' for t in eager_latencies)})")
-    log("serving: traced requests (4 each): " + "; ".join(
+    log(f"serving {label}: traced requests (4 each): " + "; ".join(
         f"{kind} device busy {w['step_busy_ms']:.3f} ms a request of {w['step_period_ms']:.3f}, idle share "
         f"{w['idle_share']:.4f}, #1 launches a request from the trace {w['per_step'][0]:.0f}"
         for kind, w in windows.items()))
@@ -1789,12 +1945,12 @@ def phase_serving(torch, kernel, seed, images):
         t0 = time.perf_counter()
         _letterbox_canvas(image, 640)
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"serving: host letterbox ms per image {', '.join(f'{t:.2f}' for t in host_ms)}")
+    log(f"serving {label}: host letterbox ms per image {', '.join(f'{t:.2f}' for t in host_ms)}")
     # one model forward alone, on the device clock
     canvas = torch.zeros((1, 640, 640, 3), device="cuda")
     parts = forward_parts(torch, service.model, canvas)
     forward_ms = parts.pop("forward")
-    log(f"serving: model forward B=1 ms={forward_ms:.2f} (CUDA events); by part ms "
+    log(f"serving {label}: model forward B=1 ms={forward_ms:.2f} (CUDA events); by part ms "
         + " ".join(f"{k}={v:.2f}" for k, v in parts.items())
         + f" rest={forward_ms - sum(parts.values()):.2f}")
 
@@ -1813,8 +1969,61 @@ def phase_serving(torch, kernel, seed, images):
         thread.join(timeout=30)
     if health != {"ok": True}:
         raise AssertionError(f"/healthz answered {health}")
-    log("serving: HTTP /healthz ok")
+    log(f"serving {label}: HTTP /healthz ok")
     return service, variables, main_path_launches, serve_timing, forward_ms
+
+
+def phase_h1024_service(torch, kernels, seed, images):
+    """Hidden 1024 validated, evaluated and served from its own checkpoint:
+    train.main with the production recipe and --hidden_dim 1024 for 2 steps
+    and a 16-image validation split (18 / 12 / 6 / 6 / 1 launches of #1 /
+    #2 / #3 / #4 / #9 a step, 18 #1 and 1 #9 the validation batch), its
+    checkpoint written; infer.evaluate.main on it reproduces the driver's
+    mAP (1e-6) with 18 #1 launches; infer.server's build_service restores
+    it and serves the requests as phase 8 does, every #1 call float32, the
+    cross-attention's at d 2048, dv 1024. Returns what it measured."""
+    from object_detection_destr_tpu_torch.infer import evaluate
+    from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+    from object_detection_destr_tpu_torch.train import train as train_cli
+
+    steps = 2
+    with tempfile.TemporaryDirectory() as ckpt:
+        base = TRAIN_ARGS + H1024_ARGS + ["--seed", str(seed), "--num_train_samples", str(TRAIN_B * steps),
+                                          "--num_valid_samples", str(TRAIN_B), "--checkpoint_dir", ckpt,
+                                          "--log_dir", os.path.join(ckpt, "runs")]
+        reset_counts(kernels)  # the hidden-1024 validation path starts here
+        t0 = time.perf_counter()
+        result = train_cli.main(base + ["--save_as", "h1024"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]  # read just after the path
+        want = [n * steps for n in H1024_PER_STEP]
+        want[0] += 18
+        want[4] += 1
+        record = result["history"][0]
+        if result["state"].step != steps or counts != want or not math.isfinite(record["mAP"]):
+            raise AssertionError(f"hidden 1024: {result['state'].step} steps and a validation batch launched "
+                                 f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}; mAP {record['mAP']}")
+        size_mb = os.path.getsize(os.path.join(ckpt, "h1024")) / 1e6
+        del result
+        torch.cuda.empty_cache()
+        before = kernels[0].launches
+        evaluated = evaluate.main(base + ["--resume_from", "h1024"])
+        eval_launches = kernels[0].launches - before
+        if abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != TRAIN_B or eval_launches != 18:
+            raise AssertionError(f"evaluate hidden 1024: map {evaluated['map']} over {evaluated['n_images']} images "
+                                 f"with {eval_launches} #1 launches, the driver's mAP {record['mAP']}")
+        log(f"hidden 1024: train.main {steps} steps and a {TRAIN_B}-image validation batch in {wall:.1f} s, launches "
+            f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, mAP={record['mAP']:.6f}, checkpoint {size_mb:.1f} MB; "
+            f"infer.evaluate on it: map={evaluated['map']:.6f} (driver {record['mAP']:.6f}), #1 launched "
+            f"{eval_launches} times OK")
+        served = phase_serving(torch, fa.flash_attention_fwd, seed, images, label="hidden 1024", service_args=[
+            "--checkpoint_dir", ckpt, "--weights", "h1024", "--score_thresh", "0.0", *H1024_ARGS])
+    service, _, serve_launches, serve_timing, forward_ms = served
+    del service
+    torch.cuda.empty_cache()
+    return {"counts": counts, "eval_launches": eval_launches, "map": evaluated["map"], "checkpoint_mb": size_mb,
+            "serve_launches": serve_launches, **serve_timing, "forward_ms": forward_ms}
 
 
 def eager_predict_image(torch, service, image):
@@ -1927,8 +2136,8 @@ def phase_whole_model(torch, service, variables, images):
 # counts (#1, #2, #3, #4, #9, #8): demangled template names, or mangled ones
 # (ILb0E / ILb1E: the two-pass kernel's DKV = false / true)
 KERNEL_NAME_PATTERNS = [r"flash_fwd_(tc|f32)_kernel", r"flash_bwd_(tc_)?kernel",
-                        r"flash_two_pass_tc_kernel(<false|ILb0E)|flash_dq_kernel",
-                        r"flash_two_pass_tc_kernel(<true|ILb1E)|flash_dkv_kernel",
+                        r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<false|ILb0E)|flash_dq_kernel",
+                        r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<true|ILb1E)|flash_dkv_kernel",
                         r"fused_auction_kernel", r"(?<!fused_)auction_kernel"]
 
 
@@ -2009,21 +2218,36 @@ def _rounded(x):
     return [_rounded(v) for v in x] if isinstance(x, list) else x
 
 
+CHUNK = 1 << 25  # elements a pass over a state-sized vector: bounds its float64 temporaries (hidden 1024: 436 M)
+
+
+def _chunks(n):
+    return [slice(i, i + CHUNK) for i in range(0, n, CHUNK)]
+
+
 def _mean_sample(samples):
+    """The float64 mean of equally shaped samples, computed a chunk at a
+    time; equal samples give their own value, not a rounding of it."""
     import torch
 
-    stack = torch.stack([torch.as_tensor(x, dtype=torch.float64) for x in samples])
-    return stack[0] + (stack - stack[0]).mean(0)  # equal samples give their own value, not a rounding of it
+    flat = [torch.as_tensor(x).reshape(-1) for x in samples]
+    out = torch.empty(flat[0].shape, dtype=torch.float64, device=flat[0].device)
+    for c in _chunks(out.numel()):
+        stack = torch.stack([x[c].double() for x in flat])
+        out[c] = stack[0] + (stack - stack[0]).mean(0)
+    return out.reshape(torch.as_tensor(samples[0]).shape)
 
 
 def dist(a, b, key):
     """The distance of two samples' ``key``: the mean absolute difference of
     the losses, the 2-norm of the difference of a vector (Adam's first
-    moment, the parameters)."""
+    moment, the parameters), in float64, a chunk at a time."""
     import torch
 
-    diff = torch.as_tensor(a, dtype=torch.float64) - torch.as_tensor(b, dtype=torch.float64)
-    return float(diff.abs().mean() if key == "losses" else diff.norm())
+    a, b = (torch.as_tensor(x).reshape(-1) for x in (a, b))
+    if key == "losses":
+        return float((a.double() - b.double()).abs().mean())
+    return math.sqrt(sum(float((a[c].double() - b[c].double()).pow(2).sum()) for c in _chunks(a.numel())))
 
 
 def phase_seed_replay(torch, seed):
@@ -2136,13 +2360,13 @@ def _cudnn_deterministic(torch, on):
         torch.backends.cudnn.deterministic = saved
 
 
-def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
+def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, eager_runs=EAGER_RUNS):
     """A recipe's step on device-cached batches (``setup``: its state, cache,
     steps, transform and augmentation seeds), captured against eager from the
     same state and seed: the
     epoch runner takes step 0 (its eager warm-up on a side stream, then the
     capture); at each of steps 1-4 the state is cloned and, each from the
-    clone, the eager per-step path runs EAGER_RUNS times (the first under
+    clone, the eager per-step path runs ``eager_runs`` times (the first under
     torch.cuda.set_sync_debug_mode("error")), the graph replays once with
     the seeds of the capture's step 0 (a planted fault: the seed fixed at
     capture) and once with the step's own seeds, which is the state the run
@@ -2165,7 +2389,12 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
     be bit-equal to them. The step is then captured again with cuDNN's
     default engines, as the trainer runs it; its first replay's losses must
     equal an eager step's from the same cloned state, and the times, traces
-    and peak memory are this capture's."""
+    and peak memory are this capture's.
+
+    ``eager_runs``: 5, or 3 at hidden 1024, whose 436 M parameters make
+    each sample of the moment and the parameters 3.5 GB on the card beside
+    the graph's 24 GB pool (a largest pair of 3 samples is the narrower
+    limit)."""
     from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
 
     state, cache, transform, train_step = setup["state"], setup["cache"], setup["transform"], setup["train_step"]
@@ -2186,6 +2415,9 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
             torch.cuda.set_sync_debug_mode("default")
 
     def sample(metrics):
+        # the step's freed activations, cached in blocks that a state-sized
+        # vector does not fit (hidden 1024: 1.7 GB each beside a 24 GB graph pool)
+        torch.cuda.empty_cache()
         out = {"losses": [float(v) for v in metrics.values()],
                "m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
                "params": _flat_params(torch, state.model)}
@@ -2213,7 +2445,7 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
 
     with _cudnn_deterministic(torch, exact):
         runner, memory, capture_counts = capture(0)
-        spread, losses = {}, {"eager": [[] for _ in range(EAGER_RUNS)], "captured": [], "seed_of_step_0": []}
+        spread, losses = {}, {"eager": [[] for _ in range(eager_runs)], "captured": [], "seed_of_step_0": []}
         for step in range(1, TRAIN_STEPS + 1):
             snapshot = [t.detach().clone() for t in _state_tensors(state)]
             start = {"m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
@@ -2221,7 +2453,7 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
             if state.optimizer.accumulated is not None:
                 start["acc"] = state.optimizer.accumulated.clone()
             eager = []
-            for k in range(EAGER_RUNS):
+            for k in range(eager_runs):
                 _restore(torch, state, snapshot, step)
                 first = step == 1 and k == 0
                 if first:
@@ -2238,14 +2470,17 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
                 replays[name] = sample({k: v[0] for k, v in got.items()})
             state.step = step + 1  # the run goes on from the replay at the step's own seeds
             del snapshot
+            torch.cuda.empty_cache()  # for the statistics' float64 temporaries
             # each vector relative to the step's change (the eager samples' mean
             # change; absolute where the step changed nothing: a mini-step that
             # does not emit leaves the moments and the parameters)
             for key in start:
-                change = _mean_sample([e[key] for e in eager]).to(start[key].device) - start[key].double()
-                norm = float(change.norm()) or 1.0
+                origin = start[key].reshape(-1)
+                norm = dist(_mean_sample([e[key] for e in eager]).to(origin.device), origin, key) or 1.0
                 for smp in (*eager, *replays.values()):
-                    smp[key] = ((smp[key].double() - start[key].double()) / norm).float()
+                    flat = smp[key].view(-1)  # in place, a chunk at a time
+                    for c in _chunks(flat.numel()):
+                        flat[c] = ((flat[c].double() - origin[c].double()) / norm).float()
             for k, e in enumerate(eager):
                 losses["eager"][k] += e.pop("losses")
             for name, r in replays.items():
@@ -2278,7 +2513,7 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False):
         del eager, replay
     torch.cuda.empty_cache()
     log(f"captured step {label}: step 0 the runner's warm-up and capture; steps 1-{TRAIN_STEPS} each from one "
-        f"cloned state, {EAGER_RUNS} eager samples, the replay and a replay with step 0's seeds (planted fault); "
+        f"cloned state, {eager_runs} eager samples, the replay and a replay with step 0's seeds (planted fault); "
         f"distances to the eager mean (m: Adam's first moment, params: parameters, both as 2-norms relative to "
         f"the step's change, so a step that applied no update is at 1.0; losses: mean absolute difference over "
         f"the {TRAIN_STEPS} steps' losses) and limit = the largest eager pair{EXACT_NOTE if exact else ''} "
@@ -4176,7 +4411,8 @@ def main(argv=None) -> int:
         phase_plan(torch, fa)
         warm_clocks(torch)
         flash_rows = phase_flash(torch, args.seed)
-        shares = phase_dropout_share(torch, args.seed, flash_rows)
+        beyond_rows, beyond_unpacked = phase_beyond_1024(torch, args.seed)
+        shares = phase_dropout_share(torch, args.seed, flash_rows + beyond_rows)
         seed_checks = phase_seed_replay(torch, args.seed)
         split_rows = phase_split(torch, args.seed, one_bf16)
         unpacked_rows = phase_unpacked(torch, args.seed)
@@ -4186,7 +4422,8 @@ def main(argv=None) -> int:
         clock("kernels (3-5)")
         runs = {}
         for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0, 0, 0, 0)),
-                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0, 0, 0, 0))):
+                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0, 0, 0, 0)),
+                                                ("hidden 1024", H1024_ARGS, H1024_PER_STEP)):
             state, counts, step_ms = phase_train(torch, kernels, args.seed, extra, per_step_launches, label)
             parts = step_parts(torch, state, train_batch(torch, TRAIN_B, args.seed), recipe_train_config(extra))
             log(f"train {label}: where a step of make_destr_train_step goes, ms (CUDA events, median of 3) "
@@ -4198,9 +4435,12 @@ def main(argv=None) -> int:
             clock("train (6)")
         captured = {}
         for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0)),
-                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0))):
+                                                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0)),
+                                                ("hidden 1024", H1024_ARGS, H1024_PER_STEP[:6])):
             captured[label] = phase_captured_train(torch, kernels, destr_capture_setup(torch, args.seed, extra),
-                                                   per_step_launches, label)
+                                                   per_step_launches, label,
+                                                   eager_runs=3 if extra is H1024_ARGS else EAGER_RUNS)
+            torch.cuda.empty_cache()  # the runner's graph pool
         clock("captured train (6a)")
         val_counts, val_timing = phase_validation(torch, kernels, args.seed, val_ckpt)
         clock("validation (6b)")
@@ -4208,7 +4448,7 @@ def main(argv=None) -> int:
         scan = phase_train_scan(torch, args.seed)
         clock("epoch scan (6c)")
         torch.cuda.empty_cache()
-        for destr in (None, {"hidden_dim": 512}):
+        for destr in (None, {"hidden_dim": 512}, {"hidden_dim": 1024}):
             phase_train_compare(torch, kernels, args.seed, destr)
             torch.cuda.empty_cache()
             clock("train compare (7)")
@@ -4220,6 +4460,8 @@ def main(argv=None) -> int:
         )
         phase_whole_model(torch, service, variables, images)
         clock("serving (8-9)")
+        h1024 = phase_h1024_service(torch, kernels, args.seed, images)
+        clock("hidden 1024 validation and serving (8a)")
         ssd_images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
                       for h, w in SSD_REQUEST_SIZES]
         ssd_service, ssd_serve = phase_ssd_serving(torch, kernels, args.seed, ssd_images)
@@ -4261,9 +4503,13 @@ def main(argv=None) -> int:
 
     path, wide = step_rows(PATH_SITES), step_rows(WIDE_SITES)
     wide_fused, wide_cross = wide[:2], wide[2:]
+    flash_rows = flash_rows + beyond_rows
+    h1024_rows = step_rows(H1024_SITES)
+    h1024_fused, h1024_cross = h1024_rows[:2], h1024_rows[2:]
     # the same step cells on the device alone (CUDA-graph replay), dropout 0 and 0.3
     share_path = [r for r in shares if r["site"] in {s[0] for s in PATH_SITES}]
     share_wide = [r for r in shares if r["site"] in {s[0] for s in WIDE_SITES}]
+    share_h1024 = [r for r in shares if r["site"] in {s[0] for s in H1024_SITES}]
 
     def device_rates(rows, kind):
         rows = [r for r in rows if f"{kind}_ms_0.0" in r]
@@ -4277,11 +4523,21 @@ def main(argv=None) -> int:
                     f"{CUDA_CORE_RECORDED_MS['fwd_f32_b1'][r['site']]:.4f}, not this run)" for r in serve)
         + f"; a request's 18 launches {BLOCKS * sum(r['ms'] for r in serve):.4f} against SDPA's "
         f"{BLOCKS * sum(r['library_ms'] for r in serve):.4f}")
+    serve_h1024 = [r for r in beyond_rows for (n, *_, m) in H1024_SITES
+                   if r["site"] == n and r["b"] == 1 and r["dtype"] == "float32" and r["masked"] == m]
+    log("serving hidden 1024 float32 B=1, #1 device ms a launch (CUDA graph): "
+        + "; ".join(f"{r['site']} {r['ms']:.4f} (SDPA {_ms_or_note(r, 'library')}, plain {r['plain_ms']:.4f}, "
+                    f"bound {r['bound_ms']:.4f}, rel_err {r['rel_err']:.2e})" for r in serve_h1024)
+        + f"; a request's 18 launches {BLOCKS * sum(r['ms'] for r in serve_h1024):.4f}")
     counts, step_ms = runs["hidden 256"]
     wide_counts, wide_step_ms = runs["hidden 512"]
+    h1024_counts, h1024_step_ms = runs["hidden 1024"]
 
     def per_step(rows, key):
-        return BLOCKS * sum(r[key] for r in rows)
+        """A step's (or request's) ms of a kernel: 6 blocks of each site's
+        launch; None where a site has no such time (SDPA refused it)."""
+        values = [r[key] for r in rows]
+        return None if None in values else BLOCKS * sum(values)
 
     def bound_by(rows, key):
         return "operations" if all(r[key] == "operations" for r in rows) else "bytes"
@@ -4299,9 +4555,11 @@ def main(argv=None) -> int:
 
     def two_pass_rel_err(names):
         """#3's or #4's gradient errors relative to the plain version's
-        largest value at both cross sites (B=16, bfloat16), by site and rate."""
+        largest value at the cross sites (bfloat16; B=16, Sk 7056 at B=1), by
+        site and rate."""
         return {f"{r['site']} rate {r['rate']}": {n: r["bwd_rel_err"][f"two_pass {n}"] for n in names}
-                for r in flash_rows if r["site"] in (WIDE_CROSS[0], PATH_SITES[2][0]) and r["b"] == TRAIN_B
+                for r in flash_rows if r["site"] in (WIDE_CROSS[0], PATH_SITES[2][0], H1024_CROSS[0], H1024_LONG[0],
+                                                     *(site[0] for site in BEYOND_SITES))
                 and r["dtype"] == "bfloat16" and "two_pass dq" in r.get("bwd_rel_err", {})}
     log("bf16 #3 / #4 errors relative to the plain version's largest value: "
         + "; ".join(f"{k} " + " ".join(f"{n}={e:.2e}" for n, e in v.items())
@@ -4332,6 +4590,23 @@ def main(argv=None) -> int:
                            "ms": per_step(wide, "ms"), "plain_ms": per_step(wide, "plain_ms"),
                            "bound_ms": per_step(wide, "bound_ms"), "library_ms": per_step(wide, "library_ms"),
                            **device_rates(share_wide, "fwd")},
+            "hidden_1024": {"launches": h1024_counts[0], "max_abs_err": max(r["max_abs_err"] for r in h1024_rows),
+                            "ms": per_step(h1024_rows, "ms"), "plain_ms": per_step(h1024_rows, "plain_ms"),
+                            "bound_ms": per_step(h1024_rows, "bound_ms"),
+                            "library_ms": per_step(h1024_rows, "library_ms"), **device_rates(share_h1024, "fwd"),
+                            "validation_launches": h1024["counts"][0], "evaluate_launches": h1024["eval_launches"],
+                            "serving": {"launches": h1024["serve_launches"], "device_ms": per_step(serve_h1024, "ms"),
+                                        "plain_ms": per_step(serve_h1024, "plain_ms"),
+                                        "library_ms": per_step(serve_h1024, "library_ms"),
+                                        "bound_ms": per_step(serve_h1024, "bound_ms"),
+                                        "rel_err": max(r["rel_err"] for r in serve_h1024),
+                                        "captured_ms": h1024["captured_ms"], "eager_ms": h1024["eager_ms"]},
+                            "sites": {r["site"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                                      for r in h1024_rows},
+                            "per": "hidden-1024 train step: 18 launches (d 128, 256 and the cross-attention's d "
+                                   "2048, dv 1024), B=16, bfloat16, dropout 0.3, eager calls; validation_launches: "
+                                   "2 steps and a validation batch; serving: a request's 18 float32 B=1 launches "
+                                   "(CUDA graph), its latency (host clock, median of 8)"},
             "validation": {"launches": val_counts[0], "per": "4 train steps and 4 validation batches, 18 each"},
             "captured_step": {label: {k: v for k, v in c.items() if k != "spread"} for label, c in captured.items()},
             "seed_replay": seed_checks,
@@ -4379,6 +4654,10 @@ def main(argv=None) -> int:
             "hidden_512": {"launches": wide_counts[1], "max_abs_err": abs_err(wide_fused, "fused"),
                            **timed(wide_fused, "bwd"), "library_ms": per_step(wide_fused, "bwd_library_ms"),
                            **device_rates(share_wide, "bwd"), "per": "12 launches: encoder and decoder self-attention"},
+            "hidden_1024": {"launches": h1024_counts[1], "max_abs_err": abs_err(h1024_fused, "fused"),
+                            **timed(h1024_fused, "bwd"), "library_ms": per_step(h1024_fused, "bwd_library_ms"),
+                            **device_rates(share_h1024, "bwd"),
+                            "per": "12 launches: encoder (d 128) and decoder (d 256) self-attention"},
         },
         {
             "name": "flash_attention_dq", "route": "cuda",
@@ -4388,6 +4667,12 @@ def main(argv=None) -> int:
             "max_abs_err": abs_err(wide_cross, "two_pass", ("dq",)),
             **timed(wide_cross, "dq"), "library_ms": per_step(wide_cross, "bwd_library_ms"),
             **device_rates(share_wide, "dq"), "rel_err": two_pass_rel_err(("dq",)),
+            "hidden_1024": {"launches": h1024_counts[2],
+                            "max_abs_err": abs_err(h1024_cross, "two_pass", ("dq",)), **timed(h1024_cross, "dq"),
+                            "library_ms": per_step(h1024_cross, "bwd_library_ms"),
+                            **device_rates(share_h1024, "dq"),
+                            "per": "6 launches at the cross-attention (d 2048, dv 1024; the wide kernel, gradient "
+                                   "columns in slices across grid.y), B=16, bfloat16, dropout 0.3, eager calls"},
             "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
                    f"B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; device_ms_rate_* the "
                    f"same launches from CUDA-graph replay; rel_err at both cross sites; {sdpa}",
@@ -4400,6 +4685,12 @@ def main(argv=None) -> int:
             "max_abs_err": abs_err(wide_cross, "two_pass", ("dk", "dv")),
             **timed(wide_cross, "dkv"), "library_ms": per_step(wide_cross, "bwd_library_ms"),
             **device_rates(share_wide, "dkv"), "rel_err": two_pass_rel_err(("dk", "dv")),
+            "hidden_1024": {"launches": h1024_counts[3],
+                            "max_abs_err": abs_err(h1024_cross, "two_pass", ("dk", "dv")), **timed(h1024_cross, "dkv"),
+                            "library_ms": per_step(h1024_cross, "bwd_library_ms"),
+                            **device_rates(share_h1024, "dkv"),
+                            "per": "6 launches at the cross-attention (d 2048, dv 1024; the wide kernel, gradient "
+                                   "columns in slices across grid.y), B=16, bfloat16, dropout 0.3, eager calls"},
             "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
                    f"B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; device_ms_rate_* the "
                    f"same launches from CUDA-graph replay; rel_err at both cross sites; {sdpa}",
@@ -4449,6 +4740,7 @@ def main(argv=None) -> int:
     # public API's run (phase 3b)
     api_path, api_wide = unpacked_rows_of(unpacked_rows, PATH_SITES), unpacked_rows_of(unpacked_rows, WIDE_SITES)
     per = "one launch at each of the 3 hidden-256 call-site shapes, (B, h, S, d), B=16, bfloat16, dropout 0.3"
+    h1024_unpacked = [r for r in beyond_unpacked if r["site"] == H1024_CROSS[0] and "ms" in r]
     entries.append({
         "name": "flash_attention_unpacked_fwd", "route": "cuda",
         "source": f"{PKG}/csrc/flash_attention_fwd.cu",
@@ -4458,6 +4750,10 @@ def main(argv=None) -> int:
         **sums(api_path, ""), "library_ms": sum(r["library_ms"] for r in api_path),
         "per": per + "; library_ms is SDPA forward",
         "hidden_512": {**sums(api_wide, ""), "library_ms": sum(r["library_ms"] for r in api_wide)},
+        "hidden_1024_cross": {**sums(h1024_unpacked, ""), "library_ms": h1024_unpacked[0]["library_ms"],
+                              "max_abs_err": max(r["max_abs_err"] for r in beyond_unpacked),
+                              "per": "one launch at hidden 1024's cross-attention (d 2048, dv 1024), (B, h, S, d), "
+                                     "B=16, bfloat16, dropout 0.3, eager; max_abs_err over every site past 1024"},
     })
     for index, kind, names, replaces in ((7, "dq", ("dq",), 344), (8, "dkv", ("dk", "dv"), 385)):
         entries.append({
@@ -4469,9 +4765,13 @@ def main(argv=None) -> int:
             **sums(api_path, kind + "_"), "library_ms": sum(r["bwd_library_ms"] for r in api_path),
             "per": per + f"; {sdpa}",
             "hidden_512": {**sums(api_wide, kind + "_"), "library_ms": sum(r["bwd_library_ms"] for r in api_wide)},
+            "hidden_1024_cross": {**sums(h1024_unpacked, kind + "_"), "library_ms": h1024_unpacked[0]["bwd_library_ms"],
+                                  "max_abs_err": max(r["bwd_abs_err"][n] for r in beyond_unpacked for n in names)},
         })
     log(f"train step median ms: hidden 256 {step_ms:.2f} ({TRAIN_B / step_ms * 1e3:.1f} images/s), hidden 512 "
-        f"{wide_step_ms:.2f} ({TRAIN_B / wide_step_ms * 1e3:.1f} images/s); kernels per step ms "
+        f"{wide_step_ms:.2f} ({TRAIN_B / wide_step_ms * 1e3:.1f} images/s), hidden 1024 {h1024_step_ms:.2f} "
+        f"({TRAIN_B / h1024_step_ms * 1e3:.1f} images/s); hidden 1024 request median ms "
+        f"{h1024['captured_ms']:.2f} (eager {h1024['eager_ms']:.2f}), evaluated map {h1024['map']:.6f}; kernels per step ms "
         + " ".join(f"{e['name']}={e['ms']:.3f}" for e in entries)
         + f"; captured step ms " + ", ".join(f"{k} {c['captured_ms']:.2f} (eager {c['eager_ms']:.2f})"
                                               for k, c in captured.items())

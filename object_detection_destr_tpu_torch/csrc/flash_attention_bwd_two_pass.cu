@@ -72,7 +72,10 @@
 //     element copies otherwise.
 // With one block of 8 warps an SM (the accumulators' and A fragments'
 // registers), the kernel is bound by the latency of its dependent mma and
-// ldmatrix chains, not by either bound above.
+// ldmatrix chains, not by either bound above. Its widest class ends at d +
+// dv = 2048; wider heads (hidden 1024's cross-attention, d 2048, dv 1024)
+// run flash_two_pass_tc_wide_kernel, which splits the gradient's columns
+// across grid.y (its comment says why and what it costs).
 //
 // float32, flash_dq_kernel / flash_dkv_kernel (the CUDA-core kernels; the
 // tensor-core path for float32 is later work):
@@ -86,7 +89,14 @@
 // The 32 dot products of a tile are finished by one reduce-scatter
 // (flash_common.cuh), so each lane owns one key (dq) or one query row (dkv).
 // What bounds them on this card: the float32 CUDA-core arithmetic (s and dp
-// are recomputed in both passes), not bytes.
+// are recomputed in both passes), not bytes. Where a 32-row tile of all d +
+// dv columns does not fit a block (d + dv above 1815) or a row a lane (d or
+// dv above 1024), flash_two_pass_f32_wide_kernel stages the tile in
+// 1024-column pieces and splits the gradient's columns across grid.y.
+//
+// two_pass_plan picks the kernel for every pass, dtype and width; at widths
+// up to 1024 it picks the instances this file had before the wide kernels
+// (except float32 d + dv above 1815, which no block could hold).
 
 #include <math.h>
 
@@ -314,16 +324,115 @@ int launch(Params a, bool dq, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const Params& a, bool dq, cudaStream_t stream) {
-  const int widest = a.d > a.dv_ ? a.d : a.dv_;
-  if (widest <= 32) return launch<T, 1>(a, dq, stream);
-  if (widest <= 64) return launch<T, 2>(a, dq, stream);
-  if (widest <= 128) return launch<T, 4>(a, dq, stream);
-  if (widest <= 256) return launch<T, 8>(a, dq, stream);
-  if (widest <= 512) return launch<T, 16>(a, dq, stream);
-  if (widest <= 1024) return launch<T, 32>(a, dq, stream);
-  return (int)cudaErrorInvalidValue;
+// ---- float32 on the CUDA cores, the wide class: column slices across grid.y
+constexpr int kF32WideCols = 1024;  // columns of a staged tile and of a gradient slice
+constexpr int kF32WideP = kF32WideCols / kWarp;  // 32 a lane
+
+// Where the float32 kernels above cannot hold a 32-row tile of all d + dv
+// columns (d + dv above 1815) or a lane cannot hold a row (d or dv above
+// 1024): the same warp-per-row scheme, with the streamed tile staged 1024
+// columns at a time. A block is 8 own rows and one slice of at most 1024
+// gradient columns (of dK or dQ, slices 0..n1-1, or of dV, slices n1..);
+// each slice recomputes the dot products of its pairs over all of d (and dv
+// where its gradient needs dS), summing each lane's partials over the
+// column tiles before one reduce-scatter, so the order of every sum is
+// fixed. A simple kernel: the own row's columns are read again from L2 for
+// every tile, and the slice's columns of the tile are staged once more.
+template <bool DKV>
+__global__ void __launch_bounds__(kWarps * kWarp) flash_two_pass_f32_wide_kernel(Params a, int n1, int n_sl) {
+  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem);  // (kTileK, at most kF32WideCols), dense
+  const float* a1 = static_cast<const float*>(DKV ? a.k : a.q);  // own rows, d wide
+  const float* a2 = static_cast<const float*>(DKV ? a.v : a.dout);  // own rows, dv wide
+  const float* x1 = static_cast<const float*>(DKV ? a.q : a.k);
+  const float* x2 = static_cast<const float*>(DKV ? a.dout : a.v);
+  const Strides sa1 = DKV ? a.sk_ : a.sq_, sa2 = DKV ? a.sv_ : a.so_;
+  const Strides sx1 = DKV ? a.sq_ : a.sk_, sx2 = DKV ? a.so_ : a.sv_;
+  const int n_own = DKV ? a.sk : a.sq, n_str = DKV ? a.sq : a.sk;
+
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int own = blockIdx.x * kWarps + warp;
+  const int hh = blockIdx.y / n_sl, sl = blockIdx.y - hh * n_sl, bi = blockIdx.z;
+  const bool first = sl < n1;  // dK or dQ columns (from dS); else dV columns (from P keep)
+  const int col0 = (first ? sl : sl - n1) * kF32WideCols;
+  const int sw = min(kF32WideCols, (first ? a.d : a.dv_) - col0);
+  const bool active = own < n_own;
+  const uint32_t bh = (uint32_t)(bi * a.num_heads + hh);
+  const long stat0 = ((long)bi * a.num_heads + hh) * a.sq;
+  auto key_state = [&](int key) {  // 1 valid, 0 masked, -1 past Sk
+    return key >= a.sk ? -1 : (a.key_valid == nullptr ? 1 : (a.key_valid[(long)bi * a.sk + key] != 0));
+  };
+  const int own_state = DKV ? (active ? key_state(own) : -1) : 1;
+  const float own_lse = !DKV && active ? a.lse[stat0 + own] : 0.f;
+  const float own_delta = !DKV && active ? a.delta[stat0 + own] : 0.f;
+  const float* own1 = a1 + sa1.off(bi, hh, active ? own : 0);
+  const float* own2 = a2 + sa2.off(bi, hh, active ? own : 0);
+
+  // lane j: <own row, streamed row r0 + j> over `width` columns, the tile
+  // staged kF32WideCols columns at a time
+  auto dots = [&](const float* own_row, const float* x, const Strides& sx, int width, int r0, bool vec) {
+    float part[kTileK];
+#pragma unroll
+    for (int j = 0; j < kTileK; ++j) part[j] = 0.f;
+    for (int c0 = 0; c0 < width; c0 += kF32WideCols) {
+      const int cw = min(kF32WideCols, width - c0);
+      __syncthreads();  // the previous tile is no longer read
+      load_tile(tile, x + sx.off(bi, hh, r0) + c0, n_str - r0, cw, (long)sx.s, vec);
+      __syncthreads();
+      if (active) {
+        float reg[kF32WideP];
+#pragma unroll
+        for (int i = 0; i < kF32WideP; ++i) {
+          const int e = lane + kWarp * i;
+          reg[i] = e < cw ? own_row[c0 + e] : 0.f;
+        }
+        tile_partials<float, kF32WideP>(part, reg, tile, cw, lane);
+      }
+    }
+    return active ? reduce_scatter(part, lane) : 0.f;
+  };
+
+  float acc[kF32WideP];
+#pragma unroll
+  for (int i = 0; i < kF32WideP; ++i) acc[i] = 0.f;
+  const float* xg = (first ? x1 : x2) + col0;
+  const Strides sxg = first ? sx1 : sx2;
+  for (int r0 = 0; r0 < n_str; r0 += kTileK) {
+    const float dot = dots(own1, x1, sx1, a.d, r0, a.vec_a);
+    const float dp = first ? dots(own2, x2, sx2, a.dv_, r0, a.vec_b) : 0.f;
+    const int str = r0 + lane;
+    const int row = DKV ? str : own, key = DKV ? own : str;
+    const int state = DKV ? own_state : key_state(str);
+    float pd = 0.f, ds = 0.f;
+    if (active && state >= 0 && row < a.sq)
+      ds = pair_grad(a, state, dot, dp, DKV ? a.lse[stat0 + str] : own_lse, DKV ? a.delta[stat0 + str] : own_delta,
+                     seed, bh, row, key, pd);
+    const float gv = first ? ds : pd;
+    // the slice's columns of the tile: grad += sum_j gv_j x_j
+    __syncthreads();
+    load_tile(tile, xg + sxg.off(bi, hh, r0), n_str - r0, sw, (long)sxg.s, first ? a.vec_a : a.vec_b);
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int j = 0; j < kTileK; ++j) {
+      const float gj = __shfl_sync(kFull, gv, j);
+#pragma unroll
+      for (int i = 0; i < kF32WideP; ++i) {
+        const int e = lane + kWarp * i;
+        if (e < sw) acc[i] = fmaf(gj, tile[j * sw + e], acc[i]);
+      }
+    }
+  }
+
+  if (!active) return;
+  float* grad = static_cast<float*>(DKV ? (first ? a.dk : a.dv) : a.dq);
+  const long goff = (DKV ? (first ? a.sk_ : a.sv_) : a.sq_).off(bi, hh, own) + col0;
+#pragma unroll
+  for (int i = 0; i < kF32WideP; ++i) {
+    const int e = lane + kWarp * i;
+    if (e < sw) grad[goff + e] = acc[i];
+  }
 }
 
 // ---- bfloat16 on the tensor cores
@@ -607,45 +716,358 @@ __global__ void __launch_bounds__(kTcThreads) flash_two_pass_tc_kernel(Params a)
   }
 }
 
-template <bool DKV, int KPW>
-int launch_tc(Params a, cudaStream_t stream) {
-  const size_t smem = TcLayout(a.d, a.dv_, tc_stream_rows(KPW)).total;
-  cudaError_t err = cudaFuncSetAttribute(flash_two_pass_tc_kernel<DKV, KPW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(((DKV ? a.sk : a.sq) + kTcRows - 1) / kTcRows, a.num_heads, a.b);
-  flash_two_pass_tc_kernel<DKV, KPW><<<grid, kTcThreads, smem, stream>>>(a);
+// ---- bfloat16 on the tensor cores, the wide class: column slices across grid.y
+constexpr int kWideTR = 64;                          // streamed rows an iteration: 8 a warp
+constexpr int kWideCols = 128;                       // columns a stage
+constexpr int kWideChunks = 8;                       // stages of gradient columns a slice
+constexpr int kWideSlice = kWideChunks * kWideCols;  // gradient columns a block
+constexpr int kWideStride = kWideCols + tc::kPad;
+constexpr int kWideSlot = (kTcRows + kWideTR) * kWideStride;  // a stage: 16 own rows, then the streamed rows
+constexpr int kWidePs = kWideTR + tc::kPad;
+// Shared memory of the wide kernel, in bytes: a 2-slot ring and the hi / lo
+// tiles of the slice's gradient factor (dS or P keep). No width enters it.
+__host__ __device__ constexpr int tc_wide_smem() { return 2 * 2 * kWideSlot + 2 * 2 * kTcRows * kWidePs; }
+
+// Where flash_two_pass_tc_kernel's widest class (KPW 16) ends, d + dv above
+// 2048 (the hidden-1024 cross-attention: d 2048, dv 1024, KPW 24): there its
+// accumulators (192 a thread) and A fragments (96) pass the 255 registers a
+// thread has, and at hidden 2048 (d 4096, dv 2048) two 16-row stages of all
+// columns (394 KB) pass 227 KB. This kernel splits the gradient's columns
+// across grid.y instead of staging the accumulators in shared memory, which
+// would have to hold 16 x 3072 float32 (196 KB) beside the tiles at that
+// site and twice that at hidden 2048; a slice's shared memory does not grow
+// with the widths, so every width has a plan. A block owns 16 rows (keys in
+// the dkv pass, query rows in the dq pass) and one slice of at most 1024
+// gradient columns: of dK or dQ (slices 0..n1-1, whose factor is dS, so
+// they need S and dP) or of dV (the dkv pass's slices n1.., factor P keep,
+// so S alone). An iteration takes 64 streamed rows in steps through one
+// 2-slot cp.async ring, each step 128 columns:
+//   1. S (then dP) of the 16 x 64 tile over d (then dv): each step stages
+//      the own rows' and the streamed rows' 128 columns; warp w owns streamed
+//      rows 8w..8w+7 and keeps their S and dP fragments in registers over
+//      all the steps, so no partial sum crosses warps;
+//   2. after the last such step each thread turns its 4 pairs into the
+//      slice's factor (pair_grad: p, the keep bit of (row, key), dS or P
+//      keep), stored as a bf16 hi / lo pair, and every warp reads the 16 x 64
+//      hi / lo A fragments;
+//   3. each later step stages the streamed rows' next 128 columns of the
+//      slice; warp w adds hi and lo times columns 16w..16w+15 into its float32
+//      accumulators (64 a thread for a 1024-column slice).
+// Each slice recomputes S (and dP) over all of d (and dv): at d 2048, dv
+// 1024 the dkv pass's three slices do 2.7x one pass's S and dP products and
+// the dq pass's two 2x. The keep bit is a function of (seed, b*h + head,
+// row, key) alone, so every slice draws the same mask; every sum runs in a
+// fixed order and nothing is atomic, so both layouts still give the same
+// bits.
+template <bool DKV>
+__global__ void __launch_bounds__(kTcThreads) flash_two_pass_tc_wide_kernel(Params a, int n1, int n_sl) {
+  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [2][16 + 64][kWideStride]
+  bf16* f_hi = ring + 2 * kWideSlot;           // (own, streamed) each
+  bf16* f_lo = f_hi + kTcRows * kWidePs;
+
+  const bf16* a1 = static_cast<const bf16*>(DKV ? a.k : a.q);  // own rows, d wide
+  const bf16* a2 = static_cast<const bf16*>(DKV ? a.v : a.dout);  // own rows, dv wide
+  const bf16* x1 = static_cast<const bf16*>(DKV ? a.q : a.k);
+  const bf16* x2 = static_cast<const bf16*>(DKV ? a.dout : a.v);
+  const Strides sa1 = DKV ? a.sk_ : a.sq_, sa2 = DKV ? a.sv_ : a.so_;
+  const Strides sx1 = DKV ? a.sq_ : a.sk_, sx2 = DKV ? a.so_ : a.sv_;
+  const int n_own = DKV ? a.sk : a.sq, n_str = DKV ? a.sq : a.sk;
+
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int own0 = blockIdx.x * kTcRows;
+  const int hh = blockIdx.y / n_sl, sl = blockIdx.y - hh * n_sl, bi = blockIdx.z;
+  const bool first = sl < n1;  // dK or dQ columns; else dV columns
+  const int col0 = (first ? sl : sl - n1) * kWideSlice;
+  const int sw = min(kWideSlice, (first ? a.d : a.dv_) - col0);
+  const bf16* xg = (first ? x1 : x2) + col0;
+  const Strides sxg = first ? sx1 : sx2;
+  const uint32_t bh = (uint32_t)(bi * a.num_heads + hh);
+  const long stat0 = ((long)bi * a.num_heads + hh) * a.sq;
+  const int nd = (a.d + kWideCols - 1) / kWideCols;
+  const int n1c = nd + (first ? (a.dv_ + kWideCols - 1) / kWideCols : 0);  // steps of S and dP
+  const int n_step = n1c + (sw + kWideCols - 1) / kWideCols;                // ... and of the slice
+  const int total = (n_str + kWideTR - 1) / kWideTR * n_step;
+
+  auto load = [&](int s) {
+    const int it = s / n_step, j = s - it * n_step, r0 = it * kWideTR;
+    bf16* slot = ring + (s & 1) * kWideSlot;
+    bf16* str_s = slot + kTcRows * kWideStride;
+    if (j < n1c) {
+      const bool is_s = j < nd;
+      const int c = (is_s ? j : j - nd) * kWideCols, cw = min(kWideCols, (is_s ? a.d : a.dv_) - c);
+      const Strides so = is_s ? sa1 : sa2, sx = is_s ? sx1 : sx2;
+      tc::load_rows<kTcThreads>(slot, kWideStride, (is_s ? a1 : a2) + so.off(bi, hh, own0) + c, so.s, kTcRows,
+                                n_own - own0, cw, a.vec_a);
+      tc::load_rows<kTcThreads>(str_s, kWideStride, (is_s ? x1 : x2) + sx.off(bi, hh, r0) + c, sx.s, kWideTR,
+                                n_str - r0, cw, a.vec_b);
+    } else {
+      const int c = (j - n1c) * kWideCols;
+      tc::load_rows<kTcThreads>(str_s, kWideStride, xg + sxg.off(bi, hh, r0) + c, sxg.s, kWideTR, n_str - r0,
+                                min(kWideCols, sw - c), a.vec_b);
+    }
+    tc::cp_async_commit();
+  };
+
+  auto key_state = [&](int key) {  // 1 valid, 0 masked, -1 past Sk
+    return key >= a.sk ? -1 : (a.key_valid == nullptr ? 1 : (a.key_valid[(long)bi * a.sk + key] != 0));
+  };
+  // own rows g and g + 8: key states (dkv) or lse and delta (dq); the
+  // streamed rows 8 warp + 2t (+1) of an iteration: the other, fetched at
+  // its first step so the loads' latency hides behind the S steps
+  int own_state[2], str_state[2] = {1, 1};
+  float own_lse[2], own_delta[2], str_lse[2] = {0.f, 0.f}, str_delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int own = own0 + g + 8 * r;
+    own_state[r] = DKV ? key_state(own) : 1;
+    own_lse[r] = !DKV && own < a.sq ? a.lse[stat0 + own] : 0.f;
+    own_delta[r] = !DKV && own < a.sq ? a.delta[stat0 + own] : 0.f;
+  }
+
+  float s_acc[4], p_acc[4];
+  uint32_t ah[kWideTR / 16][4], al[kWideTR / 16][4];
+  float acc[kWideChunks][2][4];
+#pragma unroll
+  for (int i = 0; i < kWideChunks; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+
+  load(0);
+  for (int s = 0; s < total; ++s) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // step s has landed; the other slot is free
+    if (s + 1 < total) load(s + 1);
+    const int it = s / n_step, j = s - it * n_step;
+    const bf16* slot = ring + (s & 1) * kWideSlot;
+    const bf16* str_s = slot + kTcRows * kWideStride;
+    if (j == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[e] = p_acc[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int str = it * kWideTR + 8 * warp + 2 * t + e;
+        if (DKV) {
+          str_lse[e] = str < a.sq ? a.lse[stat0 + str] : 0.f;
+          str_delta[e] = str < a.sq ? a.delta[stat0 + str] : 0.f;
+        } else {
+          str_state[e] = key_state(str);
+        }
+      }
+    }
+    if (j < n1c) {  // 1. S or dP of this warp's 8 streamed rows over the step's columns
+      const bool is_s = j < nd;
+      const int cw = min(kWideCols, (is_s ? a.d : a.dv_) - (is_s ? j : j - nd) * kWideCols);
+#pragma unroll
+      for (int kk = 0; kk < kWideCols / 16; ++kk) {
+        if (kk * 16 >= cw) break;
+        uint32_t af[4], bb[2];
+        tc::load_a(af, slot, kWideStride, 0, 16 * kk, lane);
+        tc::load_b_rows8(bb, str_s, kWideStride, 8 * warp, 16 * kk, lane);
+        if (is_s)
+          tc::mma(s_acc, af, bb[0], bb[1]);
+        else
+          tc::mma(p_acc, af, bb[0], bb[1]);
+      }
+    }
+    if (j == n1c - 1) {  // 2. the slice's factor of this thread's pairs, as hi / lo bf16
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int own_r = g + 8 * (e >> 1), str_c = 8 * warp + 2 * t + (e & 1);
+        const int own = own0 + own_r, str = it * kWideTR + str_c;
+        const int row = DKV ? str : own, key = DKV ? own : str;
+        const int state = DKV ? own_state[e >> 1] : str_state[e & 1];
+        float pd = 0.f, ds = 0.f;
+        if (state >= 0 && row < a.sq)
+          ds = pair_grad(a, state, s_acc[e], p_acc[e], DKV ? str_lse[e & 1] : own_lse[e >> 1],
+                         DKV ? str_delta[e & 1] : own_delta[e >> 1], seed, bh, row, key, pd);
+        const float x = first ? ds : pd;
+        const bf16 hi = __float2bfloat16(x);
+        f_hi[own_r * kWidePs + str_c] = hi;
+        f_lo[own_r * kWidePs + str_c] = __float2bfloat16(x - __bfloat162float(hi));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kh = 0; kh < kWideTR / 16; ++kh) {
+        tc::load_a(ah[kh], f_hi, kWidePs, 0, 16 * kh, lane);
+        tc::load_a(al[kh], f_lo, kWidePs, 0, 16 * kh, lane);
+      }
+    }
+    if (j >= n1c) {  // 3. this warp's 16 columns of the step: grad += (hi + lo) x
+      const int gc = j - n1c;
+      if (gc * kWideCols + 16 * warp < sw) {
+        uint32_t bb[kWideTR / 16][4];
+#pragma unroll
+        for (int kh = 0; kh < kWideTR / 16; ++kh) tc::load_b_cols(bb[kh], str_s, kWideStride, 16 * kh, 16 * warp, lane);
+#pragma unroll
+        for (int i = 0; i < kWideChunks; ++i) {
+          if (i != gc) continue;
+#pragma unroll
+          for (int kh = 0; kh < kWideTR / 16; ++kh) {
+            tc::mma(acc[i][0], ah[kh], bb[kh][0], bb[kh][1]);
+            tc::mma(acc[i][1], ah[kh], bb[kh][2], bb[kh][3]);
+          }
+#pragma unroll
+          for (int kh = 0; kh < kWideTR / 16; ++kh) {
+            tc::mma(acc[i][0], al[kh], bb[kh][0], bb[kh][1]);
+            tc::mma(acc[i][1], al[kh], bb[kh][2], bb[kh][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // each gradient element of the slice written once, in bfloat16
+  bf16* grad = static_cast<bf16*>(DKV ? (first ? a.dk : a.dv) : a.dq);
+  const Strides sg = DKV ? (first ? a.sk_ : a.sv_) : a.sq_;
+#pragma unroll
+  for (int i = 0; i < kWideChunks; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int orow = own0 + g + 8 * (e >> 1), col = i * kWideCols + 16 * warp + 8 * n + 2 * t + (e & 1);
+        if (orow < n_own && col < sw) grad[sg.off(bi, hh, orow) + col0 + col] = __float2bfloat16(acc[i][n][e]);
+      }
+}
+
+// What a launch of one pass at head widths d, dv runs (two_pass_plan):
+// kernel 0 float32 (flash_dq_kernel / flash_dkv_kernel, cls = P columns a
+// lane per 32), 1 float32 wide (cls = kF32WideP), 2 bfloat16
+// (flash_two_pass_tc_kernel, cls = KPW), 3 bfloat16 wide (cls 0); rows: the
+// streamed rows a tile; slices: blocks along grid.y a head; the dynamic
+// shared memory in bytes. Dispatch follows it, and the library exports it
+// (odtt_flash_two_pass_plan) for the Python mirror,
+// ops/cuda/flash_attention.py::two_pass_plan. Every width has a plan.
+struct TwoPassPlan {
+  int kernel, cls, rows, slices, smem;
+};
+
+constexpr long long kSmemOptin = 232448;  // an H100 block's opt-in shared memory
+
+int cdiv(int x, int m) { return (x + m - 1) / m; }
+
+TwoPassPlan two_pass_plan(int dtype, bool dq, int d, int dv) {
+  TwoPassPlan p{};
+  if (dtype == 0) {
+    const int widest = d > dv ? d : dv;
+    const long long smem = (dq ? 1 : 2) * kHeaderBytes + (long long)kTileK * (d + dv) * sizeof(float);
+    if (widest <= 1024 && smem <= kSmemOptin) {
+      p = {0, widest <= 32 ? 1 : widest <= 64 ? 2 : widest <= 128 ? 4 : widest <= 256 ? 8 : widest <= 512 ? 16 : 32,
+           kTileK, 1, (int)smem};
+    } else {
+      p = {1, kF32WideP, kTileK, cdiv(d, kF32WideCols) + (dq ? 0 : cdiv(dv, kF32WideCols)),
+           (int)(kTileK * kF32WideCols * sizeof(float))};
+    }
+    return p;
+  }
+  // KPW: k-steps of S and dP (d / 16 + dv / 16) over the 8 warps, in five
+  // width classes; the dkv pass has as many 16-column jobs, the dq pass fewer
+  const int kpw = (cdiv(d, 16) + cdiv(dv, 16) + kTcWarps - 1) / kTcWarps;
+  if (kpw <= 16) {
+    // the hidden-256 cross site (d 512, dv 256) is class 8, hidden 512's (d 1024, dv 512) class 12
+    const int cls = kpw <= 2 ? 2 : kpw <= 4 ? 4 : kpw <= 8 ? 8 : kpw <= 12 ? 12 : 16;
+    p = {2, cls, tc_stream_rows(cls), 1, (int)TcLayout(d, dv, tc_stream_rows(cls)).total};
+  } else {
+    p = {3, 0, kWideTR, cdiv(d, kWideSlice) + (dq ? 0 : cdiv(dv, kWideSlice)), tc_wide_smem()};
+  }
+  return p;
+}
+
+template <typename K>
+int set_smem(K kernel, int smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <bool DKV>
+int launch_f32_wide(const Params& a, const TwoPassPlan& p, cudaStream_t stream) {
+  const int err = set_smem(flash_two_pass_f32_wide_kernel<DKV>, p.smem);
+  if (err != 0) return err;
+  const int n1 = cdiv(a.d, kF32WideCols);
+  const dim3 grid(cdiv(DKV ? a.sk : a.sq, kWarps), a.num_heads * p.slices, a.b);
+  flash_two_pass_f32_wide_kernel<DKV><<<grid, kWarps * kWarp, p.smem, stream>>>(a, n1, p.slices);
   return (int)cudaGetLastError();
 }
 
-// KPW: k-steps of S and dP (d / 16 + dv / 16) over the 8 warps, in five
-// width classes; the dkv pass has as many 16-column jobs, the dq pass fewer.
+int dispatch_f32(Params a, bool dq, cudaStream_t stream) {
+  const TwoPassPlan p = two_pass_plan(0, dq, a.d, a.dv_);
+  if (p.kernel == 1) {
+    a.vec_a = aligned16_strided<float>(dq ? a.k : a.q, a.d, dq ? a.sk_ : a.sq_);
+    a.vec_b = aligned16_strided<float>(dq ? a.v : a.dout, a.dv_, dq ? a.sv_ : a.so_);
+    return dq ? launch_f32_wide<false>(a, p, stream) : launch_f32_wide<true>(a, p, stream);
+  }
+  switch (p.cls) {
+    case 1: return launch<float, 1>(a, dq, stream);
+    case 2: return launch<float, 2>(a, dq, stream);
+    case 4: return launch<float, 4>(a, dq, stream);
+    case 8: return launch<float, 8>(a, dq, stream);
+    case 16: return launch<float, 16>(a, dq, stream);
+    default: return launch<float, 32>(a, dq, stream);
+  }
+}
+
+template <bool DKV, int KPW>
+int launch_tc(Params a, const TwoPassPlan& p, cudaStream_t stream) {
+  const int err = set_smem(flash_two_pass_tc_kernel<DKV, KPW>, p.smem);
+  if (err != 0) return err;
+  const dim3 grid(cdiv(DKV ? a.sk : a.sq, kTcRows), a.num_heads, a.b);
+  flash_two_pass_tc_kernel<DKV, KPW><<<grid, kTcThreads, p.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <bool DKV>
-int dispatch_tc_kpw(const Params& a, cudaStream_t stream) {
-  const int kpw = ((a.d + 15) / 16 + (a.dv_ + 15) / 16 + kTcWarps - 1) / kTcWarps;
-  if (kpw <= 2) return launch_tc<DKV, 2>(a, stream);
-  if (kpw <= 4) return launch_tc<DKV, 4>(a, stream);
-  if (kpw <= 8) return launch_tc<DKV, 8>(a, stream);    // the hidden-256 cross site: d 512, dv 256
-  if (kpw <= 12) return launch_tc<DKV, 12>(a, stream);  // the hidden-512 cross site: d 1024, dv 512
-  return launch_tc<DKV, 16>(a, stream);
+int launch_tc_wide(const Params& a, const TwoPassPlan& p, cudaStream_t stream) {
+  const int err = set_smem(flash_two_pass_tc_wide_kernel<DKV>, p.smem);
+  if (err != 0) return err;
+  const dim3 grid(cdiv(DKV ? a.sk : a.sq, kTcRows), a.num_heads * p.slices, a.b);
+  flash_two_pass_tc_wide_kernel<DKV><<<grid, kTcThreads, p.smem, stream>>>(a, cdiv(a.d, kWideSlice), p.slices);
+  return (int)cudaGetLastError();
+}
+
+template <bool DKV>
+int dispatch_tc_plan(const Params& a, const TwoPassPlan& p, cudaStream_t stream) {
+  switch (p.kernel == 3 ? 0 : p.cls) {
+    case 0: return launch_tc_wide<DKV>(a, p, stream);
+    case 2: return launch_tc<DKV, 2>(a, p, stream);
+    case 4: return launch_tc<DKV, 4>(a, p, stream);
+    case 8: return launch_tc<DKV, 8>(a, p, stream);
+    case 12: return launch_tc<DKV, 12>(a, p, stream);
+    default: return launch_tc<DKV, 16>(a, p, stream);
+  }
 }
 
 int dispatch_tc(Params a, bool dq, cudaStream_t stream) {
-  if (a.d > 1024 || a.dv_ > 1024) return (int)cudaErrorInvalidValue;
   const Strides own1 = dq ? a.sq_ : a.sk_, own2 = dq ? a.so_ : a.sv_;
   const Strides str1 = dq ? a.sk_ : a.sq_, str2 = dq ? a.sv_ : a.so_;
   a.vec_a = aligned16_strided<bf16>(dq ? a.q : a.k, a.d, own1) &&
             aligned16_strided<bf16>(dq ? a.dout : a.v, a.dv_, own2);
   a.vec_b = aligned16_strided<bf16>(dq ? a.k : a.q, a.d, str1) &&
             aligned16_strided<bf16>(dq ? a.v : a.dout, a.dv_, str2);
-  return dq ? dispatch_tc_kpw<false>(a, stream) : dispatch_tc_kpw<true>(a, stream);
+  const TwoPassPlan p = two_pass_plan(1, dq, a.d, a.dv_);
+  return dq ? dispatch_tc_plan<false>(a, p, stream) : dispatch_tc_plan<true>(a, p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int odtt_flash_bwd_two_pass_abi_version() { return 3; }
+int odtt_flash_bwd_two_pass_abi_version() { return 4; }
+
+// The launch plan of one pass at head widths d, dv (two_pass_plan):
+// out[0..4] = kernel, cls, rows, slices, smem. Returns 0, or
+// cudaErrorInvalidValue on a bad argument.
+int odtt_flash_two_pass_plan(int dtype, int pass_dq, int d, int dv, long long* out) {
+  if ((dtype != 0 && dtype != 1) || d <= 0 || dv <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  const TwoPassPlan p = two_pass_plan(dtype, pass_dq != 0, d, dv);
+  out[0] = p.kernel;
+  out[1] = p.cls;
+  out[2] = p.rows;
+  out[3] = p.slices;
+  out[4] = p.smem;
+  return 0;
+}
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores; q, k, v, dout
 // and the gradients).
@@ -689,7 +1111,7 @@ int odtt_flash_attention_two_pass(int pass_dq, const void* q, const void* k, con
   a.inv_keep = inv_keep;
   const bool is_dq = pass_dq != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, is_dq, s);
+  if (dtype == 0) return dispatch_f32(a, is_dq, s);
   if (dtype == 1) return dispatch_tc(a, is_dq, s);
   return (int)cudaErrorInvalidValue;
 }

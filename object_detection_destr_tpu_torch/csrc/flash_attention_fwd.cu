@@ -29,7 +29,7 @@
 //
 // bfloat16, flash_fwd_tc_kernel (FlashAttention-2's forward). What bounds
 // it on this card: a launch at the path's shapes (Sq, Sk 300-600, d
-// 32..1024) needs 0.1-6 GFLOP, a few microseconds of bf16 tensor-core work,
+// 32..2048) needs 0.1-6 GFLOP, a few microseconds of bf16 tensor-core work,
 // on 1-30 MB of operands, so bytes bound it; a first kernel on the CUDA
 // cores spent 90-180x that bound on float32 FMAs and warp shuffles. The
 // design:
@@ -38,7 +38,11 @@
 //     attentions) are split across grid.y: each chunk recomputes S, so m, l
 //     and lse are bit-identical in every chunk and chunk 0 writes lse. Split
 //     rather than more warps a block: O stays 64 f32 registers a thread, and
-//     the one-head cross-attention gets 2-4x the blocks to fill 132 SMs;
+//     the one-head cross-attention gets 2-4x the blocks to fill 132 SMs.
+//     The cost grows with dv: at hidden 1024's cross-attention (d 2048, dv
+//     1024) each of 8 chunks recomputes S over d 2048, 8x the S products of
+//     one pass (S is 2/3 of the FLOPs there: 5.7x the unsplit work); shared
+//     memory stays tc_fwd_smem(0, 128), whatever d, as Q streams;
 //   * S = Q K^T by mma.sync m16n8k16 (bf16 products are exact, f32 sums)
 //     over d in chunks of 64 columns; K chunks (and Q chunks where d > 128)
 //     stream through a 2-stage cp.async ring in dynamic shared memory, rows
@@ -89,18 +93,22 @@ constexpr int kF32Stages = 3;                  // a warp's ring: k chunks, v til
 constexpr int kF32KStride = kF32Chunk + 8;
 constexpr int kF32KSlot = kF32Keys * kF32KStride;
 
+// The widest q a block keeps whole in shared memory (16 rows of d, 66 KB at
+// 1024); wider q streams in 64-column chunks beside k (QS).
+constexpr int kF32ResidentQ = 1024;
 __host__ __device__ constexpr int f32_q_stride(int d) { return (d + 31) / 32 * 32 + 8; }
-// Floats of one warp's ring: kF32Stages k chunks, v tiles of DVC columns
-// and key states.
-__host__ __device__ constexpr int f32_warp_ring(int dvc) {
-  return kF32Stages * (kF32KSlot + kF32Keys * (dvc + 4) + kF32Keys);
+// Floats of one warp's ring: kF32Stages k chunks (and q chunks where q
+// streams), v tiles of DVC columns and key states.
+__host__ __device__ constexpr int f32_warp_ring(int dvc, bool qs) {
+  return kF32Stages * ((qs ? 2 : 1) * kF32KSlot + kF32Keys * (dvc + 4) + kF32Keys);
 }
-// Shared memory of the kernel, in bytes: q (16 rows, all of d), then the
-// warps' rings, which the warps' partial O, m and l reuse at the end.
-__host__ __device__ constexpr int f32_fwd_smem(int d, int dvc) {
-  return 4 * (kF32Rows * f32_q_stride(d) +
-              (kF32Warps * f32_warp_ring(dvc) > kF32Warps * kF32Rows * (dvc + 6)
-                   ? kF32Warps * f32_warp_ring(dvc)
+// Shared memory of the kernel, in bytes: q (16 rows, all of d; none where q
+// streams), then the warps' rings, which the warps' partial O, m and l
+// reuse at the end.
+__host__ __device__ constexpr int f32_fwd_smem(int d, int dvc, bool qs) {
+  return 4 * ((qs ? 0 : kF32Rows * f32_q_stride(d)) +
+              (kF32Warps * f32_warp_ring(dvc, qs) > kF32Warps * kF32Rows * (dvc + 6)
+                   ? kF32Warps * f32_warp_ring(dvc, qs)
                    : kF32Warps * kF32Rows * (dvc + 6)));
 }
 
@@ -112,7 +120,10 @@ __host__ __device__ constexpr int f32_fwd_smem(int d, int dvc) {
 // of its own (cp.async, kF32Stages deep, synced by __syncwarp: no block
 // barrier in the main loop). At the end the warps' (m, l, O) meet in shared
 // memory and are combined in warp order (O = sum_w e^(m_w - M) O_w / sum_w
-// e^(m_w - M) l_w). Why: a launch on serving's B = 1 shapes has few rows
+// e^(m_w - M) l_w). Q's 16 rows sit in shared memory whole up to d 1024;
+// wider (QS: the 2048-wide cross-attention of hidden 1024 would need 131 KB
+// beside the rings' 157 KB) each warp streams Q's chunk c beside K's chunk c
+// through its own ring, so shared memory no longer grows with d. Why: a launch on serving's B = 1 shapes has few rows
 // (300-600) and a flash forward is a chain of steps per block; 16-row
 // blocks give 200, 152 and 76 blocks at its three sites where 64-row blocks
 // give 56, 40 and 20, and splitting the keys over the 4 warps cuts each
@@ -133,7 +144,7 @@ __host__ __device__ constexpr int f32_fwd_smem(int d, int dvc) {
 // accumulators, one a product kind (8 mma each), P V of one tile into a
 // fresh one (6 mma), and these are added in IEEE float32. P is not rounded,
 // as _fwd_kernel_packed rounds it only to the operand dtype (l.638-641).
-template <int DVC>
+template <int DVC, bool QS>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const uint8_t* __restrict__ key_valid, float* __restrict__ out, float* __restrict__ lse,
@@ -144,13 +155,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(
   constexpr int kVStride = DVC + 4;
   constexpr int kNt = DVC / 8;  // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
-  const int q_stride = f32_q_stride(d);
+  const int q_stride = QS ? 0 : f32_q_stride(d);
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int g = lane / 4, t = lane % 4;
-  float* q_s = reinterpret_cast<float*>(smem);  // (16, q_stride)
+  float* q_s = reinterpret_cast<float*>(smem);  // (16, q_stride); none with QS
   float* rings = q_s + kF32Rows * q_stride;
-  float* k_s = rings + warp * f32_warp_ring(DVC);     // [kF32Stages][16][kF32KStride]
-  float* v_s = k_s + kF32Stages * kF32KSlot;          // [kF32Stages][16][kVStride]
+  float* k_s = rings + warp * f32_warp_ring(DVC, QS);  // [kF32Stages][16][kF32KStride]
+  float* qc_s = k_s + kF32Stages * kF32KSlot;          // with QS: [kF32Stages][16][kF32KStride]
+  float* v_s = qc_s + (QS ? kF32Stages * kF32KSlot : 0);  // [kF32Stages][16][kVStride]
   int* state_s = reinterpret_cast<int*>(v_s + kF32Stages * kF32Keys * kVStride);  // [kF32Stages][16]
 
   const int r0 = blockIdx.x * kF32Rows;
@@ -172,6 +184,10 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(
       tc::load_rows_f32<kF32Chunk>(k_s + (s % kF32Stages) * kF32KSlot, kF32KStride,
                                    k + sk_.off(b, hh, key0) + c * kF32Chunk, sk_.s, kF32Keys, sk - key0,
                                    min(kF32Chunk, d - c * kF32Chunk), vec, lane, kWarp);
+      if (QS)
+        tc::load_rows_f32<kF32Chunk>(qc_s + (s % kF32Stages) * kF32KSlot, kF32KStride,
+                                     q + sq_.off(b, hh, r0) + c * kF32Chunk, sq_.s, kF32Rows, sq - r0,
+                                     min(kF32Chunk, d - c * kF32Chunk), vec, lane, kWarp);
       if (c == 0) {
         const int slot = i % kF32Stages;
         tc::load_rows_f32<DVC>(v_s + slot * kF32Keys * kVStride, kVStride, v + sv_.off(b, hh, key0) + c0, sv_.s,
@@ -188,8 +204,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(
 
   // q once for the block (group 0), then each warp's first stages; the
   // barrier after q has landed is the only one before the combine
-  tc::load_rows_f32<0>(q_s, q_stride, q + sq_.off(b, hh, r0), sq_.s, kF32Rows, sq - r0, d, vec, threadIdx.x,
-                       kF32Threads);
+  if (!QS)
+    tc::load_rows_f32<0>(q_s, q_stride, q + sq_.off(b, hh, r0), sq_.s, kF32Rows, sq - r0, d, vec, threadIdx.x,
+                         kF32Threads);
   tc::cp_async_commit();
 #pragma unroll
   for (int s = 0; s < kF32Stages - 1; ++s) load(s);
@@ -202,7 +219,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(
   for (int n = 0; n < kNt; ++n) o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, over the warp's keys
   float l_part[2] = {0.f, 0.f};             // this thread's share of the rows' sums
-  const float* qs = q_s + g * q_stride + 2 * t;
+  // q's rows g and g + 8 from column 0 of chunk c: resident, or the chunk's ring slot
+  const int q_rows8 = 8 * (QS ? kF32KStride : q_stride);
 
   for (int s = 0; s < steps; ++s) {
     tc::cp_async_wait<kF32Stages - 2>();  // step s has landed for this lane
@@ -214,12 +232,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(
     // small x big in three accumulators a key n-tile
     float sp[2][3][4] = {};
     const float* ks = k_s + (s % kF32Stages) * kF32KSlot + g * kF32KStride + 2 * t;
+    const float* qs = QS ? qc_s + (s % kF32Stages) * kF32KSlot + g * kF32KStride + 2 * t
+                         : q_s + g * q_stride + 2 * t + c * kF32Chunk;
 #pragma unroll
     for (int kk = 0; kk < kF32Chunk / 8; ++kk) {
       if (kk >= ksteps) break;
-      const int col = c * kF32Chunk + kk * 8;
+      const int col = kk * 8;
       const float2 lo = *reinterpret_cast<const float2*>(qs + col);
-      const float2 hi = *reinterpret_cast<const float2*>(qs + 8 * q_stride + col);
+      const float2 hi = *reinterpret_cast<const float2*>(qs + q_rows8 + col);
       uint32_t ab[4], as[4];
       tc::split_tf32(lo.x, ab[0], as[0]);
       tc::split_tf32(hi.x, ab[1], as[1]);
@@ -599,68 +619,106 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int DVC>
-int launch_f32(const Args& a) {
-  const int chunks = (a.dv + DVC - 1) / DVC;
-  const dim3 grid((a.sq + kF32Rows - 1) / kF32Rows, a.num_heads * chunks, a.b);
-  const int smem = f32_fwd_smem(a.d, DVC);
+// What a launch at head widths d, dv runs: the kernel (its dtype's), how it
+// holds q (bf16: NQ resident 64-column chunks, 0 streamed; float32: 1
+// resident, 0 streamed), the output columns a block (DVC), the blocks dv is
+// split into across grid.y, and the dynamic shared memory. Dispatch follows
+// it, and the library exports it (odtt_flash_fwd_plan) for the Python
+// mirror, ops/cuda/flash_attention.py::forward_plan. No width is refused:
+// shared memory does not grow with d where q streams, nor with dv.
+struct FwdPlan {
+  int q, dvc, chunks, smem;
+};
+
+FwdPlan fwd_plan(int dtype, int d, int dv) {
+  FwdPlan p{};
+  p.dvc = dv <= 32 ? 32 : (dv <= 64 ? 64 : 128);  // dv > 128 in chunks of 128 across grid.y
+  p.chunks = (dv + p.dvc - 1) / p.dvc;
+  if (dtype == 0) {
+    p.q = d <= kF32ResidentQ ? 1 : 0;
+    p.smem = f32_fwd_smem(d, p.dvc, p.q == 0);
+  } else {
+    p.q = d <= 64 ? 1 : (d <= 128 ? 2 : 0);  // else q streamed in chunks of 64 columns
+    p.smem = tc_fwd_smem(p.q, p.dvc);
+  }
+  return p;
+}
+
+template <int DVC, bool QS>
+int launch_f32(const Args& a, const FwdPlan& p) {
+  const dim3 grid((a.sq + kF32Rows - 1) / kF32Rows, a.num_heads * p.chunks, a.b);
   cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_f32_kernel<DVC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(flash_fwd_f32_kernel<DVC, QS>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
   const bool vec = aligned16_strided<float>(a.q, a.d, a.sq_) && aligned16_strided<float>(a.k, a.d, a.sk_) &&
                    aligned16_strided<float>(a.v, a.dv, a.sv_);
-  flash_fwd_f32_kernel<DVC><<<grid, kF32Threads, smem, a.stream>>>(
+  flash_fwd_f32_kernel<DVC, QS><<<grid, kF32Threads, p.smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       static_cast<const uint8_t*>(a.key_valid), static_cast<float*>(a.out), static_cast<float*>(a.lse),
       a.sq_, a.sk_, a.sv_, a.so_, a.sq, a.sk, a.num_heads, a.d, a.dv, a.scale, a.seed, a.drop_threshold,
-      a.inv_keep, chunks, vec);
+      a.inv_keep, p.chunks, vec);
   return (int)cudaGetLastError();
 }
 
+template <bool QS>
+int dispatch_f32_dv(const Args& a, const FwdPlan& p) {
+  if (p.dvc == 32) return launch_f32<32, QS>(a, p);
+  if (p.dvc == 64) return launch_f32<64, QS>(a, p);
+  return launch_f32<128, QS>(a, p);
+}
+
 int dispatch_f32(const Args& a) {
-  if (a.d > 1024 || a.dv > 1024) return (int)cudaErrorInvalidValue;
-  if (a.dv <= 32) return launch_f32<32>(a);
-  if (a.dv <= 64) return launch_f32<64>(a);
-  return launch_f32<128>(a);  // dv > 128 in chunks of 128 across grid.y
+  const FwdPlan p = fwd_plan(0, a.d, a.dv);
+  return p.q ? dispatch_f32_dv<false>(a, p) : dispatch_f32_dv<true>(a, p);
 }
 
 template <int NQ, int DVC>
-int launch_tc(const Args& a) {
-  const int chunks = (a.dv + DVC - 1) / DVC;
-  const dim3 grid((a.sq + kTcRows - 1) / kTcRows, a.num_heads * chunks, a.b);
-  constexpr int smem = tc_fwd_smem(NQ, DVC);
+int launch_tc(const Args& a, const FwdPlan& p) {
+  const dim3 grid((a.sq + kTcRows - 1) / kTcRows, a.num_heads * p.chunks, a.b);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<NQ, DVC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
   const bool vec = aligned16_strided<bf16>(a.q, a.d, a.sq_) && aligned16_strided<bf16>(a.k, a.d, a.sk_) &&
                    aligned16_strided<bf16>(a.v, a.dv, a.sv_);
-  flash_fwd_tc_kernel<NQ, DVC><<<grid, kTcThreads, smem, a.stream>>>(
+  flash_fwd_tc_kernel<NQ, DVC><<<grid, kTcThreads, p.smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const uint8_t*>(a.key_valid), static_cast<bf16*>(a.out), static_cast<float*>(a.lse),
       a.sq_, a.sk_, a.sv_, a.so_, a.sq, a.sk, a.num_heads, a.d, a.dv, a.scale, a.seed, a.drop_threshold,
-      a.inv_keep, chunks, vec);
+      a.inv_keep, p.chunks, vec);
   return (int)cudaGetLastError();
 }
 
 template <int NQ>
-int dispatch_tc_dv(const Args& a) {
-  if (a.dv <= 32) return launch_tc<NQ, 32>(a);
-  if (a.dv <= 64) return launch_tc<NQ, 64>(a);
-  return launch_tc<NQ, 128>(a);  // dv > 128 in chunks of 128 across grid.y
+int dispatch_tc_dv(const Args& a, const FwdPlan& p) {
+  if (p.dvc == 32) return launch_tc<NQ, 32>(a, p);
+  if (p.dvc == 64) return launch_tc<NQ, 64>(a, p);
+  return launch_tc<NQ, 128>(a, p);
 }
 
 int dispatch_tc(const Args& a) {
-  if (a.d > 1024 || a.dv > 1024) return (int)cudaErrorInvalidValue;
-  if (a.d <= 64) return dispatch_tc_dv<1>(a);
-  if (a.d <= 128) return dispatch_tc_dv<2>(a);
-  return dispatch_tc_dv<0>(a);  // q streamed in chunks of 64 columns
+  const FwdPlan p = fwd_plan(1, a.d, a.dv);
+  if (p.q == 1) return dispatch_tc_dv<1>(a, p);
+  if (p.q == 2) return dispatch_tc_dv<2>(a, p);
+  return dispatch_tc_dv<0>(a, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-int odtt_flash_fwd_abi_version() { return 6; }
+int odtt_flash_fwd_abi_version() { return 7; }
+
+// The launch plan at head widths d, dv (fwd_plan): out[0..3] = q, dvc,
+// chunks, smem. Returns 0, or cudaErrorInvalidValue on a bad argument.
+int odtt_flash_fwd_plan(int dtype, int d, int dv, long long* out) {
+  if ((dtype != 0 && dtype != 1) || d <= 0 || dv <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  const FwdPlan p = fwd_plan(dtype, d, dv);
+  out[0] = p.q;
+  out[1] = p.dvc;
+  out[2] = p.chunks;
+  out[3] = p.smem;
+  return 0;
+}
 
 // dtype: 0 float32 (tensor cores, 3xTF32), 1 bfloat16 (tensor cores). key_valid:
 // (B, Sk) bytes or null.

@@ -60,25 +60,26 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst, const T* __restri
   }
 }
 
-// Dot products of one row (this lane's P-slot slice `reg`, lanes striding
-// the width) with the kTileK rows of a shared tile; returns key `lane`'s sum
-// on lane `lane`. The partial sums are finished by one reduce-scatter
-// butterfly across the warp (31 shuffles); counted loops with constant
-// bounds keep part[] in registers.
+// This lane's partial dot products of one row (its P-slot slice `reg`,
+// lanes striding the width) with the kTileK rows of a shared tile, added to
+// part[] (a row may span several tiles of columns).
 template <typename T, int P>
-__device__ __forceinline__ float tile_dots(const float (&reg)[P], const T* __restrict__ tile,
-                                           int width, int lane) {
-  float part[kTileK];
+__device__ __forceinline__ void tile_partials(float (&part)[kTileK], const float (&reg)[P],
+                                              const T* __restrict__ tile, int width, int lane) {
 #pragma unroll
   for (int j = 0; j < kTileK; ++j) {
-    float s = 0.f;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
       const int e = lane + kWarp * i;
-      if (e < width) s = fmaf(reg[i], to_f32(tile[j * width + e]), s);
+      if (e < width) part[j] = fmaf(reg[i], to_f32(tile[j * width + e]), part[j]);
     }
-    part[j] = s;
   }
+}
+
+// Finishes the lanes' partial sums part[j] by one reduce-scatter butterfly
+// across the warp (31 shuffles): returns sum j = `lane` on lane `lane`.
+// Counted loops with constant bounds keep part[] in registers.
+__device__ __forceinline__ float reduce_scatter(float (&part)[kTileK], int lane) {
 #pragma unroll
   for (int step = 0; step < 5; ++step) {
     const int o = 16 >> step;
@@ -93,6 +94,18 @@ __device__ __forceinline__ float tile_dots(const float (&reg)[P], const T* __res
     }
   }
   return part[0];
+}
+
+// Dot products of one row with the kTileK rows of a shared tile `width`
+// wide; returns key `lane`'s sum on lane `lane`.
+template <typename T, int P>
+__device__ __forceinline__ float tile_dots(const float (&reg)[P], const T* __restrict__ tile,
+                                           int width, int lane) {
+  float part[kTileK];
+#pragma unroll
+  for (int j = 0; j < kTileK; ++j) part[j] = 0.f;
+  tile_partials<T, P>(part, reg, tile, width, lane);
+  return reduce_scatter(part, lane);
 }
 
 // 16-byte tile loads need the base pointer, every row start and every head

@@ -123,6 +123,21 @@ __device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const __nv_bfloat1
   ldmatrix_x4(b, tile + row * stride + col);
 }
 
+// Two 8x8 bf16 matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// B fragment of one n-tile (n0..n0+7) when B[k][n] = tile[n][k].
+__device__ __forceinline__ void load_b_rows8(uint32_t (&b)[2], const __nv_bfloat16* tile, int stride,
+                                             int n0, int k0, int lane) {
+  const int row = n0 + (lane & 7);
+  const int col = k0 + ((lane >> 3) & 1) * 8;
+  ldmatrix_x2(b, tile + row * stride + col);
+}
+
 // B fragments of two n-tiles when B[k][n] = tile[k][n] (V in P V).
 __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const __nv_bfloat16* tile, int stride,
                                             int k0, int n0, int lane) {

@@ -31,6 +31,7 @@ before scoring, so the metrics are one process's; rank 0 prints them.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 
@@ -207,14 +208,18 @@ def evaluate_ssd(config, checkpoint_name: str, device: str | torch.device | None
     }
 
 
+def _with_model_flag(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    parser.add_argument("--model", choices=("destr", "ssd"), default="destr",
+                        help="the checkpoint's model; the other flags are its trainer's")
+    return parser
+
+
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    kind = "destr"
-    if "--model" in argv:  # pre-parse: the model decides the flag set
-        i = argv.index("--model")
-        kind = argv[i + 1]
-        del argv[i : i + 2]
-    args = get_parser(kind).parse_args(argv)
+    # pre-parse: the model decides the flag set (argparse reads --model X and
+    # --model=X, and exits 2 on a missing or unknown value)
+    kind = _with_model_flag(argparse.ArgumentParser(add_help=False)).parse_known_args(argv)[0].model
+    args = _with_model_flag(get_parser(kind)).parse_args(argv)
     config = config_from_args(args, kind)
     evaluate = evaluate_ssd if kind == "ssd" else evaluate_destr
     with launched(args.device) as device:

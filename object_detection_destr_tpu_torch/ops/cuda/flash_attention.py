@@ -47,6 +47,15 @@ plain version draws the same Philox bits as the kernels, or takes an explicit
 ``dropout_keep_mask``). The counter holds ``b*h + head`` in both layouts, so
 one logical input draws one keep mask whichever layout carries it.
 
+Head widths: every d and dv launches. :func:`forward_plan` and
+:func:`two_pass_plan` mirror the C dispatch (which the libraries export as
+``odtt_flash_fwd_plan`` / ``odtt_flash_two_pass_plan``): past d 1024 the
+float32 forward streams q in chunks, and past d + dv 2048 (bfloat16) or a
+block's 227 KB (float32) the two-pass kernels split the gradient's columns
+across grid.y, so no kernel's shared memory grows without bound. A wrapper
+raises only where a launch's grid would pass 65,535 blocks along y (heads x
+column blocks) or z (batch), with the widths in the message.
+
 A fully masked row (every key masked) averages over the Sk real keys in
 every kernel and plain version here, as ``ops/attention.py`` does. The
 Pallas kernels average over the keys padded up to their 128-key tile as well
@@ -60,7 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -71,6 +80,8 @@ __all__ = [
     "FlashAttentionBackward",
     "FlashAttentionForward",
     "FlashAttentionTwoPass",
+    "ForwardPlan",
+    "TwoPassPlan",
     "backward_plan",
     "dropout_threshold",
     "flash_attention",
@@ -90,17 +101,29 @@ __all__ = [
     "flash_attention_unpacked_dq",
     "flash_attention_unpacked_dq_reference",
     "flash_attention_unpacked_fwd",
+    "forward_plan",
     "fused_backward_smem_bytes",
     "philox_keep_bits",
     "seed_tensor",
+    "two_pass_plan",
 ]
 
-_MAX_HEAD_DIM = 1024  # kernels #1, #3, #4; #2 is bounded by backward_plan
 _FUSED_MAX_HEAD_DIM = 512  # the widest head the fused backward dispatches
 # the fused backward's tiles (csrc/flash_common.cuh, flash_attention_bwd.cu):
 # float32, and the keys a block of the bfloat16 tensor-core kernel
 _TILE_K, _BWD_ROWS, _HEADER_BYTES = 32, 8, 32 * 4
 _TC_KEYS = 32
+_SMEM_OPTIN = 232448  # an H100 block's opt-in shared memory, as the two-pass dispatch assumes
+_GRID_MAX = 65535  # blocks along grid.y and grid.z
+# the forward's tiles (csrc/flash_attention_fwd.cu): bfloat16 64 query rows
+# and keys a block, 64 columns a stage; float32 16 rows, 4 warps, 16 keys a
+# tile, a 3-deep ring, q resident up to d 1024
+_FWD_TC_ROWS, _FWD_CHUNK, _PAD = 64, 64, 8
+_F32_ROWS, _F32_WARPS, _F32_KEYS, _F32_STAGES, _F32_RESIDENT_Q = 16, 4, 16, 3, 1024
+# the two-pass kernels (csrc/flash_attention_bwd_two_pass.cu): 16 own rows
+# and 8 warps a block; the wide classes' column pieces and slices
+_TP_ROWS, _TP_WARPS, _WIDE_TR, _WIDE_COLS, _WIDE_SLICE, _F32_WIDE_COLS = 16, 8, 64, 128, 1024, 1024
+_TWO_PASS_KERNELS = ("f32", "f32_wide", "tc", "tc_wide")  # the library's kernel codes 0-3
 _FULLY_MASKED_LSE = -5e8  # below any row with a valid key; the kernels use the same bound
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
@@ -114,8 +137,9 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 FWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_fwd", "flash_attention_fwd.cu",
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
-    functions={"odtt_flash_attention_fwd": (_I, [_P] * 7 + [_I] * 7 + [_F, _P, _U, _F, _P])},
-    abi=("odtt_flash_fwd_abi_version", 6),
+    functions={"odtt_flash_attention_fwd": (_I, [_P] * 7 + [_I] * 7 + [_F, _P, _U, _F, _P]),
+               "odtt_flash_fwd_plan": (_I, [_I] * 3 + [_P])},
+    abi=("odtt_flash_fwd_abi_version", 7),
 )
 BWD_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd", "flash_attention_bwd.cu",
@@ -127,8 +151,9 @@ BWD_LIBRARY = CudaLibrary(
 TWO_PASS_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd_two_pass", "flash_attention_bwd_two_pass.cu",
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
-    functions={"odtt_flash_attention_two_pass": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _U, _F, _P])},
-    abi=("odtt_flash_bwd_two_pass_abi_version", 3),
+    functions={"odtt_flash_attention_two_pass": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _U, _F, _P]),
+               "odtt_flash_two_pass_plan": (_I, [_I] * 4 + [_P])},
+    abi=("odtt_flash_bwd_two_pass_abi_version", 4),
 )
 
 
@@ -171,6 +196,103 @@ def fused_backward_smem_bytes(d: int, dv: int, itemsize: int) -> int:
     k_tile = _round16(dk + 4 * _TILE_K * (d + dv))  # after the dK, dV accumulators
     v_tile = _round16(k_tile + itemsize * _TILE_K * d)
     return v_tile + itemsize * _TILE_K * dv
+
+
+class ForwardPlan(NamedTuple):
+    """A forward launch (#1 / #5) at head widths d, dv: how a block holds q
+    (bfloat16: ``q`` 64-column chunks resident, 0 streamed; float32: 1
+    resident, 0 streamed), its output columns ``dvc``, the ``chunks`` dv is
+    split into across grid.y, and its dynamic shared memory in bytes."""
+
+    q: int
+    dvc: int
+    chunks: int
+    smem: int
+
+
+class TwoPassPlan(NamedTuple):
+    """A two-pass launch (#3 / #4, #6 / #7) at head widths d, dv: the
+    ``kernel`` ("f32", "f32_wide", "tc" or "tc_wide"), its width class
+    ``cls`` (float32 P columns a lane per 32, bfloat16 KPW), the streamed
+    ``rows`` a tile, the ``slices`` of gradient columns along grid.y a head,
+    and its dynamic shared memory in bytes."""
+
+    kernel: str
+    cls: int
+    rows: int
+    slices: int
+    smem: int
+
+
+def _cdiv(x: int, m: int) -> int:
+    return -(-x // m)
+
+
+def _f32_fwd_smem(d: int, dvc: int, stream_q: bool) -> int:
+    """``f32_fwd_smem``: q's 16 rows (unless they stream), then 4 warps'
+    rings of k (and q) chunks, v tiles and key states, which the warps'
+    partial O, m and l reuse."""
+    slot = _F32_KEYS * (_FWD_CHUNK + 8)
+    ring = _F32_STAGES * ((2 if stream_q else 1) * slot + _F32_KEYS * (dvc + 4) + _F32_KEYS)
+    q = 0 if stream_q else _F32_ROWS * (_round_up(d, 32) + 8)
+    return 4 * (q + max(_F32_WARPS * ring, _F32_WARPS * _F32_ROWS * (dvc + 6)))
+
+
+def _tc_fwd_smem(nq: int, dvc: int) -> int:
+    """``tc_fwd_smem``: two tiles' key states, the q chunks (or a 2-slot q
+    ring), a 2-slot k ring and a 2-slot v ring of dvc columns."""
+    slot = _FWD_TC_ROWS * (_FWD_CHUNK + _PAD)
+    return 2 * _FWD_TC_ROWS * 4 + ((nq or 2) + 2) * slot * 2 + 2 * _FWD_TC_ROWS * (dvc + _PAD) * 2
+
+
+def forward_plan(d: int, dv: int, dtype: torch.dtype) -> ForwardPlan:
+    """The forward's launch at head widths d, dv: ``fwd_plan`` of
+    ``csrc/flash_attention_fwd.cu``, which the library exports as
+    ``odtt_flash_fwd_plan``."""
+    dvc = 32 if dv <= 32 else 64 if dv <= 64 else 128
+    if dtype == torch.float32:
+        q = 1 if d <= _F32_RESIDENT_Q else 0
+        return ForwardPlan(q, dvc, _cdiv(dv, dvc), _f32_fwd_smem(d, dvc, q == 0))
+    q = 1 if d <= 64 else 2 if d <= 128 else 0
+    return ForwardPlan(q, dvc, _cdiv(dv, dvc), _tc_fwd_smem(q, dvc))
+
+
+def _two_pass_tc_smem(d: int, dv: int, rows: int) -> int:
+    """``TcLayout``: 2 stages of the streamed rows' d- and dv-wide tiles, 9
+    partial S / dP tiles (float32) and the hi / lo tiles of dS and P keep."""
+    s1, s2, ps = _round_up(d, 16) + _PAD, _round_up(dv, 16) + _PAD, rows + _PAD
+    return 2 * 2 * rows * (s1 + s2) + 4 * (_TP_WARPS + 1) * _TP_ROWS * rows + 2 * 4 * _TP_ROWS * ps
+
+
+def two_pass_plan(d: int, dv: int, dtype: torch.dtype, dq: bool) -> TwoPassPlan:
+    """One pass's launch at head widths d, dv (``dq`` the dQ pass, else dK /
+    dV): ``two_pass_plan`` of ``csrc/flash_attention_bwd_two_pass.cu``,
+    which the library exports as ``odtt_flash_two_pass_plan``. The wide
+    kernels take one slice of at most 1024 gradient columns a block."""
+    if dtype == torch.float32:
+        widest = max(d, dv)
+        smem = (1 if dq else 2) * _HEADER_BYTES + _TILE_K * (d + dv) * 4
+        if widest <= 1024 and smem <= _SMEM_OPTIN:
+            cls = next(p for p, w in ((1, 32), (2, 64), (4, 128), (8, 256), (16, 512), (32, 1024)) if widest <= w)
+            return TwoPassPlan("f32", cls, _TILE_K, 1, smem)
+        slices = _cdiv(d, _F32_WIDE_COLS) + (0 if dq else _cdiv(dv, _F32_WIDE_COLS))
+        return TwoPassPlan("f32_wide", _F32_WIDE_COLS // 32, _TILE_K, slices, 4 * _TILE_K * _F32_WIDE_COLS)
+    kpw = _cdiv(_cdiv(d, 16) + _cdiv(dv, 16), _TP_WARPS)
+    if kpw <= 16:
+        cls = next(c for c in (2, 4, 8, 12, 16) if kpw <= c)
+        rows = 32 if cls <= 12 else 16
+        return TwoPassPlan("tc", cls, rows, 1, _two_pass_tc_smem(d, dv, rows))
+    slices = _cdiv(d, _WIDE_SLICE) + (0 if dq else _cdiv(dv, _WIDE_SLICE))
+    smem = 2 * 2 * (_TP_ROWS + _WIDE_TR) * (_WIDE_COLS + _PAD) + 2 * 2 * _TP_ROWS * (_WIDE_TR + _PAD)
+    return TwoPassPlan("tc_wide", 0, _WIDE_TR, slices, smem)
+
+
+def _check_grid(name: str, d: int, dv: int, heads: int, per_head: int, b: int) -> None:
+    """A launch's grid.y (heads x column blocks) and grid.z (batch) within
+    the card's 65,535."""
+    if heads * per_head > _GRID_MAX or b > _GRID_MAX:
+        raise ValueError(f"{name}: head widths d={d}, dv={dv} with {heads} heads need {heads * per_head} blocks "
+                         f"along grid.y and batch {b} along grid.z; the card launches at most {_GRID_MAX}")
 
 
 def backward_plan(d: int, dv: int, dtype: torch.dtype, smem_limit: Optional[int] = None) -> str:
@@ -530,8 +652,6 @@ def _check(name, query, key, value, num_heads, key_valid_mask, extra=()) -> tupl
         )
     if hd % num_heads or value.shape[2] % num_heads:
         raise ValueError(f"feature widths {hd}, {value.shape[2]} not divisible by {num_heads} heads")
-    if hd // num_heads > _MAX_HEAD_DIM or value.shape[2] // num_heads > _MAX_HEAD_DIM:
-        raise ValueError(f"head widths above {_MAX_HEAD_DIM} are not supported by the CUDA kernels")
     if min(sq, key.shape[1]) == 0:
         raise ValueError("empty query or key sequence")
     if key_valid_mask is not None and (
@@ -580,8 +700,6 @@ def _check_unpacked(name, query, key, value, key_valid_mask, extra=()) -> tuple[
         raise ValueError(
             f"shape mismatch: q {tuple(query.shape)}, k {tuple(key.shape)}, v {tuple(value.shape)}"
         )
-    if max(d, dv) > _MAX_HEAD_DIM:
-        raise ValueError(f"head widths above {_MAX_HEAD_DIM} are not supported by the CUDA kernels")
     if min(sq, sk) == 0:
         raise ValueError("empty query or key sequence")
     if key_valid_mask is not None and (
@@ -649,6 +767,7 @@ class FlashAttentionForward(LaunchCounter):
             out = torch.empty((b, sq, hdv), dtype=query.dtype, device=query.device)
             strides = [*_packed_strides(query, d), *_packed_strides(key, d), *_packed_strides(value, dv),
                        *_packed_strides(out, dv)]
+        _check_grid(name, d, dv, h, forward_plan(d, dv, query.dtype).chunks, b)
         seed, threshold, inv_keep = _dropout_args(dropout_rate, dropout_seed, query.device)
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=query.device)
         lib = self.library.library()
@@ -806,6 +925,7 @@ class FlashAttentionTwoPass(LaunchCounter):
                 scale, dropout_rate, dropout_seed)
             strides = [*_packed_strides(query, d), *_packed_strides(key, d), *_packed_strides(value, dv),
                        *_packed_strides(d_out, dv)]
+        _check_grid(self.name, d, dv, h, two_pass_plan(d, dv, query.dtype, self.dq).slices, b)
         seed, threshold, inv_keep = dropout
         if self.dq:
             dq, dk, dvv = _empty_as(query), None, None

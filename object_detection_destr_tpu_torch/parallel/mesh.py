@@ -12,8 +12,11 @@ the card's two-rank check, one thread) that owns one device, and a
 :class:`Mesh` is that rank's view of the data axis: its explicit process
 group (None on a single device), its index on the axis, the axis' size and
 its device. Every collective of the port takes the mesh's group explicitly;
-none relies on the default group. The 'model' axis is size 1, as every JAX
-configuration has it.
+none relies on the default group. ``make_mesh(num_data, num_model)`` lays
+the ranks on JAX's grid: global rank r sits at data index r // num_model and
+model index r % num_model. Each model column is a data axis of its own (one
+group), and the parameters are replicated over 'model', as in JAX: the ranks
+of a row read the same rows and take the same steps.
 
 Rank r of N holds rows ``[r B / N, (r + 1) B / N)`` of a global batch of B
 (``shard_batch``, :meth:`Mesh.rows`). ``--batch_size`` stays the global
@@ -92,7 +95,8 @@ class Mesh:
     """One rank's view of the ('data',) axis: ``group`` (a
     ``torch.distributed`` process group, or None on a single device),
     ``rank`` (this rank's index on the axis), ``size`` (the axis' size),
-    ``device`` and ``backend`` ("nccl", "gloo" or None).
+    ``device``, ``backend`` ("nccl", "gloo" or None) and ``model_index``
+    (its index on the replicated 'model' axis).
 
     A mesh with a group runs its collectives through the group, also when
     its size is 1; a mesh without one has size 1 and its collectives are
@@ -101,24 +105,26 @@ class Mesh:
     a rank takes no part in training."""
 
     def __init__(self, group, rank: int, size: int, device: torch.device, backend: Optional[str] = None,
-                 active: bool = True):
+                 active: bool = True, model_index: int = 0):
         if group is None and size != 1:
             raise ValueError(f"a mesh of size {size} needs a process group")
         self.group, self.rank, self.size = group, rank, size
         self.device, self.backend, self.active = torch.device(device), backend, active
+        self.model_index = model_index
         self._grad_buffer = None  # (the parameters' ids, the flat buffer, a view a parameter)
 
     def __repr__(self) -> str:
-        return (f"Mesh(rank={self.rank}, size={self.size}, device={self.device}, backend={self.backend}, "
-                f"active={self.active})")
+        return (f"Mesh(rank={self.rank}, size={self.size}, model_index={self.model_index}, device={self.device}, "
+                f"backend={self.backend}, active={self.active})")
 
     def __deepcopy__(self, memo) -> "Mesh":  # a group is not copied: a copied model syncs over the same one
         return self
 
     @property
     def is_main(self) -> bool:
-        """Rank 0: the one that prints, logs and writes checkpoints."""
-        return self.rank == 0
+        """Grid position (0, 0) of an active mesh: the one rank that
+        prints, logs and writes checkpoints."""
+        return self.active and self.rank == 0 and self.model_index == 0
 
     def axis_index(self) -> int:
         """``jax.lax.axis_index("data")``."""
@@ -250,23 +256,24 @@ def _world() -> tuple[object, int, int, Optional[str]]:
 
 def make_mesh(num_data: Optional[int] = None, num_model: int = 1, group=None, device=None,
               backend: Optional[str] = None) -> Mesh:
-    """This rank's ('data', 'model') mesh, the data axis over ``num_data``
-    ranks (default: all of them).
+    """This rank's view of the (num_data, num_model) mesh (``num_data``
+    default: all ranks over ``num_model``).
 
     ``group`` is an explicit group whose every rank is on the data axis
-    (``backend`` names its backend); without one the mesh is over the
-    launcher's world (one device outside a launcher), and a data axis
-    smaller than the world is the subgroup of its first ``num_data`` ranks
-    (every rank must make it; the others get an inactive mesh). ``device``
-    is this rank's (the GPU unless "cpu" is asked for)."""
+    (``backend`` names its backend; 'model' of size 1); without one the mesh
+    is over the launcher's world (one device outside a launcher). Below the
+    whole world the ranks take JAX's grid (``make_mesh``'s reshape to
+    (num_data, num_model)): global rank r is at data index r // num_model
+    and model index r % num_model, and its data axis is the group of its
+    model column. Every rank creates the num_model column groups, in column
+    order; ranks past the grid get an inactive mesh. ``device`` is this
+    rank's (the GPU unless "cpu" is asked for)."""
     device = resolve_device(device)
     explicit = group is not None
     if explicit:
         rank, n = group.rank(), group.size()
     else:
         group, rank, n, backend = _world()
-    if num_model != 1:
-        raise ValueError(f"num_model={num_model}: the port shards nothing on the 'model' axis")
     if num_data is None:
         num_data = n // num_model
     if num_data * num_model > n:
@@ -274,11 +281,14 @@ def make_mesh(num_data: Optional[int] = None, num_model: int = 1, group=None, de
     if num_data == n:
         return Mesh(group, rank, n, device, backend)
     if explicit:
-        raise ValueError(f"a data axis of {num_data} inside an explicit group of {n} ranks")
-    sub = dist.new_group(list(range(num_data)), timeout=CPU_TIMEOUT if device.type == "cpu" else DEFAULT_TIMEOUT)
-    if rank >= num_data:
+        raise ValueError(f"a {num_data}x{num_model} mesh inside an explicit group of {n} ranks")
+    timeout = CPU_TIMEOUT if device.type == "cpu" else DEFAULT_TIMEOUT
+    columns = [dist.new_group([d * num_model + m for d in range(num_data)], timeout=timeout)
+               for m in range(num_model)]
+    if rank >= num_data * num_model:
         return Mesh(None, 0, 1, device, backend, active=False)
-    return Mesh(sub, rank, num_data, device, backend)
+    return Mesh(columns[rank % num_model], rank // num_model, num_data, device, backend,
+                model_index=rank % num_model)
 
 
 def auto_mesh(batch_size: int, group=None, device=None, backend: Optional[str] = None) -> Mesh:

@@ -47,6 +47,9 @@ CASES = {
     # keys (Sk a multiple of the Pallas kernel's 128-key tile, so the JAX
     # side averages over exactly those keys too)
     "fully_masked_row": dict(b=2, sq=8, sk=128, h=2, d=8, dv=8, masked_rows={1: 0}),
+    # heads past 1024: hidden 1024's cross-attention and an odd width
+    "wider_2048": dict(b=1, sq=16, sk=24, h=1, d=2048, dv=1024, masked_rows={0: 19}),
+    "wider_1040": dict(b=1, sq=12, sk=20, h=1, d=1040, dv=520, masked_rows={0: 13}),
 }
 
 

@@ -48,6 +48,16 @@ CASES = {
     # the cross-attention's: one head, dv != d, a ragged key mask
     "single_head_ragged": dict(b=2, sq=12, sk=30, h=1, d=32, dv=16, lengths=(30, 9)),
 }
+# the flash forward's (#1 / #5) cases add heads past 1024: hidden 1024's
+# cross-attention and an odd width. Not the SDPA test's: at d 1040 the two
+# frameworks' float32 logits differ by their summation order (4.8e-7, each
+# within 4e-7 of the float64 value), which flips the bf16 rounding of a few
+# probabilities, so no per-element ulp bound holds there for either side
+FLASH_CASES = {
+    **CASES,
+    "wider_2048": dict(b=1, sq=16, sk=24, h=1, d=2048, dv=1024, lengths=(19,)),
+    "wider_1040": dict(b=1, sq=12, sk=20, h=1, d=1040, dv=520, lengths=(13,)),
+}
 
 
 def _ulp(x: np.ndarray) -> np.ndarray:
@@ -79,10 +89,10 @@ def _as_f32(a) -> np.ndarray:
     return a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_forward_matches_pallas_in_bf16(name):
-    c = CASES[name]
-    q, k, v, mask = _case(**c, seed=sorted(CASES).index(name))
+    c = FLASH_CASES[name]
+    q, k, v, mask = _case(**c, seed=sorted(FLASH_CASES).index(name))
     ref = jax_flash_attention_packed(_bf16_jax(q), _bf16_jax(k), _bf16_jax(v), c["h"], jnp.asarray(mask),
                                      None, 0.0, None, 8, 128, True)
     out, _ = flash_attention_packed_reference(_bf16_torch(q), _bf16_torch(k), _bf16_torch(v), c["h"],
@@ -99,7 +109,7 @@ def _heads(a, h, w):  # (B, S, h*w) -> (B, h, S, w)
 def _jax_sdpa_case(name, seed):
     """A case's bf16 inputs (packed) and JAX's ``scaled_dot_product_attention``
     of them, taken on the head-major rearrangement: (B, Sq, h*dv)."""
-    c = CASES[name]
+    c = FLASH_CASES[name]
     h, d, dv = c["h"], c["d"], c["dv"]
     q, k, v, mask = _case(**c, seed=seed)
     ref = jax_sdpa(_bf16_jax(_heads(q, h, d)), _bf16_jax(_heads(k, h, d)), _bf16_jax(_heads(v, h, dv)),
@@ -127,14 +137,14 @@ def test_sdpa_rounds_probabilities_as_jax_does(name):
 
 
 @pytest.mark.parametrize("layout", ["packed", "head_major"])
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_reference_rounds_probabilities_as_jax_does(name, layout):
     """The plain version #1 (packed) and #5 (head-major) are held against on
     the card, per element, against JAX's XLA attention on the same bf16
     inputs."""
-    c = CASES[name]
+    c = FLASH_CASES[name]
     b, sq, h, d, dv = c["b"], c["sq"], c["h"], c["d"], c["dv"]
-    (q, k, v, mask), ref = _jax_sdpa_case(name, seed=20 + sorted(CASES).index(name))
+    (q, k, v, mask), ref = _jax_sdpa_case(name, seed=20 + sorted(FLASH_CASES).index(name))
     if layout == "packed":
         out, _ = flash_attention_packed_reference(_bf16_torch(q), _bf16_torch(k), _bf16_torch(v), h,
                                                   torch.from_numpy(mask))

@@ -61,6 +61,10 @@ CASES = {
     "decoder": dict(b=2, sq=20, sk=20, h=4, d=16, dv=16, masked_rows=None),
     # batch entry 1 has every key masked
     "fully_masked_row": dict(b=2, sq=8, sk=36, h=2, d=8, dv=12, masked_rows={1: 0}),
+    # heads past 1024: hidden 1024's cross-attention (d 2C, dv C) and an odd
+    # width (hidden 520), cut to a few rows
+    "wider_2048": dict(b=1, sq=16, sk=24, h=1, d=2048, dv=1024, masked_rows={0: 19}),
+    "wider_1040": dict(b=1, sq=12, sk=20, h=1, d=1040, dv=520, masked_rows={0: 13}),
 }
 
 
@@ -132,6 +136,9 @@ BF16_CASES = {
     "wide_cross": dict(b=3, sq=24, sk=40, h=1, d=640, dv=320, masked_rows={0: 23, 2: 0}),
     # encoder-like: several narrow heads, ragged key mask
     "encoder": dict(b=2, sq=24, sk=24, h=4, d=8, dv=8, masked_rows={0: 17}),
+    # heads past 1024, as in CASES
+    "wider_2048": dict(b=1, sq=16, sk=24, h=1, d=2048, dv=1024, masked_rows={0: 19}),
+    "wider_1040": dict(b=1, sq=12, sk=20, h=1, d=1040, dv=520, masked_rows={0: 13}),
 }
 
 
@@ -236,11 +243,64 @@ def test_fully_masked_row_is_the_gradient_of_the_plain_forward():
     (1024, 512, torch.float32, "two_pass"),  # the cross-attention at hidden 512: 444,544 bytes
     (1024, 512, torch.bfloat16, "two_pass"),  # 407,936 bytes
     (1024, 16, torch.bfloat16, "two_pass"),  # fits, but wider than the fused kernel dispatches
+    (256, 256, torch.bfloat16, "fused"),  # decoder self-attention at hidden 1024: 145,792 bytes
+    (2048, 1024, torch.float32, "two_pass"),  # the cross-attention at hidden 1024
+    (2048, 1024, torch.bfloat16, "two_pass"),
 ])
 def test_backward_plan(d, dv, dtype, plan):
     assert fa.backward_plan(d, dv, dtype, H100_SMEM_OPTIN) == plan
     # the plain versions on the CPU check the width only
     assert fa.backward_plan(d, dv, dtype) == ("fused" if max(d, dv) <= 512 else "two_pass")
+
+
+def _parent_forward_plan(d, dv, dtype):
+    """The forward's launch before any head past 1024 ran: bfloat16 q
+    resident in 1 or 2 chunks up to d 128, else streamed; float32 q
+    resident; dv in chunks of 32, 64 or 128 (csrc/flash_attention_fwd.cu)."""
+    dvc = 32 if dv <= 32 else 64 if dv <= 64 else 128
+    q = (1 if d <= 64 else 2 if d <= 128 else 0) if dtype == torch.bfloat16 else 1
+    return q, dvc, -(-dv // dvc)
+
+
+def _parent_two_pass_plan(d, dv, dtype):
+    """The two-pass launch before any head past 1024 ran: bfloat16 in KPW
+    classes 2 / 4 / 8 / 12 / 16, float32 in P classes up to 32 (a lane's
+    columns per 32 of the widest head), one block per 16 (8) own rows a
+    head."""
+    if dtype == torch.bfloat16:
+        kpw = -(-(-(-d // 16) - (-dv // 16)) // 8)
+        return "tc", next(c for c in (2, 4, 8, 12, 16) if kpw <= c), 1
+    return "f32", next(p for p in (1, 2, 4, 8, 16, 32) if max(d, dv) <= 32 * p), 1
+
+
+def test_launch_plans_fit_the_card_at_every_width():
+    """Every launch plan of the forward and of both two-pass kernels, at
+    head widths 16 to 4096 in both dtypes, fits an H100 block's shared
+    memory and its grid; up to 1024 each plan is the one the kernels ran
+    before (float32's two-pass ones where their 32-row tile of d + dv
+    columns fit a block, as every model site's does); past it the wide
+    two-pass kernels split the gradient's columns into slices of 1024."""
+    widths = sorted(set(range(16, 4097, 16)) | {17, 520, 1040, 1815, 1816})
+    for d in widths:
+        for dv in widths:
+            for dtype in (torch.float32, torch.bfloat16):
+                fwd = fa.forward_plan(d, dv, dtype)
+                dq, dkv = fa.two_pass_plan(d, dv, dtype, True), fa.two_pass_plan(d, dv, dtype, False)
+                assert max(fwd.smem, dq.smem, dkv.smem) <= H100_SMEM_OPTIN, (d, dv, dtype)
+                assert 8 * max(fwd.chunks, dkv.slices) <= 65535
+                if max(d, dv) <= 1024:
+                    assert fwd[:3] == _parent_forward_plan(d, dv, dtype), (d, dv, dtype)
+                    if dtype == torch.bfloat16 or 128 + 128 * (d + dv) <= H100_SMEM_OPTIN:
+                        assert (dq.kernel, dq.cls, dq.slices) == _parent_two_pass_plan(d, dv, dtype), (d, dv, dtype)
+                        assert dkv[:2] == dq[:2] and dkv.slices == 1
+                if dq.kernel.endswith("_wide"):
+                    assert dq.slices == -(-d // 1024) and dkv.slices == dq.slices + -(-dv // 1024)
+    # the call sites: hidden 512's cross on the KPW-12 kernel, hidden 1024's on the wide one
+    assert fa.two_pass_plan(1024, 512, torch.bfloat16, False) == ("tc", 12, 32, 1, 222208)
+    assert fa.two_pass_plan(2048, 1024, torch.bfloat16, False) == ("tc_wide", 0, 64, 3, 48128)
+    assert fa.two_pass_plan(2048, 1024, torch.float32, True) == ("f32_wide", 32, 32, 2, 131072)
+    assert fa.forward_plan(2048, 1024, torch.float32) == (0, 128, 8, 212736)
+    assert fa.forward_plan(1024, 512, torch.float32) == (1, 128, 4, 223488)
 
 
 def test_fused_smem_bytes_grow_with_the_widths():

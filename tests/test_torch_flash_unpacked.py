@@ -44,6 +44,9 @@ CASES = {
     "decoder": dict(b=2, h=2, sq=20, sk=20, d=16, dv=16, valid=None),
     # the merged cross-attention: one head, dv != d, Sq != Sk, ragged mask
     "cross": dict(b=2, h=1, sq=24, sk=40, d=40, dv=24, valid={1: 23}),
+    # heads past 1024: hidden 1024's cross-attention and an odd width
+    "wider_2048": dict(b=1, h=1, sq=16, sk=24, d=2048, dv=1024, valid={0: 19}),
+    "wider_1040": dict(b=1, h=1, sq=12, sk=20, d=1040, dv=520, valid={0: 13}),
 }
 
 

@@ -473,6 +473,41 @@ def test_auto_mesh_warns_and_make_mesh_refuses(monkeypatch, caplog):
     assert str(ours.value) == str(jax_err.value)
 
 
+@pytest.mark.parametrize("num_data,num_model,world", [(2, 2, 4), (1, 2, 2), (2, 2, 5)])
+def test_make_mesh_lays_ranks_on_jax_grid(monkeypatch, num_data, num_model, world):
+    """``make_mesh(num_data, num_model)`` puts global rank r where JAX's
+    reshape of the devices puts device r: data index r // num_model, model
+    index r % num_model. Every rank creates the num_model column groups in
+    one order, its mesh carries its column's group, its rows of a batch are
+    JAX's shard on its device, and only (0, 0) is main; ranks past the grid
+    are inactive. A grid above the world raises JAX's error."""
+    devices = jax.devices()[:world]
+    jmesh = jax_mesh.make_mesh(num_data=num_data, num_model=num_model, devices=devices)
+    where = {dev.id: tuple(int(i) for i in np.argwhere(jmesh.devices == dev)[0]) for dev in jmesh.devices.flat}
+    batch = {"x": np.arange(16, dtype=np.float32).reshape(8, 2)}
+    shards = {s.device.id: np.asarray(s.data) for s in jax_mesh.shard_batch(batch, jmesh)["x"].addressable_shards}
+    columns = [tuple(d * num_model + m for d in range(num_data)) for m in range(num_model)]
+    created, w = [], object()
+    monkeypatch.setattr(dist, "new_group", lambda ranks, timeout: created.append(tuple(ranks)) or ("column", tuple(ranks)))
+    for rank in range(world):
+        created.clear()
+        monkeypatch.setattr(port_mesh, "_world", lambda rank=rank: (w, rank, world, "gloo"))
+        mesh = port_mesh.make_mesh(num_data, num_model, device="cpu")
+        assert created == columns
+        if rank >= num_data * num_model:
+            assert not mesh.active and not mesh.is_main
+            continue
+        assert (mesh.rank, mesh.model_index) == where[devices[rank].id] and mesh.size == num_data
+        assert mesh.group == ("column", columns[rank % num_model])
+        assert mesh.is_main == (rank == 0)
+        np.testing.assert_array_equal(shard_batch(batch, mesh)["x"].numpy(), shards[devices[rank].id])
+    with pytest.raises(ValueError) as jax_err:
+        jax_mesh.make_mesh(num_data=num_data + 1, num_model=num_model, devices=devices)
+    with pytest.raises(ValueError) as ours:
+        port_mesh.make_mesh(num_data + 1, num_model, device="cpu")
+    assert str(ours.value) == str(jax_err.value)
+
+
 def test_shard_batch_gives_each_rank_its_rows():
     """Rank r of 4 holds rows [r B/4, (r+1) B/4): JAX's shard on device r."""
     batch = {"x": np.arange(32, dtype=np.float32).reshape(8, 4), "v": np.arange(8) % 3 == 0}

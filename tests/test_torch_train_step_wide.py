@@ -44,12 +44,19 @@ from test_torch_modules import _random_variables  # noqa: E402
 from test_torch_train_step import SIZE, TRAIN, _batches, _mu_tree  # noqa: E402
 
 # cross-attention head 2 * 272 = 544 wide, past the fused backward's 512;
-# encoder (68) and decoder self-attention (136) stay on the fused one
+# encoder (68) and decoder self-attention (136) stay on the fused one. At
+# hidden 520 the cross head is 1040 wide, past the 1024 of a hidden-512
+# model, where the kernels split the gradient's columns (float32) or the
+# forward streams q (float32); the plain versions take any width. That case
+# runs one block of each kind to stay small
 WIDE = dict(hidden_dim=272, num_heads=4, ffn_dim=64, num_encoder_blocks=2,
             num_decoder_blocks=2, top_k=4, dropout=0.0)
 
 
-def test_wide_train_step_matches_jax(monkeypatch):
+@pytest.mark.parametrize("size", [{}, dict(hidden_dim=520, num_encoder_blocks=1, num_decoder_blocks=1)],
+                         ids=["h272", "h520"])
+def test_wide_train_step_matches_jax(monkeypatch, size):
+    WIDE = dict(globals()["WIDE"], **size)
     monkeypatch.setenv("OBJDET_FORCE_PALLAS_MATCHER", "1")
     rng = np.random.default_rng(0)
     jax_model = jax_build_destr(JaxDestrConfig(**WIDE, use_flash_attention=True))

@@ -238,6 +238,43 @@ def test_resume_retraces_the_uninterrupted_run(runs):
     assert resumed["history"][-1]["step"] == 4 and len(whole["history"]) == 2
 
 
+@pytest.mark.parametrize("argv,kind", [
+    ([], "destr"), (["--model", "destr"], "destr"), (["--model", "ssd"], "ssd"), (["--model=ssd"], "ssd"),
+    (["--device", "cpu", "--model=ssd"], "ssd"),
+])
+def test_evaluate_main_picks_the_model_flag_set(monkeypatch, capsys, argv, kind):
+    """``--model X`` and ``--model=X`` anywhere pick the evaluator and its
+    trainer's flag set; without it, DESTR's."""
+    seen = {}
+
+    def fake(name):
+        def run(config, resume_from, device):
+            seen.update(kind=name, resume_from=resume_from)
+            return {"checkpoint": resume_from, "map": 0.5}
+        return run
+
+    monkeypatch.setattr(evaluate, "evaluate_destr", fake("destr"))
+    monkeypatch.setattr(evaluate, "evaluate_ssd", fake("ssd"))
+    result = evaluate.main(argv + ["--resume_from", "w", "--device", "cpu"])
+    assert seen["kind"] == kind and result == {"checkpoint": "w", "map": 0.5}
+    assert '"map": 0.5' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,code,text", [
+    (["--resume_from", "w", "--model"], 2, "argument --model: expected one argument"),
+    (["--model", "yolo"], 2, "argument --model: invalid choice: 'yolo'"),
+    (["--help"], 0, "--model {destr,ssd}"),
+])
+def test_evaluate_main_model_flag_errors_and_help(capsys, argv, code, text):
+    """A trailing ``--model`` or an unknown model exits 2 with argparse's
+    message; ``--help`` lists ``--model``."""
+    with pytest.raises(SystemExit) as exc:
+        evaluate.main(argv)
+    assert exc.value.code == code
+    out = capsys.readouterr()
+    assert text in (out.err if code else out.out)
+
+
 def test_evaluate_main_reproduces_the_drivers_map(runs):
     whole, *_, evaluated, _ = runs
     saved = [h for h in whole["history"] if h["valid"]["loss_model"] == whole["best_val"]][0]
