@@ -20,14 +20,14 @@
 // forward (its lse, -1e9 + log Sk, rounds to -1e9 in float32, so p is set to
 // 1/Sk there rather than recomputed from it).
 //
-// Two kernels compute it, chosen by the operand dtype (no fallback between
-// them: a bfloat16 call always runs the tensor-core kernel).
+// Two tensor-core kernels compute it, chosen by the operand dtype (no
+// fallback between them or to the plain version).
 //
 // bfloat16, flash_bwd_tc_kernel (FlashAttention-2's backward order on
 // Hopper's tensor cores). What bounds it on this card: a launch at the
 // path's shapes needs 0.4-16 GFLOP, some microseconds of bf16 tensor-core
-// work, on 5-40 MB of operands, so bytes bound it; the CUDA-core kernel
-// below spent 175-290x that bound on float32 FMAs, shuffles and shared-
+// work, on 5-40 MB of operands, so bytes bound it; the CUDA-core kernel it
+// replaced spent 175-290x that bound on float32 FMAs, shuffles and shared-
 // memory round trips. The design: grid (ceil(Sk / 32), h, B); a block of 4
 // warps owns 32 keys of one head, holds their K and V rows in shared memory
 // and loops over query tiles of 64 rows (32 where the accumulators live in
@@ -51,24 +51,43 @@
 // 32-key blocks give the one-head cross-attention (Sk 400) 208 blocks on
 // 132 SMs; 64-key ones would give 112.
 //
-// float32, flash_bwd_kernel (the CUDA-core kernel; the tensor-core path for
-// float32 is later work). Design (FlashAttention-2's backward order,
-// simply): grid (ceil(Sk / 32), h, B); a block owns one tile of 32 keys of
-// one head and loops over every query row, 8 rows an iteration, one row a
-// warp.
-//   phase A, per warp: the row's q and dO slices in registers, s and dp for
-//     the tile's 32 keys by two reduce-scatters (flash_common.cuh) leaving
-//     key j on lane j, p, the Philox keep draw and ds on that lane; the row's
-//     dQ contribution sum_j ds_ij k_j is added to a float32 dQ buffer with
-//     atomics (the wrapper zeroes it and casts it to the query dtype);
-//   phase B, the whole block: dK and dV of the tile accumulate in float32 in
-//     shared memory, each element owned by one thread, from the 8 rows' q,
-//     dO, ds and p staged in shared memory.
-// The cross-attention tile (d 512, dv 256) holds 96 KB of float32
-// accumulators beside its K/V tile (96 KB in float32), so the launcher
-// raises the block's dynamic shared-memory limit to about 218 KB.
-// What bounds it on this card: at the training shapes the float32 CUDA
-// cores' arithmetic and the dQ atomics, not bytes.
+// float32, flash_bwd_f32_kernel (the same order on the tensor cores in
+// 3xTF32, as flash_fwd_f32_kernel in flash_attention_fwd.cu: every product
+// is three mma.sync m16n8k8 tf32 products of the operands' big and small
+// halves, relative error about 5e-6 against float32). The CUDA-core kernel
+// it replaced (one query row a warp, dot products by reduce-scatters) spent
+// 36-72x its bound on float32 FMAs and shuffles. The design: grid
+// (ceil(Sk / 16), h, B); a block owns 16 keys of one head (one m16 tile),
+// holds their K and V rows in shared memory in float32 (split into tf32
+// halves as fragments are loaded, so the hidden-256 cross-attention, d 512,
+// dv 256, fits a block: 209,728 bytes) and loops over query tiles of 32
+// rows, whose q / dO rows come through cp.async (a 2-stage ring where it
+// fits the block, else 1) beside their lse and delta. In each tile:
+//   1. S^T = K Q^T and dP^T = V dO^T, 16 keys x 8 queries a warp; each
+//      64-column chunk of the sum in three fresh accumulators (big x big,
+//      big x small, small x big), added in IEEE float32, as the forward does
+//      (the tensor cores' float32 sums are not round-to-nearest, so mma
+//      chains stay short). With 8 warps, two warps share an n-tile, each
+//      summing half of d and dv, and swap partial sums through shared memory;
+//   2. on the fragments: p = exp(s - lse) (1/Sk in a fully masked row), the
+//      regenerated keep bit, dS = p (dP keep / (1 - rate) - delta) scale and
+//      P keep / (1 - rate), to shared memory in float32;
+//   3. dV += (P keep)^T dO and dK += dS^T Q, jobs of 16 keys x 64 (4 warps)
+//      or 32 (8 warps) columns: the tile's product (12 mma a fragment) in
+//      fresh registers, then added to float32 accumulators in shared memory;
+//   4. dQ += dS K, jobs of 16 queries x the same columns, added to the
+//      wrapper's zeroed float32 buffer with atomics (8-byte float2 atomics,
+//      sm_90's, for each fragment's column pair where d is even).
+// A block has 8 warps where d + dv passes 64, else 4: the chain of a tile
+// is short and dependent, so latency bounds the kernel, and at the
+// cross-attention one 210 KB block fills an SM (8 warps: 2.21 -> 1.18 ms a
+// launch, PERF.md); the encoder's 64 columns give 8 warps too little to do.
+// Operands are split by truncation (tc::split_tf32_trunc: two integer /
+// float operations instead of two conversions more, 17-20 % of the time).
+// Bank layout: K, V, the q / dO tiles and the accumulators have rows of 8
+// mod 32 words, so the float2 reads of steps 1 and 3 (k slot t holding
+// columns 2t and 2t + 1) and the B reads of rows t, columns g are conflict
+// free; P keep and dS have rows of 4 mod 32 words for step 3's A reads.
 
 #include <math.h>
 
@@ -80,151 +99,307 @@ namespace {
 
 using namespace flash;
 
-constexpr int kRows = 8;  // query rows an iteration: one a warp
-constexpr int kThreads = kRows * kWarp;
 constexpr float kFullyMaskedLse = -5e8f;  // below any row with a valid key
 
-__host__ __device__ inline size_t round16(size_t x) { return (x + 15) / 16 * 16; }
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Shared-memory layout, in bytes from the start.
-struct Layout {
-  size_t ds, pd, q, dout, dk, dv, k_tile, v_tile, total;
-  __host__ __device__ Layout(int d, int dv_, size_t itemsize) {
-    ds = kHeaderBytes;                                  // (kRows, kTileK) f32
-    pd = ds + sizeof(float) * kRows * kTileK;           // (kRows, kTileK) f32
-    q = pd + sizeof(float) * kRows * kTileK;            // (kRows, d) f32
-    dout = q + sizeof(float) * kRows * d;               // (kRows, dv) f32
-    dk = dout + sizeof(float) * kRows * dv_;            // (kTileK, d) f32
-    dv = dk + sizeof(float) * kTileK * d;               // (kTileK, dv) f32
-    k_tile = round16(dv + sizeof(float) * kTileK * dv_);  // (kTileK, d) T
-    v_tile = round16(k_tile + itemsize * kTileK * d);    // (kTileK, dv) T
-    total = v_tile + itemsize * kTileK * dv_;
+// ---- float32 on the tensor cores, in 3xTF32
+constexpr int kF32Keys = 16;  // keys a block: one m16 tile
+constexpr int kF32Rows = 32;  // query rows a tile: 4 n-tiles of 8
+constexpr int kF32Chunk = 64;         // columns of a chunk of S's sum
+constexpr int kSmemOptin = 232448;    // an H100 block's opt-in shared memory
+constexpr int kF32Exchange = 8 * kWarp * 4;  // floats: 8 warps' partial S / dP rows
+
+// The warps of a block at head widths d, dv, and its shared-memory layout in
+// bytes from the start (float strides beside). 8 warps (jobs of 32
+// gradient columns) where d + dv passes 64, else 4 (jobs of 64): the
+// encoder's 64 columns give 8 warps too little to do. 2 stages of q / dO
+// tiles where they fit the block, else 1.
+struct F32Layout {
+  int warps, stages, ks, vs, ps;  // K / q / dK, V / dO / dV, P keep / dS row strides
+  size_t lse, delta, k, v, q, dout, pd, ds, acc_k, acc_v, exchange, total;
+  __host__ __device__ F32Layout(int d, int dv) {
+    warps = d + dv > 64 ? 8 : 4;
+    ks = round_up(d, 32) + 8;
+    vs = round_up(dv, 32) + 8;
+    ps = kF32Rows + 4;
+    place(2);
+    if (total > (size_t)kSmemOptin) place(1);
+  }
+  __host__ __device__ void place(int s) {
+    stages = s;
+    lse = kF32Keys * sizeof(int);                     // after the key states
+    delta = lse + sizeof(float) * s * kF32Rows;
+    k = delta + sizeof(float) * s * kF32Rows;         // (16, ks)
+    v = k + sizeof(float) * kF32Keys * ks;            // (16, vs)
+    q = v + sizeof(float) * kF32Keys * vs;            // s x (32, ks)
+    dout = q + sizeof(float) * s * kF32Rows * ks;     // s x (32, vs)
+    pd = dout + sizeof(float) * s * kF32Rows * vs;    // (16, ps)
+    ds = pd + sizeof(float) * kF32Keys * ps;          // (16, ps)
+    acc_k = ds + sizeof(float) * kF32Keys * ps;       // (16, ks)
+    acc_v = acc_k + sizeof(float) * kF32Keys * ks;    // (16, vs)
+    exchange = acc_v + sizeof(float) * kF32Keys * vs;  // (8, 32, 4) with 8 warps
+    total = exchange + (warps == 8 ? sizeof(float) * kF32Exchange : 0);
   }
 };
 
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ key_valid, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int num_heads, int d, int dvw, float scale,
-    const long long* __restrict__ seed_ptr, uint32_t drop_threshold, float inv_keep, bool vec_k, bool vec_v) {
+// c = A B^T in 3xTF32 for A's 16 rows (stride sa) and B's 8 rows (stride
+// sb), row-major over `width` columns (zero-padded to a multiple of 8; none
+// when width <= 0); g, t as in tensor_core.cuh. k slot t of a k-step holds
+// column 2t and slot t + 4 column 2t + 1, so each thread's operand values
+// are float2 reads. Each 64-column chunk sums big x big, big x small and
+// small x big in three accumulators (8 mma each), added in IEEE float32.
+__device__ __forceinline__ void mma_abt_3xtf32(float (&c)[4], const float* a, int sa, const float* b, int sb,
+                                               int width, int g, int t) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  const float* a0 = a + g * sa + 2 * t;
+  const float* a1 = a0 + 8 * sa;
+  const float* b0 = b + g * sb + 2 * t;
+  for (int c0 = 0; c0 < width; c0 += kF32Chunk) {
+    const int steps = (min(kF32Chunk, width - c0) + 7) / 8;
+    float part[3][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kF32Chunk / 8; ++kk) {
+      if (kk >= steps) break;
+      const int col = c0 + kk * 8;
+      const float2 lo = *reinterpret_cast<const float2*>(a0 + col);
+      const float2 hi = *reinterpret_cast<const float2*>(a1 + col);
+      const float2 bv = *reinterpret_cast<const float2*>(b0 + col);
+      uint32_t ab[4], as[4], bb0, bb1, bs0, bs1;
+      tc::split_tf32_trunc(lo.x, ab[0], as[0]);
+      tc::split_tf32_trunc(hi.x, ab[1], as[1]);
+      tc::split_tf32_trunc(lo.y, ab[2], as[2]);
+      tc::split_tf32_trunc(hi.y, ab[3], as[3]);
+      tc::split_tf32_trunc(bv.x, bb0, bs0);
+      tc::split_tf32_trunc(bv.y, bb1, bs1);
+      tc::mma_tf32(part[0], ab, bb0, bb1);
+      tc::mma_tf32(part[1], ab, bs0, bs1);
+      tc::mma_tf32(part[2], as, bb0, bb1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += part[0][e] + (part[1][e] + part[2][e]);
+  }
+}
+
+// The A fragment of one k-step (tf32 big and small halves) from four
+// float32 values.
+__device__ __forceinline__ void split_a(uint32_t (&big)[4], uint32_t (&small)[4], float x0, float x1, float x2,
+                                        float x3) {
+  tc::split_tf32_trunc(x0, big[0], small[0]);
+  tc::split_tf32_trunc(x1, big[1], small[1]);
+  tc::split_tf32_trunc(x2, big[2], small[2]);
+  tc::split_tf32_trunc(x3, big[3], small[3]);
+}
+
+// c[n] += A B[:, 8n..8n+7] in 3xTF32 for the n-tiles below `width`: A's big
+// and small fragments given, B's k-step rows t and t + 4 at b[0] and b[4 sb]
+// (column g of each n-tile; b points at column g of n-tile 0).
+template <int kNt>
+__device__ __forceinline__ void mma_row_3xtf32(float (&c)[kNt][4], const uint32_t (&big)[4],
+                                               const uint32_t (&small)[4], const float* b, int sb, int width) {
+#pragma unroll
+  for (int n = 0; n < kNt; ++n) {
+    if (n * 8 >= width) break;
+    uint32_t bb0, bb1, bs0, bs1;
+    tc::split_tf32_trunc(b[8 * n], bb0, bs0);
+    tc::split_tf32_trunc(b[4 * sb + 8 * n], bb1, bs1);
+    tc::mma_3xtf32(c[n], big, small, bb0, bb1, bs0, bs1);
+  }
+}
+
+// W warps (F32Layout's), gradient jobs of CW columns.
+template <int W, int CW>
+__global__ void __launch_bounds__(W * kWarp) flash_bwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ key_valid, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+    int sq, int sk, int num_heads, int d, int dvw, float scale, const long long* __restrict__ seed_ptr,
+    uint32_t drop_threshold, float inv_keep, bool vec_qk, bool vec_vo, bool vec_dq) {
   const uint32_t seed = philox::load_seed(seed_ptr, drop_threshold);
+  constexpr int kThreads = W * kWarp;
+  constexpr int kNt = CW / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(d, dvw, sizeof(T));
+  const F32Layout L(d, dvw);
   int* key_state = reinterpret_cast<int*>(smem);  // 1 valid, 0 masked, -1 past Sk
-  float* ds_s = reinterpret_cast<float*>(smem + L.ds);
-  float* pd_s = reinterpret_cast<float*>(smem + L.pd);
+  float* lse_s = reinterpret_cast<float*>(smem + L.lse);
+  float* delta_s = reinterpret_cast<float*>(smem + L.delta);
+  float* k_s = reinterpret_cast<float*>(smem + L.k);
+  float* v_s = reinterpret_cast<float*>(smem + L.v);
   float* q_s = reinterpret_cast<float*>(smem + L.q);
   float* do_s = reinterpret_cast<float*>(smem + L.dout);
-  float* dk_acc = reinterpret_cast<float*>(smem + L.dk);
-  float* dv_acc = reinterpret_cast<float*>(smem + L.dv);
-  T* k_tile = reinterpret_cast<T*>(smem + L.k_tile);
-  T* v_tile = reinterpret_cast<T*>(smem + L.v_tile);
+  float* pd_s = reinterpret_cast<float*>(smem + L.pd);
+  float* ds_s = reinterpret_cast<float*>(smem + L.ds);
+  float* acc_k = reinterpret_cast<float*>(smem + L.acc_k);
+  float* acc_v = reinterpret_cast<float*>(smem + L.acc_v);
+  float* exchange = reinterpret_cast<float*>(smem + L.exchange);
 
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int t0 = blockIdx.x * kTileK;
-  const int hh = blockIdx.y;
-  const int b = blockIdx.z;
-  const long hd = (long)num_heads * d;
-  const long hdv = (long)num_heads * dvw;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = blockIdx.x * kF32Keys;
+  const int hh = blockIdx.y, b = blockIdx.z;
+  const long hd = (long)num_heads * d, hdv = (long)num_heads * dvw;
   const uint32_t bh = (uint32_t)(b * num_heads + hh);
-  const int keys_left = sk - t0;
+  const int nck = (d + CW - 1) / CW, ncv = (dvw + CW - 1) / CW;
+  const int nqt = (sq + kF32Rows - 1) / kF32Rows;
 
-  load_tile(k_tile, k + ((long)b * sk + t0) * hd + hh * d, keys_left, d, hd, vec_k);
-  load_tile(v_tile, v + ((long)b * sk + t0) * hdv + hh * dvw, keys_left, dvw, hdv, vec_v);
-  if (threadIdx.x < kTileK) {
-    const int key = t0 + threadIdx.x;
-    key_state[threadIdx.x] =
-        key >= sk ? -1 : (key_valid == nullptr ? 1 : (key_valid[(long)b * sk + key] != 0));
+  tc::load_rows_f32<0>(k_s, L.ks, k + ((long)b * sk + key0) * hd + hh * d, hd, kF32Keys, sk - key0, d, vec_qk,
+                       threadIdx.x, kThreads);
+  tc::load_rows_f32<0>(v_s, L.vs, v + ((long)b * sk + key0) * hdv + hh * dvw, hdv, kF32Keys, sk - key0, dvw,
+                       vec_vo, threadIdx.x, kThreads);
+  if (threadIdx.x < kF32Keys) {
+    const int key = key0 + threadIdx.x;
+    key_state[threadIdx.x] = key >= sk ? -1 : (key_valid == nullptr ? 1 : (key_valid[(long)b * sk + key] != 0));
   }
-  for (int i = threadIdx.x; i < kTileK * d; i += blockDim.x) dk_acc[i] = 0.f;
-  for (int i = threadIdx.x; i < kTileK * dvw; i += blockDim.x) dv_acc[i] = 0.f;
-  __syncthreads();
-  const int state = key_state[lane];
+  for (int i = threadIdx.x; i < kF32Keys * L.ks; i += kThreads) acc_k[i] = 0.f;
+  for (int i = threadIdx.x; i < kF32Keys * L.vs; i += kThreads) acc_v[i] = 0.f;
+  auto load = [&](int it) {
+    const int q0 = it * kF32Rows, slot = L.stages == 2 ? (it & 1) : 0;
+    tc::load_rows_f32<0>(q_s + slot * kF32Rows * L.ks, L.ks, q + ((long)b * sq + q0) * hd + hh * d, hd, kF32Rows,
+                         sq - q0, d, vec_qk, threadIdx.x, kThreads);
+    tc::load_rows_f32<0>(do_s + slot * kF32Rows * L.vs, L.vs, dout + ((long)b * sq + q0) * hdv + hh * dvw, hdv,
+                         kF32Rows, sq - q0, dvw, vec_vo, threadIdx.x, kThreads);
+    for (int i = threadIdx.x; i < kF32Rows; i += kThreads) {
+      const long stat = ((long)b * num_heads + hh) * sq + q0 + i;
+      lse_s[slot * kF32Rows + i] = q0 + i < sq ? lse[stat] : 0.f;
+      delta_s[slot * kF32Rows + i] = q0 + i < sq ? delta[stat] : 0.f;
+    }
+    tc::cp_async_commit();
+  };
+  load(0);  // with K and V: one cp.async group
 
-  for (int r0 = 0; r0 < sq; r0 += kRows) {
-    // ---- phase A: one query row per warp
-    const int row = r0 + warp;
-    float ds_scaled = 0.f, pd = 0.f;
-    if (row < sq) {
-      float qreg[P], doreg[P];
-      const long qoff = ((long)b * sq + row) * hd + hh * d;
-      const long ooff = ((long)b * sq + row) * hdv + hh * dvw;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int e = lane + kWarp * i;
-        qreg[i] = e < d ? to_f32(q[qoff + e]) : 0.f;
-        doreg[i] = e < dvw ? to_f32(dout[ooff + e]) : 0.f;
-        if (e < d) q_s[warp * d + e] = qreg[i];
-        if (e < dvw) do_s[warp * dvw + e] = doreg[i];
-      }
-      const float dot = tile_dots<T, P>(qreg, k_tile, d, lane);
-      const float dp = tile_dots<T, P>(doreg, v_tile, dvw, lane);
-      const long stat = ((long)b * num_heads + hh) * sq + row;
-      if (state >= 0) {
-        const float s = state == 0 ? kMaskedLogit : dot * scale;
-        // a fully masked row's lse (-1e9 + log Sk) rounds to -1e9 in float32:
-        // its probabilities are the uniform 1/Sk the forward used
-        const float lse_i = lse[stat];
-        const float p = lse_i < kFullyMaskedLse ? 1.f / (float)sk : expf(s - lse_i);
-        float dpk = dp;
-        pd = p;
-        if (drop_threshold != 0u) {
-          const bool keep =
-              philox::bits(seed, bh, (uint32_t)row, (uint32_t)(t0 + lane)) >= drop_threshold;
-          pd = keep ? p * inv_keep : 0.f;
-          dpk = keep ? dp * inv_keep : 0.f;
-        }
-        if (state == 1) ds_scaled = p * (dpk - delta[stat]) * scale;
-      }
-      // dQ_i += sum_j ds_ij k_j, this lane's slice of the row
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int e = lane + kWarp * i;
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-          const float dsj = __shfl_sync(kFull, ds_scaled, j);
-          if (e < d) acc = fmaf(dsj, to_f32(k_tile[j * d + e]), acc);
-        }
-        if (e < d && acc != 0.f) atomicAdd(dq + qoff + e, acc);
-      }
+  for (int it = 0; it < nqt; ++it) {
+    if (L.stages == 1 && it > 0) load(it);
+    if (L.stages == 2 && it + 1 < nqt) {
+      load(it + 1);
+      tc::cp_async_wait<1>();
     } else {
-      for (int e = lane; e < d; e += kWarp) q_s[warp * d + e] = 0.f;
-      for (int e = lane; e < dvw; e += kWarp) do_s[warp * dvw + e] = 0.f;
+      tc::cp_async_wait<0>();
     }
-    ds_s[warp * kTileK + lane] = ds_scaled;
-    pd_s[warp * kTileK + lane] = pd;
+    __syncthreads();
+    const int slot = L.stages == 2 ? (it & 1) : 0, q0 = it * kF32Rows;
+    const float* qt_s = q_s + slot * kF32Rows * L.ks;
+    const float* dot_s = do_s + slot * kF32Rows * L.vs;
+    const float* lse_t = lse_s + slot * kF32Rows;
+    const float* delta_t = delta_s + slot * kF32Rows;
+
+    // 1. S^T and dP^T of the 16 keys x the 8 queries of n-tile warp % 4:
+    //    element e of a fragment is key g + 8 (e / 2), query qb + 2t + e % 2.
+    //    With 8 warps, warp w and w + 4 sum halves of d and dv and swap the
+    //    partial sums of key rows g + 8 and g, so each finishes one half
+    const int qb = (warp % 4) * 8, half = warp / 4;
+    const int s_mid = W == 8 ? (d + 15) / 16 * 8 : d, p_mid = W == 8 ? (dvw + 15) / 16 * 8 : dvw;
+    float st[4], dpt[4];
+    mma_abt_3xtf32(st, k_s + half * s_mid, L.ks, qt_s + qb * L.ks + half * s_mid, L.ks,
+                   half ? d - s_mid : s_mid, g, t);
+    mma_abt_3xtf32(dpt, v_s + half * p_mid, L.vs, dot_s + qb * L.vs + half * p_mid, L.vs,
+                   half ? dvw - p_mid : p_mid, g, t);
+    if (W == 8) {
+      float* mine = exchange + (warp * kWarp + lane) * 4;
+      const int give = 2 * (1 - half);  // the other half's key rows
+      *reinterpret_cast<float4*>(mine) = make_float4(st[give], st[give + 1], dpt[give], dpt[give + 1]);
+      __syncthreads();
+      const float4 got = *reinterpret_cast<const float4*>(exchange + ((warp ^ 4) * kWarp + lane) * 4);
+      st[2 * half] += got.x;
+      st[2 * half + 1] += got.y;
+      dpt[2 * half] += got.z;
+      dpt[2 * half + 1] += got.w;
+    }
+
+    // 2. p, the keep bit, dS and P keep on the fragments, to shared memory
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {  // key rows g and g + 8
+      if (W == 8 && h2 != half) continue;
+      const int kl = g + 8 * h2;
+      const int state = key_state[kl];
+      float pd[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = qb + 2 * t + e, row = q0 + ql;
+        pd[e] = ds[e] = 0.f;
+        if (state >= 0 && row < sq) {
+          const float s = state == 0 ? kMaskedLogit : st[2 * h2 + e] * scale;
+          // a fully masked row's lse (-1e9 + log Sk) rounds to -1e9 in
+          // float32: its probabilities are the uniform 1/Sk the forward used
+          const float lse_i = lse_t[ql];
+          const float p = lse_i < kFullyMaskedLse ? 1.f / (float)sk : expf(s - lse_i);
+          float dpk = dpt[2 * h2 + e];
+          pd[e] = p;
+          if (drop_threshold != 0u) {
+            const bool keep = philox::bits(seed, bh, (uint32_t)row, (uint32_t)(key0 + kl)) >= drop_threshold;
+            pd[e] = keep ? p * inv_keep : 0.f;
+            dpk = keep ? dpk * inv_keep : 0.f;
+          }
+          if (state == 1) ds[e] = p * (dpk - delta_t[ql]) * scale;
+        }
+      }
+      *reinterpret_cast<float2*>(pd_s + kl * L.ps + qb + 2 * t) = make_float2(pd[0], pd[1]);
+      *reinterpret_cast<float2*>(ds_s + kl * L.ps + qb + 2 * t) = make_float2(ds[0], ds[1]);
+    }
     __syncthreads();
 
-    // ---- phase B: dK / dV of the tile, each element owned by one thread
-    for (int idx = threadIdx.x; idx < kTileK * d; idx += blockDim.x) {
-      const int j = idx / d, e = idx - j * d;
-      float acc = dk_acc[idx];
+    // 3. dK += dS^T Q and dV += (P keep)^T dO: jobs of 16 keys x CW columns
+    for (int job = warp; job < nck + ncv; job += W) {
+      const bool is_k = job < nck;
+      const int col0 = (is_k ? job : job - nck) * CW;
+      const int width = (is_k ? d : dvw) - col0, sb = is_k ? L.ks : L.vs;
+      const float* a = (is_k ? ds_s : pd_s) + g * L.ps + t;  // A[key][query]
+      const float* bm = (is_k ? qt_s : dot_s) + t * sb + col0 + g;  // B[query][column]
+      float c[kNt][4] = {};
 #pragma unroll
-      for (int w = 0; w < kRows; ++w) acc = fmaf(ds_s[w * kTileK + j], q_s[w * d + e], acc);
-      dk_acc[idx] = acc;
+      for (int kq = 0; kq < kF32Rows / 8; ++kq) {
+        uint32_t big[4], small[4];
+        const float* ak = a + kq * 8;
+        split_a(big, small, ak[0], ak[8 * L.ps], ak[4], ak[8 * L.ps + 4]);
+        mma_row_3xtf32<kNt>(c, big, small, bm + kq * 8 * sb, sb, width);
+      }
+      float* acc = (is_k ? acc_k : acc_v) + g * sb + col0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        if (n * 8 >= width) break;
+        float2* lo = reinterpret_cast<float2*>(acc + 8 * n);
+        float2* hi = reinterpret_cast<float2*>(acc + 8 * sb + 8 * n);
+        *lo = make_float2(lo->x + c[n][0], lo->y + c[n][1]);
+        *hi = make_float2(hi->x + c[n][2], hi->y + c[n][3]);
+      }
     }
-    for (int idx = threadIdx.x; idx < kTileK * dvw; idx += blockDim.x) {
-      const int j = idx / dvw, e = idx - j * dvw;
-      float acc = dv_acc[idx];
+
+    // 4. dQ += dS K: jobs of 16 queries x CW columns, added to the float32 buffer
+    for (int job = warp; job < 2 * nck; job += W) {
+      const int qg = job & 1, col0 = (job >> 1) * CW;
+      float c[kNt][4] = {};
 #pragma unroll
-      for (int w = 0; w < kRows; ++w) acc = fmaf(pd_s[w * kTileK + j], do_s[w * dvw + e], acc);
-      dv_acc[idx] = acc;
+      for (int kk = 0; kk < kF32Keys / 8; ++kk) {
+        uint32_t big[4], small[4];
+        const float* a = ds_s + (kk * 8 + t) * L.ps + qg * 16 + g;  // A[query][key] = dS[key][query]
+        split_a(big, small, a[0], a[8], a[4 * L.ps], a[4 * L.ps + 8]);
+        mma_row_3xtf32<kNt>(c, big, small, k_s + (kk * 8 + t) * L.ks + col0 + g, L.ks, d - col0);
+      }
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {  // rows g and g + 8, columns 2t and 2t + 1
+          const int row = q0 + qg * 16 + g + 8 * h2, col = col0 + 8 * n + 2 * t;
+          const float x0 = c[n][2 * h2], x1 = c[n][2 * h2 + 1];
+          if (row >= sq || col >= d || (x0 == 0.f && x1 == 0.f)) continue;
+          float* at = dq + ((long)b * sq + row) * hd + hh * d + col;
+          if (vec_dq) {  // d even: one 8-byte atomic for the pair
+            atomicAdd(reinterpret_cast<float2*>(at), make_float2(x0, x1));
+          } else {
+            atomicAdd(at, x0);
+            if (col + 1 < d) atomicAdd(at + 1, x1);
+          }
+        }
     }
     __syncthreads();
   }
 
-  for (int idx = threadIdx.x; idx < kTileK * d; idx += blockDim.x) {
-    const int j = idx / d, e = idx - j * d;
-    if (j < keys_left) dk[((long)b * sk + t0 + j) * hd + hh * d + e] = from_f32<T>(dk_acc[idx]);
+  for (int i = threadIdx.x; i < kF32Keys * d; i += kThreads) {
+    const int j = i / d, e = i - j * d;
+    if (key0 + j < sk) dk[((long)b * sk + key0 + j) * hd + hh * d + e] = acc_k[j * L.ks + e];
   }
-  for (int idx = threadIdx.x; idx < kTileK * dvw; idx += blockDim.x) {
-    const int j = idx / dvw, e = idx - j * dvw;
-    if (j < keys_left) dv[((long)b * sk + t0 + j) * hdv + hh * dvw + e] = from_f32<T>(dv_acc[idx]);
+  for (int i = threadIdx.x; i < kF32Keys * dvw; i += kThreads) {
+    const int j = i / dvw, e = i - j * dvw;
+    if (key0 + j < sk) dv[((long)b * sk + key0 + j) * hdv + hh * dvw + e] = acc_v[j * L.vs + e];
   }
 }
 
@@ -242,8 +417,6 @@ constexpr bool kSplit = false;
 #else
 constexpr bool kSplit = true;
 #endif
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // The kernel's shape at head widths d, dv: cw columns a dK / dV / dQ job,
 // jpw jobs a warp with their accumulators in registers (0: in shared
@@ -573,32 +746,28 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int P>
-int launch(const Args& a) {
-  const dim3 grid((a.sk + kTileK - 1) / kTileK, a.num_heads, a.b);
-  const size_t smem = Layout(a.d, a.dv_, sizeof(T)).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int W, int CW>
+int launch_f32(const Args& a, size_t smem) {
+  const dim3 grid((a.sk + kF32Keys - 1) / kF32Keys, a.num_heads, a.b);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_f32_kernel<W, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_kernel<T, P><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.key_valid), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk,
-      a.num_heads, a.d, a.dv_, a.scale, a.seed, a.drop_threshold, a.inv_keep,
-      aligned16<T>(a.k, a.d, a.num_heads), aligned16<T>(a.v, a.dv_, a.num_heads));
+  flash_bwd_f32_kernel<W, CW><<<grid, W * kWarp, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<float*>(a.dq),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.num_heads, a.d, a.dv_, a.scale, a.seed,
+      a.drop_threshold, a.inv_keep,
+      aligned16<float>(a.q, a.d, a.num_heads) && aligned16<float>(a.k, a.d, a.num_heads),
+      aligned16<float>(a.v, a.dv_, a.num_heads) && aligned16<float>(a.dout, a.dv_, a.num_heads),
+      a.d % 2 == 0 && reinterpret_cast<uintptr_t>(a.dq) % 8 == 0);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const Args& a) {
-  const int widest = a.d > a.dv_ ? a.d : a.dv_;
-  if (widest <= 32) return launch<T, 1>(a);
-  if (widest <= 64) return launch<T, 2>(a);
-  if (widest <= 128) return launch<T, 4>(a);
-  if (widest <= 256) return launch<T, 8>(a);
-  if (widest <= 512) return launch<T, 16>(a);
-  return (int)cudaErrorInvalidValue;
+int dispatch_f32(const Args& a) {
+  if ((a.d > a.dv_ ? a.d : a.dv_) > 512) return (int)cudaErrorInvalidValue;
+  const F32Layout L(a.d, a.dv_);
+  return L.warps == 8 ? launch_f32<8, 32>(a, L.total) : launch_f32<4, 64>(a, L.total);
 }
 
 template <int CW, int JPW, int QT>
@@ -632,19 +801,19 @@ int dispatch_tc(const Args& a) {
 
 extern "C" {
 
-int odtt_flash_bwd_abi_version() { return 4; }
+int odtt_flash_bwd_abi_version() { return 5; }
 
 // Bytes of dynamic shared memory a block takes at head widths d, dv and an
-// operand itemsize of 4 (float32: Layout) or 2 (bfloat16: TcLayout), which
+// operand itemsize of 4 (float32: F32Layout) or 2 (bfloat16: TcLayout), which
 // ops/cuda/flash_attention.py::fused_backward_smem_bytes mirrors to plan the
 // backward.
 long long odtt_flash_bwd_smem_bytes(int d, int dv_, int itemsize) {
   if (itemsize == 2) return (long long)TcLayout(d, dv_).total;
-  return (long long)Layout(d, dv_, (size_t)itemsize).total;
+  return (long long)F32Layout(d, dv_).total;
 }
 
-// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores; q, k, v, dout,
-// dk, dv). key_valid: (B, Sk) bytes or null. lse, delta: (B, h, Sq) float32. dq: (B, Sq, h*d) float32,
+// dtype: 0 float32 (tensor cores, 3xTF32), 1 bfloat16 (tensor cores); q,
+// k, v, dout, dk, dv in that dtype. key_valid: (B, Sk) bytes or null. lse, delta: (B, h, Sq) float32. dq: (B, Sq, h*d) float32,
 // zeroed by the caller. drop_threshold / inv_keep / seed as in the forward.
 // Returns cudaGetLastError() after the launch (0 on success).
 int odtt_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -657,7 +826,7 @@ int odtt_flash_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, key_valid, dout, lse, delta, dq, dk, dv, b, sq, sk, num_heads, d,
                dv_, scale, seed, drop_threshold, inv_keep, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(a);
+  if (dtype == 0) return dispatch_f32(a);
   if (dtype == 1) return dispatch_tc(a);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 // kernels (flash_attention_fwd.cu, flash_attention_bwd.cu,
 // flash_attention_bwd_two_pass.cu): cp.async 16-byte copies into shared
 // memory, ldmatrix, mma.sync.aligned.m16n8k16 with bfloat16 operands and
-// float32 sums, and the float32 forward's mma.sync.aligned.m16n8k8 with
-// tf32 operands (3xTF32: big / small halves of each float32 operand).
+// float32 sums, and the float32 kernels' (the forward's and the fused
+// backward's) mma.sync.aligned.m16n8k8 with tf32 operands (3xTF32: big /
+// small halves of each float32 operand).
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), as the PTX ISA
 // defines them:
@@ -146,7 +147,7 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const __nv_bfloat1
   ldmatrix_x4_trans(b, tile + row * stride + col);
 }
 
-// ---- tf32 (the float32 forward)
+// ---- tf32 (the float32 forward and fused backward)
 // m16n8k8 tf32 fragments (g = lane / 4, t = lane % 4), as the PTX ISA
 // defines them; one 32-bit register an element:
 //   A (16 x 8)  a[0]: (g, t)  a[1]: (g+8, t)  a[2]: (g, t+4)  a[3]: (g+8, t+4)
@@ -167,6 +168,16 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = tf32(x);
   small = tf32(x - __uint_as_float(big));
+}
+
+// x = big + small for the tensor cores at two integer / float operations:
+// big = x with its 13 low mantissa bits cleared (x truncated to tf32), small
+// = x - big (exact) passed whole, of which the tensor cores read the top 19
+// bits. x is kept to within 2^-20 |x| (split_tf32's rounding, 2^-22, costs
+// two conversions more).
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 // c += a * b on the tensor cores (tf32 x tf32 -> f32).

@@ -23,12 +23,16 @@ Port of ``object_detection_destr_tpu/ops/pallas/flash_attention.py``:
   as ``_bwd_impl`` (l.438) is.
 
 Choice of backward (:func:`backward_plan`, the rule of ``_bwd_impl_packed``
-l.1037-1041 on this card's terms): the fused kernel keeps a 32-key tile's
-float32 dK / dV accumulators in shared memory, so it runs where that layout
+l.1037-1041 on this card's terms): the fused kernel keeps a block's K and V
+rows, its q / dO tiles and, where they do not fit in registers, its float32
+dK / dV accumulators in shared memory (bfloat16: 32 keys a block; float32,
+in 3xTF32: 16 keys, everything in float32), so it runs where that layout
 fits the device's opt-in shared memory per block and its widest head
 dispatches (≤ 512); the two-pass kernels otherwise. On an H100 (227 KB a
-block) a hidden-512 DESTR runs the fused kernel for encoder (d 64) and
-decoder (d 128) self-attention and the two-pass kernels for the merged
+block) a hidden-256 DESTR runs the fused kernel at all three call sites in
+both dtypes (the cross-attention, d 512, dv 256: 211,328 bytes in bfloat16,
+209,728 in float32), and a hidden-512 one for encoder (d 64) and decoder (d
+128) self-attention, with the two-pass kernels for the merged
 cross-attention (d 1024, dv 512). The TPU's rule is a VMEM budget per key
 chunk (``_pick_chunk_nk``); there the decoder self-attention of the same
 model also takes the two-pass kernels. The function is the same either way.
@@ -109,10 +113,14 @@ __all__ = [
 ]
 
 _FUSED_MAX_HEAD_DIM = 512  # the widest head the fused backward dispatches
-# the fused backward's tiles (csrc/flash_common.cuh, flash_attention_bwd.cu):
-# float32, and the keys a block of the bfloat16 tensor-core kernel
-_TILE_K, _BWD_ROWS, _HEADER_BYTES = 32, 8, 32 * 4
+# the fused backward's tiles (csrc/flash_attention_bwd.cu): the keys a block
+# of the bfloat16 kernel; the keys a block and query rows a tile of the
+# float32 (3xTF32) kernel
 _TC_KEYS = 32
+_F32_BWD_KEYS, _F32_BWD_ROWS = 16, 32
+# the two-pass float32 kernels' tiles (csrc/flash_common.cuh): 32 keys or
+# rows, a 32-key state header
+_TILE_K, _HEADER_BYTES = 32, 32 * 4
 _SMEM_OPTIN = 232448  # an H100 block's opt-in shared memory, as the two-pass dispatch assumes
 _GRID_MAX = 65535  # blocks along grid.y and grid.z
 # the forward's tiles (csrc/flash_attention_fwd.cu): bfloat16 64 query rows
@@ -146,7 +154,7 @@ BWD_LIBRARY = CudaLibrary(
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
     functions={"odtt_flash_attention_bwd": (_I, [_P] * 10 + [_I] * 7 + [_F, _P, _U, _F, _P]),
                "odtt_flash_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 3)},
-    abi=("odtt_flash_bwd_abi_version", 4),
+    abi=("odtt_flash_bwd_abi_version", 5),
 )
 TWO_PASS_LIBRARY = CudaLibrary(
     "odtt_flash_attention_bwd_two_pass", "flash_attention_bwd_two_pass.cu",
@@ -155,10 +163,6 @@ TWO_PASS_LIBRARY = CudaLibrary(
                "odtt_flash_two_pass_plan": (_I, [_I] * 4 + [_P])},
     abi=("odtt_flash_bwd_two_pass_abi_version", 4),
 )
-
-
-def _round16(x: int) -> int:
-    return (x + 15) // 16 * 16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -184,18 +188,29 @@ def _tc_backward_smem_bytes(d: int, dv: int) -> int:
     return total
 
 
+def _f32_backward_smem_bytes(d: int, dv: int) -> int:
+    """``F32Layout`` of the float32 tensor-core kernel: the key states, lse
+    and delta of 1 or 2 query tiles, the K and V rows of 16 keys, 1 or 2 q /
+    dO tiles of 32 rows, P keep and dS (16 keys x 32 rows) and the dK / dV
+    accumulators, all float32; rows of d and dv padded to 8 mod 32 words, of
+    P keep and dS to 36; where d + dv passes 64 (a block of 8 warps) the
+    exchange of partial S / dP (8 warps x 32 lanes x 4 floats). Two stages
+    of q / dO tiles where they fit an H100 block, else one."""
+    ks, vs, ps = _round_up(d, 32) + 8, _round_up(dv, 32) + 8, _F32_BWD_ROWS + 4
+    exchange = 8 * 32 * 4 if d + dv > 64 else 0
+    for stages in (2, 1):
+        words = (_F32_BWD_KEYS + 2 * stages * _F32_BWD_ROWS + 2 * _F32_BWD_KEYS * (ks + vs)
+                 + stages * _F32_BWD_ROWS * (ks + vs) + 2 * _F32_BWD_KEYS * ps + exchange)
+        if 4 * words <= _SMEM_OPTIN or stages == 1:
+            return 4 * words
+
+
 def fused_backward_smem_bytes(d: int, dv: int, itemsize: int) -> int:
     """Dynamic shared memory of one block of the fused backward (#2) at head
-    widths d, dv: the ``Layout`` (float32, itemsize 4) or ``TcLayout``
+    widths d, dv: the ``F32Layout`` (float32, itemsize 4) or ``TcLayout``
     (bfloat16, itemsize 2) of ``csrc/flash_attention_bwd.cu``, which the
     library exports as ``odtt_flash_bwd_smem_bytes``."""
-    if itemsize == 2:
-        return _tc_backward_smem_bytes(d, dv)
-    q = _HEADER_BYTES + 2 * 4 * _BWD_ROWS * _TILE_K  # after the ds and pd rows
-    dk = q + 4 * _BWD_ROWS * (d + dv)  # after the staged q and dO rows
-    k_tile = _round16(dk + 4 * _TILE_K * (d + dv))  # after the dK, dV accumulators
-    v_tile = _round16(k_tile + itemsize * _TILE_K * d)
-    return v_tile + itemsize * _TILE_K * dv
+    return _tc_backward_smem_bytes(d, dv) if itemsize == 2 else _f32_backward_smem_bytes(d, dv)
 
 
 class ForwardPlan(NamedTuple):
@@ -847,8 +862,11 @@ class FlashAttentionBackward(LaunchCounter):
     Computes delta beside the kernel, zeroes the float32 dQ buffer the kernel
     adds into and casts it to the query dtype after. Raises where
     :func:`backward_plan` says the kernel does not fit the device.
-    ``launches`` counts kernel launches and nothing else. In bfloat16 the
-    kernel feeds dS and P keep to the tensor cores as hi / lo bf16 pairs."""
+    ``launches`` counts kernel launches and nothing else. Both dtypes run on
+    the tensor cores: bfloat16 feeds dS and P keep to them as hi / lo bf16
+    pairs (``flash_bwd_tc_kernel``), float32 splits every operand into tf32
+    big and small halves, three products a product (3xTF32,
+    ``flash_bwd_f32_kernel``)."""
 
     library = BWD_LIBRARY
 

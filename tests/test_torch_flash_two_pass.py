@@ -238,9 +238,9 @@ def test_fully_masked_row_is_the_gradient_of_the_plain_forward():
     (64, 64, torch.float32, "fused"),
     (64, 64, torch.bfloat16, "fused"),
     (128, 128, torch.bfloat16, "fused"),  # decoder self-attention at hidden 512
-    (512, 256, torch.float32, "fused"),  # the cross-attention at hidden 256: 223,360 bytes
-    (512, 256, torch.bfloat16, "fused"),
-    (1024, 512, torch.float32, "two_pass"),  # the cross-attention at hidden 512: 444,544 bytes
+    (512, 256, torch.float32, "fused"),  # the cross-attention at hidden 256: 209,728 bytes
+    (512, 256, torch.bfloat16, "fused"),  # 211,328 bytes
+    (1024, 512, torch.float32, "two_pass"),  # the cross-attention at hidden 512: 406,336 bytes
     (1024, 512, torch.bfloat16, "two_pass"),  # 407,936 bytes
     (1024, 16, torch.bfloat16, "two_pass"),  # fits, but wider than the fused kernel dispatches
     (256, 256, torch.bfloat16, "fused"),  # decoder self-attention at hidden 1024: 145,792 bytes
@@ -305,14 +305,45 @@ def test_launch_plans_fit_the_card_at_every_width():
 
 def test_fused_smem_bytes_grow_with_the_widths():
     """The mirror of the fused kernel's shared-memory layout (chip_smoke.py
-    holds it against the library's own count on the card): float32's
-    CUDA-core layout, and bfloat16's tensor-core layout, whose dK / dV
-    accumulators move from registers to shared memory past d + dv = 256."""
-    assert fa.fused_backward_smem_bytes(512, 256, 4) == 223360
+    holds it against the library's own count on the card): float32's 3xTF32
+    layout (16 keys, q / dO tiles of 32 rows in one stage past what two fit,
+    the 8-warp blocks' 4 KB exchange),
+    and bfloat16's tensor-core layout, whose dK / dV accumulators move from
+    registers to shared memory past d + dv = 256."""
+    assert fa.fused_backward_smem_bytes(512, 256, 4) == 209728
     assert fa.fused_backward_smem_bytes(512, 256, 4) <= H100_SMEM_OPTIN < fa.fused_backward_smem_bytes(512, 512, 4)
     bf16 = [fa.fused_backward_smem_bytes(d, dv, 2) for d, dv in [(32, 32), (64, 64), (128, 128), (512, 256)]]
     assert bf16 == [45184, 65664, 106624, 211328]
     assert bf16[-1] <= H100_SMEM_OPTIN < fa.fused_backward_smem_bytes(512, 512, 2) == 276864
+
+
+@pytest.mark.parametrize("site,d,dv,stages,nbytes", [
+    ("encoder self-attention, hidden 256", 32, 32, 2, 35904),
+    ("decoder self-attention, hidden 256; encoder, hidden 512", 64, 64, 2, 64576),
+    ("cross-attention, hidden 256", 512, 256, 1, 209728),
+    ("decoder self-attention, hidden 512; encoder, hidden 1024", 128, 128, 2, 113728),
+    ("decoder self-attention, hidden 1024", 256, 256, 2, 212032),
+])
+def test_f32_fused_layout_at_the_path_widths(site, d, dv, stages, nbytes):
+    """The float32 fused backward (3xTF32, ``F32Layout`` of
+    csrc/flash_attention_bwd.cu) at each head width a float32 DESTR sends to
+    it: key states (16 ints), lse and delta (stages x 32 rows), K and V rows
+    of 16 keys, stages x 32 q and dO rows, P keep and dS (16 x 36) and the
+    dK / dV accumulators (16 rows), all float32, rows of d and dv padded to
+    8 mod 32 words, and where d + dv passes 64 the 8-warp block's exchange
+    of partial S / dP (8 x 32 x 4); within an H100 block, so the plan keeps
+    the site on #2."""
+    ks, vs = -(-d // 32) * 32 + 8, -(-dv // 32) * 32 + 8
+
+    def words(n):
+        exchange = 8 * 32 * 4 if d + dv > 64 else 0
+        return 16 + 2 * 32 * n + 16 * (ks + vs) + 32 * n * (ks + vs) + 2 * 16 * 36 + 16 * (ks + vs) + exchange
+
+    assert fa.fused_backward_smem_bytes(d, dv, 4) == 4 * words(stages) == nbytes, site
+    assert nbytes <= H100_SMEM_OPTIN
+    if stages == 1:  # two stages of q / dO tiles would not fit
+        assert 4 * words(2) > H100_SMEM_OPTIN
+    assert fa.backward_plan(d, dv, torch.float32, H100_SMEM_OPTIN) == "fused"
 
 
 def test_fused_true_raises_where_the_fused_backward_cannot_run():

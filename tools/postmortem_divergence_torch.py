@@ -47,8 +47,9 @@ runner (``--epoch_scan``, ``train/epoch_scan.py``) replays eagerly; the
 captured step is held to the eager one only within five eager steps' spread
 (PERF.md), so on the GPU such a replay follows the run within that spread,
 not bit for bit. On the GPU no two runs of a step are bit-equal anyway:
-kernel #2 adds dQ with atomics. Judge a GPU replay against two of the
-driver's own runs of the same steps from the same checkpoint.
+kernel #2 adds dQ with atomics. Judge a GPU replay against several of
+the driver's own runs of the same steps from the same checkpoint
+(``chip_smoke.py`` holds it within the largest gap between ten of them).
 
 IMPORTANT: pass the run's exact data flags, ``--augment_factor`` in
 particular (the parser's default is 5): a mismatch changes the epoch length

@@ -33,7 +33,7 @@ sys.path.insert(0, REPO)
 # kernels of #1, #3 and #4 with head-major strides
 PORT_KERNELS = (
     ("flash_attention_fwd #1/#5", r"flash_fwd_(tc|f32)_kernel"),
-    ("flash_attention_bwd #2", r"flash_bwd_(tc_)?kernel"),
+    ("flash_attention_bwd #2", r"flash_bwd_(tc|f32)_kernel"),
     ("flash_attention_dq #3/#6", r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<false|ILb0E)|flash_dq_kernel"),
     ("flash_attention_dkv #4/#7", r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<true|ILb1E)|flash_dkv_kernel"),
     ("fused_auction #9", r"fused_auction_kernel"),
