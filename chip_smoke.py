@@ -36,16 +36,15 @@ Phases (any failure exits non-zero and prints no result):
      cells plus the wide cross-attention's (device times from CUDA-graph
      replay); times of the kernels, their plain versions and
      F.scaled_dot_product_attention (a yardstick, never on the path), and
-     the bound from bytes and operations. #1 and #2 run on the tensor
-     cores in both dtypes (float32 in 3xTF32), #3 and #4 in bfloat16 (their
-     float32 on the CUDA cores): for the step cells of both widths, the
-     device times (CUDA-graph replay) of #1 and of #2, or #3 and #4 where
+     the bound from bytes and operations. #1-#4 run on the tensor cores
+     in both dtypes (float32 in 3xTF32): for the step cells of both widths,
+     the device times (CUDA-graph replay) of #1 and of #2, or #3 and #4 where
      the plan runs them, at dropout 0 and 0.3 side by side, beside their
      eager times, their plain versions', their bounds, SDPA's and the
      replaced CUDA-core kernels' recorded times (PERF.md; not measured
      here), in bfloat16 and in float32 (its #2 at hidden 256 and at hidden
-     512's self-attention, #3 and #4 at hidden 512's cross-attention); #3's
-     and #4's errors at both cross sites; and #2's
+     512's self-attention, #3 and #4 at hidden 512's and hidden 1024's
+     cross-attention); #3's and #4's errors at every cross site; and #2's
      gradient errors with its hi / lo bf16 pairs and with one bf16 for dS
      and P keep (a copy of #2 built for that measurement only, with
      -DODTT_FLASH_BWD_ONE_BF16);
@@ -57,14 +56,19 @@ Phases (any failure exits non-zero and prints no result):
      and the plan's backward: #2 at d 128 / 256, the two-pass #3 + #4, wide
      class, past 1024) and head-major (#5-#7, bit-equal to the packed
      launches), against the plain versions; the bf16 dropout-0.3 step cells
-     timed with SDPA (or its refusal) and the bound, the others checked
-     only; hidden 1024's float32 B=1 request cells on the device;
+     and the float32 dropout-0.3 cross cell (the wide 3xTF32 #3 / #4) timed
+     with SDPA (or its refusal) and the bound, the others checked only; the
+     float32 two-pass plans of these sites as the library exports them equal
+     to the Python mirror's; hidden 1024's float32 B=1 request cells on the
+     device;
   3a. the head-major (B, h, S, d) kernels #5 (forward), #6 (dQ) and #7
      (dK / dV) against their plain versions at the call-site shapes of both
      widths (B=16, float32 and bfloat16, dropout 0 and 0.3, masked as on the
      path) and at Sk=7056 (B=1), each bit-equal to #1 / #3 / #4 on the same
      logical inputs in the packed layout; times beside the plain versions,
-     SDPA (which takes this layout) and the bound;
+     SDPA (which takes this layout) and the bound, and float32 #6's and
+     #7's device times (CUDA-graph replay) at dropout 0 and 0.3 beside the
+     replaced CUDA-core kernels' recorded eager times;
   3b. the head-major public API, flash_attention and
      flash_attention_trainable, on (B, S, h, d) views at those shapes:
      exactly one #5 launch a call and one #6 and #7 a backward;
@@ -103,9 +107,12 @@ Phases (any failure exits non-zero and prints no result):
      events around its parts; the same with --hidden_dim 512 and with
      --hidden_dim 1024, 18 / 12 / 6 / 6 / 1 launches a step (the
      cross-attention's backward is two-pass; at 1024 its d 2048 head takes
-     the wide class); and train-640-f32, the recipe with --compute_dtype
+     the wide class); train-640-f32, the recipe with --compute_dtype
      float32 at hidden 256 (every attention backward on the 3xTF32 #2, 18 /
-     18 / 0 / 0 / 1 launches a step);
+     18 / 0 / 0 / 1 launches a step); and train-640-wide-f32, the recipe
+     with --hidden_dim 512 --compute_dtype float32 (#2 at the
+     self-attention, the 3xTF32 #3 / #4 at the cross-attention, 18 / 12 / 6
+     / 6 / 1 launches a step);
   6a. the captured step at the three widths on device-cached batches: the epoch
      runner takes step 0 (eager warm-up, CUDA-graph capture); at each of
      steps 1-4, from one cloned state, five eager steps (the first once
@@ -119,7 +126,7 @@ Phases (any failure exits non-zero and prints no result):
      idle share, the launches a step read from the trace (18 / 18 / 0 /
      0 / 1 and 18 / 12 / 6 / 6 / 1 of #1 / #2 / #3 / #4 / #9) and each
      kernel's device ms a step; peak memory of each; the same for
-     train-640-f32 with 3 eager samples a step;
+     train-640-f32 and train-640-wide-f32 with 3 eager samples a step;
   6b. the validation path: train.train.main with the production recipe, a
      32-image validation split, --ema_decay 0.999, --coco_eval and
      checkpoints for 4 steps: exactly 18 / 18 / 0 / 0 / 1 launches of #1 /
@@ -279,10 +286,10 @@ Phases (any failure exits non-zero and prints no result):
      launches a batch.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
-their device times at dropout 0 and 0.3, #2's split errors and #3's and
-#4's errors at both cross sites; #1's serving entry with its float32 B=1
-sites; #8's and #9's rounds and bids beside the plain version's); the last
-line is {"ok": true, "device": {...}}.
+their device times at dropout 0 and 0.3, #2's split errors, #3's and #4's
+errors at the cross sites and each kernel's float32 entry; #1's serving
+entry with its float32 B=1 sites; #8's and #9's rounds and bids beside the
+plain version's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -385,14 +392,23 @@ CUDA_CORE_RECORDED_MS = {
     "fwd_f32_b1": {"encoder_self": 0.0553, "decoder_self": 0.0569, "cross_cls_reg": 0.2450},
 }
 # device ms a launch (CUDA graph; B=16, float32, dropout 0.3, masked as on
-# the path) of the CUDA-core float32 #2 that the 3xTF32 kernel replaced, as
-# artifacts/port_f32_bwd_r1/f32_one.py measured it on the parent tree
-# (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W): printed beside this
-# run's times, never measured by this run and never in its kernels line
-CUDA_CORE_F32_RECORDED_DEVICE_MS = {"encoder_self": 1.711, "decoder_self": 3.300, "cross_cls_reg": 3.403,
-                                    "encoder_self_wide": 5.444, "decoder_self_wide": 6.516}
+# the path) of the CUDA-core float32 kernels that the 3xTF32 ones replaced,
+# as artifacts/port_f32_bwd_r1/f32_one.py measured them on the tree before
+# the 3xTF32 #2 (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W): #2
+# at its sites, #3 and #4 at the cross-attentions of hidden 512 and 1024; and
+# eager ms of one launch of the head-major #6 / #7 at the hidden-256 sites
+# (this script on the same card and tree). Printed beside this run's times,
+# never measured by this run and never in its kernels line
+CUDA_CORE_F32_RECORDED_DEVICE_MS = {
+    "bwd": {"encoder_self": 1.711, "decoder_self": 3.300, "cross_cls_reg": 3.403, "encoder_self_wide": 5.444,
+            "decoder_self_wide": 6.516},
+    "dq": {"cross_cls_reg_wide": 8.817, "cross_cls_reg_h1024": 18.79},
+    "dkv": {"cross_cls_reg_wide": 11.95, "cross_cls_reg_h1024": 26.86},
+}
+CUDA_CORE_F32_RECORDED_UNPACKED_MS = {"dq": {"encoder_self": 1.4806, "decoder_self": 0.7949, "cross_cls_reg": 2.1568},
+                                      "dkv": {"encoder_self": 1.2457, "decoder_self": 1.1340, "cross_cls_reg": 5.9123}}
 F32_ARGS = ["--compute_dtype", "float32"]
-F32_EAGER_RUNS = 3  # train-640-f32's eager samples a captured step is held against
+F32_EAGER_RUNS = 3  # the float32 cells' eager samples a captured step is held against
 # the auction kernels before their compacted-column solver, eager ms of the
 # wrapper's call (PERF.md; this script, NVIDIA H100 80GB HBM3, 700.00 W):
 # printed beside this run's times, never measured by this run
@@ -820,22 +836,37 @@ def phase_beyond_1024(torch, seed):
     the packed launches), against the plain versions; B=16, Sk 7056 at B=1;
     a fully masked batch entry in the float32 dropout-0 cell of hidden
     1024's cross-attention. Timed (eager calls): the training step's
-    bfloat16 dropout-0.3 cells of the hidden-1024 sites and the head-major
-    cross cell; the rest is checked only. Then a hidden-1024 request's
-    float32 B=1 forward cells (device time). Returns (packed rows, head-major
-    rows)."""
+    bfloat16 dropout-0.3 cells of the hidden-1024 sites, the float32
+    dropout-0.3 cell of its cross-attention (the wide 3xTF32 #3 / #4) and
+    the head-major cross cell; the rest is checked only. Each site's float32
+    two-pass plans as the library exports them equal to the Python mirror's.
+    Then a hidden-1024 request's float32 B=1 forward cells (device time).
+    Returns (packed rows, head-major rows)."""
+    from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+
+    lib, out = fa.TWO_PASS_LIBRARY.library(), (ctypes.c_longlong * 5)()
+    f32_plans = {}
+    for name, _, _, _, d, dv, _ in H1024_SITES + BEYOND_SITES:
+        for dq in (1, 0):
+            p = fa.two_pass_plan(d, dv, torch.float32, bool(dq))
+            mirror = (fa._TWO_PASS_KERNELS.index(p.kernel), *p[1:])
+            if lib.odtt_flash_two_pass_plan(0, dq, d, dv, out) != 0 or tuple(out[:5]) != mirror:
+                raise AssertionError(f"float32 two-pass plan at {name} dq={dq}: library {tuple(out[:5])}, "
+                                     f"mirror {mirror}")
+            f32_plans[f"{name} {'dq' if dq else 'dkv'}"] = p
+    log(f"float32 two-pass plans past 1024 (the library's, equal to the mirror's): {f32_plans}")
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     rows, unpacked = [], []
     for site in H1024_SITES + BEYOND_SITES + [H1024_LONG]:
         b = 1 if site is H1024_LONG else TRAIN_B
         for dtype in (torch.float32, torch.bfloat16):
             for rate in (0.0, RATE):
-                step_cell = site in H1024_SITES and dtype is torch.bfloat16 and rate == RATE
+                step_cell = rate == RATE and (site in H1024_SITES and dtype is torch.bfloat16 or site is H1024_CROSS)
                 full = site is H1024_CROSS and dtype is torch.float32 and not rate
                 rows.append(flash_cell(torch, gen, site, b, dtype, rate, site[-1], "plan", False, full,
                                        timed=step_cell))
                 unpacked.append(unpacked_cell(torch, gen, site, b, dtype, rate,
-                                              timed=step_cell and site is H1024_CROSS))
+                                              timed=step_cell and site is H1024_CROSS and dtype is torch.bfloat16))
     for site in H1024_SITES:  # a hidden-1024 request's launches
         rows.append(flash_cell(torch, gen, site, 1, torch.float32, 0.0, site[-1], None, True))
     failed = [r for r in rows + unpacked if not r["ok"]]
@@ -882,7 +913,7 @@ def phase_dropout_share(torch, seed, flash_rows, dtype=None, sites=None):
                      and r["rate"] == RATE and r.get("bwd_plan") in ("fused", "two_pass"))
         def recorded(kind):
             if dtype is torch.float32:
-                ms = CUDA_CORE_F32_RECORDED_DEVICE_MS.get(name) if kind == "bwd" else None
+                ms = CUDA_CORE_F32_RECORDED_DEVICE_MS.get(kind, {}).get(name)
                 return "" if ms is None else f"; CUDA-core kernel's recorded device time {ms:.4f}, not this run"
             ms = CUDA_CORE_RECORDED_MS[kind].get(name)
             return "" if ms is None else f"; CUDA-core kernel's recorded eager time {ms:.4f}, not this run"
@@ -957,7 +988,8 @@ def unpacked_cell(torch, gen, site, b, dtype, rate, timed=True):
     against the packed kernels (#1, #3, #4) on the same logical inputs
     transposed to (B, S, h*d): the same launches on other strides, so out,
     lse, dQ, dK and dV must be bit-equal. Masked as on the path. ``timed``
-    False checks the cell without timing it."""
+    False checks the cell without timing it; timed float32 cells also take
+    #6's and #7's device time (CUDA-graph replay)."""
     import torch.nn.functional as F
 
     from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
@@ -1022,6 +1054,8 @@ def unpacked_cell(torch, gen, site, b, dtype, rate, timed=True):
         for kind, (kernel, reference) in kernels.items():
             row[f"{kind}_ms"] = time_cuda(torch, lambda: kernel(*args))
             row[f"{kind}_plain_ms"] = time_cuda(torch, lambda: reference(*args))
+            if dtype is torch.float32:  # the 3xTF32 kernels on the device alone (CUDA-graph replay)
+                row[f"{kind}_device_ms"] = device_ms(torch, lambda: kernel(*args))
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
         row["bwd_library_ms"], row["bwd_library_note"] = sdpa_ms(torch, time_cuda, lambda: F.scaled_dot_product_attention(
             qg, kg, vg, attn_mask=bias, dropout_p=rate).backward(dout))
@@ -2160,8 +2194,8 @@ def phase_whole_model(torch, service, variables, images):
 # counts (#1, #2, #3, #4, #9, #8): demangled template names, or mangled ones
 # (ILb0E / ILb1E: the two-pass kernel's DKV = false / true)
 KERNEL_NAME_PATTERNS = [r"flash_fwd_(tc|f32)_kernel", r"flash_bwd_(tc|f32)_kernel",
-                        r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<false|ILb0E)|flash_dq_kernel",
-                        r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<true|ILb1E)|flash_dkv_kernel",
+                        r"flash_two_pass_(tc|f32)(_wide)?_kernel(<false|ILb0E)",
+                        r"flash_two_pass_(tc|f32)(_wide)?_kernel(<true|ILb1E)",
                         r"fused_auction_kernel", r"(?<!fused_)auction_kernel"]
 
 
@@ -4465,7 +4499,8 @@ def main(argv=None) -> int:
         flash_rows = phase_flash(torch, args.seed)
         beyond_rows, beyond_unpacked = phase_beyond_1024(torch, args.seed)
         shares = phase_dropout_share(torch, args.seed, flash_rows + beyond_rows)
-        f32_shares = phase_dropout_share(torch, args.seed, flash_rows, torch.float32, PATH_SITES + WIDE_SITES)
+        f32_shares = phase_dropout_share(torch, args.seed, flash_rows + beyond_rows, torch.float32,
+                                         PATH_SITES + WIDE_SITES + [H1024_CROSS])
         seed_checks = phase_seed_replay(torch, args.seed)
         split_rows = phase_split(torch, args.seed, one_bf16)
         unpacked_rows = phase_unpacked(torch, args.seed)
@@ -4477,7 +4512,9 @@ def main(argv=None) -> int:
         for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0, 0, 0, 0)),
                                                 ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0, 0, 0, 0)),
                                                 ("hidden 1024", H1024_ARGS, H1024_PER_STEP),
-                                                ("hidden 256 float32", F32_ARGS, (18, 18, 0, 0, 1, 0, 0, 0, 0))):
+                                                ("hidden 256 float32", F32_ARGS, (18, 18, 0, 0, 1, 0, 0, 0, 0)),
+                                                ("hidden 512 float32", WIDE_ARGS + F32_ARGS,
+                                                 (18, 12, 6, 6, 1, 0, 0, 0, 0))):
             state, counts, step_ms = phase_train(torch, kernels, args.seed, extra, per_step_launches, label)
             parts = step_parts(torch, state, train_batch(torch, TRAIN_B, args.seed), recipe_train_config(extra))
             log(f"train {label}: where a step of make_destr_train_step goes, ms (CUDA events, median of 3) "
@@ -4492,7 +4529,8 @@ def main(argv=None) -> int:
                 ("hidden 256", [], (18, 18, 0, 0, 1, 0), EAGER_RUNS),
                 ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0), EAGER_RUNS),
                 ("hidden 1024", H1024_ARGS, H1024_PER_STEP[:6], 3),
-                ("hidden 256 float32", F32_ARGS, (18, 18, 0, 0, 1, 0), F32_EAGER_RUNS)):
+                ("hidden 256 float32", F32_ARGS, (18, 18, 0, 0, 1, 0), F32_EAGER_RUNS),
+                ("hidden 512 float32", WIDE_ARGS + F32_ARGS, (18, 12, 6, 6, 1, 0), F32_EAGER_RUNS)):
             captured[label] = phase_captured_train(torch, kernels, destr_capture_setup(torch, args.seed, extra),
                                                    per_step_launches, label, eager_runs=eager_runs)
             torch.cuda.empty_cache()  # the runner's graph pool
@@ -4823,46 +4861,96 @@ def main(argv=None) -> int:
             "hidden_1024_cross": {**sums(h1024_unpacked, kind + "_"), "library_ms": h1024_unpacked[0]["bwd_library_ms"],
                                   "max_abs_err": max(r["bwd_abs_err"][n] for r in beyond_unpacked for n in names)},
         })
-    # float32: train-640-f32 (hidden 256, every backward on the 3xTF32 #2)
-    # and the kernel cells of both widths (#3 / #4 at hidden 512's cross)
+    # float32: train-640-f32 (hidden 256, every backward on the 3xTF32 #2),
+    # train-640-wide-f32 (hidden 512: #2 at the self-attention, the 3xTF32
+    # #3 / #4 at the cross-attention) and the kernel cells of hidden 256, 512
+    # and 1024's cross-attention (the wide 3xTF32 #3 / #4)
     f32_counts, f32_step_ms = runs["hidden 256 float32"]
     f32_cap = captured["hidden 256 float32"]
+    f32w_counts, f32w_step_ms = runs["hidden 512 float32"]
+    f32w_cap = captured["hidden 512 float32"]
     f32_rows = [r for r in flash_rows if r["b"] == TRAIN_B and r["dtype"] == "float32" and r["rate"] == RATE
                 and r.get("bwd_plan") in ("fused", "two_pass")]
     f32_path = [r for r in f32_rows if r["site"] in {s[0] for s in PATH_SITES}]
     f32_wide_fused = [r for r in f32_rows if r["site"] in {s[0] for s in WIDE_SITES} and r["bwd_plan"] == "fused"]
     f32_wide_cross = [r for r in f32_rows if r["site"] == WIDE_CROSS[0]]
+    f32_h1024_cross = [r for r in f32_rows if r["site"] == H1024_CROSS[0]]
     f32_share_path = [r for r in f32_shares if r["site"] in {s[0] for s in PATH_SITES}]
     f32_share_wide = [r for r in f32_shares if r["site"] in {s[0] for s in WIDE_SITES}]
-    f32_per = "B=16, float32 (3xTF32 for #1 and #2, CUDA cores for #3 and #4), dropout 0.3, eager calls; " \
-              "device_ms_rate_* the same launches from CUDA-graph replay; " + sdpa
+    f32_share_h1024 = [r for r in f32_shares if r["site"] == H1024_CROSS[0]]
+    f32_per = "B=16, float32 (3xTF32 on the tensor cores), dropout 0.3, eager calls; device_ms_rate_* the same " \
+              "launches from CUDA-graph replay; " + sdpa
     entries[0]["float32"] = {"launches": f32_counts[0], "captured_device_ms": f32_cap["captured_kernel_ms"][0],
                              "per": "train-640-f32: 4 steps (18 a step); captured_device_ms a replayed step's 18 "
-                                    "launches from a trace of 3"}
+                                    "launches from a trace of 3",
+                             "hidden_512": {"launches": f32w_counts[0],
+                                            "captured_device_ms": f32w_cap["captured_kernel_ms"][0],
+                                            "per": "train-640-wide-f32, the same"}}
     entries[1]["float32"] = {
         "launches": f32_counts[1], "max_abs_err": abs_err(f32_path, "fused"), **timed(f32_path, "bwd"),
         "library_ms": per_step(f32_path, "bwd_library_ms"), **device_rates(f32_share_path, "bwd"),
         "captured_device_ms": f32_cap["captured_kernel_ms"][1], "eager_device_ms": f32_cap["eager_kernel_ms"][1],
         "per": "train-640-f32 step: 18 launches (3 call sites x 6 blocks), " + f32_per + "; captured_device_ms / "
                "eager_device_ms a step's 18 launches from traces of 3 steps",
-        "hidden_512": {"max_abs_err": abs_err(f32_wide_fused, "fused"), **timed(f32_wide_fused, "bwd"),
-                       "library_ms": per_step(f32_wide_fused, "bwd_library_ms"),
-                       **device_rates(f32_share_wide, "bwd"), "per": "12 launches: encoder and decoder self-attention"}}
-    for entry, kind, names in ((entries[2], "dq", ("dq",)), (entries[3], "dkv", ("dk", "dv"))):
-        entry["float32"] = {"max_abs_err": abs_err(f32_wide_cross, "two_pass", names), **timed(f32_wide_cross, kind),
-                            "library_ms": per_step(f32_wide_cross, "bwd_library_ms"),
-                            **device_rates(f32_share_wide, kind),
-                            "per": "a hidden-512 step's 6 launches at the merged cross-attention (d 1024, dv 512), "
-                                   + f32_per + "; no float32 cell trains hidden 512"}
+        "hidden_512": {"launches": f32w_counts[1], "max_abs_err": abs_err(f32_wide_fused, "fused"),
+                       **timed(f32_wide_fused, "bwd"), "library_ms": per_step(f32_wide_fused, "bwd_library_ms"),
+                       **device_rates(f32_share_wide, "bwd"), "captured_device_ms": f32w_cap["captured_kernel_ms"][1],
+                       "eager_device_ms": f32w_cap["eager_kernel_ms"][1],
+                       "per": "train-640-wide-f32: 12 launches a step (encoder and decoder self-attention)"}}
+    for entry, index, kind, names in ((entries[2], 2, "dq", ("dq",)), (entries[3], 3, "dkv", ("dk", "dv"))):
+        entry["float32"] = {
+            "launches": f32w_counts[index], "max_abs_err": abs_err(f32_wide_cross + f32_h1024_cross, "two_pass", names),
+            **timed(f32_wide_cross, kind), "library_ms": per_step(f32_wide_cross, "bwd_library_ms"),
+            **device_rates(f32_share_wide, kind), "captured_device_ms": f32w_cap["captured_kernel_ms"][index],
+            "eager_device_ms": f32w_cap["eager_kernel_ms"][index],
+            "rel_err": {f"{r['site']} B={r['b']} rate {r['rate']}" + (" (entry 0 fully masked)"
+                                                                        if r["fully_masked_entry"] else ""):
+                        {n: r["bwd_rel_err"][f"two_pass {n}"] for n in names}
+                        for r in flash_rows if r["dtype"] == "float32" and r.get("bwd_plan") == "two_pass"},
+            "per": "train-640-wide-f32 step: 6 launches at the merged cross-attention (d 1024, dv 512; "
+                   "flash_two_pass_f32_kernel), " + f32_per + "; captured_device_ms / eager_device_ms a step's 6 "
+                   "launches from traces of 3 steps; rel_err: every float32 cell of the two-pass kernels",
+            "hidden_1024": {**timed(f32_h1024_cross, kind), "library_ms": per_step(f32_h1024_cross, "bwd_library_ms"),
+                            **device_rates(f32_share_h1024, kind),
+                            "per": "6 launches at hidden 1024's cross-attention (d 2048, dv 1024; "
+                                   "flash_two_pass_f32_wide_kernel), " + f32_per}}
+    f32_unpacked = unpacked_rows_of(unpacked_rows, PATH_SITES, "float32")
+    f32_unpacked_0 = [r for r in unpacked_rows if r["site"] in {s[0] for s in PATH_SITES} and r["b"] == TRAIN_B
+                      and r["dtype"] == "float32" and r["rate"] == 0.0]
     for entry, kind in ((entries[-2], "dq"), (entries[-1], "dkv")):
-        f32_unpacked = unpacked_rows_of(unpacked_rows, PATH_SITES, "float32")
         entry["float32"] = {**sums(f32_unpacked, kind + "_"),
+                            "device_ms_rate_0.0": sum(r[kind + "_device_ms"] for r in f32_unpacked_0),
+                            f"device_ms_rate_{RATE}": sum(r[kind + "_device_ms"] for r in f32_unpacked),
                             "library_ms": sum(r["bwd_library_ms"] for r in f32_unpacked),
                             "per": "one launch at each of the 3 hidden-256 call-site shapes, (B, h, S, d), B=16, "
-                                   "float32 (CUDA cores), dropout 0.3, eager; " + sdpa}
+                                   "float32 (3xTF32), dropout 0.3, eager; device_ms_rate_* the same launches from "
+                                   "CUDA-graph replay; " + sdpa}
+        log(f"float32 #{6 if kind == 'dq' else 7} (head-major) ms a launch at the hidden-256 sites: "
+            + "; ".join(f"{r['site']} device {r0[kind + '_device_ms']:.4f} / {r[kind + '_device_ms']:.4f} at dropout "
+                        f"0 / {RATE} (eager {r[kind + '_ms']:.4f}, plain {r[kind + '_plain_ms']:.4f}, bound "
+                        f"{r[kind + '_bound_ms']:.4f}, SDPA forward + backward {_ms_or_note(r, 'bwd_library')}; the "
+                        f"CUDA-core kernel's recorded eager {CUDA_CORE_F32_RECORDED_UNPACKED_MS[kind][r['site']]:.4f}, "
+                        f"not this run)"
+                        for r0, r in zip(f32_unpacked_0, f32_unpacked)))
+    for label, cells, shares_of, counts_of, cap in (
+            ("train-640-wide-f32 (hidden 512)", f32_wide_cross,
+             [r for r in f32_share_wide if r["site"] == WIDE_CROSS[0]], f32w_counts, f32w_cap),
+            ("hidden 1024's cross-attention (the wide class)", f32_h1024_cross, f32_share_h1024, None, None)):
+        site = cells[0]["site"]
+        log(f"float32 #3 / #4 (3xTF32), {label}, 6 launches a step: device ms at dropout 0 / {RATE} (CUDA graph) "
+            + "; ".join(f"#{3 if kind == 'dq' else 4} {per_step(shares_of, f'{kind}_ms_0.0'):.4f} / "
+                        f"{per_step(shares_of, f'{kind}_ms_{RATE}'):.4f} (eager {per_step(cells, kind + '_ms'):.4f}, "
+                        f"bound {per_step(cells, kind + '_bound_ms'):.4f}; the CUDA-core kernel's recorded "
+                        f"{BLOCKS * CUDA_CORE_F32_RECORDED_DEVICE_MS[kind][site]:.4f} at {RATE}, not this run)"
+                        for kind in ("dq", "dkv"))
+            + f"; SDPA forward + backward {per_step(cells, 'bwd_library_ms')}"
+            + ("" if cap is None else
+               f"; a replayed step's #3 / #4 {cap['captured_kernel_ms'][2]:.4f} / {cap['captured_kernel_ms'][3]:.4f} "
+               f"(trace); the step captured {cap['captured_ms']:.2f} ms (eager {cap['eager_ms']:.2f}, idle "
+               f"{cap['captured_idle_share']:.4f}), launches {[c // TRAIN_STEPS for c in counts_of]} a step"))
     log(f"float32: #2 a train-640-f32 step (18 launches) device ms {entries[1]['float32']['device_ms_rate_0.0']:.4f} / "
         f"{entries[1]['float32'][f'device_ms_rate_{RATE}']:.4f} at dropout 0 / {RATE} (CUDA graph; the CUDA-core "
-        f"kernel's recorded {BLOCKS * sum(CUDA_CORE_F32_RECORDED_DEVICE_MS[s[0]] for s in PATH_SITES):.4f} at "
+        f"kernel's recorded {BLOCKS * sum(CUDA_CORE_F32_RECORDED_DEVICE_MS['bwd'][s[0]] for s in PATH_SITES):.4f} at "
         f"{RATE}, not this run), {f32_cap['captured_kernel_ms'][1]:.4f} a replayed step (trace), bound "
         f"{entries[1]['float32']['bound_ms']:.4f}, SDPA forward + backward {entries[1]['float32']['library_ms']}; "
         f"the step captured {f32_cap['captured_ms']:.2f} ms (eager {f32_cap['eager_ms']:.2f}, idle "

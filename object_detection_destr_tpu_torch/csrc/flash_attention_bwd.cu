@@ -106,7 +106,6 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // ---- float32 on the tensor cores, in 3xTF32
 constexpr int kF32Keys = 16;  // keys a block: one m16 tile
 constexpr int kF32Rows = 32;  // query rows a tile: 4 n-tiles of 8
-constexpr int kF32Chunk = 64;         // columns of a chunk of S's sum
 constexpr int kSmemOptin = 232448;    // an H100 block's opt-in shared memory
 constexpr int kF32Exchange = 8 * kWarp * 4;  // floats: 8 warps' partial S / dP rows
 
@@ -142,70 +141,6 @@ struct F32Layout {
     total = exchange + (warps == 8 ? sizeof(float) * kF32Exchange : 0);
   }
 };
-
-// c = A B^T in 3xTF32 for A's 16 rows (stride sa) and B's 8 rows (stride
-// sb), row-major over `width` columns (zero-padded to a multiple of 8; none
-// when width <= 0); g, t as in tensor_core.cuh. k slot t of a k-step holds
-// column 2t and slot t + 4 column 2t + 1, so each thread's operand values
-// are float2 reads. Each 64-column chunk sums big x big, big x small and
-// small x big in three accumulators (8 mma each), added in IEEE float32.
-__device__ __forceinline__ void mma_abt_3xtf32(float (&c)[4], const float* a, int sa, const float* b, int sb,
-                                               int width, int g, int t) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-  const float* a0 = a + g * sa + 2 * t;
-  const float* a1 = a0 + 8 * sa;
-  const float* b0 = b + g * sb + 2 * t;
-  for (int c0 = 0; c0 < width; c0 += kF32Chunk) {
-    const int steps = (min(kF32Chunk, width - c0) + 7) / 8;
-    float part[3][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < kF32Chunk / 8; ++kk) {
-      if (kk >= steps) break;
-      const int col = c0 + kk * 8;
-      const float2 lo = *reinterpret_cast<const float2*>(a0 + col);
-      const float2 hi = *reinterpret_cast<const float2*>(a1 + col);
-      const float2 bv = *reinterpret_cast<const float2*>(b0 + col);
-      uint32_t ab[4], as[4], bb0, bb1, bs0, bs1;
-      tc::split_tf32_trunc(lo.x, ab[0], as[0]);
-      tc::split_tf32_trunc(hi.x, ab[1], as[1]);
-      tc::split_tf32_trunc(lo.y, ab[2], as[2]);
-      tc::split_tf32_trunc(hi.y, ab[3], as[3]);
-      tc::split_tf32_trunc(bv.x, bb0, bs0);
-      tc::split_tf32_trunc(bv.y, bb1, bs1);
-      tc::mma_tf32(part[0], ab, bb0, bb1);
-      tc::mma_tf32(part[1], ab, bs0, bs1);
-      tc::mma_tf32(part[2], as, bb0, bb1);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += part[0][e] + (part[1][e] + part[2][e]);
-  }
-}
-
-// The A fragment of one k-step (tf32 big and small halves) from four
-// float32 values.
-__device__ __forceinline__ void split_a(uint32_t (&big)[4], uint32_t (&small)[4], float x0, float x1, float x2,
-                                        float x3) {
-  tc::split_tf32_trunc(x0, big[0], small[0]);
-  tc::split_tf32_trunc(x1, big[1], small[1]);
-  tc::split_tf32_trunc(x2, big[2], small[2]);
-  tc::split_tf32_trunc(x3, big[3], small[3]);
-}
-
-// c[n] += A B[:, 8n..8n+7] in 3xTF32 for the n-tiles below `width`: A's big
-// and small fragments given, B's k-step rows t and t + 4 at b[0] and b[4 sb]
-// (column g of each n-tile; b points at column g of n-tile 0).
-template <int kNt>
-__device__ __forceinline__ void mma_row_3xtf32(float (&c)[kNt][4], const uint32_t (&big)[4],
-                                               const uint32_t (&small)[4], const float* b, int sb, int width) {
-#pragma unroll
-  for (int n = 0; n < kNt; ++n) {
-    if (n * 8 >= width) break;
-    uint32_t bb0, bb1, bs0, bs1;
-    tc::split_tf32_trunc(b[8 * n], bb0, bs0);
-    tc::split_tf32_trunc(b[4 * sb + 8 * n], bb1, bs1);
-    tc::mma_3xtf32(c[n], big, small, bb0, bb1, bs0, bs1);
-  }
-}
 
 // W warps (F32Layout's), gradient jobs of CW columns.
 template <int W, int CW>
@@ -289,10 +224,10 @@ __global__ void __launch_bounds__(W * kWarp) flash_bwd_f32_kernel(
     const int qb = (warp % 4) * 8, half = warp / 4;
     const int s_mid = W == 8 ? (d + 15) / 16 * 8 : d, p_mid = W == 8 ? (dvw + 15) / 16 * 8 : dvw;
     float st[4], dpt[4];
-    mma_abt_3xtf32(st, k_s + half * s_mid, L.ks, qt_s + qb * L.ks + half * s_mid, L.ks,
-                   half ? d - s_mid : s_mid, g, t);
-    mma_abt_3xtf32(dpt, v_s + half * p_mid, L.vs, dot_s + qb * L.vs + half * p_mid, L.vs,
-                   half ? dvw - p_mid : p_mid, g, t);
+    tc::mma_abt_3xtf32(st, k_s + half * s_mid, L.ks, qt_s + qb * L.ks + half * s_mid, L.ks,
+                       half ? d - s_mid : s_mid, g, t);
+    tc::mma_abt_3xtf32(dpt, v_s + half * p_mid, L.vs, dot_s + qb * L.vs + half * p_mid, L.vs,
+                       half ? dvw - p_mid : p_mid, g, t);
     if (W == 8) {
       float* mine = exchange + (warp * kWarp + lane) * 4;
       const int give = 2 * (1 - half);  // the other half's key rows
@@ -349,8 +284,8 @@ __global__ void __launch_bounds__(W * kWarp) flash_bwd_f32_kernel(
       for (int kq = 0; kq < kF32Rows / 8; ++kq) {
         uint32_t big[4], small[4];
         const float* ak = a + kq * 8;
-        split_a(big, small, ak[0], ak[8 * L.ps], ak[4], ak[8 * L.ps + 4]);
-        mma_row_3xtf32<kNt>(c, big, small, bm + kq * 8 * sb, sb, width);
+        tc::split_a(big, small, ak[0], ak[8 * L.ps], ak[4], ak[8 * L.ps + 4]);
+        tc::mma_row_3xtf32<kNt>(c, big, small, bm + kq * 8 * sb, sb, width);
       }
       float* acc = (is_k ? acc_k : acc_v) + g * sb + col0 + 2 * t;
 #pragma unroll
@@ -371,8 +306,8 @@ __global__ void __launch_bounds__(W * kWarp) flash_bwd_f32_kernel(
       for (int kk = 0; kk < kF32Keys / 8; ++kk) {
         uint32_t big[4], small[4];
         const float* a = ds_s + (kk * 8 + t) * L.ps + qg * 16 + g;  // A[query][key] = dS[key][query]
-        split_a(big, small, a[0], a[8], a[4 * L.ps], a[4 * L.ps + 8]);
-        mma_row_3xtf32<kNt>(c, big, small, k_s + (kk * 8 + t) * L.ks + col0 + g, L.ks, d - col0);
+        tc::split_a(big, small, a[0], a[8], a[4 * L.ps], a[4 * L.ps + 8]);
+        tc::mma_row_3xtf32<kNt>(c, big, small, k_s + (kk * 8 + t) * L.ks + col0 + g, L.ks, d - col0);
       }
 #pragma unroll
       for (int n = 0; n < kNt; ++n)

@@ -27,14 +27,16 @@
 // order of summation that depends on scheduling: both layouts give the
 // same bits.
 //
-// Two kernels compute it, chosen by the operand dtype (no fallback between
-// them: a bfloat16 call always runs the tensor-core kernel).
+// Four tensor-core kernels compute it, chosen by the operand dtype and the
+// head widths (two_pass_plan; no fallback between them or to the plain
+// version): in each dtype one whose block holds all of d + dv, and a wide
+// class past it that splits the gradient's columns across grid.y.
 //
 // bfloat16, flash_two_pass_tc_kernel (both passes, one template). What bounds
 // it on this card: at the wide cross-attention (B 16, Sq 600, Sk 400, one
 // head, d 1024, dv 512) a pass needs 20-24 GFLOP of bf16 tensor-core work
 // and moves about 79 MB, about 0.024 ms either way; the CUDA-core kernels
-// below spent 390-530x that on float32 FMAs and warp shuffles. Why two
+// it replaced spent 390-530x that on float32 FMAs and warp shuffles. Why two
 // passes: the hidden-512 cross-attention's float32 dK / dV accumulators (32
 // keys x 1536 columns, 196 KB) do not fit beside its K / V tile in the 227 KB
 // a block can have (#2's layout). The design, the same for both passes with
@@ -77,26 +79,44 @@
 // run flash_two_pass_tc_wide_kernel, which splits the gradient's columns
 // across grid.y (its comment says why and what it costs).
 //
-// float32, flash_dq_kernel / flash_dkv_kernel (the CUDA-core kernels; the
-// tensor-core path for float32 is later work):
-//   dq kernel: grid (ceil(Sq / rows), h, B), one warp per query row. The
-//     row's q, dO and its dQ accumulator sit in registers (each lane holds
-//     its d/32 and dv/32 slices); 32-key K / V tiles are staged in shared
-//     memory (192 KB at d 1024, dv 512) and read by the block's rows.
-//   dkv kernel: grid (ceil(Sk / 8), h, B), one warp per key. The key's k, v
-//     and its dK / dV accumulators sit in registers; 32-row tiles of q, dO,
-//     lse and delta are staged in shared memory and read by the block's keys.
-// The 32 dot products of a tile are finished by one reduce-scatter
-// (flash_common.cuh), so each lane owns one key (dq) or one query row (dkv).
-// What bounds them on this card: the float32 CUDA-core arithmetic (s and dp
-// are recomputed in both passes), not bytes. Where a 32-row tile of all d +
-// dv columns does not fit a block (d + dv above 1815) or a row a lane (d or
-// dv above 1024), flash_two_pass_f32_wide_kernel stages the tile in
-// 1024-column pieces and splits the gradient's columns across grid.y.
+// float32, flash_two_pass_f32_kernel (3xTF32 on the tensor cores: every
+// product is three mma.sync m16n8k8 tf32 products of the operands' big and
+// small halves, split by truncation as in flash_bwd_f32_kernel of
+// flash_attention_bwd.cu, relative error about 1e-6 against float32). The
+// CUDA-core kernels it replaced (a warp per own row, dot products by
+// reduce-scatters) spent 73x (dq) and 84x (dkv) their bounds at hidden 512's
+// cross-attention on float32 FMAs and shuffles. The bfloat16 kernel's
+// structure with float32's operands, which take twice the bytes:
+//   * a block of 8 warps owns 16 rows; their d- and dv-wide rows sit in
+//     shared memory in float32, split into tf32 halves as fragments are read
+//     (16 x 1536 columns, 99 KB at the wide cross site: as tf32 halves in
+//     registers they would take 192 a thread beside the 96 accumulators; as
+//     float32 fragments, with dK and dV in separate blocks, 96 beside 64,
+//     they spilled and ran 2x slower: artifacts/port_f32_two_pass_r1/design2.py);
+//     the other side's rows stream through a 2-stage cp.async ring of 8 rows
+//     a stage, all columns (another 99 KB; stages of 16 rows would pass the
+//     227 KB a block has at that site), 208 KB in all;
+//   * S and dP of the 16 x 8 tile (one m16n8 tile): warp w sums an eighth of
+//     d's and of dv's k-steps, each 64-column chunk in three fresh
+//     accumulators added in IEEE float32 (tc::mma_abt_3xtf32: the tensor
+//     cores' float32 sums are not round-to-nearest, so mma chains stay
+//     short); the 16 partial tiles meet in shared memory, and 128 threads
+//     each sum one pair's in warp order and turn it into dS and P keep
+//     (pair_grad), kept in float32 in shared memory;
+//   * the gradient's columns go round robin over the warps as 8-column jobs
+//     (dK, then dV columns; or dQ): a job's product over a stage is one
+//     k-step of 8 streamed rows, three mma into fresh registers, added in
+//     IEEE float32 to its accumulators in registers (96 a thread at the wide
+//     cross site: 1536 columns x 16 rows / 256 threads).
+// What bounds it: neither bound; at hidden 512's cross site it runs at 10-12x
+// its operations bound, and with both mma steps switched off 60 % of its
+// time stays (artifacts/port_f32_two_pass_r1/variants.py): each stage's
+// loads, three barriers and the pair step, with one block an SM.
+// Its classes end at d / 8 + dv / 8 = 192 k-steps (24 jobs a warp, hidden
+// 512's cross site); wider heads run flash_two_pass_f32_wide_kernel, the
+// bfloat16 wide kernel's column slices in 3xTF32.
 //
-// two_pass_plan picks the kernel for every pass, dtype and width; at widths
-// up to 1024 it picks the instances this file had before the wide kernels
-// (except float32 d + dv above 1815, which no block could hold).
+// two_pass_plan picks the kernel for every pass, dtype and width.
 
 #include <math.h>
 
@@ -108,7 +128,6 @@ namespace {
 
 using namespace flash;
 
-constexpr int kWarps = 8;  // rows (dq) or keys (dkv) of a block
 constexpr float kFullyMaskedLse = -5e8f;  // below any row with a valid key
 
 struct Params {
@@ -122,8 +141,8 @@ struct Params {
   const long long* seed;  // device memory
   uint32_t drop_threshold;
   float inv_keep;
-  // 16-byte tile loads: float32, of the two staged operands; bfloat16, of
-  // the block's own operands (vec_a) and of the streamed ones (vec_b)
+  // 16-byte tile loads of the block's own operands (vec_a) and of the
+  // streamed ones (vec_b)
   bool vec_a, vec_b;
 };
 
@@ -144,295 +163,6 @@ __device__ __forceinline__ float pair_grad(const Params& a, int state, float dot
     dpk = keep ? dp * a.inv_keep : 0.f;
   }
   return state == 1 ? p * (dpk - delta_i) * a.scale : 0.f;
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(kWarps * kWarp) flash_dq_kernel(Params a) {
-  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* key_state = reinterpret_cast<int*>(smem);  // 1 valid, 0 masked, -1 past Sk
-  T* k_tile = reinterpret_cast<T*>(smem + kHeaderBytes);  // (kTileK, d)
-  T* v_tile = k_tile + kTileK * a.d;                      // (kTileK, dv)
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-
-  const int lane = threadIdx.x % kWarp;
-  const int rows = blockDim.x / kWarp;
-  const int row = blockIdx.x * rows + threadIdx.x / kWarp;
-  const int hh = blockIdx.y;
-  const int bi = blockIdx.z;
-  const bool active = row < a.sq;
-  const uint32_t bh = (uint32_t)(bi * a.num_heads + hh);
-
-  float qreg[P], doreg[P], acc[P];
-  const long qoff = a.sq_.off(bi, hh, active ? row : 0);
-  const long ooff = a.so_.off(bi, hh, active ? row : 0);
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int e = lane + kWarp * i;
-    qreg[i] = (active && e < a.d) ? to_f32(q[qoff + e]) : 0.f;
-    doreg[i] = (active && e < a.dv_) ? to_f32(dout[ooff + e]) : 0.f;
-    acc[i] = 0.f;
-  }
-  const long stat = ((long)bi * a.num_heads + hh) * a.sq + (active ? row : 0);
-  const float lse_i = active ? a.lse[stat] : 0.f;
-  const float delta_i = active ? a.delta[stat] : 0.f;
-
-  for (int t0 = 0; t0 < a.sk; t0 += kTileK) {
-    __syncthreads();  // the previous tile is no longer read
-    const int keys_left = a.sk - t0;
-    load_tile(k_tile, k + a.sk_.off(bi, hh, t0), keys_left, a.d, (long)a.sk_.s, a.vec_a);
-    load_tile(v_tile, v + a.sv_.off(bi, hh, t0), keys_left, a.dv_, (long)a.sv_.s, a.vec_b);
-    if (threadIdx.x < kTileK) {
-      const int key = t0 + threadIdx.x;
-      key_state[threadIdx.x] = key >= a.sk ? -1
-          : (a.key_valid == nullptr ? 1 : (a.key_valid[(long)bi * a.sk + key] != 0));
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    const float dot = tile_dots<T, P>(qreg, k_tile, a.d, lane);
-    const float dp = tile_dots<T, P>(doreg, v_tile, a.dv_, lane);
-    const int state = key_state[lane];
-    float pd, ds = 0.f;
-    if (state >= 0) ds = pair_grad(a, state, dot, dp, lse_i, delta_i, seed, bh, row, t0 + lane, pd);
-    // dQ_i += sum_j ds_ij k_j, this lane's slice of the row
-#pragma unroll
-    for (int j = 0; j < kTileK; ++j) {
-      const float dsj = __shfl_sync(kFull, ds, j);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int e = lane + kWarp * i;
-        if (e < a.d) acc[i] = fmaf(dsj, to_f32(k_tile[j * a.d + e]), acc[i]);
-      }
-    }
-  }
-
-  if (!active) return;
-  T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int e = lane + kWarp * i;
-    if (e < a.d) dq[qoff + e] = from_f32<T>(acc[i]);
-  }
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(kWarps * kWarp) flash_dkv_kernel(Params a) {
-  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* lse_s = reinterpret_cast<float*>(smem);            // (kTileK)
-  float* delta_s = lse_s + kTileK;                          // (kTileK)
-  T* q_tile = reinterpret_cast<T*>(smem + 2 * kHeaderBytes);  // (kTileK, d)
-  T* do_tile = q_tile + kTileK * a.d;                          // (kTileK, dv)
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-
-  const int lane = threadIdx.x % kWarp;
-  const int keys = blockDim.x / kWarp;
-  const int key = blockIdx.x * keys + threadIdx.x / kWarp;
-  const int hh = blockIdx.y;
-  const int bi = blockIdx.z;
-  const bool active = key < a.sk;
-  const uint32_t bh = (uint32_t)(bi * a.num_heads + hh);
-  const int state = !active ? -1
-      : (a.key_valid == nullptr ? 1 : (a.key_valid[(long)bi * a.sk + key] != 0));
-
-  float kreg[P], vreg[P], dk_acc[P], dv_acc[P];
-  const long koff = a.sk_.off(bi, hh, active ? key : 0);
-  const long voff = a.sv_.off(bi, hh, active ? key : 0);
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int e = lane + kWarp * i;
-    kreg[i] = (active && e < a.d) ? to_f32(k[koff + e]) : 0.f;
-    vreg[i] = (active && e < a.dv_) ? to_f32(v[voff + e]) : 0.f;
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-  const long stat0 = ((long)bi * a.num_heads + hh) * a.sq;
-
-  for (int r0 = 0; r0 < a.sq; r0 += kTileK) {
-    __syncthreads();  // the previous tile is no longer read
-    const int rows_left = a.sq - r0;
-    load_tile(q_tile, q + a.sq_.off(bi, hh, r0), rows_left, a.d, (long)a.sq_.s, a.vec_a);
-    load_tile(do_tile, dout + a.so_.off(bi, hh, r0), rows_left, a.dv_, (long)a.so_.s, a.vec_b);
-    if (threadIdx.x < kTileK) {
-      const bool real = (int)threadIdx.x < rows_left;
-      lse_s[threadIdx.x] = real ? a.lse[stat0 + r0 + threadIdx.x] : 0.f;
-      delta_s[threadIdx.x] = real ? a.delta[stat0 + r0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    // lane i: query row r0 + i against this warp's key
-    const float dot = tile_dots<T, P>(kreg, q_tile, a.d, lane);
-    const float dp = tile_dots<T, P>(vreg, do_tile, a.dv_, lane);
-    const int row = r0 + lane;
-    float pd = 0.f, ds = 0.f;
-    if (row < a.sq) ds = pair_grad(a, state, dot, dp, lse_s[lane], delta_s[lane], seed, bh, row, key, pd);
-    // dK_j += sum_i ds_ij q_i and dV_j += sum_i pd_ij dO_i, this lane's slices
-#pragma unroll
-    for (int r = 0; r < kTileK; ++r) {
-      const float dsr = __shfl_sync(kFull, ds, r);
-      const float pdr = __shfl_sync(kFull, pd, r);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int e = lane + kWarp * i;
-        if (e < a.d) dk_acc[i] = fmaf(dsr, to_f32(q_tile[r * a.d + e]), dk_acc[i]);
-        if (e < a.dv_) dv_acc[i] = fmaf(pdr, to_f32(do_tile[r * a.dv_ + e]), dv_acc[i]);
-      }
-    }
-  }
-
-  if (!active) return;
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int e = lane + kWarp * i;
-    if (e < a.d) dk[koff + e] = from_f32<T>(dk_acc[i]);
-    if (e < a.dv_) dv[voff + e] = from_f32<T>(dv_acc[i]);
-  }
-}
-
-template <typename T, int P>
-int launch(Params a, bool dq, cudaStream_t stream) {
-  const dim3 threads(kWarps * kWarp);
-  if (dq) {
-    a.vec_a = aligned16_strided<T>(a.k, a.d, a.sk_);
-    a.vec_b = aligned16_strided<T>(a.v, a.dv_, a.sv_);
-    const dim3 grid((a.sq + kWarps - 1) / kWarps, a.num_heads, a.b);
-    const size_t smem = kHeaderBytes + (size_t)kTileK * (a.d + a.dv_) * sizeof(T);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_dq_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_dq_kernel<T, P><<<grid, threads, smem, stream>>>(a);
-  } else {
-    a.vec_a = aligned16_strided<T>(a.q, a.d, a.sq_);
-    a.vec_b = aligned16_strided<T>(a.dout, a.dv_, a.so_);
-    const dim3 grid((a.sk + kWarps - 1) / kWarps, a.num_heads, a.b);
-    const size_t smem = 2 * kHeaderBytes + (size_t)kTileK * (a.d + a.dv_) * sizeof(T);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_dkv_kernel<T, P><<<grid, threads, smem, stream>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---- float32 on the CUDA cores, the wide class: column slices across grid.y
-constexpr int kF32WideCols = 1024;  // columns of a staged tile and of a gradient slice
-constexpr int kF32WideP = kF32WideCols / kWarp;  // 32 a lane
-
-// Where the float32 kernels above cannot hold a 32-row tile of all d + dv
-// columns (d + dv above 1815) or a lane cannot hold a row (d or dv above
-// 1024): the same warp-per-row scheme, with the streamed tile staged 1024
-// columns at a time. A block is 8 own rows and one slice of at most 1024
-// gradient columns (of dK or dQ, slices 0..n1-1, or of dV, slices n1..);
-// each slice recomputes the dot products of its pairs over all of d (and dv
-// where its gradient needs dS), summing each lane's partials over the
-// column tiles before one reduce-scatter, so the order of every sum is
-// fixed. A simple kernel: the own row's columns are read again from L2 for
-// every tile, and the slice's columns of the tile are staged once more.
-template <bool DKV>
-__global__ void __launch_bounds__(kWarps * kWarp) flash_two_pass_f32_wide_kernel(Params a, int n1, int n_sl) {
-  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tile = reinterpret_cast<float*>(smem);  // (kTileK, at most kF32WideCols), dense
-  const float* a1 = static_cast<const float*>(DKV ? a.k : a.q);  // own rows, d wide
-  const float* a2 = static_cast<const float*>(DKV ? a.v : a.dout);  // own rows, dv wide
-  const float* x1 = static_cast<const float*>(DKV ? a.q : a.k);
-  const float* x2 = static_cast<const float*>(DKV ? a.dout : a.v);
-  const Strides sa1 = DKV ? a.sk_ : a.sq_, sa2 = DKV ? a.sv_ : a.so_;
-  const Strides sx1 = DKV ? a.sq_ : a.sk_, sx2 = DKV ? a.so_ : a.sv_;
-  const int n_own = DKV ? a.sk : a.sq, n_str = DKV ? a.sq : a.sk;
-
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int own = blockIdx.x * kWarps + warp;
-  const int hh = blockIdx.y / n_sl, sl = blockIdx.y - hh * n_sl, bi = blockIdx.z;
-  const bool first = sl < n1;  // dK or dQ columns (from dS); else dV columns (from P keep)
-  const int col0 = (first ? sl : sl - n1) * kF32WideCols;
-  const int sw = min(kF32WideCols, (first ? a.d : a.dv_) - col0);
-  const bool active = own < n_own;
-  const uint32_t bh = (uint32_t)(bi * a.num_heads + hh);
-  const long stat0 = ((long)bi * a.num_heads + hh) * a.sq;
-  auto key_state = [&](int key) {  // 1 valid, 0 masked, -1 past Sk
-    return key >= a.sk ? -1 : (a.key_valid == nullptr ? 1 : (a.key_valid[(long)bi * a.sk + key] != 0));
-  };
-  const int own_state = DKV ? (active ? key_state(own) : -1) : 1;
-  const float own_lse = !DKV && active ? a.lse[stat0 + own] : 0.f;
-  const float own_delta = !DKV && active ? a.delta[stat0 + own] : 0.f;
-  const float* own1 = a1 + sa1.off(bi, hh, active ? own : 0);
-  const float* own2 = a2 + sa2.off(bi, hh, active ? own : 0);
-
-  // lane j: <own row, streamed row r0 + j> over `width` columns, the tile
-  // staged kF32WideCols columns at a time
-  auto dots = [&](const float* own_row, const float* x, const Strides& sx, int width, int r0, bool vec) {
-    float part[kTileK];
-#pragma unroll
-    for (int j = 0; j < kTileK; ++j) part[j] = 0.f;
-    for (int c0 = 0; c0 < width; c0 += kF32WideCols) {
-      const int cw = min(kF32WideCols, width - c0);
-      __syncthreads();  // the previous tile is no longer read
-      load_tile(tile, x + sx.off(bi, hh, r0) + c0, n_str - r0, cw, (long)sx.s, vec);
-      __syncthreads();
-      if (active) {
-        float reg[kF32WideP];
-#pragma unroll
-        for (int i = 0; i < kF32WideP; ++i) {
-          const int e = lane + kWarp * i;
-          reg[i] = e < cw ? own_row[c0 + e] : 0.f;
-        }
-        tile_partials<float, kF32WideP>(part, reg, tile, cw, lane);
-      }
-    }
-    return active ? reduce_scatter(part, lane) : 0.f;
-  };
-
-  float acc[kF32WideP];
-#pragma unroll
-  for (int i = 0; i < kF32WideP; ++i) acc[i] = 0.f;
-  const float* xg = (first ? x1 : x2) + col0;
-  const Strides sxg = first ? sx1 : sx2;
-  for (int r0 = 0; r0 < n_str; r0 += kTileK) {
-    const float dot = dots(own1, x1, sx1, a.d, r0, a.vec_a);
-    const float dp = first ? dots(own2, x2, sx2, a.dv_, r0, a.vec_b) : 0.f;
-    const int str = r0 + lane;
-    const int row = DKV ? str : own, key = DKV ? own : str;
-    const int state = DKV ? own_state : key_state(str);
-    float pd = 0.f, ds = 0.f;
-    if (active && state >= 0 && row < a.sq)
-      ds = pair_grad(a, state, dot, dp, DKV ? a.lse[stat0 + str] : own_lse, DKV ? a.delta[stat0 + str] : own_delta,
-                     seed, bh, row, key, pd);
-    const float gv = first ? ds : pd;
-    // the slice's columns of the tile: grad += sum_j gv_j x_j
-    __syncthreads();
-    load_tile(tile, xg + sxg.off(bi, hh, r0), n_str - r0, sw, (long)sxg.s, first ? a.vec_a : a.vec_b);
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll
-    for (int j = 0; j < kTileK; ++j) {
-      const float gj = __shfl_sync(kFull, gv, j);
-#pragma unroll
-      for (int i = 0; i < kF32WideP; ++i) {
-        const int e = lane + kWarp * i;
-        if (e < sw) acc[i] = fmaf(gj, tile[j * sw + e], acc[i]);
-      }
-    }
-  }
-
-  if (!active) return;
-  float* grad = static_cast<float*>(DKV ? (first ? a.dk : a.dv) : a.dq);
-  const long goff = (DKV ? (first ? a.sk_ : a.sv_) : a.sq_).off(bi, hh, own) + col0;
-#pragma unroll
-  for (int i = 0; i < kF32WideP; ++i) {
-    const int e = lane + kWarp * i;
-    if (e < sw) grad[goff + e] = acc[i];
-  }
 }
 
 // ---- bfloat16 on the tensor cores
@@ -933,9 +663,412 @@ __global__ void __launch_bounds__(kTcThreads) flash_two_pass_tc_wide_kernel(Para
       }
 }
 
+// ---- float32 on the tensor cores, in 3xTF32
+constexpr int kF32TR = 8;           // streamed rows a stage: one n-tile of S, one k-step of the gradient
+constexpr int kF32Ps = kF32TR + 4;  // row stride of the dS and P keep tiles: rows g apart hit different banks
+
+// Row stride, in floats, of a float32 tile `w` columns wide: 8 mod 32 words,
+// so the float2 reads (rows g, columns 2t..2t+1) of S's fragments and the B
+// reads (rows t and t + 4, column g) of the gradient's hit different banks.
+__host__ __device__ inline int f32_stride(int w) { return round_up(w, 32) + 8; }
+
+// Shared-memory layout of flash_two_pass_f32_kernel, in bytes from the
+// start: the 16 own rows' d-wide and dv-wide tiles, 2 stages of the 8
+// streamed rows' (d-wide, then dv-wide), the warps' partial S and dP tiles
+// ([S, dP][warp][own][streamed]) and the dS and P keep tiles (own x
+// streamed).
+struct F32Layout {
+  int s1, s2;  // row strides of the d-wide and the dv-wide tiles
+  size_t own2, str, part, ds, pd, total;
+  __host__ __device__ F32Layout(int d, int dv) {
+    s1 = f32_stride(d);
+    s2 = f32_stride(dv);
+    own2 = sizeof(float) * kTcRows * s1;
+    str = own2 + sizeof(float) * kTcRows * s2;
+    part = str + sizeof(float) * 2 * kF32TR * (s1 + s2);
+    ds = part + sizeof(float) * 2 * kTcWarps * kTcRows * kF32TR;
+    pd = ds + sizeof(float) * kTcRows * kF32Ps;
+    total = pd + sizeof(float) * kTcRows * kF32Ps;
+  }
+};
+
+// DKV: the dkv pass (own rows are keys; streamed, query rows) or the dq pass
+// (own rows are query rows; streamed, keys). JPW: the most 8-column gradient
+// jobs a warp holds.
+template <bool DKV, int JPW>
+__global__ void __launch_bounds__(kTcThreads) flash_two_pass_f32_kernel(Params a) {
+  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const F32Layout L(a.d, a.dv_);
+  float* own1_s = reinterpret_cast<float*>(smem);
+  float* own2_s = reinterpret_cast<float*>(smem + L.own2);
+  float* str_s = reinterpret_cast<float*>(smem + L.str);  // 2 stages: 8 d-wide rows, then 8 dv-wide
+  float* part = reinterpret_cast<float*>(smem + L.part);  // [S, dP][warp][own][streamed]
+  float* ds_s = reinterpret_cast<float*>(smem + L.ds);    // (own, streamed) each
+  float* pd_s = reinterpret_cast<float*>(smem + L.pd);
+
+  const float* a1 = static_cast<const float*>(DKV ? a.k : a.q);  // own rows, d wide
+  const float* a2 = static_cast<const float*>(DKV ? a.v : a.dout);  // own rows, dv wide
+  const float* x1 = static_cast<const float*>(DKV ? a.q : a.k);
+  const float* x2 = static_cast<const float*>(DKV ? a.dout : a.v);
+  const Strides sa1 = DKV ? a.sk_ : a.sq_, sa2 = DKV ? a.sv_ : a.so_;
+  const Strides sx1 = DKV ? a.sq_ : a.sk_, sx2 = DKV ? a.so_ : a.sv_;
+  const int n_own = DKV ? a.sk : a.sq, n_str = DKV ? a.sq : a.sk;
+
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int own0 = blockIdx.x * kTcRows;
+  const int hh = blockIdx.y, bi = blockIdx.z;
+  const uint32_t bh = (uint32_t)(bi * a.num_heads + hh);
+  const long stat0 = ((long)bi * a.num_heads + hh) * a.sq;
+  const int nd8 = (a.d + 7) / 8, ndv8 = (a.dv_ + 7) / 8;
+  const int jobs = DKV ? nd8 + ndv8 : nd8;  // 8-column jobs: dK then dV, or dQ
+  const int n_it = (n_str + kF32TR - 1) / kF32TR;
+  const int stage = kF32TR * (L.s1 + L.s2);
+  // this warp's columns of S's sum (an eighth of d's k-steps) and of dP's (of dv's)
+  const int w1 = (nd8 + kTcWarps - 1) / kTcWarps * 8, w2 = (ndv8 + kTcWarps - 1) / kTcWarps * 8;
+  const int c1 = min(warp * w1, 8 * nd8), c2 = min(warp * w2, 8 * ndv8);
+  const int n1 = min(c1 + w1, 8 * nd8) - c1, n2 = min(c2 + w2, 8 * ndv8) - c2;
+
+  tc::load_rows_f32<0>(own1_s, L.s1, a1 + sa1.off(bi, hh, own0), sa1.s, kTcRows, n_own - own0, a.d, a.vec_a,
+                       threadIdx.x, kTcThreads);
+  tc::load_rows_f32<0>(own2_s, L.s2, a2 + sa2.off(bi, hh, own0), sa2.s, kTcRows, n_own - own0, a.dv_, a.vec_a,
+                       threadIdx.x, kTcThreads);
+  auto load = [&](int it) {
+    const int r0 = it * kF32TR;
+    float* st = str_s + (it & 1) * stage;
+    tc::load_rows_f32<0>(st, L.s1, x1 + sx1.off(bi, hh, r0), sx1.s, kF32TR, n_str - r0, a.d, a.vec_b, threadIdx.x,
+                         kTcThreads);
+    tc::load_rows_f32<0>(st + kF32TR * L.s1, L.s2, x2 + sx2.off(bi, hh, r0), sx2.s, kF32TR, n_str - r0, a.dv_,
+                         a.vec_b, threadIdx.x, kTcThreads);
+    tc::cp_async_commit();
+  };
+  load(0);  // with the own rows: one cp.async group
+
+  // step 2's pairs: thread i < 128 takes own row i / 8 and streamed row i % 8
+  // of every stage; its own row's key state (dkv) or lse and delta (dq) once,
+  // its streamed row's one stage ahead, so the loads' latency hides
+  const bool pairs = threadIdx.x < kTcRows * kF32TR;
+  const int pr = threadIdx.x / kF32TR, pc = threadIdx.x % kF32TR, own = own0 + pr;
+  auto key_state = [&](int key) {  // 1 valid, 0 masked, -1 past Sk
+    return key >= a.sk ? -1 : (a.key_valid == nullptr ? 1 : (a.key_valid[(long)bi * a.sk + key] != 0));
+  };
+  const int own_state = DKV && pairs ? key_state(own) : 1;
+  const float own_lse = !DKV && pairs && own < a.sq ? a.lse[stat0 + own] : 0.f;
+  const float own_delta = !DKV && pairs && own < a.sq ? a.delta[stat0 + own] : 0.f;
+  float nx_lse = 0.f, nx_delta = 0.f;
+  int nx_state = 1;
+  auto fetch = [&](int it) {
+    if (!pairs) return;
+    const int str = it * kF32TR + pc;
+    if (DKV) {
+      nx_lse = str < a.sq ? a.lse[stat0 + str] : 0.f;
+      nx_delta = str < a.sq ? a.delta[stat0 + str] : 0.f;
+    } else {
+      nx_state = key_state(str);
+    }
+  };
+  fetch(0);
+
+  float acc[JPW][4];
+#pragma unroll
+  for (int i = 0; i < JPW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // stage it has landed; the other stage and the partial, dS and P keep tiles are free
+    const float lse_c = nx_lse, delta_c = nx_delta;
+    const int state_c = nx_state;
+    if (it + 1 < n_it) {
+      load(it + 1);
+      fetch(it + 1);
+    }
+    const float* st1 = str_s + (it & 1) * stage;
+    const float* st2 = st1 + kF32TR * L.s1;
+
+    // 1. this warp's partial S (own x streamed) over its columns of d, and dP of dv
+    float sp[4], dpp[4];
+    tc::mma_abt_3xtf32(sp, own1_s + c1, L.s1, st1 + c1, L.s1, n1, g, t);
+    tc::mma_abt_3xtf32(dpp, own2_s + c2, L.s2, st2 + c2, L.s2, n2, g, t);
+    float* mine = part + (warp * kTcRows + g) * kF32TR + 2 * t;
+    float* mine_dp = mine + kTcWarps * kTcRows * kF32TR;
+    *reinterpret_cast<float2*>(mine) = make_float2(sp[0], sp[1]);
+    *reinterpret_cast<float2*>(mine + 8 * kF32TR) = make_float2(sp[2], sp[3]);
+    *reinterpret_cast<float2*>(mine_dp) = make_float2(dpp[0], dpp[1]);
+    *reinterpret_cast<float2*>(mine_dp + 8 * kF32TR) = make_float2(dpp[2], dpp[3]);
+    __syncthreads();
+
+    // 2. the pairs: the partial sums in warp order, p, the keep bit, dS, P keep
+    if (pairs) {
+      float dot = 0.f, dp = 0.f;
+#pragma unroll
+      for (int w = 0; w < kTcWarps; ++w) {
+        dot += part[w * kTcRows * kF32TR + threadIdx.x];
+        dp += part[(kTcWarps + w) * kTcRows * kF32TR + threadIdx.x];
+      }
+      const int str = it * kF32TR + pc;
+      const int row = DKV ? str : own, key = DKV ? own : str;
+      const int state = DKV ? own_state : state_c;
+      float pd = 0.f, ds = 0.f;
+      if (state >= 0 && row < a.sq)
+        ds = pair_grad(a, state, dot, dp, DKV ? lse_c : own_lse, DKV ? delta_c : own_delta, seed, bh, row, key, pd);
+      ds_s[pr * kF32Ps + pc] = ds;
+      if (DKV) pd_s[pr * kF32Ps + pc] = pd;
+    }
+    __syncthreads();
+
+    // 3. this warp's jobs: dK += dS^T q and dV += (P keep)^T dO, or dQ += dS K;
+    // A: the dS (or P keep) tile, k = the stage's 8 streamed rows; each job's
+    // product in fresh registers, added to its accumulators in IEEE float32
+    uint32_t sb[4], ss[4], pb[4], ps[4];
+    const float* fa = ds_s + g * kF32Ps + t;
+    tc::split_a(sb, ss, fa[0], fa[8 * kF32Ps], fa[4], fa[8 * kF32Ps + 4]);
+    if (DKV) {
+      fa = pd_s + g * kF32Ps + t;
+      tc::split_a(pb, ps, fa[0], fa[8 * kF32Ps], fa[4], fa[8 * kF32Ps + 4]);
+    }
+#pragma unroll
+    for (int i = 0; i < JPW; ++i) {
+      const int job = warp + kTcWarps * i;
+      if (job >= jobs) break;
+      float c[1][4] = {};
+      if (!DKV || job < nd8)  // dK or dQ columns
+        tc::mma_row_3xtf32<1>(c, sb, ss, st1 + t * L.s1 + 8 * job + g, L.s1, 8);
+      else
+        tc::mma_row_3xtf32<1>(c, pb, ps, st2 + t * L.s2 + 8 * (job - nd8) + g, L.s2, 8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] += c[0][e];
+    }
+  }
+
+  // each gradient element written once, in float32
+  float* g1 = static_cast<float*>(DKV ? a.dk : a.dq);
+  float* g2 = static_cast<float*>(a.dv);
+  const Strides sg1 = DKV ? a.sk_ : a.sq_;
+#pragma unroll
+  for (int i = 0; i < JPW; ++i) {
+    const int job = warp + kTcWarps * i;
+    if (job >= jobs) break;
+    const bool first = !DKV || job < nd8;
+    const int col0 = 8 * (first ? job : job - nd8), width = first ? a.d : a.dv_;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int orow = own0 + g + 8 * (e >> 1), col = col0 + 2 * t + (e & 1);
+      if (orow >= n_own || col >= width) continue;
+      if (first)
+        g1[sg1.off(bi, hh, orow) + col] = acc[i][e];
+      else
+        g2[a.sv_.off(bi, hh, orow) + col] = acc[i][e];
+    }
+  }
+}
+
+// ---- float32 on the tensor cores, the wide class: column slices across grid.y
+constexpr int kF32WideStride = kWideCols + 8;  // 8 mod 32 words, as f32_stride
+constexpr int kF32WideSlot = (kTcRows + kWideTR) * kF32WideStride;  // a stage: 16 own rows, then the streamed rows
+constexpr int kF32WidePs = kWideTR + 4;
+// Shared memory of the float32 wide kernel, in bytes: a 2-slot ring and the
+// tile of the slice's gradient factor (dS or P keep). No width enters it.
+__host__ __device__ constexpr int f32_wide_smem() {
+  return (int)sizeof(float) * (2 * kF32WideSlot + kTcRows * kF32WidePs);
+}
+
+// Where flash_two_pass_f32_kernel's widest class (JPW 24) ends, d / 8 + dv /
+// 8 above 192 (hidden 1024's cross-attention: d 2048, dv 1024): there its
+// own rows (16 x 3072 float32, 196 KB) leave no room for a stage and its
+// accumulators (192 a thread) pass the registers a thread has. The bfloat16
+// wide kernel's scheme (flash_two_pass_tc_wide_kernel, which says what it
+// costs) in 3xTF32: a block owns 16 rows and one slice of at most 1024
+// gradient columns (of dK or dQ, slices 0..n1-1, factor dS; or of dV, factor
+// P keep); an iteration takes 64 streamed rows in 128-column steps through a
+// 2-slot cp.async ring, float32 throughout:
+//   1. S (then dP) of the 16 x 64 tile: warp w owns streamed rows 8w..8w+7,
+//      each step's 128 columns in fresh accumulators (tc::mma_abt_3xtf32)
+//      added in IEEE float32 to its S and dP fragments;
+//   2. after the last such step each thread turns its 4 pairs into the
+//      slice's factor (pair_grad), stored in float32, and every warp splits
+//      the 16 x 64 factor's A fragments into tf32 halves in registers;
+//   3. each later step stages the streamed rows' next 128 columns of the
+//      slice; warp w takes columns 16w..16w+15 over the 64 streamed rows (8
+//      k-steps) in three fresh accumulators, one a product kind (8 mma
+//      each), added in IEEE float32 to its accumulators (64 a thread).
+// Every sum runs in a fixed order and nothing is atomic, so both layouts
+// give the same bits.
+template <bool DKV>
+__global__ void __launch_bounds__(kTcThreads) flash_two_pass_f32_wide_kernel(Params a, int n1, int n_sl) {
+  const uint32_t seed = philox::load_seed(a.seed, a.drop_threshold);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [2][16 + 64][kF32WideStride]
+  float* f_s = ring + 2 * kF32WideSlot;          // (own, streamed)
+
+  const float* a1 = static_cast<const float*>(DKV ? a.k : a.q);  // own rows, d wide
+  const float* a2 = static_cast<const float*>(DKV ? a.v : a.dout);  // own rows, dv wide
+  const float* x1 = static_cast<const float*>(DKV ? a.q : a.k);
+  const float* x2 = static_cast<const float*>(DKV ? a.dout : a.v);
+  const Strides sa1 = DKV ? a.sk_ : a.sq_, sa2 = DKV ? a.sv_ : a.so_;
+  const Strides sx1 = DKV ? a.sq_ : a.sk_, sx2 = DKV ? a.so_ : a.sv_;
+  const int n_own = DKV ? a.sk : a.sq, n_str = DKV ? a.sq : a.sk;
+
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int own0 = blockIdx.x * kTcRows;
+  const int hh = blockIdx.y / n_sl, sl = blockIdx.y - hh * n_sl, bi = blockIdx.z;
+  const bool first = sl < n1;  // dK or dQ columns; else dV columns
+  const int col0 = (first ? sl : sl - n1) * kWideSlice;
+  const int sw = min(kWideSlice, (first ? a.d : a.dv_) - col0);
+  const float* xg = (first ? x1 : x2) + col0;
+  const Strides sxg = first ? sx1 : sx2;
+  const uint32_t bh = (uint32_t)(bi * a.num_heads + hh);
+  const long stat0 = ((long)bi * a.num_heads + hh) * a.sq;
+  const int nd = (a.d + kWideCols - 1) / kWideCols;
+  const int n1c = nd + (first ? (a.dv_ + kWideCols - 1) / kWideCols : 0);  // steps of S and dP
+  const int n_step = n1c + (sw + kWideCols - 1) / kWideCols;                // ... and of the slice
+  const int total = (n_str + kWideTR - 1) / kWideTR * n_step;
+
+  auto load = [&](int s) {
+    const int it = s / n_step, j = s - it * n_step, r0 = it * kWideTR;
+    float* slot = ring + (s & 1) * kF32WideSlot;
+    float* str_s = slot + kTcRows * kF32WideStride;
+    if (j < n1c) {
+      const bool is_s = j < nd;
+      const int c = (is_s ? j : j - nd) * kWideCols, cw = min(kWideCols, (is_s ? a.d : a.dv_) - c);
+      const Strides so = is_s ? sa1 : sa2, sx = is_s ? sx1 : sx2;
+      tc::load_rows_f32<kWideCols>(slot, kF32WideStride, (is_s ? a1 : a2) + so.off(bi, hh, own0) + c, so.s,
+                                   kTcRows, n_own - own0, cw, a.vec_a, threadIdx.x, kTcThreads);
+      tc::load_rows_f32<kWideCols>(str_s, kF32WideStride, (is_s ? x1 : x2) + sx.off(bi, hh, r0) + c, sx.s,
+                                   kWideTR, n_str - r0, cw, a.vec_b, threadIdx.x, kTcThreads);
+    } else {
+      const int c = (j - n1c) * kWideCols;
+      tc::load_rows_f32<kWideCols>(str_s, kF32WideStride, xg + sxg.off(bi, hh, r0) + c, sxg.s, kWideTR,
+                                   n_str - r0, min(kWideCols, sw - c), a.vec_b, threadIdx.x, kTcThreads);
+    }
+    tc::cp_async_commit();
+  };
+
+  auto key_state = [&](int key) {  // 1 valid, 0 masked, -1 past Sk
+    return key >= a.sk ? -1 : (a.key_valid == nullptr ? 1 : (a.key_valid[(long)bi * a.sk + key] != 0));
+  };
+  // own rows g and g + 8: key states (dkv) or lse and delta (dq); the
+  // streamed rows 8 warp + 2t (+1) of an iteration: the other, fetched at
+  // its first step so the loads' latency hides behind the S steps
+  int own_state[2], str_state[2] = {1, 1};
+  float own_lse[2], own_delta[2], str_lse[2] = {0.f, 0.f}, str_delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int own = own0 + g + 8 * r;
+    own_state[r] = DKV ? key_state(own) : 1;
+    own_lse[r] = !DKV && own < a.sq ? a.lse[stat0 + own] : 0.f;
+    own_delta[r] = !DKV && own < a.sq ? a.delta[stat0 + own] : 0.f;
+  }
+
+  float s_acc[4], p_acc[4];
+  uint32_t fb[kWideTR / 8][4], fs[kWideTR / 8][4];  // the factor's A fragments: tf32 big and small halves
+  float acc[kWideChunks][2][4];
+#pragma unroll
+  for (int i = 0; i < kWideChunks; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+
+  load(0);
+  for (int s = 0; s < total; ++s) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // step s has landed; the other slot is free
+    if (s + 1 < total) load(s + 1);
+    const int it = s / n_step, j = s - it * n_step;
+    const float* slot = ring + (s & 1) * kF32WideSlot;
+    const float* str_s = slot + kTcRows * kF32WideStride;
+    if (j == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[e] = p_acc[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int str = it * kWideTR + 8 * warp + 2 * t + e;
+        if (DKV) {
+          str_lse[e] = str < a.sq ? a.lse[stat0 + str] : 0.f;
+          str_delta[e] = str < a.sq ? a.delta[stat0 + str] : 0.f;
+        } else {
+          str_state[e] = key_state(str);
+        }
+      }
+    }
+    if (j < n1c) {  // 1. S or dP of this warp's 8 streamed rows over the step's columns
+      const bool is_s = j < nd;
+      const int cw = min(kWideCols, (is_s ? a.d : a.dv_) - (is_s ? j : j - nd) * kWideCols);
+      float c[4];
+      tc::mma_abt_3xtf32(c, slot, kF32WideStride, str_s + 8 * warp * kF32WideStride, kF32WideStride, cw, g, t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (is_s)
+          s_acc[e] += c[e];
+        else
+          p_acc[e] += c[e];
+      }
+    }
+    if (j == n1c - 1) {  // 2. the slice's factor of this thread's pairs, then its A fragments
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int own_r = g + 8 * (e >> 1), str_c = 8 * warp + 2 * t + (e & 1);
+        const int own = own0 + own_r, str = it * kWideTR + str_c;
+        const int row = DKV ? str : own, key = DKV ? own : str;
+        const int state = DKV ? own_state[e >> 1] : str_state[e & 1];
+        float pd = 0.f, ds = 0.f;
+        if (state >= 0 && row < a.sq)
+          ds = pair_grad(a, state, s_acc[e], p_acc[e], DKV ? str_lse[e & 1] : own_lse[e >> 1],
+                         DKV ? str_delta[e & 1] : own_delta[e >> 1], seed, bh, row, key, pd);
+        f_s[own_r * kF32WidePs + str_c] = first ? ds : pd;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kWideTR / 8; ++kk) {
+        const float* fa = f_s + g * kF32WidePs + 8 * kk + t;
+        tc::split_a(fb[kk], fs[kk], fa[0], fa[8 * kF32WidePs], fa[4], fa[8 * kF32WidePs + 4]);
+      }
+    }
+    if (j >= n1c) {  // 3. this warp's 16 columns of the step: grad += factor x streamed rows
+      const int gc = j - n1c;
+      if (gc * kWideCols + 16 * warp < sw) {
+        float c[2][3][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kWideTR / 8; ++kk) {
+          const float* b = str_s + (8 * kk + t) * kF32WideStride + 16 * warp + g;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            uint32_t bb0, bb1, bs0, bs1;
+            tc::split_tf32_trunc(b[8 * n], bb0, bs0);
+            tc::split_tf32_trunc(b[4 * kF32WideStride + 8 * n], bb1, bs1);
+            tc::mma_tf32(c[n][0], fb[kk], bb0, bb1);
+            tc::mma_tf32(c[n][1], fb[kk], bs0, bs1);
+            tc::mma_tf32(c[n][2], fs[kk], bb0, bb1);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kWideChunks; ++i) {
+          if (i != gc) continue;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][n][e] += c[n][0][e] + (c[n][1][e] + c[n][2][e]);
+        }
+      }
+    }
+  }
+
+  // each gradient element of the slice written once, in float32
+  float* grad = static_cast<float*>(DKV ? (first ? a.dk : a.dv) : a.dq);
+  const Strides sg = DKV ? (first ? a.sk_ : a.sv_) : a.sq_;
+#pragma unroll
+  for (int i = 0; i < kWideChunks; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int orow = own0 + g + 8 * (e >> 1), col = i * kWideCols + 16 * warp + 8 * n + 2 * t + (e & 1);
+        if (orow < n_own && col < sw) grad[sg.off(bi, hh, orow) + col0 + col] = acc[i][n][e];
+      }
+}
 // What a launch of one pass at head widths d, dv runs (two_pass_plan):
-// kernel 0 float32 (flash_dq_kernel / flash_dkv_kernel, cls = P columns a
-// lane per 32), 1 float32 wide (cls = kF32WideP), 2 bfloat16
+// kernel 0 float32 (flash_two_pass_f32_kernel, cls = JPW), 1 float32 wide
+// (flash_two_pass_f32_wide_kernel, cls 0), 2 bfloat16
 // (flash_two_pass_tc_kernel, cls = KPW), 3 bfloat16 wide (cls 0); rows: the
 // streamed rows a tile; slices: blocks along grid.y a head; the dynamic
 // shared memory in bytes. Dispatch follows it, and the library exports it
@@ -945,23 +1078,21 @@ struct TwoPassPlan {
   int kernel, cls, rows, slices, smem;
 };
 
-constexpr long long kSmemOptin = 232448;  // an H100 block's opt-in shared memory
-
 int cdiv(int x, int m) { return (x + m - 1) / m; }
 
 TwoPassPlan two_pass_plan(int dtype, bool dq, int d, int dv) {
-  TwoPassPlan p{};
+  const int slices = cdiv(d, kWideSlice) + (dq ? 0 : cdiv(dv, kWideSlice));
   if (dtype == 0) {
-    const int widest = d > dv ? d : dv;
-    const long long smem = (dq ? 1 : 2) * kHeaderBytes + (long long)kTileK * (d + dv) * sizeof(float);
-    if (widest <= 1024 && smem <= kSmemOptin) {
-      p = {0, widest <= 32 ? 1 : widest <= 64 ? 2 : widest <= 128 ? 4 : widest <= 256 ? 8 : widest <= 512 ? 16 : 32,
-           kTileK, 1, (int)smem};
-    } else {
-      p = {1, kF32WideP, kTileK, cdiv(d, kF32WideCols) + (dq ? 0 : cdiv(dv, kF32WideCols)),
-           (int)(kTileK * kF32WideCols * sizeof(float))};
+    // JPW: 8-column k-steps of S and dP (d / 8 + dv / 8) over the 8 warps, in
+    // six width classes; the dkv pass has as many 8-column jobs, the dq pass
+    // fewer. The hidden-256 cross site (d 512, dv 256) is class 12, hidden
+    // 512's (d 1024, dv 512) class 24
+    const int jpw = cdiv(cdiv(d, 8) + cdiv(dv, 8), kTcWarps);
+    if (jpw <= 24) {
+      const int cls = jpw <= 2 ? 2 : jpw <= 4 ? 4 : jpw <= 8 ? 8 : jpw <= 12 ? 12 : jpw <= 16 ? 16 : 24;
+      return {0, cls, kF32TR, 1, (int)F32Layout(d, dv).total};
     }
-    return p;
+    return {1, 0, kWideTR, slices, f32_wide_smem()};
   }
   // KPW: k-steps of S and dP (d / 16 + dv / 16) over the 8 warps, in five
   // width classes; the dkv pass has as many 16-column jobs, the dq pass fewer
@@ -969,91 +1100,59 @@ TwoPassPlan two_pass_plan(int dtype, bool dq, int d, int dv) {
   if (kpw <= 16) {
     // the hidden-256 cross site (d 512, dv 256) is class 8, hidden 512's (d 1024, dv 512) class 12
     const int cls = kpw <= 2 ? 2 : kpw <= 4 ? 4 : kpw <= 8 ? 8 : kpw <= 12 ? 12 : 16;
-    p = {2, cls, tc_stream_rows(cls), 1, (int)TcLayout(d, dv, tc_stream_rows(cls)).total};
-  } else {
-    p = {3, 0, kWideTR, cdiv(d, kWideSlice) + (dq ? 0 : cdiv(dv, kWideSlice)), tc_wide_smem()};
+    return {2, cls, tc_stream_rows(cls), 1, (int)TcLayout(d, dv, tc_stream_rows(cls)).total};
   }
-  return p;
+  return {3, 0, kWideTR, slices, tc_wide_smem()};
 }
 
-template <typename K>
-int set_smem(K kernel, int smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <bool DKV>
-int launch_f32_wide(const Params& a, const TwoPassPlan& p, cudaStream_t stream) {
-  const int err = set_smem(flash_two_pass_f32_wide_kernel<DKV>, p.smem);
-  if (err != 0) return err;
-  const int n1 = cdiv(a.d, kF32WideCols);
-  const dim3 grid(cdiv(DKV ? a.sk : a.sq, kWarps), a.num_heads * p.slices, a.b);
-  flash_two_pass_f32_wide_kernel<DKV><<<grid, kWarps * kWarp, p.smem, stream>>>(a, n1, p.slices);
-  return (int)cudaGetLastError();
-}
-
-int dispatch_f32(Params a, bool dq, cudaStream_t stream) {
-  const TwoPassPlan p = two_pass_plan(0, dq, a.d, a.dv_);
-  if (p.kernel == 1) {
-    a.vec_a = aligned16_strided<float>(dq ? a.k : a.q, a.d, dq ? a.sk_ : a.sq_);
-    a.vec_b = aligned16_strided<float>(dq ? a.v : a.dout, a.dv_, dq ? a.sv_ : a.so_);
-    return dq ? launch_f32_wide<false>(a, p, stream) : launch_f32_wide<true>(a, p, stream);
-  }
-  switch (p.cls) {
-    case 1: return launch<float, 1>(a, dq, stream);
-    case 2: return launch<float, 2>(a, dq, stream);
-    case 4: return launch<float, 4>(a, dq, stream);
-    case 8: return launch<float, 8>(a, dq, stream);
-    case 16: return launch<float, 16>(a, dq, stream);
-    default: return launch<float, 32>(a, dq, stream);
-  }
-}
-
-template <bool DKV, int KPW>
-int launch_tc(Params a, const TwoPassPlan& p, cudaStream_t stream) {
-  const int err = set_smem(flash_two_pass_tc_kernel<DKV, KPW>, p.smem);
-  if (err != 0) return err;
-  const dim3 grid(cdiv(DKV ? a.sk : a.sq, kTcRows), a.num_heads, a.b);
-  flash_two_pass_tc_kernel<DKV, KPW><<<grid, kTcThreads, p.smem, stream>>>(a);
+// One launch of a kernel that takes the 16 own rows of grid.x, (head, slice)
+// of grid.y and the batch entry of grid.z; the wide kernels' slices also
+// take n1, the slices of dK or dQ columns, and their number a head.
+template <typename K, typename... Args>
+int launch(K kernel, const Params& a, const TwoPassPlan& p, bool dkv, cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(cdiv(dkv ? a.sk : a.sq, kTcRows), a.num_heads * p.slices, a.b);
+  kernel<<<grid, kTcThreads, p.smem, stream>>>(a, args...);
   return (int)cudaGetLastError();
 }
 
 template <bool DKV>
-int launch_tc_wide(const Params& a, const TwoPassPlan& p, cudaStream_t stream) {
-  const int err = set_smem(flash_two_pass_tc_wide_kernel<DKV>, p.smem);
-  if (err != 0) return err;
-  const dim3 grid(cdiv(DKV ? a.sk : a.sq, kTcRows), a.num_heads * p.slices, a.b);
-  flash_two_pass_tc_wide_kernel<DKV><<<grid, kTcThreads, p.smem, stream>>>(a, cdiv(a.d, kWideSlice), p.slices);
-  return (int)cudaGetLastError();
-}
-
-template <bool DKV>
-int dispatch_tc_plan(const Params& a, const TwoPassPlan& p, cudaStream_t stream) {
-  switch (p.kernel == 3 ? 0 : p.cls) {
-    case 0: return launch_tc_wide<DKV>(a, p, stream);
-    case 2: return launch_tc<DKV, 2>(a, p, stream);
-    case 4: return launch_tc<DKV, 4>(a, p, stream);
-    case 8: return launch_tc<DKV, 8>(a, p, stream);
-    case 12: return launch_tc<DKV, 12>(a, p, stream);
-    default: return launch_tc<DKV, 16>(a, p, stream);
+int dispatch_plan(const Params& a, const TwoPassPlan& p, cudaStream_t stream) {
+  const int n1 = cdiv(a.d, kWideSlice);
+  switch (p.kernel * 100 + p.cls) {
+    case 2: return launch(flash_two_pass_f32_kernel<DKV, 2>, a, p, DKV, stream);
+    case 4: return launch(flash_two_pass_f32_kernel<DKV, 4>, a, p, DKV, stream);
+    case 8: return launch(flash_two_pass_f32_kernel<DKV, 8>, a, p, DKV, stream);
+    case 12: return launch(flash_two_pass_f32_kernel<DKV, 12>, a, p, DKV, stream);
+    case 16: return launch(flash_two_pass_f32_kernel<DKV, 16>, a, p, DKV, stream);
+    case 24: return launch(flash_two_pass_f32_kernel<DKV, 24>, a, p, DKV, stream);
+    case 100: return launch(flash_two_pass_f32_wide_kernel<DKV>, a, p, DKV, stream, n1, p.slices);
+    case 202: return launch(flash_two_pass_tc_kernel<DKV, 2>, a, p, DKV, stream);
+    case 204: return launch(flash_two_pass_tc_kernel<DKV, 4>, a, p, DKV, stream);
+    case 208: return launch(flash_two_pass_tc_kernel<DKV, 8>, a, p, DKV, stream);
+    case 212: return launch(flash_two_pass_tc_kernel<DKV, 12>, a, p, DKV, stream);
+    case 216: return launch(flash_two_pass_tc_kernel<DKV, 16>, a, p, DKV, stream);
+    case 300: return launch(flash_two_pass_tc_wide_kernel<DKV>, a, p, DKV, stream, n1, p.slices);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int dispatch_tc(Params a, bool dq, cudaStream_t stream) {
-  const Strides own1 = dq ? a.sq_ : a.sk_, own2 = dq ? a.so_ : a.sv_;
-  const Strides str1 = dq ? a.sk_ : a.sq_, str2 = dq ? a.sv_ : a.so_;
-  a.vec_a = aligned16_strided<bf16>(dq ? a.q : a.k, a.d, own1) &&
-            aligned16_strided<bf16>(dq ? a.dout : a.v, a.dv_, own2);
-  a.vec_b = aligned16_strided<bf16>(dq ? a.k : a.q, a.d, str1) &&
-            aligned16_strided<bf16>(dq ? a.v : a.dout, a.dv_, str2);
-  const TwoPassPlan p = two_pass_plan(1, dq, a.d, a.dv_);
-  return dq ? dispatch_tc_plan<false>(a, p, stream) : dispatch_tc_plan<true>(a, p, stream);
+// 16-byte tile loads: of the block's own operands (vec_a) and of the
+// streamed ones (vec_b), each where both of its tensors allow them.
+template <typename T>
+void set_vec(Params& a, bool dq) {
+  a.vec_a = aligned16_strided<T>(dq ? a.q : a.k, a.d, dq ? a.sq_ : a.sk_) &&
+            aligned16_strided<T>(dq ? a.dout : a.v, a.dv_, dq ? a.so_ : a.sv_);
+  a.vec_b = aligned16_strided<T>(dq ? a.k : a.q, a.d, dq ? a.sk_ : a.sq_) &&
+            aligned16_strided<T>(dq ? a.v : a.dout, a.dv_, dq ? a.sv_ : a.so_);
 }
 
 }  // namespace
 
 extern "C" {
 
-int odtt_flash_bwd_two_pass_abi_version() { return 4; }
+int odtt_flash_bwd_two_pass_abi_version() { return 5; }
 
 // The launch plan of one pass at head widths d, dv (two_pass_plan):
 // out[0..4] = kernel, cls, rows, slices, smem. Returns 0, or
@@ -1069,8 +1168,8 @@ int odtt_flash_two_pass_plan(int dtype, int pass_dq, int d, int dv, long long* o
   return 0;
 }
 
-// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores; q, k, v, dout
-// and the gradients).
+// dtype: 0 float32, 1 bfloat16 (q, k, v, dout and the gradients; both on
+// the tensor cores).
 // strides: 12 element strides, (batch, head, row) of q (and dq), k (and dk),
 // v (and dv), dout, in that order. key_valid: (B, Sk) bytes or null. lse,
 // delta: (B, h, Sq) float32, contiguous. dq (dq pass) or dk, dv (dkv pass)
@@ -1082,7 +1181,8 @@ int odtt_flash_attention_two_pass(int pass_dq, const void* q, const void* k, con
                                   const long long* strides, int dtype, int b, int sq, int sk,
                                   int num_heads, int d, int dv_, float scale, const long long* seed,
                                   unsigned int drop_threshold, float inv_keep, void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || num_heads <= 0 || d <= 0 || dv_ <= 0 || strides == nullptr)
+  if (b <= 0 || sq <= 0 || sk <= 0 || num_heads <= 0 || d <= 0 || dv_ <= 0 || strides == nullptr ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params a{};
   a.q = q;
@@ -1110,10 +1210,13 @@ int odtt_flash_attention_two_pass(int pass_dq, const void* q, const void* k, con
   a.drop_threshold = drop_threshold;
   a.inv_keep = inv_keep;
   const bool is_dq = pass_dq != 0;
+  if (dtype == 0)
+    set_vec<float>(a, is_dq);
+  else
+    set_vec<__nv_bfloat16>(a, is_dq);
+  const TwoPassPlan p = two_pass_plan(dtype, is_dq, d, dv_);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(a, is_dq, s);
-  if (dtype == 1) return dispatch_tc(a, is_dq, s);
-  return (int)cudaErrorInvalidValue;
+  return is_dq ? dispatch_plan<false>(a, p, s) : dispatch_plan<true>(a, p, s);
 }
 
 }  // extern "C"

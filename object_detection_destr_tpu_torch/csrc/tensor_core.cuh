@@ -2,9 +2,9 @@
 // kernels (flash_attention_fwd.cu, flash_attention_bwd.cu,
 // flash_attention_bwd_two_pass.cu): cp.async 16-byte copies into shared
 // memory, ldmatrix, mma.sync.aligned.m16n8k16 with bfloat16 operands and
-// float32 sums, and the float32 kernels' (the forward's and the fused
-// backward's) mma.sync.aligned.m16n8k8 with tf32 operands (3xTF32: big /
-// small halves of each float32 operand).
+// float32 sums, and the float32 kernels' (the forward's, the fused
+// backward's and the two-pass backward's) mma.sync.aligned.m16n8k8 with tf32
+// operands (3xTF32: big / small halves of each float32 operand).
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), as the PTX ISA
 // defines them:
@@ -147,7 +147,7 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const __nv_bfloat1
   ldmatrix_x4_trans(b, tile + row * stride + col);
 }
 
-// ---- tf32 (the float32 forward and fused backward)
+// ---- tf32 (the float32 forward, fused backward and two-pass backward)
 // m16n8k8 tf32 fragments (g = lane / 4, t = lane % 4), as the PTX ISA
 // defines them; one 32-bit register an element:
 //   A (16 x 8)  a[0]: (g, t)  a[1]: (g+8, t)  a[2]: (g, t+4)  a[3]: (g+8, t+4)
@@ -238,6 +238,75 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int dst_stride, const 
   for (int i = tid; i < rows * cols; i += threads) {
     const int r = i / cols, c = i - r * cols;
     dst[r * dst_stride + c] = r < rows_valid ? src[r * src_stride + c] : 0.f;
+  }
+}
+
+// Columns of one chain of mma in mma_abt_3xtf32: the tensor cores' float32
+// accumulation is not IEEE round-to-nearest, so chains stay short and are
+// summed in IEEE float32.
+constexpr int kTf32Chunk = 64;
+
+// c = A B^T in 3xTF32 for A's 16 rows (stride sa) and B's 8 rows (stride
+// sb), row-major over `width` columns (zero-padded to a multiple of 8; none
+// when width <= 0); g, t as above. k slot t of a k-step holds
+// column 2t and slot t + 4 column 2t + 1, so each thread's operand values
+// are float2 reads. Each 64-column chunk sums big x big, big x small and
+// small x big in three accumulators (8 mma each), added in IEEE float32.
+__device__ __forceinline__ void mma_abt_3xtf32(float (&c)[4], const float* a, int sa, const float* b, int sb,
+                                               int width, int g, int t) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  const float* a0 = a + g * sa + 2 * t;
+  const float* a1 = a0 + 8 * sa;
+  const float* b0 = b + g * sb + 2 * t;
+  for (int c0 = 0; c0 < width; c0 += kTf32Chunk) {
+    const int steps = (min(kTf32Chunk, width - c0) + 7) / 8;
+    float part[3][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kTf32Chunk / 8; ++kk) {
+      if (kk >= steps) break;
+      const int col = c0 + kk * 8;
+      const float2 lo = *reinterpret_cast<const float2*>(a0 + col);
+      const float2 hi = *reinterpret_cast<const float2*>(a1 + col);
+      const float2 bv = *reinterpret_cast<const float2*>(b0 + col);
+      uint32_t ab[4], as[4], bb0, bb1, bs0, bs1;
+      split_tf32_trunc(lo.x, ab[0], as[0]);
+      split_tf32_trunc(hi.x, ab[1], as[1]);
+      split_tf32_trunc(lo.y, ab[2], as[2]);
+      split_tf32_trunc(hi.y, ab[3], as[3]);
+      split_tf32_trunc(bv.x, bb0, bs0);
+      split_tf32_trunc(bv.y, bb1, bs1);
+      mma_tf32(part[0], ab, bb0, bb1);
+      mma_tf32(part[1], ab, bs0, bs1);
+      mma_tf32(part[2], as, bb0, bb1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += part[0][e] + (part[1][e] + part[2][e]);
+  }
+}
+
+// The A fragment of one k-step (tf32 big and small halves) from four
+// float32 values.
+__device__ __forceinline__ void split_a(uint32_t (&big)[4], uint32_t (&small)[4], float x0, float x1, float x2,
+                                        float x3) {
+  split_tf32_trunc(x0, big[0], small[0]);
+  split_tf32_trunc(x1, big[1], small[1]);
+  split_tf32_trunc(x2, big[2], small[2]);
+  split_tf32_trunc(x3, big[3], small[3]);
+}
+
+// c[n] += A B[:, 8n..8n+7] in 3xTF32 for the n-tiles below `width`: A's big
+// and small fragments given, B's k-step rows t and t + 4 at b[0] and b[4 sb]
+// (column g of each n-tile; b points at column g of n-tile 0).
+template <int kNt>
+__device__ __forceinline__ void mma_row_3xtf32(float (&c)[kNt][4], const uint32_t (&big)[4],
+                                               const uint32_t (&small)[4], const float* b, int sb, int width) {
+#pragma unroll
+  for (int n = 0; n < kNt; ++n) {
+    if (n * 8 >= width) break;
+    uint32_t bb0, bb1, bs0, bs1;
+    split_tf32_trunc(b[8 * n], bb0, bs0);
+    split_tf32_trunc(b[4 * sb + 8 * n], bb1, bs1);
+    mma_3xtf32(c[n], big, small, bb0, bb1, bs0, bs1);
   }
 }
 

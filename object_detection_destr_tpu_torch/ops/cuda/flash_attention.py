@@ -54,11 +54,12 @@ one logical input draws one keep mask whichever layout carries it.
 Head widths: every d and dv launches. :func:`forward_plan` and
 :func:`two_pass_plan` mirror the C dispatch (which the libraries export as
 ``odtt_flash_fwd_plan`` / ``odtt_flash_two_pass_plan``): past d 1024 the
-float32 forward streams q in chunks, and past d + dv 2048 (bfloat16) or a
-block's 227 KB (float32) the two-pass kernels split the gradient's columns
-across grid.y, so no kernel's shared memory grows without bound. A wrapper
-raises only where a launch's grid would pass 65,535 blocks along y (heads x
-column blocks) or z (batch), with the widths in the message.
+float32 forward streams q in chunks, and past d + dv 2048 (bfloat16) or d
+/ 8 + dv / 8 = 192 k-steps (float32, d + dv 1536) the two-pass kernels
+split the gradient's columns across grid.y, so no kernel's shared memory
+grows without bound. A wrapper raises only where a launch's grid would pass
+65,535 blocks along y (heads x column blocks) or z (batch), with the widths
+in the message.
 
 A fully masked row (every key masked) averages over the Sk real keys in
 every kernel and plain version here, as ``ops/attention.py`` does. The
@@ -118,10 +119,7 @@ _FUSED_MAX_HEAD_DIM = 512  # the widest head the fused backward dispatches
 # float32 (3xTF32) kernel
 _TC_KEYS = 32
 _F32_BWD_KEYS, _F32_BWD_ROWS = 16, 32
-# the two-pass float32 kernels' tiles (csrc/flash_common.cuh): 32 keys or
-# rows, a 32-key state header
-_TILE_K, _HEADER_BYTES = 32, 32 * 4
-_SMEM_OPTIN = 232448  # an H100 block's opt-in shared memory, as the two-pass dispatch assumes
+_SMEM_OPTIN = 232448  # an H100 block's opt-in shared memory, which #2's float32 stages are sized to
 _GRID_MAX = 65535  # blocks along grid.y and grid.z
 # the forward's tiles (csrc/flash_attention_fwd.cu): bfloat16 64 query rows
 # and keys a block, 64 columns a stage; float32 16 rows, 4 warps, 16 keys a
@@ -129,8 +127,9 @@ _GRID_MAX = 65535  # blocks along grid.y and grid.z
 _FWD_TC_ROWS, _FWD_CHUNK, _PAD = 64, 64, 8
 _F32_ROWS, _F32_WARPS, _F32_KEYS, _F32_STAGES, _F32_RESIDENT_Q = 16, 4, 16, 3, 1024
 # the two-pass kernels (csrc/flash_attention_bwd_two_pass.cu): 16 own rows
-# and 8 warps a block; the wide classes' column pieces and slices
-_TP_ROWS, _TP_WARPS, _WIDE_TR, _WIDE_COLS, _WIDE_SLICE, _F32_WIDE_COLS = 16, 8, 64, 128, 1024, 1024
+# and 8 warps a block; float32's 8 streamed rows a stage; the wide classes'
+# streamed rows, column pieces and slices
+_TP_ROWS, _TP_WARPS, _F32_TR, _WIDE_TR, _WIDE_COLS, _WIDE_SLICE = 16, 8, 8, 64, 128, 1024
 _TWO_PASS_KERNELS = ("f32", "f32_wide", "tc", "tc_wide")  # the library's kernel codes 0-3
 _FULLY_MASKED_LSE = -5e8  # below any row with a valid key; the kernels use the same bound
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -161,7 +160,7 @@ TWO_PASS_LIBRARY = CudaLibrary(
     headers=("flash_common.cuh", "philox.cuh", "tensor_core.cuh"),
     functions={"odtt_flash_attention_two_pass": (_I, [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _U, _F, _P]),
                "odtt_flash_two_pass_plan": (_I, [_I] * 4 + [_P])},
-    abi=("odtt_flash_bwd_two_pass_abi_version", 4),
+    abi=("odtt_flash_bwd_two_pass_abi_version", 5),
 )
 
 
@@ -228,9 +227,10 @@ class ForwardPlan(NamedTuple):
 class TwoPassPlan(NamedTuple):
     """A two-pass launch (#3 / #4, #6 / #7) at head widths d, dv: the
     ``kernel`` ("f32", "f32_wide", "tc" or "tc_wide"), its width class
-    ``cls`` (float32 P columns a lane per 32, bfloat16 KPW), the streamed
-    ``rows`` a tile, the ``slices`` of gradient columns along grid.y a head,
-    and its dynamic shared memory in bytes."""
+    ``cls`` (float32 JPW, 8-column gradient jobs a warp; bfloat16 KPW; 0 for
+    the wide kernels), the streamed ``rows`` a tile, the ``slices`` of
+    gradient columns along grid.y a head, and its dynamic shared memory in
+    bytes."""
 
     kernel: str
     cls: int
@@ -279,25 +279,35 @@ def _two_pass_tc_smem(d: int, dv: int, rows: int) -> int:
     return 2 * 2 * rows * (s1 + s2) + 4 * (_TP_WARPS + 1) * _TP_ROWS * rows + 2 * 4 * _TP_ROWS * ps
 
 
+def _two_pass_f32_smem(d: int, dv: int) -> int:
+    """``F32Layout``, all float32: the 16 own rows' d- and dv-wide tiles, 2
+    stages of 8 streamed rows of both, the 8 warps' partial S and dP tiles
+    (16 x 8 each) and the dS and P keep tiles (16 rows of 12); rows of d
+    and dv padded to 8 mod 32 words."""
+    s1, s2 = _round_up(d, 32) + 8, _round_up(dv, 32) + 8
+    words = _TP_ROWS * (s1 + s2) + 2 * _F32_TR * (s1 + s2) + 2 * _TP_WARPS * _TP_ROWS * _F32_TR
+    return 4 * (words + 2 * _TP_ROWS * (_F32_TR + 4))
+
+
 def two_pass_plan(d: int, dv: int, dtype: torch.dtype, dq: bool) -> TwoPassPlan:
     """One pass's launch at head widths d, dv (``dq`` the dQ pass, else dK /
     dV): ``two_pass_plan`` of ``csrc/flash_attention_bwd_two_pass.cu``,
-    which the library exports as ``odtt_flash_two_pass_plan``. The wide
-    kernels take one slice of at most 1024 gradient columns a block."""
+    which the library exports as ``odtt_flash_two_pass_plan``. Both dtypes
+    run on the tensor cores (float32 in 3xTF32); the wide kernels take one
+    slice of at most 1024 gradient columns a block."""
+    slices = _cdiv(d, _WIDE_SLICE) + (0 if dq else _cdiv(dv, _WIDE_SLICE))
     if dtype == torch.float32:
-        widest = max(d, dv)
-        smem = (1 if dq else 2) * _HEADER_BYTES + _TILE_K * (d + dv) * 4
-        if widest <= 1024 and smem <= _SMEM_OPTIN:
-            cls = next(p for p, w in ((1, 32), (2, 64), (4, 128), (8, 256), (16, 512), (32, 1024)) if widest <= w)
-            return TwoPassPlan("f32", cls, _TILE_K, 1, smem)
-        slices = _cdiv(d, _F32_WIDE_COLS) + (0 if dq else _cdiv(dv, _F32_WIDE_COLS))
-        return TwoPassPlan("f32_wide", _F32_WIDE_COLS // 32, _TILE_K, slices, 4 * _TILE_K * _F32_WIDE_COLS)
+        jpw = _cdiv(_cdiv(d, 8) + _cdiv(dv, 8), _TP_WARPS)
+        if jpw <= 24:
+            cls = next(c for c in (2, 4, 8, 12, 16, 24) if jpw <= c)
+            return TwoPassPlan("f32", cls, _F32_TR, 1, _two_pass_f32_smem(d, dv))
+        smem = 4 * (2 * (_TP_ROWS + _WIDE_TR) * (_WIDE_COLS + 8) + _TP_ROWS * (_WIDE_TR + 4))
+        return TwoPassPlan("f32_wide", 0, _WIDE_TR, slices, smem)
     kpw = _cdiv(_cdiv(d, 16) + _cdiv(dv, 16), _TP_WARPS)
     if kpw <= 16:
         cls = next(c for c in (2, 4, 8, 12, 16) if kpw <= c)
         rows = 32 if cls <= 12 else 16
         return TwoPassPlan("tc", cls, rows, 1, _two_pass_tc_smem(d, dv, rows))
-    slices = _cdiv(d, _WIDE_SLICE) + (0 if dq else _cdiv(dv, _WIDE_SLICE))
     smem = 2 * 2 * (_TP_ROWS + _WIDE_TR) * (_WIDE_COLS + _PAD) + 2 * 2 * _TP_ROWS * (_WIDE_TR + _PAD)
     return TwoPassPlan("tc_wide", 0, _WIDE_TR, slices, smem)
 
@@ -906,8 +916,9 @@ class FlashAttentionTwoPass(LaunchCounter):
     #7 on head-major (B, h, S, d) operands (views with their own strides too;
     each gradient has its operand's strides). Each computes delta beside its
     kernel and writes its gradients once, in the input dtype. ``launches``
-    counts kernel launches and nothing else. In bfloat16 the kernels run on
-    the tensor cores and feed dS and P keep to them as hi / lo bf16 pairs."""
+    counts kernel launches and nothing else. Both dtypes run on the tensor
+    cores: bfloat16 feeds dS and P keep to them as hi / lo bf16 pairs,
+    float32 splits every operand into tf32 halves (3xTF32)."""
 
     library = TWO_PASS_LIBRARY
 

@@ -1,20 +1,25 @@
-"""The float32 fused flash backward on the tensor cores
-(``csrc/flash_attention_bwd.cu::flash_bwd_f32_kernel``), on the CPU.
+"""The float32 flash backward on the tensor cores, on the CPU: the fused
+kernel (``csrc/flash_attention_bwd.cu::flash_bwd_f32_kernel``, #2) and the
+two-pass kernels (``csrc/flash_attention_bwd_two_pass.cu``:
+``flash_two_pass_f32_kernel`` and, past d / 8 + dv / 8 = 192 k-steps,
+``flash_two_pass_f32_wide_kernel``, #3 / #4 and head-major #6 / #7).
 
-* Its precision argument: the kernel splits every float32 operand of its
-  five products (S = Q K^T, dP = dO V^T, dV = (P keep)^T dO, dK = dS^T Q,
-  dQ = dS K) into tf32 halves by truncation (``tc::split_tf32_trunc``:
-  big = x with its 13 low mantissa bits cleared, small = x - big, of which
-  the tensor cores read the top 19 bits) and sums three tf32 products
-  (3xTF32; ``tests/test_torch_tf32_split.py`` emulates the forward's
-  rounding split). At the float32 training step's call sites, the emulated
-  gradients stay within ``BWD_TOL["float32"] = 1e-4`` of ``chip_smoke.py``
-  (relative to each gradient's largest value) against the float32 ones,
-  and one tf32 product (1xTF32) does not.
-* Its name in a trace: ``chip_smoke.trace_launches`` (which reads a
+* Their precision argument: the kernels split every float32 operand of
+  their five products (S = Q K^T, dP = dO V^T, dV = (P keep)^T dO, dK =
+  dS^T Q, dQ = dS K) into tf32 halves by truncation
+  (``tc::split_tf32_trunc``: big = x with its 13 low mantissa bits cleared,
+  small = x - big, of which the tensor cores read the top 19 bits) and sum
+  three tf32 products (3xTF32; ``tests/test_torch_tf32_split.py`` emulates
+  the forward's rounding split). At the float32 training step's call sites
+  of #2 and of #3 / #4 (hidden 512's and hidden 1024's merged
+  cross-attention at their full head widths, short sequences), the
+  emulated gradients stay within ``BWD_TOL["float32"] = 1e-4`` of
+  ``chip_smoke.py`` (relative to each gradient's largest value) against the
+  float32 ones, and one tf32 product (1xTF32) does not.
+* Their names in a trace: ``chip_smoke.trace_launches`` (which reads a
   replayed step's launches) and ``tools/profile_step_torch.py`` (which sums
-  a step's device time by kernel) count it as #2, as they count the
-  bfloat16 kernel.
+  a step's device time by kernel) count each as its kernel number, as they
+  count the bfloat16 kernels.
 """
 
 import os
@@ -37,6 +42,10 @@ BWD_TOL_FLOAT32 = 1e-4  # chip_smoke.py's BWD_TOL["float32"], which the kernel i
 # self-attention, decoder self-attention and merged cross-attention, and
 # hidden 512's decoder self-attention
 SITES = [(8, 32, 32, True), (8, 64, 64, False), (1, 512, 256, True), (8, 128, 128, False)]
+# (heads, d, dv, masked) of the float32 step's two-pass (#3 / #4) sites: the
+# merged cross-attention at hidden 512 (the JPW-24 class) and at hidden 1024
+# (the wide class)
+TWO_PASS_SITES = [(1, 1024, 512, True), (1, 2048, 1024, True)]
 
 
 def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
@@ -88,7 +97,7 @@ def _worst(grads, ref):
     return max(((g - r).abs().max() / r.abs().max()).item() for g, r in zip(grads, ref))
 
 
-@pytest.mark.parametrize("h,d,dv,masked", SITES)
+@pytest.mark.parametrize("h,d,dv,masked", SITES + TWO_PASS_SITES)
 def test_3xtf32_gradients_stay_within_the_float32_tolerance(h, d, dv, masked):
     q, k, v, dout, mask = _case(h, d, dv, masked)
     ref = _gradients(q, k, v, dout, mask, torch.matmul)
@@ -97,7 +106,7 @@ def test_3xtf32_gradients_stay_within_the_float32_tolerance(h, d, dv, masked):
     assert err <= 2e-5, err  # about float32's own rounding, inside the tolerance
 
 
-@pytest.mark.parametrize("h,d,dv,masked", SITES)
+@pytest.mark.parametrize("h,d,dv,masked", SITES + TWO_PASS_SITES)
 def test_1xtf32_gradients_exceed_the_float32_tolerance(h, d, dv, masked):
     q, k, v, dout, mask = _case(h, d, dv, masked)
     ref = _gradients(q, k, v, dout, mask, torch.matmul)
@@ -114,8 +123,19 @@ def test_tolerance_is_chip_smokes():
      "flash_attention_bwd #2"),
     ("void (anonymous namespace)::flash_fwd_f32_kernel<128, false>(const float *, ...)", 0,
      "flash_attention_fwd #1/#5"),
-    ("void (anonymous namespace)::flash_dq_kernel<16>(const float *, ...)", 2, "flash_attention_dq #3/#6"),
-    ("void (anonymous namespace)::flash_dkv_kernel<16>(const float *, ...)", 3, "flash_attention_dkv #4/#7"),
+    ("void (anonymous namespace)::flash_two_pass_f32_kernel<false, 24>((anonymous namespace)::Params)", 2,
+     "flash_attention_dq #3/#6"),
+    ("void (anonymous namespace)::flash_two_pass_f32_kernel<true, 24>((anonymous namespace)::Params)", 3,
+     "flash_attention_dkv #4/#7"),
+    ("void (anonymous namespace)::flash_two_pass_f32_wide_kernel<false>((anonymous namespace)::Params, int, int)",
+     2, "flash_attention_dq #3/#6"),
+    ("void (anonymous namespace)::flash_two_pass_f32_wide_kernel<true>((anonymous namespace)::Params, int, int)",
+     3, "flash_attention_dkv #4/#7"),
+    ("_ZN12_GLOBAL__N_125flash_two_pass_f32_kernelILb1ELi12EEEvNS_6ParamsE", 3, "flash_attention_dkv #4/#7"),
+    ("void (anonymous namespace)::flash_two_pass_tc_kernel<false, 12>((anonymous namespace)::Params)", 2,
+     "flash_attention_dq #3/#6"),
+    ("void (anonymous namespace)::flash_two_pass_tc_wide_kernel<true>((anonymous namespace)::Params, int, int)", 3,
+     "flash_attention_dkv #4/#7"),
 ])
 def test_trace_names_count_each_kernel_once(name, index, label):
     counts = chip_smoke.trace_launches({name: 6})

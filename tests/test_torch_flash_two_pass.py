@@ -263,24 +263,33 @@ def _parent_forward_plan(d, dv, dtype):
 
 
 def _parent_two_pass_plan(d, dv, dtype):
-    """The two-pass launch before any head past 1024 ran: bfloat16 in KPW
-    classes 2 / 4 / 8 / 12 / 16, float32 in P classes up to 32 (a lane's
-    columns per 32 of the widest head), one block per 16 (8) own rows a
-    head."""
-    if dtype == torch.bfloat16:
-        kpw = -(-(-(-d // 16) - (-dv // 16)) // 8)
-        return "tc", next(c for c in (2, 4, 8, 12, 16) if kpw <= c), 1
-    return "f32", next(p for p in (1, 2, 4, 8, 16, 32) if max(d, dv) <= 32 * p), 1
+    """The bfloat16 two-pass launch before any head past 1024 ran: KPW
+    classes 2 / 4 / 8 / 12 / 16, one block per 16 own rows a head."""
+    assert dtype == torch.bfloat16
+    kpw = -(-(-(-d // 16) - (-dv // 16)) // 8)
+    return "tc", next(c for c in (2, 4, 8, 12, 16) if kpw <= c), 1
+
+
+def _f32_two_pass_plan(d, dv):
+    """The float32 two-pass launch on the tensor cores (3xTF32): JPW classes
+    2 / 4 / 8 / 12 / 16 / 24 (8-column k-steps of d and dv over 8 warps, 8
+    streamed rows a stage) up to 192 k-steps, the wide kernel (64 streamed
+    rows, 1024-column slices) past them."""
+    jpw = -(-(-(-d // 8) - (-dv // 8)) // 8)
+    if jpw <= 24:
+        return "f32", next(c for c in (2, 4, 8, 12, 16, 24) if jpw <= c), 8
+    return "f32_wide", 0, 64
 
 
 def test_launch_plans_fit_the_card_at_every_width():
     """Every launch plan of the forward and of both two-pass kernels, at
     head widths 16 to 4096 in both dtypes, fits an H100 block's shared
-    memory and its grid; up to 1024 each plan is the one the kernels ran
-    before (float32's two-pass ones where their 32-row tile of d + dv
-    columns fit a block, as every model site's does); past it the wide
-    two-pass kernels split the gradient's columns into slices of 1024."""
-    widths = sorted(set(range(16, 4097, 16)) | {17, 520, 1040, 1815, 1816})
+    memory and its grid; up to 1024 each forward plan and each bfloat16
+    two-pass plan is the one the kernels ran before; float32's two-pass
+    plans are the 3xTF32 kernels' (a block's 16 own rows whole up to d / 8 +
+    dv / 8 = 192 k-steps); past those the wide two-pass kernels split the
+    gradient's columns into slices of 1024."""
+    widths = sorted(set(range(16, 4097, 16)) | {17, 520, 1040, 1535, 1537, 1815, 1816})
     for d in widths:
         for dv in widths:
             for dtype in (torch.float32, torch.bfloat16):
@@ -290,15 +299,26 @@ def test_launch_plans_fit_the_card_at_every_width():
                 assert 8 * max(fwd.chunks, dkv.slices) <= 65535
                 if max(d, dv) <= 1024:
                     assert fwd[:3] == _parent_forward_plan(d, dv, dtype), (d, dv, dtype)
-                    if dtype == torch.bfloat16 or 128 + 128 * (d + dv) <= H100_SMEM_OPTIN:
+                    if dtype == torch.bfloat16:
                         assert (dq.kernel, dq.cls, dq.slices) == _parent_two_pass_plan(d, dv, dtype), (d, dv, dtype)
                         assert dkv[:2] == dq[:2] and dkv.slices == 1
+                if dtype == torch.float32:
+                    assert dq[:3] == dkv[:3] == _f32_two_pass_plan(d, dv) and dq.smem == dkv.smem, (d, dv)
+                    if dq.kernel == "f32":
+                        assert dq.slices == dkv.slices == 1
                 if dq.kernel.endswith("_wide"):
                     assert dq.slices == -(-d // 1024) and dkv.slices == dq.slices + -(-dv // 1024)
-    # the call sites: hidden 512's cross on the KPW-12 kernel, hidden 1024's on the wide one
+    # the call sites: hidden 512's cross on the KPW-12 kernel (bfloat16) and
+    # the JPW-24 one (float32: 16 own rows of 1536 columns and two stages of
+    # 8 beside them, 208,384 bytes), hidden 1024's on the wide ones; the
+    # float32 class ends at d / 8 + dv / 8 = 192
     assert fa.two_pass_plan(1024, 512, torch.bfloat16, False) == ("tc", 12, 32, 1, 222208)
     assert fa.two_pass_plan(2048, 1024, torch.bfloat16, False) == ("tc_wide", 0, 64, 3, 48128)
-    assert fa.two_pass_plan(2048, 1024, torch.float32, True) == ("f32_wide", 32, 32, 2, 131072)
+    assert fa.two_pass_plan(1024, 512, torch.float32, False) == ("f32", 24, 8, 1, 208384)
+    assert fa.two_pass_plan(512, 256, torch.float32, True) == ("f32", 12, 8, 1, 110080)
+    assert fa.two_pass_plan(1024, 520, torch.float32, True)[:2] == ("f32_wide", 0)
+    assert fa.two_pass_plan(2048, 1024, torch.float32, True) == ("f32_wide", 0, 64, 2, 91392)
+    assert fa.two_pass_plan(2048, 1024, torch.float32, False) == ("f32_wide", 0, 64, 3, 91392)
     assert fa.forward_plan(2048, 1024, torch.float32) == (0, 128, 8, 212736)
     assert fa.forward_plan(1024, 512, torch.float32) == (1, 128, 4, 223488)
 

@@ -34,8 +34,8 @@ sys.path.insert(0, REPO)
 PORT_KERNELS = (
     ("flash_attention_fwd #1/#5", r"flash_fwd_(tc|f32)_kernel"),
     ("flash_attention_bwd #2", r"flash_bwd_(tc|f32)_kernel"),
-    ("flash_attention_dq #3/#6", r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<false|ILb0E)|flash_dq_kernel"),
-    ("flash_attention_dkv #4/#7", r"flash_two_pass_(tc|tc_wide|f32_wide)_kernel(<true|ILb1E)|flash_dkv_kernel"),
+    ("flash_attention_dq #3/#6", r"flash_two_pass_(tc|f32)(_wide)?_kernel(<false|ILb0E)"),
+    ("flash_attention_dkv #4/#7", r"flash_two_pass_(tc|f32)(_wide)?_kernel(<true|ILb1E)"),
     ("fused_auction #9", r"fused_auction_kernel"),
     ("auction_kernel #8", r"(?<!fused_)auction_kernel"),
 )
