@@ -8,8 +8,10 @@ training and serving from torch weights, and the captured step profiled by
 kernel; data-parallel training over explicit process groups; the JAX
 package's tools on the port (val noise, the divergence post-mortem, the
 flash probe, the loader bench, the convolution roofline); the port's
-launchers, scripts/*_torch.sh, as subprocesses; and hold each hand-written
-CUDA kernel against its plain PyTorch version.
+launchers, scripts/*_torch.sh, as subprocesses; BASELINE.json's config 4
+(DESTR-R101 with the dilated C5 at 1333 px) trained, captured, evaluated,
+served and profiled; and hold each hand-written CUDA kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -284,12 +286,31 @@ Phases (any failure exits non-zero and prints no result):
      evaluator's one JSON line with map and coco_map equal to the trainer's
      logged values (within 1e-5, its printing's rounding) and 18 #1
      launches a batch.
+ 19. BASELINE.json's config 4, train-1333-r101-dc5: DESTR-R101 with the
+     dilated C5 (layer4 at stride 1) at 1333 px, B=1, bf16, on synthetic
+     1399 px canvases, so the encoder takes 84 x 84 = 7056 tokens and the
+     cross-attention 7056 keys: #1 and #2 at the step's three sites (B=1,
+     bf16, dropout 0.3) and #9 on its 2 problems of N = 7056 against their
+     plain versions; train.train.main for 4 steps and a 2-image validation
+     split (exactly 18 / 18 / 0 / 0 / 1 launches of #1 / #2 / #3 / #4 / #9
+     a step and 18 / 0 / 0 / 0 / 1 a validation batch, finite losses, the
+     updates as the parameter groups say, its best checkpoint written), the
+     parts of 3 more steps; the captured step against 3 eager samples a
+     step (phase 6a's check, times, traces and peak memory);
+     infer.evaluate on the checkpoint (the driver's mAP, 18 #1 a batch);
+     four requests of four aspects at 1333 px in float32 through infer.cli
+     (one invocation a request, 18 #1 each) and phase 8's serving on a
+     DetectionService built with infer.server.build_model (the server's
+     flags have no --dilation, as in the JAX package), the CLI's detections
+     within 1e-5 of the service's; tools/profile_step_torch.py at --batch 1
+     --image 1333 --backbone resnet101 --dilation: its table by category,
+     and #1's and #2's device ms a replayed step at each call site.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors, #3's and #4's
 errors at the cross sites and each kernel's float32 entry; #1's serving
 entry with its float32 B=1 sites; #8's and #9's rounds and bids beside the
-plain version's); the last line is {"ok": true, "device": {...}}.
+plain version's; #1's, #2's and #9's config_4 entries, phase 19's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -409,6 +430,18 @@ CUDA_CORE_F32_RECORDED_UNPACKED_MS = {"dq": {"encoder_self": 1.4806, "decoder_se
                                       "dkv": {"encoder_self": 1.2457, "decoder_self": 1.1340, "cross_cls_reg": 5.9123}}
 F32_ARGS = ["--compute_dtype", "float32"]
 F32_EAGER_RUNS = 3  # the float32 cells' eager samples a captured step is held against
+# BASELINE.json's config 4: ResNet-101 with the dilated C5 at 1333 px, B=1
+# (bench.py's BENCH_BACKBONE=resnet101 BENCH_DILATION=1 BENCH_IMAGE=1333
+# BENCH_BATCH=1); the recipe's other flags are TRAIN_ARGS'
+C4_LABEL = "train-1333-r101-dc5"
+C4_IMAGE = 1333
+C4_CANVAS = int(C4_IMAGE * 672 / 640)  # 1399, the trainer's canvas
+C4_ARGS = ["--backbone", "resnet101", "--dilation", "--image_size", str(C4_IMAGE), "--batch_size", "1",
+           "--synthetic_size", str(C4_CANVAS), "--num_train_samples", str(TRAIN_STEPS)]
+C4_VALID = 2  # validation images, a batch each
+C4_TOKENS = 84 * 84  # C5 at stride 16: 1333 -> 667 -> 334 -> 167 -> 84
+C4_REQUEST_SIZES = [(h * C4_IMAGE // 640, w * C4_IMAGE // 640) for h, w in REQUEST_SIZES]  # (H, W)
+C4_PER_STEP = (18, 18, 0, 0, 1, 0, 0, 0, 0)  # backward_plan routes by d and dv, not by Sk
 # the auction kernels before their compacted-column solver, eager ms of the
 # wrapper's call (PERF.md; this script, NVIDIA H100 80GB HBM3, 700.00 W):
 # printed beside this run's times, never measured by this run
@@ -1150,11 +1183,12 @@ def l2_rate(torch) -> float:
     return max(view.numel() * 4 / (ms * 1e-3), HBM_RATE)
 
 
-def auction_problems(torch, seed, dense):
-    """32 problems (2 x 16: the model's 300 top-k queries padded to the
-    mini-detector's 400 tokens, then the tokens), T=300 targets, one class."""
+def auction_problems(torch, seed, dense, half=TRAIN_B, n=400):
+    """2 x ``half`` problems (the model's 300 top-k queries padded to the
+    mini-detector's ``n`` tokens, then the tokens), T=300 targets, one
+    class: 32 of N=400 as the 640 px step stacks them by default."""
     gen = torch.Generator().manual_seed(seed)
-    b, n, t = 2 * TRAIN_B, 400, 300
+    b, t = 2 * half, 300
     logits = torch.randn(b, n, 2, generator=gen) * 2
     boxes = torch.stack([torch.rand(b, n, generator=gen) * 0.6 + 0.2, torch.rand(b, n, generator=gen) * 0.6 + 0.2,
                          torch.rand(b, n, generator=gen) * 0.35 + 0.05, torch.rand(b, n, generator=gen) * 0.35 + 0.05], -1)
@@ -1166,9 +1200,9 @@ def auction_problems(torch, seed, dense):
     n_valid = torch.randint(lo, hi, (b,), generator=gen)
     valid = torch.arange(t)[None, :] < n_valid[:, None]
     real = torch.full((b,), n)
-    real[:TRAIN_B] = 300
+    real[:half] = 300
     if dense:
-        real[TRAIN_B:TRAIN_B + 4] = 320  # problems with fewer real rows
+        real[half:half + 4] = 320  # problems with fewer real rows
     row_valid = torch.arange(n)[None, :] < real[:, None]
     return [x.to("cuda") for x in (logits, boxes, tgt, labels, valid, row_valid)]
 
@@ -1392,19 +1426,25 @@ def reset_counts(kernels) -> None:
         k.launches = 0
 
 
-def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0, 0, 0), label="hidden 256"):
+def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0, 0, 0), label="hidden 256",
+                checkpoints=None, valid=0):
     """The production recipe (+ ``extra`` flags) through the trainer's entry
-    point, with an empty validation split (phase 8 validates); ``per_step``
-    the launches of each kernel a step."""
+    point, with an empty validation split (phase 8 validates) or ``valid``
+    images, and its checkpoints in a temporary directory or in
+    ``checkpoints`` (saved as "train"); ``per_step`` the launches of each
+    kernel a step, 18 #1 and 1 #9 a validation batch beside them. Returns
+    (the state, the launches, the median step ms, the epoch's record)."""
     from object_detection_destr_tpu_torch.models.destr.model import build_destr
     from object_detection_destr_tpu_torch.train import train as train_cli
-    from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
 
+    config = recipe_config(extra)
+    batch, image = config.train.batch_size, config.train.image_size
     log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build",
                            "chip_smoke_train_" + label.replace(" ", "_"))
-    with tempfile.TemporaryDirectory() as checkpoints:
-        argv = TRAIN_ARGS + list(extra) + ["--seed", str(seed), "--log_dir", log_dir, "--num_valid_samples", "0",
-                                           "--checkpoint_dir", checkpoints]
+    with contextlib.ExitStack() as stack:
+        ckpt = checkpoints or stack.enter_context(tempfile.TemporaryDirectory())
+        argv = TRAIN_ARGS + list(extra) + ["--seed", str(seed), "--log_dir", log_dir, "--num_valid_samples",
+                                           str(valid), "--checkpoint_dir", ckpt, "--save_as", "train"]
         reset_counts(kernels)  # the main path starts here
         t0 = time.perf_counter()
         result = train_cli.main(argv)
@@ -1413,15 +1453,18 @@ def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0,
         counts = [k.launches for k in kernels]  # read just after the main path
     state = result["state"]
     steps = state.step
+    valid_batches = -(-valid // batch)
     want = [n * steps for n in per_step]
+    want[0] += 18 * valid_batches
+    want[4] += valid_batches
     if steps != TRAIN_STEPS or counts != want:
-        raise AssertionError(f"{steps} steps launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
+        raise AssertionError(f"{steps} steps and {valid_batches} validation batches launched "
+                             f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
     metrics = result["metrics"]
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite or missing losses: {metrics}")
     if state.optimizer.count != steps:
         raise AssertionError(f"{state.optimizer.count} of {steps} updates applied")
-    config = config_from_args(get_parser("destr").parse_args(argv), "destr")
     torch.manual_seed(seed)
     initial = build_destr(config.destr, "cuda")
     model = state.model
@@ -1435,18 +1478,19 @@ def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0,
     del initial
     step_ms = result["step_ms"]
     median = statistics.median(step_ms[1:])
-    log(f"train {label}: {steps} steps of the production recipe (B={TRAIN_B}, 640px, {config.destr.compute_dtype}, "
-        f"6+6 blocks, top_k 300, "
-        f"dropout {RATE}, hidden {config.destr.hidden_dim}) in {wall:.1f} s (with a _last checkpoint); launches "
+    log(f"train {label}: {steps} steps of the production recipe (B={batch}, {image}px, {config.destr.backbone}"
+        f"{' dilated C5' if config.destr.dilation else ''}, {config.destr.compute_dtype}, 6+6 blocks, top_k 300, "
+        f"dropout {RATE}, hidden {config.destr.hidden_dim}) and {valid_batches} validation batches in {wall:.1f} s "
+        f"(with a _last checkpoint); launches "
         f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} "
-        f"({'/'.join(str(c // steps) for c in counts)} a step); last losses "
+        f"({'/'.join(str(n) for n in per_step)} a step); last losses "
         + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-    log(f"train {label}: the matcher's bidding rounds in the last step (16 model problems, then 16 "
+    log(f"train {label}: the matcher's bidding rounds in the last step ({batch} model problems, then {batch} "
         f"mini-detector problems): {kernels[4].last_rounds.tolist()}")
     log(f"train {label}: step ms (CUDA events) {', '.join(f'{t:.1f}' for t in step_ms)}; median after the first "
-        f"{median:.2f} ms = {TRAIN_B / median * 1e3:.1f} images/s; driver's epoch images/s "
+        f"{median:.2f} ms = {batch / median * 1e3:.1f} images/s; driver's epoch images/s "
         f"{result['images_per_sec']:.1f}; parameters moved {moved}")
-    return state, counts, median
+    return state, counts, median, (result["history"] or [None])[0]
 
 
 def getattr_path(module, name):
@@ -1897,11 +1941,12 @@ def forward_widths(kernel, widths):
         cls._run = original
 
 
-def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 256"):
+def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 256", build=None):
     """Serving through infer.server's build_service: seeded random weights
     written as flax .npz (or ``service_args``, a trained checkpoint and its
-    shape flags), the predict captured, requests as replays and eagerly,
-    traced, timed, and the HTTP front end."""
+    shape flags; or ``build``, which returns a DetectionService), the
+    predict captured, requests as replays and eagerly, traced, timed, and
+    the HTTP front end."""
     from object_detection_destr_tpu_torch.config import DestrConfig
     from object_detection_destr_tpu_torch.infer.server import _make_handler, build_service, get_parser
     from object_detection_destr_tpu_torch.models.convert import (
@@ -1912,7 +1957,7 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
 
     start = time.perf_counter()
     variables = None
-    if service_args is None:
+    if service_args is None and build is None:
         weights_dir = os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "object_detection_destr_tpu_torch", "_build"
         )
@@ -1923,10 +1968,12 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
         del source
         save_variables_npz(variables, os.path.join(weights_dir, "chip_smoke_weights.npz"))
         service_args = ["--checkpoint_dir", weights_dir, "--weights", "chip_smoke_weights.npz", "--score_thresh", "0.0"]
-    args = get_parser().parse_args(service_args)
+    if build is None:
+        args = get_parser().parse_args(service_args)
+        build = lambda: build_service(args)  # noqa: E731 — default: GPU, 640px, letterbox, the predict captured
     kernel.launches = 0  # the main path starts here: the service's warm-up forward and capture, then requests
     with forward_widths(kernel, collections.Counter()) as widths:
-        service = build_service(args)  # default: GPU, 640px, letterbox, the predict captured
+        service = build()
     built = kernel.launches
     log(f"serving {label}: weights ready and service built (warm-up forward and CUDA-graph capture) in "
         f"{time.perf_counter() - start:.1f} s ({sum(p.numel() for p in service.model.parameters()) / 1e6:.1f} M "
@@ -1934,7 +1981,7 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
         f"dv) {dict(widths)}")
     if service.graph is None or built != 2 * 3 * BLOCKS or sum(widths.values()) != built:
         raise AssertionError(f"the service captured no graph, or called #1 {built} times building it")
-    hidden = args.hidden_dim
+    hidden, size = service.model.config.hidden_dim, service.image_size
     want_widths = {("float32", hidden // 8, hidden // 8), ("float32", 2 * hidden // 8, 2 * hidden // 8),
                    ("float32", 2 * hidden, hidden)}
     if set(widths) != want_widths or set(widths.values()) != {2 * BLOCKS}:
@@ -1993,7 +2040,7 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
     serve_timing = {"captured_ms": statistics.median(latencies), "captured_max_ms": max(latencies),
                     "eager_ms": statistics.median(eager_latencies), "eager_max_ms": max(eager_latencies),
                     **{f"{kind}_{key}": w[key] for kind, w in windows.items()
-                       for key in ("idle_share", "step_busy_ms", "step_period_ms")}}
+                       for key in ("idle_share", "step_busy_ms", "step_period_ms", "kernel_ms")}}
 
     # where a request's time goes: host letterbox, then the model on the device
     from object_detection_destr_tpu_torch.data.loader import _letterbox_canvas
@@ -2001,11 +2048,11 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
     host_ms = []
     for image in images:
         t0 = time.perf_counter()
-        _letterbox_canvas(image, 640)
+        _letterbox_canvas(image, size)
         host_ms.append((time.perf_counter() - t0) * 1e3)
     log(f"serving {label}: host letterbox ms per image {', '.join(f'{t:.2f}' for t in host_ms)}")
     # one model forward alone, on the device clock
-    canvas = torch.zeros((1, 640, 640, 3), device="cuda")
+    canvas = torch.zeros((1, size, size, 3), device="cuda")
     parts = forward_parts(torch, service.model, canvas)
     forward_ms = parts.pop("forward")
     log(f"serving {label}: model forward B=1 ms={forward_ms:.2f} (CUDA events); by part ms "
@@ -2407,7 +2454,8 @@ def destr_capture_setup(torch, seed, extra):
 
     config = recipe_config(list(extra) + ["--seed", str(seed)])
     cfg = config.train
-    cache = DeviceCachedLoader(_make_loaders(config, 672, "destr")[0], "cuda")
+    canvas = int(cfg.image_size * 672 / 640)  # the trainer's canvas
+    cache = DeviceCachedLoader(_make_loaders(config, canvas, "destr")[0], "cuda")
     torch.manual_seed(seed)
     return {"state": create_destr_state(build_destr(config.destr, "cuda"), cfg, steps_per_epoch=len(cache)),
             "cache": cache, "train_step": make_destr_train_step(cfg), "step_core": make_destr_step_core(cfg),
@@ -4457,6 +4505,259 @@ def phase_launchers(card):
     return out
 
 
+# ---- slice 15: BASELINE.json's config 4 (DESTR-R101, dilated C5, 1333 px)
+FORWARD_SITES = ["encoder_self"] * BLOCKS + ["decoder_self", "cross_cls_reg"] * BLOCKS  # #1's order in a step
+
+
+def flash_site_ms(trace_dir, steps):
+    """#1's and #2's device ms a step at each call site, from the kernel
+    events of a trace of ``steps`` DESTR steps in the order they ran: a
+    forward launches #1 at the encoder's blocks, then at each decoder
+    block's self- and cross-attention; the backward launches #2 at the same
+    sites in the reverse order. Each site's events must share one kernel
+    name and grid, which a wrong attribution would mix."""
+    import re
+
+    from object_detection_destr_tpu_torch.train.profiler import _newest_trace
+
+    with open(_newest_trace(trace_dir)) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    out = {}
+    for kernel, pattern, order in (("#1", KERNEL_NAME_PATTERNS[0], FORWARD_SITES),
+                                   ("#2", KERNEL_NAME_PATTERNS[1], FORWARD_SITES[::-1])):
+        found = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+                        and re.search(pattern, e.get("name", ""))), key=lambda e: float(e["ts"]))
+        if len(found) != len(order) * steps:
+            raise AssertionError(f"{kernel}: {len(found)} launches in a trace of {steps} steps, not "
+                                 f"{len(order) * steps}")
+        ms, shapes = {}, {}
+        for i, e in enumerate(found):
+            site = order[i % len(order)]
+            ms[site] = ms.get(site, 0.0) + float(e.get("dur", 0.0)) / 1e3 / steps
+            shapes.setdefault(site, set()).add((e["name"], str(e.get("args", {}).get("grid"))))
+        if any(len(v) != 1 for v in shapes.values()) or len({next(iter(v)) for v in shapes.values()}) != len(shapes):
+            raise AssertionError(f"{kernel}: the launches by position do not fall into one shape a site: {shapes}")
+        out[kernel] = ms
+    return out
+
+
+def c4_kernels(torch, seed):
+    """The kernels at config 4's shapes against their plain versions: #1
+    and the plan's backward (#2) at the step's three sites (B=1, bfloat16,
+    dropout 0.3, masked as on the path), and #9 on the step's 2 problems of
+    N = 7056 rows (the 300 queries padded to the tokens, then the tokens),
+    at most 8 valid targets: rows, rounds and bids equal to the plain
+    version's."""
+    from object_detection_destr_tpu_torch.ops.cuda.auction import (
+        fused_auction,
+        fused_auction_operands,
+        hungarian_match_fused_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flash = [flash_cell(torch, gen, site, 1, torch.bfloat16, RATE, site[-1], "plan", False)
+             for site in (SITES[3], SITES[1], SITES[4])]  # the encoder's, the decoder's and the cross sites
+    if not all(r["ok"] and r["bwd_plan"] == "fused" for r in flash):
+        raise AssertionError(f"{C4_LABEL}: flash cells out of tolerance or off #2: {flash}")
+    args = auction_problems(torch, seed, False, half=1, n=C4_TOKENS)
+    rows_k, rounds_k = fused_auction(*args)
+    torch.cuda.synchronize()
+    bids = fused_auction.last_bids.cpu().long()
+    plain_bids = torch.zeros(2, dtype=torch.long, device="cuda")
+    rows_p, rounds_p = hungarian_match_fused_reference(*args, bids_out=plain_bids)
+    if not (torch.equal(rows_k, rows_p) and rounds_k.cpu().long().tolist() == rounds_p.cpu().tolist()
+            and bids.tolist() == plain_bids.cpu().tolist()):
+        raise AssertionError(f"{C4_LABEL} #9: rows, rounds {rounds_k.tolist()} / {rounds_p.tolist()} or bids "
+                             f"{bids.tolist()} / {plain_bids.tolist()} differ from the plain version's")
+    operands = fused_auction_operands(*args)
+    auction = {"ms": time_cuda(torch, lambda: fused_auction(*args)),
+               "kernel_device_ms": device_ms(torch, lambda: fused_auction.launch(operands)),
+               "plain_ms": time_cuda(torch, lambda: hungarian_match_fused_reference(*args), reps=3),
+               "rounds": rounds_k.cpu().tolist(), "bids": int(bids.sum())}
+    auction["bound_ms"], auction["bound_by"] = auction_bound(args, args[4], args[5], bids, l2_rate(torch))
+    log(f"{C4_LABEL} #9: 2 problems N={C4_TOKENS} T=300, valid targets {args[4].sum(1).tolist()}: rows, rounds "
+        f"{auction['rounds']} and bids {auction['bids']} equal to the plain version's; ms={auction['ms']:.4f} (eager "
+        f"call) kernel_device_ms={auction['kernel_device_ms']:.4f} plain_ms={auction['plain_ms']:.2f} "
+        f"bound_ms={auction['bound_ms']:.6f} ({auction['bound_by']})")
+    return flash, auction
+
+
+def c4_serving(torch, kernels, seed, ckpt, weights):
+    """Requests at 1333 px, float32, letterboxed, four aspects: through
+    infer.cli (one invocation a request, 18 #1 launches each, from the
+    checkpoint ``weights`` in ``ckpt``), then phase 8's serving on a
+    DetectionService whose model infer.server.build_model builds (the
+    server's flags have no --dilation, as in the JAX package); the CLI's
+    detections within 1e-5 of the captured service's. Returns what phase 8
+    measured and the CLI's seconds."""
+    import numpy as np
+    from PIL import Image
+
+    from object_detection_destr_tpu_torch.infer import cli, server
+
+    gen = torch.Generator().manual_seed(seed)
+    images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
+              for h, w in C4_REQUEST_SIZES]
+    flags = ["--checkpoint_dir", ckpt, "--weights", weights, "--score_thresh", "0.0", "--image_size",
+             str(C4_IMAGE), "--backbone", "resnet101"]
+    records, cli_s = [], []
+    for i, image in enumerate(images):
+        path = os.path.join(ckpt, f"request_{i}.png")
+        Image.fromarray(image).save(path)
+        reset_counts(kernels)  # a request through the CLI starts here
+        t0 = time.perf_counter()
+        records += cli.main(flags + ["--dilation", "--images", path, "--output", os.path.join(ckpt, "dets.json")])
+        torch.cuda.synchronize()
+        cli_s.append(time.perf_counter() - t0)
+        counts = [k.launches for k in kernels]
+        if counts != [3 * BLOCKS] + [0] * 8:
+            raise AssertionError(f"cli request {i}: #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, not 18 #1")
+
+    def build():
+        args = server.get_parser().parse_args(flags)
+        args.dilation = True
+        model, _ = server.build_model(args, torch.device("cuda"))
+        server.load_weights(model, ckpt, weights)
+        return server.DetectionService("destr", model, C4_IMAGE, 0.0, letterbox=True)
+
+    service, _, launches, timing, forward_ms = phase_serving(torch, kernels[0], seed, images, label=C4_LABEL,
+                                                             build=build)
+    worst = 0.0
+    for image, record in zip(images, records):
+        dets = service.predict_image(image)
+        if record["labels"] != dets["labels"]:
+            raise AssertionError("the CLI's labels or counts differ from the captured service's")
+        for key in ("boxes", "scores"):
+            worst = max(worst, float(np.abs(np.asarray(record[key], np.float32)
+                                            - np.asarray(dets[key], np.float32)).max()))
+    if not worst <= 1e-5:
+        raise AssertionError(f"the CLI's detections are {worst:.2e} from the captured service's")
+    log(f"{C4_LABEL} serving: infer.cli --backbone resnet101 --dilation --image_size {C4_IMAGE}, one invocation a "
+        f"request ({', '.join('x'.join(map(str, im.shape[:2])) for im in images)}), 18 #1 launches each, seconds "
+        f"{', '.join(f'{t:.2f}' for t in cli_s)} (model build, checkpoint, PNG and forward); its detections within "
+        f"{worst:.2e} of the captured service's")
+    del service
+    return {"cli_s": cli_s, "cli_worst": worst, "build_launches": launches, "forward_ms": forward_ms, **timing}
+
+
+def c4_profile(torch, kernels, card):
+    """tools/profile_step_torch.py at config 4: a captured step by category
+    and kernel, and #1's and #2's device ms at each call site."""
+    tool = repo_module("profile_step_torch", os.path.join("tools", "profile_step_torch.py"))
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build", "traces", "profile_step_c4")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    argv = ["--steps", str(PROFILE_STEPS), "--batch", "1", "--image", str(C4_IMAGE), "--backbone", "resnet101",
+            "--dilation", "--top", "12", "--trace_dir", trace_dir]
+    reset_counts(kernels)  # the profiled path starts here: a warm-up step, the capture, 3 replays
+    out = _beside_card(card, "profile", tool.main, argv, phase=C4_LABEL)
+    counts = [k.launches for k in kernels]
+    per_step = [c / PROFILE_STEPS for c in trace_launches(out["trace"]["launches"])]
+    busy, total = out["busy_ms_per_step"], out["total_ms_per_step"]
+    if (per_step != [18.0, 18.0, 0.0, 0.0, 1.0, 0.0] or counts[:5] != [36, 36, 0, 0, 2]
+            or not busy <= total <= (1 + PROFILE_OVERLAP) * busy):
+        raise AssertionError(f"{C4_LABEL} profile: a step's #1/#2/#3/#4/#9/#8 {per_step}, wrapper launches "
+                             f"{counts}, kernels {total} ms a step against busy {busy}")
+    sites = flash_site_ms(trace_dir, PROFILE_STEPS)
+    by_cat = {r["name"]: r for r in out["categories"]}
+    flash = sum(r["ms_per_step"] for n, r in by_cat.items() if n.startswith("flash_attention"))
+    shares = {"flash attention": flash / total,
+              **{n: by_cat[n]["ms_per_step"] / total if n in by_cat else 0.0
+                 for n in ("convolution", "GEMM", "elementwise / reduction", "copies and memsets")}}
+    log(f"{C4_LABEL} profile ({card}): a replayed step's kernels sum to {total:.2f} ms against {busy:.2f} ms busy; "
+        f"shares of the kernels' sum " + ", ".join(f"{k} {v * 100:.1f} %" for k, v in shares.items())
+        + "; device ms a step by site " + "; ".join(
+            f"{k} " + ", ".join(f"{site} {v:.4f}" for site, v in ms.items()) for k, ms in sites.items()))
+    return {**{k: out[k] for k in ("step_busy_ms", "step_period_ms", "busy_ms_per_step", "total_ms_per_step",
+                                   "categories", "top")}, "per_step": per_step, "launches": counts,
+            "shares": shares, "sites": sites}
+
+
+def phase_config4(torch, kernels, seed, card):
+    """Phase 19: BASELINE.json's config 4 through the port's entry points
+    (train, captured step, evaluator, CLI and service, profile)."""
+    from object_detection_destr_tpu_torch.infer import evaluate
+    from object_detection_destr_tpu_torch.train.driver import _eval_batch, _make_loaders
+    from object_detection_destr_tpu_torch.train.steps import make_destr_eval_step
+
+    t0 = time.perf_counter()
+    seconds, last = {}, [t0]
+
+    def lap(name):
+        """The seconds since the previous lap, as ``name``'s."""
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
+    flash_cells, auction_cell = c4_kernels(torch, seed)
+    lap("kernels")
+    work = tempfile.mkdtemp(prefix="chip_smoke_c4_",
+                            dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build"))
+    try:
+        state, counts, step_ms, record = phase_train(torch, kernels, seed, C4_ARGS, C4_PER_STEP, C4_LABEL,
+                                                     checkpoints=work, valid=C4_VALID)
+        if record is None or not math.isfinite(record["mAP"]):
+            raise AssertionError(f"{C4_LABEL}: no finite validation record: {record}")
+        parts = step_parts(torch, state, train_batch(torch, 1, seed, out_size=C4_IMAGE), recipe_train_config(C4_ARGS))
+        log(f"train {C4_LABEL}: where a step of make_destr_train_step goes, ms (CUDA events, median of 3) "
+            + " ".join(f"{k}={v:.2f}" for k, v in parts.items())
+            + f" rest={parts['step'] - sum(v for k, v in parts.items() if k != 'step'):.2f}")
+        # the evaluator on the step's checkpoint, and the trainer's eval step on one batch
+        base = TRAIN_ARGS + C4_ARGS + ["--seed", str(seed), "--num_valid_samples", str(C4_VALID),
+                                       "--checkpoint_dir", work]
+        reset_counts(kernels)
+        start = time.perf_counter()
+        evaluated = evaluate.main(base + ["--resume_from", "train"])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - start
+        eval_counts = [k.launches for k in kernels]
+        if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != C4_VALID
+                or eval_counts != [18 * C4_VALID] + [0] * 8):
+            raise AssertionError(f"evaluate {C4_LABEL}: map {evaluated['map']} over {evaluated['n_images']} images "
+                                 f"with launches {eval_counts}, the driver's mAP {record['mAP']}")
+        config = recipe_config(C4_ARGS + ["--num_valid_samples", str(C4_VALID)])
+        raw = next(iter(_make_loaders(config, C4_CANVAS, "destr")[1]))
+        batch = _eval_batch(raw, torch.device("cuda"), C4_CANVAS, C4_IMAGE)
+        eval_step = make_destr_eval_step(config.train)
+        eval_ms = time_cuda(torch, lambda: eval_step(state, batch))
+        size_mb = os.path.getsize(os.path.join(work, "train")) / 1e6
+        log(f"{C4_LABEL} validation: the driver's sweep of {C4_VALID} images mAP={record['mAP']:.6f}; infer.evaluate "
+            f"--backbone resnet101 --dilation --image_size {C4_IMAGE} on its checkpoint ({size_mb:.1f} MB) "
+            f"map={evaluated['map']:.6f} in {eval_s:.1f} s (host clock, model build and checkpoint read inside), "
+            f"launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {eval_counts} (18 #1 a batch); the trainer's eval step "
+            f"{eval_ms:.2f} ms a batch of 1 (CUDA events, matcher and losses inside)")
+        del state, batch, raw
+        torch.cuda.empty_cache()
+        lap("train, validate")
+        captured = phase_captured_train(torch, kernels, destr_capture_setup(torch, seed, C4_ARGS), C4_PER_STEP[:6],
+                                        C4_LABEL, eager_runs=3)
+        torch.cuda.empty_cache()
+        lap("captured")
+        served = c4_serving(torch, kernels, seed, work, "train")
+        torch.cuda.empty_cache()
+        lap("serve")
+        profile = c4_profile(torch, kernels, card)
+        torch.cuda.empty_cache()
+        lap("profile")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"flash_cells": flash_cells, "auction": auction_cell, "counts": counts, "step_ms": step_ms,
+           "parts": parts, "map": record["mAP"], "eval_counts": eval_counts, "eval_s": eval_s, "eval_ms": eval_ms,
+           "checkpoint_mb": size_mb,
+           "captured": {k: v for k, v in captured.items() if k != "spread"}, "serving": served, "profile": profile,
+           "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
+    log(f"{C4_LABEL} ({card}): eager step median {step_ms:.2f} ms ({1e3 / step_ms:.2f} images/s), captured step "
+        f"{captured['captured_ms']:.2f} ms ({1e3 / captured['captured_ms']:.2f} images/s; eager "
+        f"{captured['eager_ms']:.2f}), captured busy {captured['captured_step_busy_ms']:.2f} ms, idle share "
+        f"{captured['captured_idle_share']:.4f}, peak above the state: eager step "
+        f"{captured['eager_step_peak_gb']:.2f} GB, warm-up and capture {captured['captured_peak_gb']:.2f} GB; "
+        f"request captured {served['captured_ms']:.2f} ms (eager {served['eager_ms']:.2f}, idle "
+        f"{served['captured_idle_share']:.4f}); flash share of a replayed step "
+        f"{profile['shares']['flash attention'] * 100:.1f} %; phase {out['seconds']:.1f} s, by part "
+        f"{json.dumps(_rounded(seconds))}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4515,7 +4816,7 @@ def main(argv=None) -> int:
                                                 ("hidden 256 float32", F32_ARGS, (18, 18, 0, 0, 1, 0, 0, 0, 0)),
                                                 ("hidden 512 float32", WIDE_ARGS + F32_ARGS,
                                                  (18, 12, 6, 6, 1, 0, 0, 0, 0))):
-            state, counts, step_ms = phase_train(torch, kernels, args.seed, extra, per_step_launches, label)
+            state, counts, step_ms, _ = phase_train(torch, kernels, args.seed, extra, per_step_launches, label)
             parts = step_parts(torch, state, train_batch(torch, TRAIN_B, args.seed), recipe_train_config(extra))
             log(f"train {label}: where a step of make_destr_train_step goes, ms (CUDA events, median of 3) "
                 + " ".join(f"{k}={v:.2f}" for k, v in parts.items())
@@ -4580,6 +4881,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()  # the launchers' processes share the card with this one
         launchers = phase_launchers(card)
         clock("launchers (18)")
+        torch.cuda.empty_cache()
+        c4 = phase_config4(torch, kernels, args.seed, card)
+        clock("config 4 (19)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4989,7 +5293,9 @@ def main(argv=None) -> int:
         f"ms against a {tools['roofline']['conv_only_bound_ms']:.3f} ms bound, phase {tools['seconds']:.1f} s; "
         f"launchers: prod DESTR {launchers['train_prod_synth_torch.sh']['seconds']:.1f} s, prod SSD "
         f"{launchers['train_prod_ssd_torch.sh']['seconds']:.1f} s, evaluate {launchers['evaluate']['seconds']:.1f} s, "
-        f"phase {launchers['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
+        f"phase {launchers['seconds']:.1f} s; {C4_LABEL}: step ms eager {c4['step_ms']:.2f}, captured "
+        f"{c4['captured']['captured_ms']:.2f}, request ms {c4['serving']['captured_ms']:.2f}, phase "
+        f"{c4['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
         f"{json.dumps(_rounded(phase_seconds))}")
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
         entry["data_parallel"] = {
@@ -5017,6 +5323,33 @@ def main(argv=None) -> int:
                               "per": "phase 18, counted in the subprocesses: scripts/train_prod_synth_torch.sh, one "
                                      "epoch of 2 steps with --epoch_scan (eager warm-up and capture) and its live and "
                                      "EMA sweeps; infer.evaluate on its checkpoint, 2 batches"}
+    c4_cap, c4_sites = c4["captured"], c4["profile"]["sites"]
+    for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
+        entry["config_4"] = {
+            "launches": c4["counts"][index], "evaluate_launches": c4["eval_counts"][index],
+            "per_step": C4_PER_STEP[index], "captured_device_ms": c4_cap["captured_kernel_ms"][index],
+            "eager_device_ms": c4_cap["eager_kernel_ms"][index],
+            "per": f"{C4_LABEL} (ResNet-101, dilated C5, {C4_IMAGE} px, B=1, bfloat16, 7056 encoder tokens): "
+                   f"launches of train.main's 4 steps and {C4_VALID} validation batches; *_device_ms a step from "
+                   f"traces of 3 steps"}
+    for entry, kernel in ((entries[0], "#1"), (entries[1], "#2")):
+        entry["config_4"]["replayed_site_ms"] = c4_sites[kernel]
+    c4_flash = c4["flash_cells"]
+    entries[0]["config_4"].update(
+        max_abs_err=max(r["max_abs_err"] for r in c4_flash), ms=per_step(c4_flash, "ms"),
+        plain_ms=per_step(c4_flash, "plain_ms"), bound_ms=per_step(c4_flash, "bound_ms"),
+        bound_by=bound_by(c4_flash, "bound_by"), library_ms=per_step(c4_flash, "library_ms"))
+    entries[1]["config_4"].update(max_abs_err=abs_err(c4_flash, "fused"), **timed(c4_flash, "bwd"),
+                                  library_ms=per_step(c4_flash, "bwd_library_ms"))
+    entries[5]["config_4"].update({k: c4["auction"][k] for k in ("ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                                                                 "bound_by", "rounds", "bids")})
+    for entry in (entries[0], entries[1]):
+        entry["config_4"]["per"] += ("; ms, plain_ms, bound_ms, library_ms: a step's 18 launches at the three sites "
+                                     "(B=1, bfloat16, dropout 0.3, eager calls; SDPA for library_ms)")
+    entries[5]["config_4"]["per"] += f"; ms ... bids: one launch on the step's 2 problems of N={C4_TOKENS}"
+    entries[0]["config_4"]["serving"] = {"launches_per_request": 3 * BLOCKS,
+                                         "device_ms": c4["serving"]["captured_kernel_ms"][0],
+                                         "per": "a float32 request at 1333 px (trace of 4 replays)"}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

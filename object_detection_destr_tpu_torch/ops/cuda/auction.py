@@ -61,6 +61,7 @@ __all__ = [
     "matching_value_reference",
     "precomputed_value",
     "solve_auction",
+    "solver_smem_bytes",
     "value_rows_in_smem",
 ]
 
@@ -78,13 +79,28 @@ LIBRARY = CudaLibrary(
 # columns (csrc/auction.cu); a problem with more valid columns than fit
 # keeps them in global memory
 _VALUE_SMEM_BYTES = 96 * 1024
+# the dynamic shared memory a block may take on sm_90 (227 KB), less 1 KB for
+# the kernels' static Counts
+_BLOCK_SMEM_BYTES = 227 * 1024 - 1024
+
+
+def solver_smem_bytes(n: int, t: int, rows_smem: int) -> int:
+    """A block's dynamic shared memory, as csrc/auction.cu's Solver::bytes
+    counts it: per row a bid key, price, owner, free-list entry and real
+    flag; per column three ints; ``rows_smem`` value rows of N floats."""
+    return n * (8 + 3 * 4 + 1) + t * 3 * 4 + rows_smem * n * 4
 
 
 def value_rows_in_smem(n: int, t: int) -> int:
     """Valid columns whose (N,) value rows a block keeps in shared memory:
-    64 at N = 400, so the training step's problems (at most 8 valid targets)
-    never touch global memory for them."""
-    return min(t, _VALUE_SMEM_BYTES // (4 * n))
+    61 at N = 400, so the training step's problems (at most 8 valid targets)
+    never touch global memory for them; at the dilated C5's N = 7056 the
+    solver's own state leaves room for 2."""
+    room = (_BLOCK_SMEM_BYTES - solver_smem_bytes(n, t, 0)) // (4 * n)
+    if room < 0:
+        raise ValueError(f"auction: N={n} rows and T={t} columns need {solver_smem_bytes(n, t, 0)} bytes of "
+                         f"shared memory a block, more than the {_BLOCK_SMEM_BYTES} it may take")
+    return min(t, _VALUE_SMEM_BYTES // (4 * n), room)
 
 
 def solve_auction(
