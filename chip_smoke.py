@@ -10,7 +10,9 @@ package's tools on the port (val noise, the divergence post-mortem, the
 flash probe, the loader bench, the convolution roofline); the port's
 launchers, scripts/*_torch.sh, as subprocesses; BASELINE.json's config 4
 (DESTR-R101 with the dilated C5 at 1333 px) trained, captured, evaluated,
-served and profiled; and hold each hand-written CUDA kernel against its
+served and profiled; BASELINE.json's config 2 (DESTR-R50 over COCO's 80
+classes at 800 px) trained on a COCO-layout tree, evaluated, batch-inferred,
+served and its batched bf16 forward timed; and hold each hand-written CUDA kernel against its
 plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
@@ -305,12 +307,36 @@ Phases (any failure exits non-zero and prints no result):
      within 1e-5 of the service's; tools/profile_step_torch.py at --batch 1
      --image 1333 --backbone resnet101 --dilation: its table by category,
      and #1's and #2's device ms a replayed step at each call site.
+ 20. BASELINE.json's config 2, coco-800: DESTR-R50 over COCO's 80 classes
+     (--num_cls 81, the background channel last) at 800 px, B=8, bf16, on a
+     COCO-layout tree written from the seed (COCO's 80 category ids with
+     their gaps, JPEGs at COCO's common sizes, 1-20 boxes an image over all
+     80 classes, crowd and zero-width annotations the reader skips): #1 at
+     the step's three sites (encoder 625 x 625 tokens, decoder 300 x 300,
+     cross 600 x 625) in bf16 at B=8 and float32 at B=1 and B=8, #1 and #2
+     at B=8, bf16, dropout 0.3, and #9 at C = 81 on a step's 16 problems of
+     N = 625, against their plain versions; train.train.main --dataset coco
+     for 4 steps and 2 validation batches with COCO AP (18 / 18 / 0 / 0 / 1
+     a step); the captured step on the tree's batches against 3 eager
+     samples a step; infer.evaluate on its checkpoint (the driver's map and
+     coco_map within 1e-6, 18 #1 a batch) and the sweep split into host
+     decode and letterbox, the eval transform, the forward and the metrics;
+     infer.cli on 8 of the tree's images in one invocation, letterboxed and
+     stretched (18 #1 each); phase 8's serving on a captured DetectionService
+     at --num_cls 81 --image_size 800, the CLI's letterboxed detections
+     held to the service's image by image (labels equal, boxes and scores
+     within C2_CLI_TOL; where a near tie makes an image's B=1 forward pick
+     other top-k tokens or pairs than the batch, against that image run with
+     the batch's choices replayed); the model's forward as bench.py's infer mode runs
+     it (B=8, 800 px, bf16, eval, letterbox pixel masks), eager and replayed
+     as a CUDA graph: ms a batch, images/s, busy ms, idle share, peak memory.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors, #3's and #4's
 errors at the cross sites and each kernel's float32 entry; #1's serving
 entry with its float32 B=1 sites; #8's and #9's rounds and bids beside the
-plain version's; #1's, #2's and #9's config_4 entries, phase 19's); the last line is {"ok": true, "device": {...}}.
+plain version's; #1's, #2's and #9's config_4 entries, phase 19's, and config_2 entries,
+phase 20's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1183,22 +1209,29 @@ def l2_rate(torch) -> float:
     return max(view.numel() * 4 / (ms * 1e-3), HBM_RATE)
 
 
-def auction_problems(torch, seed, dense, half=TRAIN_B, n=400):
+def auction_problems(torch, seed, dense, half=TRAIN_B, n=400, num_cls=2):
     """2 x ``half`` problems (the model's 300 top-k queries padded to the
     mini-detector's ``n`` tokens, then the tokens), T=300 targets, one
-    class: 32 of N=400 as the 640 px step stacks them by default."""
+    class: 32 of N=400 as the 640 px step stacks them by default. With
+    ``num_cls`` above 2 (COCO's 81 channels): 1-20 valid targets a problem
+    (COCO's 1-20 boxes an image), whose labels run through the num_cls - 1
+    classes in turn so that a call with enough targets holds every class,
+    and random labels on the invalid columns."""
     gen = torch.Generator().manual_seed(seed)
     b, t = 2 * half, 300
-    logits = torch.randn(b, n, 2, generator=gen) * 2
+    logits = torch.randn(b, n, num_cls, generator=gen) * 2
     boxes = torch.stack([torch.rand(b, n, generator=gen) * 0.6 + 0.2, torch.rand(b, n, generator=gen) * 0.6 + 0.2,
                          torch.rand(b, n, generator=gen) * 0.35 + 0.05, torch.rand(b, n, generator=gen) * 0.35 + 0.05], -1)
     xy = torch.rand(b, t, 2, generator=gen) * 0.7
     wh = torch.rand(b, t, 2, generator=gen) * 0.28 + 0.02
     tgt = torch.cat([xy, xy + wh], -1)
     labels = torch.zeros(b, t, dtype=torch.int32)
-    lo, hi = (150, 301) if dense else (1, 9)
+    lo, hi = (150, 301) if dense else ((1, 21) if num_cls > 2 else (1, 9))
     n_valid = torch.randint(lo, hi, (b,), generator=gen)
     valid = torch.arange(t)[None, :] < n_valid[:, None]
+    if num_cls > 2:
+        labels = torch.randint(0, num_cls - 1, (b, t), generator=gen, dtype=torch.int32)
+        labels[valid] = (torch.arange(int(valid.sum())) % (num_cls - 1)).int()
     real = torch.full((b,), n)
     real[:half] = 300
     if dense:
@@ -4542,6 +4575,34 @@ def flash_site_ms(trace_dir, steps):
     return out
 
 
+def fused_auction_cell(torch, label, args):
+    """#9 on ``args`` (auction_problems') against its plain version: rows,
+    rounds and bids equal; the wrapper's eager call, the launch alone
+    (device ms, CUDA graph) and the plain version timed, and the bound."""
+    from object_detection_destr_tpu_torch.ops.cuda.auction import (
+        fused_auction,
+        fused_auction_operands,
+        hungarian_match_fused_reference,
+    )
+
+    rows_k, rounds_k = fused_auction(*args)
+    torch.cuda.synchronize()
+    bids = fused_auction.last_bids.cpu().long()
+    plain_bids = torch.zeros(args[0].shape[0], dtype=torch.long, device="cuda")
+    rows_p, rounds_p = hungarian_match_fused_reference(*args, bids_out=plain_bids)
+    if not (torch.equal(rows_k, rows_p) and rounds_k.cpu().long().tolist() == rounds_p.cpu().tolist()
+            and bids.tolist() == plain_bids.cpu().tolist()):
+        raise AssertionError(f"{label} #9: rows, rounds {rounds_k.tolist()} / {rounds_p.tolist()} or bids "
+                             f"{bids.tolist()} / {plain_bids.tolist()} differ from the plain version's")
+    operands = fused_auction_operands(*args)
+    cell = {"ms": time_cuda(torch, lambda: fused_auction(*args)),
+            "kernel_device_ms": device_ms(torch, lambda: fused_auction.launch(operands)),
+            "plain_ms": time_cuda(torch, lambda: hungarian_match_fused_reference(*args), reps=3),
+            "rounds": rounds_k.cpu().tolist(), "bids": int(bids.sum())}
+    cell["bound_ms"], cell["bound_by"] = auction_bound(args, args[4], args[5], bids, l2_rate(torch))
+    return cell
+
+
 def c4_kernels(torch, seed):
     """The kernels at config 4's shapes against their plain versions: #1
     and the plan's backward (#2) at the step's three sites (B=1, bfloat16,
@@ -4549,33 +4610,13 @@ def c4_kernels(torch, seed):
     N = 7056 rows (the 300 queries padded to the tokens, then the tokens),
     at most 8 valid targets: rows, rounds and bids equal to the plain
     version's."""
-    from object_detection_destr_tpu_torch.ops.cuda.auction import (
-        fused_auction,
-        fused_auction_operands,
-        hungarian_match_fused_reference,
-    )
-
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flash = [flash_cell(torch, gen, site, 1, torch.bfloat16, RATE, site[-1], "plan", False)
              for site in (SITES[3], SITES[1], SITES[4])]  # the encoder's, the decoder's and the cross sites
     if not all(r["ok"] and r["bwd_plan"] == "fused" for r in flash):
         raise AssertionError(f"{C4_LABEL}: flash cells out of tolerance or off #2: {flash}")
     args = auction_problems(torch, seed, False, half=1, n=C4_TOKENS)
-    rows_k, rounds_k = fused_auction(*args)
-    torch.cuda.synchronize()
-    bids = fused_auction.last_bids.cpu().long()
-    plain_bids = torch.zeros(2, dtype=torch.long, device="cuda")
-    rows_p, rounds_p = hungarian_match_fused_reference(*args, bids_out=plain_bids)
-    if not (torch.equal(rows_k, rows_p) and rounds_k.cpu().long().tolist() == rounds_p.cpu().tolist()
-            and bids.tolist() == plain_bids.cpu().tolist()):
-        raise AssertionError(f"{C4_LABEL} #9: rows, rounds {rounds_k.tolist()} / {rounds_p.tolist()} or bids "
-                             f"{bids.tolist()} / {plain_bids.tolist()} differ from the plain version's")
-    operands = fused_auction_operands(*args)
-    auction = {"ms": time_cuda(torch, lambda: fused_auction(*args)),
-               "kernel_device_ms": device_ms(torch, lambda: fused_auction.launch(operands)),
-               "plain_ms": time_cuda(torch, lambda: hungarian_match_fused_reference(*args), reps=3),
-               "rounds": rounds_k.cpu().tolist(), "bids": int(bids.sum())}
-    auction["bound_ms"], auction["bound_by"] = auction_bound(args, args[4], args[5], bids, l2_rate(torch))
+    auction = fused_auction_cell(torch, C4_LABEL, args)
     log(f"{C4_LABEL} #9: 2 problems N={C4_TOKENS} T=300, valid targets {args[4].sum(1).tolist()}: rows, rounds "
         f"{auction['rounds']} and bids {auction['bids']} equal to the plain version's; ms={auction['ms']:.4f} (eager "
         f"call) kernel_device_ms={auction['kernel_device_ms']:.4f} plain_ms={auction['plain_ms']:.2f} "
@@ -4758,6 +4799,538 @@ def phase_config4(torch, kernels, seed, card):
     return out
 
 
+# ---- slice 16: BASELINE.json's config 2 (DESTR-R50 over COCO's 80 classes at 800 px)
+C2_LABEL = "coco-800"
+C2_IMAGE = 800
+C2_CANVAS = int(C2_IMAGE * 672 / 640)  # 840, the trainer's canvas
+C2_B = 8  # bench.py's batch in BENCH_MODE=infer
+C2_NUM_CLS = 81  # COCO's 80 classes and the background channel
+C2_TOKENS = 25 * 25  # C5 at stride 32: 800 -> 400 -> 200 -> 100 -> 50 -> 25
+C2_TRAIN_IMAGES = C2_B * TRAIN_STEPS  # one epoch of 4 steps
+C2_VALID_IMAGES = 2 * C2_B  # two validation batches
+# COCO's 80 category ids: 1-90 without the 10 that its annotations never use
+COCO_CATEGORY_IDS = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+COCO_SIZES = [(480, 640), (640, 480), (427, 640), (375, 500), (640, 427)]  # (H, W): COCO's common sizes
+C2_SITES = [("encoder_self_625", C2_TOKENS, C2_TOKENS, 8, 32, 32, True), SITES[1],
+            ("cross_cls_reg_625", 600, C2_TOKENS, 1, 512, 256, True)]
+C2_PER_STEP = (18, 18, 0, 0, 1, 0, 0, 0, 0)
+# the CLI (one float32 forward at B=8) against the captured service (B=1):
+# cuDNN picks its convolution algorithms by batch size, so the two sum in
+# other orders; where the forward makes the same discrete choices their
+# detections were 6.6e-7 apart at most (boxes and scores; H100 80GB HBM3,
+# PERF.md), and near ties may make other choices (c2_cli_against_service)
+C2_CLI_TOL = 1e-4
+C2_NEAR_TIE = 1e-4  # the largest margin (score, IoU or size gap) of a choice that B=8 and B=1 make differently
+JAX_C2_IMAGES_PER_SEC = 392.9  # BASELINE.md l.509: JAX's jitted B=8 bf16 forward on a TPU v5e at num_cls 2
+SERVE_BUDGET_MS = 50.0  # the 640 px request budget (PERF.md §2)
+
+
+def c2_args(root):
+    """Config 2's flags on the COCO-layout tree at ``root``, after
+    TRAIN_ARGS (whose synthetic flags they override or leave unused)."""
+    return ["--dataset", "coco", "--data_root", root, "--num_cls", str(C2_NUM_CLS), "--image_size",
+            str(C2_IMAGE), "--batch_size", str(C2_B), "--coco_eval"]
+
+
+def write_coco_tree(root, seed, n_train=C2_TRAIN_IMAGES, n_valid=C2_VALID_IMAGES, sizes=COCO_SIZES, quality=90):
+    """A COCO 2017 tree in the reader's layout: ``annotations/instances_
+    {train,val}2017.json`` with COCO's 80 category ids and, under
+    ``{train,val}2017/``, seeded JPEGs of ``sizes`` (H, W) in turn, each a
+    smooth coloured background with 1-20 bright boxes; the boxes' classes
+    run through a seeded permutation of the 80 in turn, so a split with 80
+    boxes or more holds every class. Every fourth image also carries a crowd
+    annotation and a zero-width one, which the reader skips. Returns
+    {split: (images, boxes the reader keeps)}."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    categories = [{"id": c, "name": f"category_{c}", "supercategory": "object"} for c in COCO_CATEGORY_IDS]
+    out = {}
+    for split, n in (("train2017", n_train), ("val2017", n_valid)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        order = rng.permutation(len(COCO_CATEGORY_IDS))
+        images, annotations, kept = [], [], 0
+
+        def annotate(image_id, box, category, crowd=0):
+            annotations.append({"id": len(annotations) + 1, "image_id": image_id, "category_id": int(category),
+                                "bbox": [round(float(v), 2) for v in box], "area": float(box[2] * box[3]),
+                                "iscrowd": crowd})
+
+        for i in range(n):
+            h, w = sizes[i % len(sizes)]
+            image_id = i + 1
+            coarse = rng.integers(0, 256, (6, 6, 3), dtype=np.uint8)
+            image = np.array(Image.fromarray(coarse).resize((w, h), Image.BILINEAR))
+            for _ in range(int(rng.integers(1, 21))):
+                bw, bh = rng.uniform(0.05, 0.6) * w, rng.uniform(0.05, 0.6) * h
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                image[int(y):int(y + bh), int(x):int(x + bw)] = rng.integers(100, 256, 3)
+                annotate(image_id, (x, y, bw, bh), COCO_CATEGORY_IDS[order[kept % len(order)]])
+                kept += 1
+            if i % 4 == 0:
+                annotate(image_id, (0, 0, w, h), COCO_CATEGORY_IDS[0], crowd=1)
+                annotate(image_id, (w / 3, h / 3, 0, h / 4), COCO_CATEGORY_IDS[1])
+            name = f"{image_id:012d}.jpg"
+            Image.fromarray(image).save(os.path.join(root, split, name), quality=quality)
+            images.append({"id": image_id, "file_name": name, "width": w, "height": h})
+        with open(os.path.join(root, "annotations", f"instances_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+        out[split] = (n, kept)
+    return out
+
+
+def c2_kernels(torch, seed):
+    """The kernels at config 2's shapes against their plain versions: #1 at
+    the step's three sites in bfloat16 at B=8 and in float32 at B=1 and B=8
+    (dropout 0, masked as on the path; device ms from CUDA-graph replay);
+    #1 and the plan's backward (#2) at the three sites at B=8, bfloat16,
+    dropout 0.3 (eager calls); #9 at C = 81 on a step's 16 problems of N =
+    625 rows (the 300 queries padded to the tokens, then the tokens), 1-20
+    valid targets each over all 80 classes: rows, rounds and bids equal to
+    the plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    forward = [flash_cell(torch, gen, site, b, dtype, 0.0, site[-1], None, True)
+               for site in C2_SITES for dtype, b in ((torch.bfloat16, C2_B), (torch.float32, 1), (torch.float32, C2_B))]
+    step = [flash_cell(torch, gen, site, C2_B, torch.bfloat16, RATE, site[-1], "plan", False) for site in C2_SITES]
+    if not all(r["ok"] for r in forward + step) or not all(r["bwd_plan"] == "fused" for r in step):
+        raise AssertionError(f"{C2_LABEL}: flash cells out of tolerance or off #2: "
+                             f"{[r for r in forward + step if not r['ok'] or r.get('bwd_plan') not in (None, 'fused')]}")
+    args = auction_problems(torch, seed, False, half=C2_B, n=C2_TOKENS, num_cls=C2_NUM_CLS)
+    labels, valid = args[3], args[4]
+    classes = int(labels[valid].unique().numel())
+    if classes != C2_NUM_CLS - 1:
+        raise AssertionError(f"{C2_LABEL} #9: the valid targets hold {classes} classes, not {C2_NUM_CLS - 1}")
+    auction = {**fused_auction_cell(torch, C2_LABEL, args), "classes": classes, "valid_targets": valid.sum(1).tolist(),
+               "max_abs_err": 0.0}
+    log(f"{C2_LABEL} #9 at C={C2_NUM_CLS}: {2 * C2_B} problems N={C2_TOKENS} T=300, valid targets "
+        f"{auction['valid_targets']} over {classes} classes: rows, rounds {auction['rounds']} and bids "
+        f"{auction['bids']} equal to the plain version's; ms={auction['ms']:.4f} (eager call) kernel_device_ms="
+        f"{auction['kernel_device_ms']:.4f} plain_ms={auction['plain_ms']:.2f} bound_ms={auction['bound_ms']:.6f} "
+        f"({auction['bound_by']})")
+    return forward, step, auction
+
+
+def _match_detections(ours, theirs):
+    """Match each detection of ``ours`` to the nearest free one of
+    ``theirs`` with the same label (the largest absolute gap of box and
+    score; near-equal scores may sort in another order). Returns each
+    match's gap, np.inf where no free detection has the label."""
+    import numpy as np
+
+    if len(ours["labels"]) != len(theirs["labels"]):
+        raise AssertionError(f"{len(ours['labels'])} detections against {len(theirs['labels'])}")
+    rows = np.concatenate([np.asarray(theirs["boxes"], np.float64), np.asarray(theirs["scores"], np.float64)[:, None]], 1)
+    labels = np.asarray(theirs["labels"])
+    free = np.ones(len(labels), bool)
+    gaps = []
+    for box, score, label in zip(ours["boxes"], ours["scores"], ours["labels"]):
+        gap = np.abs(rows - np.asarray(list(box) + [score], np.float64)).max(1)
+        gap[~free | (labels != label)] = np.inf
+        j = int(gap.argmin())
+        free[j] = not np.isfinite(gap[j])
+        gaps.append(float(gap[j]))
+    return np.asarray(gaps)
+
+
+def _dets_of(dets, i):
+    """Image ``i``'s kept detections of a predict_arrays result, as lists."""
+    keep = dets["valid"][i]
+    return {"boxes": dets["boxes"][i][keep].tolist(), "scores": dets["scores"][i][keep].tolist(),
+            "labels": dets["labels"][i][keep].tolist()}
+
+
+def _choices_differ(torch, batch_record, alone_record, i):
+    """Image ``i``'s choices in a forward of its own (``alone_record``)
+    against its row of the batch's (``batch_record``), up to the order of
+    the top-k tokens (the decoder is equivariant to it): [(kind, margin)]
+    of those that differ, the top-k token set or else each block's pairs
+    compared token by token, with margins on the B=1 run's values
+    (choice_margin)."""
+    (kind8, _, top8), (kind1, args1, top1) = batch_record[0], alone_record[0]
+    if kind8 != "topk" or kind1 != "topk" or len(batch_record) != len(alone_record):
+        raise AssertionError(f"the forwards' choices: {[r[0] for r in batch_record]} / {[r[0] for r in alone_record]}")
+    top8 = top8[i:i + 1]
+    if not torch.equal(top8.sort(1).values, top1.sort(1).values):
+        return [("topk", choice_margin(torch, "topk", (args1, top1), top8))]
+    n, k = args1[0].shape[1], top1.shape[1]
+    pos8 = torch.full((n,), -1, dtype=torch.long, device=top1.device)
+    pos1 = pos8.clone()
+    pos8[top8[0]] = torch.arange(k, device=top1.device)
+    pos1[top1[0]] = torch.arange(k, device=top1.device)
+    differ = []
+    for (_, _, pairs8), (kind, args, pairs1) in zip(batch_record[1:], alone_record[1:]):
+        # the batch's pairs in this run's query order: query q holds token top1[q], the batch's row pos8[top1[q]]
+        mapped = pos1[top8[0][pairs8[i][pos8[top1[0]]]]][None]
+        if not torch.equal(mapped, pairs1):
+            differ.append((kind, choice_margin(torch, kind, (args, pairs1), mapped)))
+    return differ
+
+
+def c2_cli_against_service(torch, model, images, records, served):
+    """Hold the CLI's detections (``records``, one B=8 float32 forward) to
+    the captured service's (``served``, B=1 each) image by image. The
+    forward makes discrete choices (the mini-detector's top-k tokens, each
+    decoder block's pairs) on float32 values that the two batch sizes sum
+    in other orders (cuDNN picks its algorithms by batch size), so a near
+    tie may fall either way and move detections past any float tolerance.
+    So the CLI's own function (predict_arrays) runs the batch on the
+    service's ``model`` with its choices recorded (its detections within
+    C2_CLI_TOL of the CLI's), and each image alone (B=1) with its choices
+    recorded (within C2_CLI_TOL of the service's). Where an image's choices
+    equal the batch's (up to the top-k tokens' order, _choices_differ), the
+    CLI's detections must match the service's (labels equal, boxes and
+    scores within C2_CLI_TOL); where they differ, the first choice that
+    differs (in the forward's order: the later ones are taken on values
+    that it changed) must be a near tie, its margin on the B=1 run's values
+    at most C2_NEAR_TIE, and the CLI's detections must match, within
+    C2_CLI_TOL, the image run alone with the batch's choices replayed.
+    Returns the gaps and the flips."""
+    import numpy as np
+
+    from object_detection_destr_tpu_torch.infer.cli import predict_arrays
+
+    batch_record = []
+    with choices(record=batch_record):
+        batch = predict_arrays(model, "destr", images, C2_IMAGE, 0.0)
+    gaps = {"cli_vs_batch": 0.0, "alone_vs_service": 0.0, "cli_vs_service": [], "cli_vs_replayed": []}
+    flips = {}
+    for i, (image, record, service_dets) in enumerate(zip(images, records, served)):
+        gaps["cli_vs_batch"] = max(gaps["cli_vs_batch"], float(_match_detections(record, _dets_of(batch, i)).max()))
+        alone_record = []
+        with choices(record=alone_record):
+            alone = predict_arrays(model, "destr", [image], C2_IMAGE, 0.0)
+        gaps["alone_vs_service"] = max(gaps["alone_vs_service"],
+                                       float(_match_detections(_dets_of(alone, 0), service_dets).max()))
+        differ = _choices_differ(torch, batch_record, alone_record, i)
+        service_gap = float(_match_detections(record, service_dets).max())
+        if not differ:
+            gaps["cli_vs_service"].append(service_gap)
+            continue
+        flips[i] = {"choices": differ, "cli_vs_service": service_gap}
+        with choices(replay=[(kind, None, out[i:i + 1]) for kind, _, out in batch_record]):
+            replayed = predict_arrays(model, "destr", [image], C2_IMAGE, 0.0)
+        gaps["cli_vs_replayed"].append(float(_match_detections(record, _dets_of(replayed, 0)).max()))
+    held = [gaps["cli_vs_batch"], gaps["alone_vs_service"], *gaps["cli_vs_service"], *gaps["cli_vs_replayed"]]
+    if not (np.isfinite(held).all() and max(held) <= C2_CLI_TOL) or any(
+            flip["choices"][0][1] > C2_NEAR_TIE for flip in flips.values()):
+        raise AssertionError(f"{C2_LABEL}: the CLI's detections against the service's: gaps {gaps}, choices of the "
+                             f"batch and of an image alone that differ, with their margins, {flips}")
+    return gaps, flips
+
+
+def c2_evaluate(torch, kernels, base, record, ckpt):
+    """infer.evaluate on the step's checkpoint (map and coco_map within 1e-6
+    of the driver's sweep, 18 #1 launches a batch), then the sweep's parts
+    on the same checkpoint and split: the loader's host decode and
+    letterbox (canvas 840), the eval transform on the device (840 -> 800),
+    the model's forward as the evaluator runs it (CUDA events), and the two
+    metrics' update and compute (host clock)."""
+    from object_detection_destr_tpu_torch.infer import evaluate
+    from object_detection_destr_tpu_torch.losses.metrics import CocoAveragePrecision, MeanAveragePrecision
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference
+    from object_detection_destr_tpu_torch.train.driver import _eval_batch, _make_loaders
+
+    reset_counts(kernels)
+    start = time.perf_counter()
+    evaluated = evaluate.main(base + ["--resume_from", "train"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - start
+    counts = [k.launches for k in kernels]
+    batches = C2_VALID_IMAGES // C2_B
+    if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or abs(evaluated["coco_map"] - record["coco_mAP"]) > 1e-6
+            or evaluated["n_images"] != C2_VALID_IMAGES or counts != [18 * batches] + [0] * 8):
+        raise AssertionError(f"evaluate {C2_LABEL}: map {evaluated['map']} coco_map {evaluated['coco_map']} over "
+                             f"{evaluated['n_images']} images with launches {counts}, the driver's mAP "
+                             f"{record['mAP']} coco_mAP {record['coco_mAP']}")
+    config = recipe_config(base)
+    valid_loader = _make_loaders(config, C2_CANVAS, "destr")[1]
+    t0 = time.perf_counter()
+    raws = list(valid_loader)
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(raws)
+    device = torch.device("cuda")
+    transform_ms = time_cuda(torch, lambda: _eval_batch(raws[0], device, C2_CANVAS, C2_IMAGE))
+    model = build_destr(config.destr, device)
+    model.load_state_dict(restore_for_inference(ckpt, "train"))
+    model.eval()
+    metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
+    coco = CocoAveragePrecision(num_cls=C2_NUM_CLS - 1)
+    m_state, update_ms, forward_ms = metric.init_state(), [], []
+    with torch.no_grad():
+        for raw in raws:
+            batch = _eval_batch(raw, device, C2_CANVAS, C2_IMAGE)
+            forward_ms.append(time_cuda(torch, lambda: model(batch["images"], batch.get("pixel_valid"))))
+            outputs, _ = model(batch["images"], batch.get("pixel_valid"))
+            targets = {k: batch[k] for k in ("boxes", "labels", "valid")}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m_state = metric.update(m_state, outputs, targets)
+            coco.update(outputs, targets)
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    parts_map, parts_coco = metric.compute(m_state), coco.compute()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    if abs(parts_map - record["mAP"]) > 1e-6 or abs(parts_coco - record["coco_mAP"]) > 1e-6:
+        raise AssertionError(f"{C2_LABEL}: the split sweep's map {parts_map} / coco_map {parts_coco} differ from the "
+                             f"driver's {record['mAP']} / {record['coco_mAP']}")
+    sweep_s = record["seconds"][0]
+    out = {"map": evaluated["map"], "coco_map": evaluated["coco_map"], "counts": counts, "eval_s": eval_s,
+           "sweep_s": sweep_s, "sweep_images_per_sec": C2_VALID_IMAGES / sweep_s,
+           "host_decode_letterbox_ms": host_ms, "eval_transform_ms": transform_ms,
+           "forward_ms": statistics.median(forward_ms), "metrics_update_ms": statistics.median(update_ms),
+           "metrics_compute_ms": compute_ms}
+    log(f"{C2_LABEL} validation: the driver's sweep of {C2_VALID_IMAGES} COCO images (2 batches of {C2_B}) map="
+        f"{record['mAP']:.6f} coco_map={record['coco_mAP']:.6f} in {sweep_s:.2f} s ({out['sweep_images_per_sec']:.1f} "
+        f"images/s, host clock); infer.evaluate --dataset coco --num_cls {C2_NUM_CLS} --image_size {C2_IMAGE} "
+        f"--batch_size {C2_B} --compute_dtype bfloat16 on its checkpoint map={evaluated['map']:.6f} coco_map="
+        f"{evaluated['coco_map']:.6f} in {eval_s:.1f} s (model build and checkpoint read inside), launches "
+        f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} (18 #1 a batch); a batch's parts: host decode and letterbox to "
+        f"{C2_CANVAS} {host_ms:.2f} ms (the loader, host clock), eval transform {C2_CANVAS} -> {C2_IMAGE} "
+        f"{transform_ms:.2f} ms, forward {out['forward_ms']:.2f} ms (CUDA events), reference mAP and COCO AP over "
+        f"{C2_NUM_CLS - 1} classes update {out['metrics_update_ms']:.2f} ms a batch and compute {compute_ms:.2f} ms "
+        f"(host clock)")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def c2_cli_and_service(torch, kernels, seed, ckpt, files):
+    """infer.cli --num_cls 81 --image_size 800 on the 8 ``files`` in one
+    invocation (one float32 forward at B=8: 18 #1 launches in all),
+    letterboxed and then with --no-letterbox; phase 8's serving on a
+    captured DetectionService that infer.server.build_service builds from
+    the same flags, its requests 4 of the images (four aspects) twice; each
+    image's letterboxed CLI detections held to the service's
+    (c2_cli_against_service)."""
+    from object_detection_destr_tpu_torch.infer import cli
+
+    flags = ["--checkpoint_dir", ckpt, "--weights", "train", "--score_thresh", "0.0", "--num_cls", str(C2_NUM_CLS),
+             "--image_size", str(C2_IMAGE)]
+    runs = {}
+    for name, extra in (("letterbox", []), ("stretch", ["--no-letterbox"])):
+        reset_counts(kernels)  # one invocation of the CLI starts here
+        t0 = time.perf_counter()
+        records = cli.main(flags + extra + ["--images", *files, "--output", os.path.join(ckpt, f"dets_{name}.json")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        if counts != [3 * BLOCKS] + [0] * 8:
+            raise AssertionError(f"cli {name}: #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, not 18 #1 for {len(files)} images")
+        for r in records:
+            if (len(r["scores"]) != 300 or not all(0 <= label < C2_NUM_CLS - 1 for label in r["labels"])
+                    or not all(0.0 <= c <= 1.0 for box in r["boxes"] for c in box)):
+                raise AssertionError(f"cli {name}: {len(r['scores'])} detections or labels / boxes out of range")
+        runs[name] = {"records": records, "seconds": seconds, "counts": counts,
+                      "classes": len({label for r in records for label in r["labels"]})}
+    images = [cli._load_image(f) for f in files]
+    aspects = [images[i] for i in (0, 1, 2, 4)]  # 480x640, 640x480, 427x640, 640x427
+    service, _, launches, timing, forward_ms = phase_serving(torch, kernels[0], seed, aspects,
+                                                             service_args=flags, label=C2_LABEL)
+    served = [service.predict_image(image) for image in images]
+    gaps, flips = c2_cli_against_service(torch, service.model, images, runs["letterbox"]["records"], served)
+    del service
+    torch.cuda.empty_cache()
+    worst = max(gaps["cli_vs_service"] + gaps["cli_vs_replayed"])
+    fmt = lambda values: "[" + ", ".join(f"{v:.3e}" for v in values) + "]"  # noqa: E731
+    flipped = "; ".join(f"image {i}: " + ", ".join(f"{kind} margin {margin:.3e}" for kind, margin in f["choices"])
+                        + f", against the service {f['cli_vs_service']:.3e}" for i, f in flips.items())
+    log(f"{C2_LABEL} cli against the service (largest gap of boxes and scores, labels equal): the CLI against "
+        f"predict_arrays at B={len(files)} on the service's model {gaps['cli_vs_batch']:.3e}, an image alone (B=1, "
+        f"eager) against the captured service {gaps['alone_vs_service']:.3e}; the CLI against the service on the "
+        f"{len(gaps['cli_vs_service'])} images whose forward makes the batch's choices {fmt(gaps['cli_vs_service'])} "
+        f"(tolerance {C2_CLI_TOL:g}); images whose top-k tokens or pairs differ from the batch's, the first at a near "
+        f"tie (at most {C2_NEAR_TIE:g}), with each differing choice's margin: {flipped or 'none'}; the CLI against those images alone with the batch's choices "
+        f"replayed {fmt(gaps['cli_vs_replayed'])}")
+    log(f"{C2_LABEL} cli: infer.cli --num_cls {C2_NUM_CLS} --image_size {C2_IMAGE} on {len(files)} COCO images "
+        f"({', '.join('x'.join(map(str, im.shape[:2])) for im in images)}) in one invocation: letterboxed "
+        f"{runs['letterbox']['seconds']:.2f} s, --no-letterbox {runs['stretch']['seconds']:.2f} s (model build, "
+        f"checkpoint, decode and one B={len(files)} float32 forward), 18 #1 launches each, 300 detections an image "
+        f"over {runs['letterbox']['classes']} labels; request median {timing['captured_ms']:.2f} ms captured (eager "
+        f"{timing['eager_ms']:.2f}, idle {timing['captured_idle_share']:.4f}) beside the {SERVE_BUDGET_MS:g} ms "
+        f"budget of a 640 px request")
+    return {"cli_s": {k: v["seconds"] for k, v in runs.items()}, "cli_counts": runs["letterbox"]["counts"],
+            "cli_worst": worst, "cli_classes": runs["letterbox"]["classes"],
+            "gaps": gaps, "flips": {i: f["choices"] for i, f in flips.items()},
+            "build_launches": launches, "forward_ms": forward_ms, **timing}
+
+
+def c2_batched_forward(torch, kernels, ckpt, files):
+    """bench.py's infer mode (BENCH_MODE=infer BENCH_IMAGE=800, bench.py:
+    205-231) on the port: the model's forward at B=8, 800 px, bfloat16
+    autocast, eval mode (train=False), on 8 letterboxed images with their
+    pixel masks, from the step's checkpoint; eager (18 #1 launches a
+    forward) and replayed as a CUDA graph captured here (its outputs within
+    1e-4 of the eager ones' largest value): CUDA-event ms a batch in turns
+    (E C C E, 5 each), a traced window of 3 forwards of each (busy ms, idle
+    share, 18 #1 a forward from the trace) and the peak memory an eager
+    forward adds to its weights and inputs."""
+    import numpy as np
+
+    from object_detection_destr_tpu_torch.config import DestrConfig
+    from object_detection_destr_tpu_torch.data.loader import _letterbox_canvas
+    from object_detection_destr_tpu_torch.data.transforms import letterbox_infer_transform
+    from object_detection_destr_tpu_torch.infer.cli import _load_image
+    from object_detection_destr_tpu_torch.models.destr.model import build_destr
+    from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference
+
+    model = build_destr(DestrConfig(num_cls=C2_NUM_CLS, compute_dtype="bfloat16"), "cuda")
+    model.load_state_dict(restore_for_inference(ckpt, "train"))
+    model.eval()
+    placed = [_letterbox_canvas(_load_image(f), C2_IMAGE) for f in files]
+    prep = letterbox_infer_transform(torch.from_numpy(np.stack([c for c, _, _ in placed])).cuda(),
+                                     torch.tensor([(fh, fw) for _, fh, fw in placed], dtype=torch.float32),
+                                     out_size=C2_IMAGE)
+    images, pixel_valid = prep["images"], prep["pixel_valid"]
+
+    @torch.inference_mode()
+    def forward():
+        return model(images, valid_mask=pixel_valid)[0]
+
+    reset_counts(kernels)  # the eager forward starts here
+    eager_out = forward()
+    torch.cuda.synchronize()
+    eager_counts = [k.launches for k in kernels]
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    forward()
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    reset_counts(kernels)  # the captured forward starts here: its warm-up on a side stream, then the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        forward()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = forward()
+    counts = [k.launches for k in kernels]
+    graph.replay()
+    torch.cuda.synchronize()
+    gap = {k: (static[k] - eager_out[k]).abs().max().item() / max(eager_out[k].abs().max().item(), 1e-30)
+           for k in ("pred_class", "pred_boxes")}
+    if (eager_counts != [3 * BLOCKS] + [0] * 8 or counts != [6 * BLOCKS] + [0] * 8
+            or static["pred_class"].shape != (C2_B, 300, C2_NUM_CLS)
+            or not all(bool(torch.isfinite(v).all()) for v in static.values()) or not max(gap.values()) <= 1e-4):
+        raise AssertionError(f"{C2_LABEL} forward: launches eager {eager_counts}, with the capture {counts}; "
+                             f"pred_class {tuple(static['pred_class'].shape)}; replay against eager {gap}")
+    run = {"eager": lambda: forward(), "captured": lambda: graph.replay()}
+    times = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda.synchronize()
+        events[0].record()
+        for e in events[1:]:
+            run[kind]()
+            e.record()
+        torch.cuda.synchronize()
+        times[kind] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+    def window(kind):
+        def run_steps(scope):
+            for i in range(3):
+                with scope(i):
+                    run[kind]()
+        return run_steps
+    windows = {kind: traced(torch, f"forward_{C2_LABEL}_{kind}", 3, window(kind)) for kind in run}
+    for kind, w in windows.items():
+        if w["per_step"] != [3.0 * BLOCKS, 0, 0, 0, 0, 0]:
+            raise AssertionError(f"{C2_LABEL} forward: a traced {kind} forward launched #1/#2/#3/#4/#9/#8 "
+                                 f"{w['per_step']}")
+    out = {"eager_ms": statistics.median(times["eager"]), "captured_ms": statistics.median(times["captured"]),
+           "eager_ms_all": times["eager"], "captured_ms_all": times["captured"], "peak_gb": peak_gb,
+           "launches": {"eager": eager_counts[0], "warm-up and capture": counts[0]}, "replay_rel_gap": gap,
+           **{f"{kind}_{key}": w[key] for kind, w in windows.items()
+              for key in ("idle_share", "step_busy_ms", "step_period_ms", "kernel_ms")}}
+    out["images_per_sec"] = C2_B * 1e3 / out["captured_ms"]
+    log(f"{C2_LABEL} forward (bench.py's infer mode: B={C2_B}, {C2_IMAGE} px, bfloat16, eval, letterbox pixel "
+        f"masks): ms a batch (CUDA events, in turns E C C E, 5 each) eager {out['eager_ms']:.2f} "
+        f"({C2_B * 1e3 / out['eager_ms']:.1f} images/s), captured {out['captured_ms']:.2f} "
+        f"({out['images_per_sec']:.1f} images/s; all {', '.join(f'{t:.2f}' for t in times['captured'])}); traced 3 "
+        f"forwards: eager busy {out['eager_step_busy_ms']:.2f} ms of {out['eager_step_period_ms']:.2f}, idle share "
+        f"{out['eager_idle_share']:.4f}; captured busy {out['captured_step_busy_ms']:.2f} ms of "
+        f"{out['captured_step_period_ms']:.2f}, idle share {out['captured_idle_share']:.4f}; #1 a forward "
+        f"{out['captured_kernel_ms'][0]:.3f} ms (trace); peak memory an eager forward adds {peak_gb:.2f} GB; replay "
+        f"against eager (relative) {json.dumps(_rounded(gap))}; JAX's figure of record {JAX_C2_IMAGES_PER_SEC} "
+        f"images/s is a TPU v5e's at num_cls 2 (BASELINE.md), not the port's")
+    del graph, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_config2(torch, kernels, seed, card):
+    """Phase 20: BASELINE.json's config 2 through the port's entry points
+    on a COCO-layout tree (train with validation and COCO AP, captured
+    step, evaluator, batch CLI, captured service, bench.py's batched bf16
+    forward) and its kernels at the path's shapes."""
+    t0 = time.perf_counter()
+    seconds, last = {}, [t0]
+
+    def lap(name):
+        """The seconds since the previous lap, as ``name``'s."""
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
+    forward_cells, step_cells, auction_cell = c2_kernels(torch, seed)
+    lap("kernels")
+    work = tempfile.mkdtemp(prefix="chip_smoke_c2_",
+                            dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build"))
+    try:
+        from object_detection_destr_tpu_torch.data.datasets import CocoDetection
+
+        root = os.path.join(work, "coco")
+        written = write_coco_tree(root, seed)
+        for split in ("train2017", "val2017"):
+            reader = CocoDetection(root, split)
+            classes = {int(c) for i in range(len(reader)) for c in reader[i][2]}
+            if len(reader) != written[split][0] or len(classes) != C2_NUM_CLS - 1:
+                raise AssertionError(f"{C2_LABEL}: the reader gives {len(reader)} {split} images over "
+                                     f"{len(classes)} classes, the tree holds {written[split]}")
+        log(f"{C2_LABEL}: COCO-layout tree {json.dumps(written)} (images, boxes kept) under {root}, "
+            f"{len(COCO_CATEGORY_IDS)} category ids 1-90 with COCO's gaps; every split holds all 80 classes")
+        lap("tree")
+        extra = c2_args(root)
+        state, counts, step_ms, record = phase_train(torch, kernels, seed, extra, C2_PER_STEP, C2_LABEL,
+                                                     checkpoints=work, valid=C2_VALID_IMAGES)
+        if record is None or not (math.isfinite(record["mAP"]) and math.isfinite(record["coco_mAP"])):
+            raise AssertionError(f"{C2_LABEL}: no finite validation record: {record}")
+        del state
+        torch.cuda.empty_cache()
+        lap("train, validate")
+        base = TRAIN_ARGS + extra + ["--seed", str(seed), "--checkpoint_dir", work]
+        evaluated = c2_evaluate(torch, kernels, base, record, work)
+        lap("evaluate")
+        captured = phase_captured_train(torch, kernels, destr_capture_setup(torch, seed, extra), C2_PER_STEP[:6],
+                                        C2_LABEL, eager_runs=3)
+        torch.cuda.empty_cache()
+        lap("captured")
+        files = [os.path.join(root, "val2017", f"{i + 1:012d}.jpg") for i in range(C2_B)]
+        served = c2_cli_and_service(torch, kernels, seed, work, files)
+        lap("cli, serve")
+        batched = c2_batched_forward(torch, kernels, work, files)
+        lap("forward")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"forward_cells": forward_cells, "step_cells": step_cells, "auction": auction_cell, "counts": counts,
+           "step_ms": step_ms, "record": {k: record[k] for k in ("mAP", "coco_mAP", "seconds")},
+           "evaluate": evaluated, "captured": {k: v for k, v in captured.items() if k != "spread"},
+           "serving": served, "forward": batched, "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
+    log(f"{C2_LABEL} ({card}): train step eager median {step_ms:.2f} ms ({C2_B * 1e3 / step_ms:.1f} images/s), "
+        f"captured {captured['captured_ms']:.2f} ms ({C2_B * 1e3 / captured['captured_ms']:.1f} images/s; eager "
+        f"{captured['eager_ms']:.2f}), captured busy {captured['captured_step_busy_ms']:.2f} ms, idle share "
+        f"{captured['captured_idle_share']:.4f}, peak above the state: eager step {captured['eager_step_peak_gb']:.2f} "
+        f"GB, warm-up and capture {captured['captured_peak_gb']:.2f} GB; validation sweep "
+        f"{evaluated['sweep_images_per_sec']:.1f} images/s; request captured {served['captured_ms']:.2f} ms (eager "
+        f"{served['eager_ms']:.2f}; the 640 px budget {SERVE_BUDGET_MS:g} ms); batched bf16 forward captured "
+        f"{batched['captured_ms']:.2f} ms = {batched['images_per_sec']:.1f} images/s (eager {batched['eager_ms']:.2f}; "
+        f"JAX's {JAX_C2_IMAGES_PER_SEC} images/s: TPU v5e, num_cls 2, not the port's); phase {out['seconds']:.1f} s, "
+        f"by part {json.dumps(_rounded(seconds))}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4884,6 +5457,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         c4 = phase_config4(torch, kernels, args.seed, card)
         clock("config 4 (19)")
+        torch.cuda.empty_cache()
+        c2 = phase_config2(torch, kernels, args.seed, card)
+        clock("config 2 (20)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5295,7 +5871,11 @@ def main(argv=None) -> int:
         f"{launchers['train_prod_ssd_torch.sh']['seconds']:.1f} s, evaluate {launchers['evaluate']['seconds']:.1f} s, "
         f"phase {launchers['seconds']:.1f} s; {C4_LABEL}: step ms eager {c4['step_ms']:.2f}, captured "
         f"{c4['captured']['captured_ms']:.2f}, request ms {c4['serving']['captured_ms']:.2f}, phase "
-        f"{c4['seconds']:.1f} s; total {time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
+        f"{c4['seconds']:.1f} s; {C2_LABEL}: step ms eager {c2['step_ms']:.2f}, captured "
+        f"{c2['captured']['captured_ms']:.2f}, request ms {c2['serving']['captured_ms']:.2f}, batched bf16 forward "
+        f"ms {c2['forward']['captured_ms']:.2f} ({c2['forward']['images_per_sec']:.1f} images/s), validation "
+        f"{c2['evaluate']['sweep_images_per_sec']:.1f} images/s, phase {c2['seconds']:.1f} s; total "
+        f"{time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
         f"{json.dumps(_rounded(phase_seconds))}")
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
         entry["data_parallel"] = {
@@ -5350,6 +5930,39 @@ def main(argv=None) -> int:
     entries[0]["config_4"]["serving"] = {"launches_per_request": 3 * BLOCKS,
                                          "device_ms": c4["serving"]["captured_kernel_ms"][0],
                                          "per": "a float32 request at 1333 px (trace of 4 replays)"}
+    c2_cap, c2_step, c2_forward = c2["captured"], c2["step_cells"], c2["forward_cells"]
+    for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
+        entry["config_2"] = {
+            "launches": c2["counts"][index], "per_step": C2_PER_STEP[index],
+            "captured_device_ms": c2_cap["captured_kernel_ms"][index],
+            "eager_device_ms": c2_cap["eager_kernel_ms"][index],
+            "per": f"{C2_LABEL} (DESTR-R50, --num_cls {C2_NUM_CLS}, {C2_IMAGE} px, B={C2_B}, bfloat16, a COCO-layout "
+                   f"tree, {C2_TOKENS} encoder tokens): launches of train.main's 4 steps and "
+                   f"{C2_VALID_IMAGES // C2_B} validation batches; *_device_ms a step from traces of 3 steps"}
+    entries[0]["config_2"].update(
+        max_abs_err=max(r["max_abs_err"] for r in c2_step), ms=per_step(c2_step, "ms"),
+        plain_ms=per_step(c2_step, "plain_ms"), bound_ms=per_step(c2_step, "bound_ms"),
+        bound_by=bound_by(c2_step, "bound_by"), library_ms=per_step(c2_step, "library_ms"),
+        evaluate_launches=c2["evaluate"]["counts"][0], cli_launches=c2["serving"]["cli_counts"][0],
+        forward={k: c2["forward"][k] for k in ("launches", "eager_ms", "captured_ms", "images_per_sec",
+                                                "captured_step_busy_ms", "captured_idle_share", "peak_gb")},
+        sites={f"{r['site']} {r['dtype']} B={r['b']}": {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                                           "bound_by", "max_abs_err", "rel_err")}
+               for r in c2_forward})
+    entries[1]["config_2"].update(max_abs_err=abs_err(c2_step, "fused"), **timed(c2_step, "bwd"),
+                                  library_ms=per_step(c2_step, "bwd_library_ms"))
+    entries[5]["config_2"].update({k: c2["auction"][k] for k in ("ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                                                                 "bound_by", "rounds", "bids", "classes",
+                                                                 "max_abs_err")})
+    for entry in (entries[0], entries[1]):
+        entry["config_2"]["per"] += ("; ms, plain_ms, bound_ms, library_ms: a step's 18 launches at the three sites "
+                                     "(B=8, bfloat16, dropout 0.3, eager calls; SDPA for library_ms)")
+    entries[0]["config_2"]["per"] += ("; evaluate_launches: infer.evaluate's 2 batches; cli_launches: one infer.cli "
+                                      "invocation on 8 images; forward: bench.py's infer mode (B=8, bfloat16, "
+                                      "replayed), 18 launches a forward; sites: one launch each, device ms (CUDA "
+                                      "graph), dropout 0")
+    entries[5]["config_2"]["per"] += (f"; ms ... classes: one launch at C={C2_NUM_CLS} on a step's "
+                                      f"{2 * C2_B} problems of N={C2_TOKENS}, rows equal to the plain version's")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
