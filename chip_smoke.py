@@ -12,8 +12,10 @@ launchers, scripts/*_torch.sh, as subprocesses; BASELINE.json's config 4
 (DESTR-R101 with the dilated C5 at 1333 px) trained, captured, evaluated,
 served and profiled; BASELINE.json's config 2 (DESTR-R50 over COCO's 80
 classes at 800 px) trained on a COCO-layout tree, evaluated, batch-inferred,
-served and its batched bf16 forward timed; and hold each hand-written CUDA kernel against its
-plain PyTorch version.
+served and its batched bf16 forward timed; BASELINE.json's config 1 (SSD300
+over COCO's 80 classes) trained, captured, evaluated, batch-inferred and
+served; and hold each hand-written CUDA kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -108,10 +110,10 @@ Phases (any failure exits non-zero and prints no result):
      updated parameters, exactly 18 / 18 / 0 / 0 / 1 launches of #1 / #2 /
      #3 / #4 / #9 a step, the median step time from CUDA events after the
      first step; then three more steps of the same train step with CUDA
-     events around its parts; the same with --hidden_dim 512 and with
-     --hidden_dim 1024, 18 / 12 / 6 / 6 / 1 launches a step (the
-     cross-attention's backward is two-pass; at 1024 its d 2048 head takes
-     the wide class); train-640-f32, the recipe with --compute_dtype
+     events around its parts; the same with --hidden_dim 512, 18 / 12 / 6 /
+     6 / 1 launches a step (the cross-attention's backward is two-pass), and
+     with --hidden_dim 1024 at 2 + 2 blocks, 6 / 4 / 2 / 2 / 1 (its d 2048
+     cross head takes the wide class); train-640-f32, the recipe with --compute_dtype
      float32 at hidden 256 (every attention backward on the 3xTF32 #2, 18 /
      18 / 0 / 0 / 1 launches a step); and train-640-wide-f32, the recipe
      with --hidden_dim 512 --compute_dtype float32 (#2 at the
@@ -119,16 +121,17 @@ Phases (any failure exits non-zero and prints no result):
      / 6 / 1 launches a step);
   6a. the captured step at the three widths on device-cached batches: the epoch
      runner takes step 0 (eager warm-up, CUDA-graph capture); at each of
-     steps 1-4, from one cloned state, five eager steps (the first once
+     steps 1-2, from one cloned state, five eager steps (the first once
      under torch.cuda.set_sync_debug_mode("error")), a replay with the
      step's seeds and a replay with the capture's seeds (a planted fault):
      the replay's Adam first moment and parameters (relative to the step's
-     change) and its 4 steps' losses no farther from the eager samples' mean
+     change) and its 2 steps' losses no farther from the eager samples' mean
      than the largest distance between two eager samples, the planted fault
      farther; step times (CUDA events) eager and captured in turns; a
      torch.profiler window of 3 steps of each: the device's busy time and
      idle share, the launches a step read from the trace (18 / 18 / 0 /
-     0 / 1 and 18 / 12 / 6 / 6 / 1 of #1 / #2 / #3 / #4 / #9) and each
+     0 / 1, 18 / 12 / 6 / 6 / 1 and at hidden 1024's 2 + 2 blocks 6 / 4 / 2
+     / 2 / 1 of #1 / #2 / #3 / #4 / #9) and each
      kernel's device ms a step; peak memory of each; the same for
      train-640-f32 and train-640-wide-f32 with 3 eager samples a step;
   6b. the validation path: train.train.main with the production recipe, a
@@ -159,12 +162,13 @@ Phases (any failure exits non-zero and prints no result):
      requests of each: 18 #1 launches a request, device busy time, idle
      share;
   8a. hidden 1024 (phase_h1024_service): train.main with the recipe and
-     --hidden_dim 1024, 2 steps and a 16-image validation batch (18 / 12 /
-     6 / 6 / 1 launches a step, 18 / 0 / 0 / 0 / 1 the batch), its
-     checkpoint; infer.evaluate.main on it reproduces the driver's mAP
-     (1e-6, 18 #1 launches); build_service restores it and serves phase 8's
-     requests, every #1 call float32, the cross-attention's at d 2048, dv
-     1024;
+     --hidden_dim 1024 at 2 + 2 blocks (H1024_BLOCKS), 2 steps and a
+     16-image validation batch (6 / 4 / 2 / 2 / 1 launches a step, 6 / 0 /
+     0 / 0 / 1 the batch, COCO AP beside the mAP), its checkpoint;
+     infer.evaluate.main on it reproduces the driver's mAP and COCO AP
+     (1e-6, 6 #1 launches); build_service
+     restores it and serves phase 8's requests, every #1 call float32, the
+     cross-attention's at d 2048, dv 1024;
   9. whole model forward, kernel against plain, discrete choices
      (top-k, pairs) recorded and replayed as in phase 7;
  10. serve-ssd-300: build_service --model ssd (seeded random weights, the
@@ -330,6 +334,19 @@ Phases (any failure exits non-zero and prints no result):
      the batch's choices replayed); the model's forward as bench.py's infer mode runs
      it (B=8, 800 px, bf16, eval, letterbox pixel masks), eager and replayed
      as a CUDA graph: ms a batch, images/s, busy ms, idle share, peak memory.
+ 21. BASELINE.json's config 1, coco-ssd-300: SSD300 over COCO's 80 classes
+     (--num_cls 80) with the SSD trainer's defaults (B=12, 300 px, bf16,
+     reference mining, lr 1e-5) on a COCO-layout tree of 48 train and 24 val
+     images: train_ssd.main for 4 steps and a validation sweep with its
+     checkpoints; the captured step held bit-equal to 3 eager samples a step
+     under deterministic cuDNN (phase 12's check; times, traces and peak
+     memory with the default engines); infer.evaluate --model ssd on the
+     checkpoint (the driver's mAP within 1e-6) and the sweep split into host
+     decode and stretch, the eval transform, the eval step and the 80-class
+     mAP update; infer.cli --model ssd --num_cls 80 on 8 of the tree's images
+     in one invocation against phase 10's serving on a captured SSD
+     DetectionService (the same detections within 1e-5, at a score threshold
+     read off the CLI's forward). The nine kernels' counts stay 0.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors, #3's and #4's
@@ -346,6 +363,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -392,15 +410,22 @@ WIDE_SITES = [
 WIDE_CROSS = WIDE_SITES[2]
 WIDE_LONG = ("cross_cls_reg_wide_7056", 600, 7056, 1, 1024, 512, True)
 # the same call sites with --hidden_dim 1024: the merged cross-attention's
-# head is 2048 wide (dv 1024), past the 1024 the kernels once took
-H1024_ARGS = ["--hidden_dim", "1024"]
+# head is 2048 wide (dv 1024), past the 1024 the kernels once took. Phases
+# 6, 6a and 8a train, validate and serve it at H1024_BLOCKS encoder and
+# decoder blocks (243 M parameters instead of 436 M), to keep the script
+# inside its time limit; the kernel cells (phase 3d) hold its call sites at
+# every width
+H1024_BLOCKS = 2
+H1024_ARGS = ["--hidden_dim", "1024", "--num_encoder_blocks", str(H1024_BLOCKS), "--num_decoder_blocks",
+              str(H1024_BLOCKS)]
 H1024_SITES = [
     ("encoder_self_h1024", 400, 400, 8, 128, 128, True),
     ("decoder_self_h1024", 300, 300, 8, 256, 256, False),
     ("cross_cls_reg_h1024", 600, 400, 1, 2048, 1024, True),
 ]
 H1024_CROSS = H1024_SITES[2]
-H1024_PER_STEP = (18, 12, 6, 6, 1, 0, 0, 0, 0)
+# #1 at the three sites, #2 at the two self-attentions, #3 / #4 at the cross, #9 a step
+H1024_PER_STEP = (3 * H1024_BLOCKS, 2 * H1024_BLOCKS, H1024_BLOCKS, H1024_BLOCKS, 1, 0, 0, 0, 0)
 # beside them: hidden 768's cross-attention, an odd width past 1024, and
 # hidden 1024's cross-attention at the dilated configuration's Sk
 BEYOND_SITES = [("cross_cls_reg_h768", 600, 400, 1, 1536, 768, True),
@@ -456,6 +481,10 @@ CUDA_CORE_F32_RECORDED_UNPACKED_MS = {"dq": {"encoder_self": 1.4806, "decoder_se
                                       "dkv": {"encoder_self": 1.2457, "decoder_self": 1.1340, "cross_cls_reg": 5.9123}}
 F32_ARGS = ["--compute_dtype", "float32"]
 F32_EAGER_RUNS = 3  # the float32 cells' eager samples a captured step is held against
+# the steps after the capture that phases 6a and 14 hold to eager samples
+# (the other captured cells hold TRAIN_STEPS), to keep the script inside its
+# time limit
+HELD_STEPS = 2
 # BASELINE.json's config 4: ResNet-101 with the dilated C5 at 1333 px, B=1
 # (bench.py's BENCH_BACKBONE=resnet101 BENCH_DILATION=1 BENCH_IMAGE=1333
 # BENCH_BATCH=1); the recipe's other flags are TRAIN_ARGS'
@@ -1512,7 +1541,8 @@ def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0,
     step_ms = result["step_ms"]
     median = statistics.median(step_ms[1:])
     log(f"train {label}: {steps} steps of the production recipe (B={batch}, {image}px, {config.destr.backbone}"
-        f"{' dilated C5' if config.destr.dilation else ''}, {config.destr.compute_dtype}, 6+6 blocks, top_k 300, "
+        f"{' dilated C5' if config.destr.dilation else ''}, {config.destr.compute_dtype}, "
+        f"{config.destr.num_encoder_blocks}+{config.destr.num_decoder_blocks} blocks, top_k 300, "
         f"dropout {RATE}, hidden {config.destr.hidden_dim}) and {valid_batches} validation batches in {wall:.1f} s "
         f"(with a _last checkpoint); launches "
         f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} "
@@ -2012,13 +2042,18 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
         f"{time.perf_counter() - start:.1f} s ({sum(p.numel() for p in service.model.parameters()) / 1e6:.1f} M "
         f"parameters); #1's wrapper called {built} times (the warm-up forward's and the capture's), by (dtype, d, "
         f"dv) {dict(widths)}")
-    if service.graph is None or built != 2 * 3 * BLOCKS or sum(widths.values()) != built:
+    config = service.model.config
+    blocks = config.num_decoder_blocks
+    if config.num_encoder_blocks != blocks:
+        raise AssertionError(f"serving {label}: {config.num_encoder_blocks} encoder and {blocks} decoder blocks")
+    if service.graph is None or built != 2 * 3 * blocks or sum(widths.values()) != built:
         raise AssertionError(f"the service captured no graph, or called #1 {built} times building it")
     hidden, size = service.model.config.hidden_dim, service.image_size
     want_widths = {("float32", hidden // 8, hidden // 8), ("float32", 2 * hidden // 8, 2 * hidden // 8),
                    ("float32", 2 * hidden, hidden)}
-    if set(widths) != want_widths or set(widths.values()) != {2 * BLOCKS}:
-        raise AssertionError(f"#1 served at (dtype, d, dv) {dict(widths)}, not {sorted(want_widths)} 12 times each")
+    if set(widths) != want_widths or set(widths.values()) != {2 * blocks}:
+        raise AssertionError(f"#1 served at (dtype, d, dv) {dict(widths)}, not {sorted(want_widths)} "
+                             f"{2 * blocks} times each")
 
     def check(dets):
         if len(dets["scores"]) != 300:
@@ -2056,7 +2091,7 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
                 with scope(i):
                     predict(image)
         windows[kind] = traced(torch, f"serve_{kind}_{label.replace(' ', '_')}", len(images), requests)
-        if windows[kind]["per_step"] != [3.0 * BLOCKS, 0, 0, 0, 0, 0]:
+        if windows[kind]["per_step"] != [3.0 * blocks, 0, 0, 0, 0, 0]:
             raise AssertionError(f"a traced {kind} request launched #1/#2/#3/#4/#9/#8 {windows[kind]['per_step']} "
                                  f"(launch lead {windows[kind]['launch_lead_s']} s)")
     log(f"serving {label}: {len(latencies)} captured requests (graph replays, #1's wrapper not called), detections scoring "
@@ -2113,12 +2148,13 @@ def phase_serving(torch, kernel, seed, images, service_args=None, label="hidden 
 
 def phase_h1024_service(torch, kernels, seed, images):
     """Hidden 1024 validated, evaluated and served from its own checkpoint:
-    train.main with the production recipe and --hidden_dim 1024 for 2 steps
-    and a 16-image validation split (18 / 12 / 6 / 6 / 1 launches of #1 /
-    #2 / #3 / #4 / #9 a step, 18 #1 and 1 #9 the validation batch), its
-    checkpoint written; infer.evaluate.main on it reproduces the driver's
-    mAP (1e-6) with 18 #1 launches; infer.server's build_service restores
-    it and serves the requests as phase 8 does, every #1 call float32, the
+    train.main with the production recipe and H1024_ARGS (--hidden_dim 1024
+    at H1024_BLOCKS blocks) for 2 steps and a 16-image validation split
+    (H1024_PER_STEP launches of #1 / #2 / #3 / #4 / #9 a step, 3 #1 a block
+    and 1 #9 the validation batch, COCO AP beside the mAP), its checkpoint
+    written; infer.evaluate.main on it reproduces the driver's mAP and COCO
+    AP (1e-6) with 3 #1 launches a block; infer.server's build_service restores it and serves
+    the requests as phase 8 does, every #1 call float32, the
     cross-attention's at d 2048, dv 1024. Returns what it measured."""
     from object_detection_destr_tpu_torch.infer import evaluate
     from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
@@ -2128,7 +2164,7 @@ def phase_h1024_service(torch, kernels, seed, images):
     with tempfile.TemporaryDirectory() as ckpt:
         base = TRAIN_ARGS + H1024_ARGS + ["--seed", str(seed), "--num_train_samples", str(TRAIN_B * steps),
                                           "--num_valid_samples", str(TRAIN_B), "--checkpoint_dir", ckpt,
-                                          "--log_dir", os.path.join(ckpt, "runs")]
+                                          "--log_dir", os.path.join(ckpt, "runs"), "--coco_eval"]
         reset_counts(kernels)  # the hidden-1024 validation path starts here
         t0 = time.perf_counter()
         result = train_cli.main(base + ["--save_as", "h1024"])
@@ -2136,7 +2172,7 @@ def phase_h1024_service(torch, kernels, seed, images):
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]  # read just after the path
         want = [n * steps for n in H1024_PER_STEP]
-        want[0] += 18
+        want[0] += 3 * H1024_BLOCKS
         want[4] += 1
         record = result["history"][0]
         if result["state"].step != steps or counts != want or not math.isfinite(record["mAP"]):
@@ -2148,12 +2184,15 @@ def phase_h1024_service(torch, kernels, seed, images):
         before = kernels[0].launches
         evaluated = evaluate.main(base + ["--resume_from", "h1024"])
         eval_launches = kernels[0].launches - before
-        if abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != TRAIN_B or eval_launches != 18:
-            raise AssertionError(f"evaluate hidden 1024: map {evaluated['map']} over {evaluated['n_images']} images "
-                                 f"with {eval_launches} #1 launches, the driver's mAP {record['mAP']}")
+        if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or abs(evaluated["coco_map"] - record["coco_mAP"]) > 1e-6
+                or evaluated["n_images"] != TRAIN_B or eval_launches != 3 * H1024_BLOCKS):
+            raise AssertionError(f"evaluate hidden 1024: map {evaluated['map']} coco_map {evaluated['coco_map']} over "
+                                 f"{evaluated['n_images']} images with {eval_launches} #1 launches, the driver's mAP "
+                                 f"{record['mAP']} coco_mAP {record['coco_mAP']}")
         log(f"hidden 1024: train.main {steps} steps and a {TRAIN_B}-image validation batch in {wall:.1f} s, launches "
-            f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, mAP={record['mAP']:.6f}, checkpoint {size_mb:.1f} MB; "
-            f"infer.evaluate on it: map={evaluated['map']:.6f} (driver {record['mAP']:.6f}), #1 launched "
+            f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, mAP={record['mAP']:.6f} coco_mAP={record['coco_mAP']:.6f}, "
+            f"checkpoint {size_mb:.1f} MB; infer.evaluate on it: map={evaluated['map']:.6f} coco_map="
+            f"{evaluated['coco_map']:.6f} (driver {record['mAP']:.6f}, {record['coco_mAP']:.6f}), #1 launched "
             f"{eval_launches} times OK")
         served = phase_serving(torch, fa.flash_attention_fwd, seed, images, label="hidden 1024", service_args=[
             "--checkpoint_dir", ckpt, "--weights", "h1024", "--score_thresh", "0.0", *H1024_ARGS])
@@ -2513,7 +2552,8 @@ def _cudnn_deterministic(torch, on):
         torch.backends.cudnn.deterministic = saved
 
 
-def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, eager_runs=EAGER_RUNS):
+def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, eager_runs=EAGER_RUNS,
+                         held_steps=TRAIN_STEPS):
     """A recipe's step on device-cached batches (``setup``: its state, cache,
     steps, transform and augmentation seeds), captured against eager from the
     same state and seed: the
@@ -2547,8 +2587,13 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, ea
     ``eager_runs``: 5, or 3 at hidden 1024, whose 436 M parameters make
     each sample of the moment and the parameters 3.5 GB on the card beside
     the graph's 24 GB pool (a largest pair of 3 samples is the narrower
-    limit)."""
+    limit).
+
+    ``held_steps``: the steps after the capture held this way (HELD_STEPS
+    in phases 6a and 14, to keep the script inside its time limit)."""
     from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
+
+    t_start = time.perf_counter()
 
     state, cache, transform, train_step = setup["state"], setup["cache"], setup["transform"], setup["train_step"]
     _, idx = cache.epoch_index_matrix()
@@ -2599,7 +2644,7 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, ea
     with _cudnn_deterministic(torch, exact):
         runner, memory, capture_counts = capture(0)
         spread, losses = {}, {"eager": [[] for _ in range(eager_runs)], "captured": [], "seed_of_step_0": []}
-        for step in range(1, TRAIN_STEPS + 1):
+        for step in range(1, held_steps + 1):
             snapshot = [t.detach().clone() for t in _state_tensors(state)]
             start = {"m": torch.cat([m.reshape(-1) for m in state.optimizer._m.values()]),
                      "params": _flat_params(torch, state.model)}
@@ -2642,7 +2687,7 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, ea
                                                      replays["captured"], {"seed_of_step_0": replays["seed_of_step_0"]})
             del eager, replays, start
         spread["losses"] = _hold_to_spread(
-            f"captured step {label}, losses of steps 1-{TRAIN_STEPS}", [{"losses": e} for e in losses["eager"]],
+            f"captured step {label}, losses of steps 1-{held_steps}", [{"losses": e} for e in losses["eager"]],
             {"losses": losses["captured"]}, {"seed_of_step_0": {"losses": losses["seed_of_step_0"]}})["losses"]
     if exact:  # capture again with cuDNN's default engines, as the trainer runs
         del runner
@@ -2665,11 +2710,12 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, ea
                                                                               "losses"), "limit": 0.0}}
         del eager, replay
     torch.cuda.empty_cache()
-    log(f"captured step {label}: step 0 the runner's warm-up and capture; steps 1-{TRAIN_STEPS} each from one "
+    held_s = time.perf_counter() - t_start
+    log(f"captured step {label}: step 0 the runner's warm-up and capture; steps 1-{held_steps} each from one "
         f"cloned state, {eager_runs} eager samples, the replay and a replay with step 0's seeds (planted fault); "
         f"distances to the eager mean (m: Adam's first moment, params: parameters, both as 2-norms relative to "
         f"the step's change, so a step that applied no update is at 1.0; losses: mean absolute difference over "
-        f"the {TRAIN_STEPS} steps' losses) and limit = the largest eager pair{EXACT_NOTE if exact else ''} "
+        f"the {held_steps} steps' losses) and limit = the largest eager pair{EXACT_NOTE if exact else ''} "
         f"{json.dumps(_rounded(spread))}; "
         f"the first "
         f"eager step ran under set_sync_debug_mode('error') without a host sync; wrapper calls of the warm-up and "
@@ -2725,7 +2771,8 @@ def phase_captured_train(torch, kernels, setup, per_step, label, exact=False, ea
         f"step {out['eager_step_peak_gb']:.2f} GB, of the runner's warm-up and capture "
         f"{out['captured_peak_gb']:.2f} GB, allocated after them (gradients, the graph's outputs) "
         f"{out['graph_held_gb']:.2f} GB, reserved by the allocator since the runner began (the graph's private "
-        f"pool among it) {out['reserved_added_gb']:.2f} GB")
+        f"pool among it) {out['reserved_added_gb']:.2f} GB; seconds: capture and {held_steps} held steps "
+        f"{held_s:.1f}, in all {time.perf_counter() - t_start:.1f}")
     del runner, state
     torch.cuda.empty_cache()
     return out
@@ -2814,9 +2861,10 @@ def ssd_recipe_config(extra=()):
     return config_from_args(get_parser("ssd").parse_args(SSD_ARGS + list(extra)), "ssd")
 
 
-def ssd_capture_setup(torch, seed):
-    """SSD_ARGS' state, device cache, transform, steps and augmentation seeds
-    (offset 13, as the SSD driver's) for :func:`phase_captured_train`."""
+def ssd_capture_setup(torch, seed, config=None):
+    """SSD_ARGS' state (or ``config``'s), device cache, transform, steps and
+    augmentation seeds (offset 13, as the SSD driver's) for
+    :func:`phase_captured_train`."""
     from object_detection_destr_tpu_torch.data.device_cache import DeviceCachedLoader
     from object_detection_destr_tpu_torch.data.transforms import ssd_train_transform
     from object_detection_destr_tpu_torch.models.ssd import build_ssd
@@ -2824,7 +2872,7 @@ def ssd_capture_setup(torch, seed):
     from object_detection_destr_tpu_torch.train.state import create_ssd_state
     from object_detection_destr_tpu_torch.train.steps import make_ssd_step_core, make_ssd_train_step
 
-    config = ssd_recipe_config(["--seed", str(seed)])
+    config = config or ssd_recipe_config(["--seed", str(seed)])
     cfg, ssd_cfg = config.train, config.ssd
     cache = DeviceCachedLoader(_make_loaders(config, int(ssd_cfg.image_size * 1.28), "ssd")[0], "cuda")
     torch.manual_seed(seed)
@@ -3037,27 +3085,29 @@ def eager_predict_ssd(torch, service, image):
             "labels": dets["labels"][0][keep].tolist()}
 
 
-def phase_ssd_serving(torch, kernels, seed, images):
+def phase_ssd_serving(torch, kernels, seed, images, service_args=None, label="serve ssd 300"):
     """serve-ssd-300: ``build_service --model ssd`` with seeded random
-    weights (flax's initialisers, written as the .npz the server loads),
-    the B=1 predict captured at startup; 8 requests (four aspect ratios,
-    twice) as graph replays and the same 8 eagerly, the detections equal;
-    latencies; a torch.profiler trace of 4 requests of each (device busy time,
-    idle share); the model forward on the card against the CPU's (float32,
-    TF32 off, 1e-4 of each head's largest value). Launches of the nine
-    kernels: none."""
+    weights (flax's initialisers, written as the .npz the server loads), or
+    with ``service_args`` (the server's flags: a trained checkpoint), the B=1
+    predict captured at startup; the requests (``images``: four aspect
+    ratios, twice) as graph replays and the same eagerly, the detections
+    equal; latencies; a torch.profiler trace of 4 requests of each (device
+    busy time, idle share); the model forward on the card against the CPU's
+    (float32, TF32 off, 1e-4 of each head's largest value). Launches of the
+    nine kernels: none."""
     from object_detection_destr_tpu_torch.config import SSDConfig
     from object_detection_destr_tpu_torch.infer.server import build_service, get_parser
     from object_detection_destr_tpu_torch.models.convert import flax_variables_from_state_dict, save_variables_npz
     from object_detection_destr_tpu_torch.models.ssd import build_ssd
 
-    weights_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build")
-    os.makedirs(weights_dir, exist_ok=True)
-    torch.manual_seed(seed)
-    save_variables_npz(flax_variables_from_state_dict(build_ssd(SSDConfig(), "cpu")),
-                       os.path.join(weights_dir, "chip_smoke_ssd.npz"))
-    args = get_parser().parse_args(["--model", "ssd", "--checkpoint_dir", weights_dir, "--weights",
-                                    "chip_smoke_ssd.npz", "--score_thresh", "0.0"])
+    if service_args is None:
+        weights_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build")
+        os.makedirs(weights_dir, exist_ok=True)
+        torch.manual_seed(seed)
+        save_variables_npz(flax_variables_from_state_dict(build_ssd(SSDConfig(), "cpu")),
+                           os.path.join(weights_dir, "chip_smoke_ssd.npz"))
+        service_args = ["--checkpoint_dir", weights_dir, "--weights", "chip_smoke_ssd.npz", "--score_thresh", "0.0"]
+    args = get_parser().parse_args(["--model", "ssd", *service_args])
     reset_counts(kernels)  # the SSD serving path starts here
     t0 = time.perf_counter()
     service = build_service(args)  # default: GPU, 300 px, stretch, the predict captured
@@ -3074,7 +3124,7 @@ def phase_ssd_serving(torch, kernels, seed, images):
             n = len(dets["scores"])
             if not 0 < n <= 200 or not all(0.0 <= v <= 1.0 for v in dets["scores"]) or any(
                     not (0.0 <= c <= 1.0) for box in dets["boxes"] for c in box) or any(
-                    not 0 <= c < 20 for c in dets["labels"]):
+                    not 0 <= c < service.model.config.num_cls for c in dets["labels"]):
                 raise AssertionError(f"SSD detections out of range or {n} of them")
             if rnd == 0:
                 served.append(dets)
@@ -3102,7 +3152,7 @@ def phase_ssd_serving(torch, kernels, seed, images):
     from object_detection_destr_tpu_torch.data.transforms import normalize_imagenet
 
     x = normalize_imagenet(torch.from_numpy(_resize_canvas(images[0], 300)[None]))
-    cpu_model = build_ssd(SSDConfig(), "cpu")
+    cpu_model = build_ssd(service.model.config, "cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in service.model.state_dict().items()})
     with torch.inference_mode():
         ref, got = cpu_model(x), service.model(x.cuda())
@@ -3116,7 +3166,7 @@ def phase_ssd_serving(torch, kernels, seed, images):
               "forward_ms": forward_ms, "forward_rel_err_vs_cpu": err, "built_s": built_s, "launches": counts,
               **{f"{kind}_{key}": w[key] for kind, w in windows.items()
                  for key in ("idle_share", "step_busy_ms", "step_period_ms")}}
-    log(f"serve ssd 300: service built (warm-up and capture) in {built_s:.1f} s; {len(latencies)} captured "
+    log(f"{label}: service built (warm-up and capture) in {built_s:.1f} s; {len(latencies)} captured "
         f"requests, detections a request {[len(d['scores']) for d in served]}, equal to the eager forward's; "
         f"latency ms captured median {timing['captured_ms']:.2f} max {timing['captured_max_ms']:.2f} (all: "
         f"{', '.join(f'{t:.2f}' for t in latencies)}), eager median {timing['eager_ms']:.2f} max "
@@ -3548,10 +3598,11 @@ def phase_real_data(torch, kernels, seed):
         layouts = phase_layouts(torch, setup)
         remat, remat_state = phase_remat(torch, kernels, setup)
         remat["captured"] = phase_captured_train(torch, kernels, {**setup, "state": remat_state},
-                                                 REMAT_LAUNCHES[:6], "real data remat")
+                                                 REMAT_LAUNCHES[:6], "real data remat", held_steps=HELD_STEPS)
         del remat_state
         torch.cuda.empty_cache()
-        captured = phase_captured_train(torch, kernels, setup, (18, 18, 0, 0, 1, 0), "real data")
+        captured = phase_captured_train(torch, kernels, setup, (18, 18, 0, 0, 1, 0), "real data",
+                                        held_steps=HELD_STEPS)
         del setup
         torch.cuda.empty_cache()
     finally:
@@ -5331,6 +5382,285 @@ def phase_config2(torch, kernels, seed, card):
     return out
 
 
+# ---- slice 17: BASELINE.json's config 1 (SSD300 over COCO's 80 classes)
+C1_LABEL = "coco-ssd-300"
+C1_NUM_CLS = 80  # COCO's classes; SSD's heads add the background channel (A x 81 confidences)
+C1_B = 12  # the SSD trainer's default --batch_size (scripts/train_ssd_torch.sh passes no other)
+C1_CANVAS = int(300 * 1.28)  # 384: the SSD trainer's and evaluator's canvas
+C1_TRAIN_IMAGES = C1_B * TRAIN_STEPS  # one epoch of 4 steps
+C1_VALID_IMAGES = 2 * C1_B  # two validation batches
+C1_REQUESTS = 8  # the CLI's images in one invocation, and the service's requests
+C1_CLI_TOL = 1e-5
+
+
+def c1_args(root, seed, work):
+    """Config 1's flags: the SSD trainer's defaults (B=12, 300 px, bf16,
+    reference mining, lr 1e-5), COCO's 80 classes on the tree at ``root``,
+    one epoch of its 4 batches, checkpoints in ``work``."""
+    return ["--dataset", "coco", "--data_root", root, "--num_cls", str(C1_NUM_CLS), "--epochs", "1",
+            "--augment_factor", "1", "--log_interval", "1", "--log_dir", "", "--seed", str(seed),
+            "--checkpoint_dir", work, "--save_as", "c1"]
+
+
+def c1_config(base):
+    from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, get_parser
+
+    return config_from_args(get_parser("ssd").parse_args(base), "ssd")
+
+
+def no_launches(kernels, label):
+    """Config 1's path launches none of the nine kernels: their counts, read
+    after each part of the phase, stay 0."""
+    counts = [k.launches for k in kernels]
+    if counts != list(NO_LAUNCHES):
+        raise AssertionError(f"{C1_LABEL} {label} launched #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}")
+
+
+def c1_evaluate(torch, kernels, base, record, ckpt):
+    """infer.evaluate --model ssd on the trainer's best checkpoint (map
+    within 1e-6 of the driver's sweep, the val loss within 1e-5 relative),
+    then the sweep's parts on the same checkpoint and split: the loader's
+    host decode and stretch to the canvas (384), the eval transform on the
+    device (384 -> 300), the eval step (forward, criterion, decode; CUDA
+    events) and MeanAveragePrecision(num_cls=80)'s update and compute (host
+    clock)."""
+    from object_detection_destr_tpu_torch.data.transforms import ssd_eval_transform
+    from object_detection_destr_tpu_torch.geometry.boxes import cxcyhw_to_xyxy
+    from object_detection_destr_tpu_torch.infer import evaluate
+    from object_detection_destr_tpu_torch.losses.metrics import MeanAveragePrecision
+    from object_detection_destr_tpu_torch.models.ssd import build_ssd
+    from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference
+    from object_detection_destr_tpu_torch.train.driver import _make_loaders, _to_device
+    from object_detection_destr_tpu_torch.train.state import TrainState
+    from object_detection_destr_tpu_torch.train.steps import make_ssd_eval_step
+
+    start = time.perf_counter()
+    evaluated = evaluate.main(["--model", "ssd"] + base + ["--resume_from", "c1"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - start
+    no_launches(kernels, "evaluate")
+    loss = record["valid"]["loss"]
+    if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != C1_VALID_IMAGES
+            or abs(evaluated["val_loss"] - loss) > 1e-5 * abs(loss)):
+        raise AssertionError(f"evaluate {C1_LABEL}: {evaluated}, the driver's sweep {record}")
+    config = c1_config(base)
+    valid_loader = _make_loaders(config, C1_CANVAS, "ssd")[1]
+    t0 = time.perf_counter()
+    raws = list(valid_loader)
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(raws)
+    device = torch.device("cuda")
+    batches = [_to_device(raw, device) for raw in raws]
+
+    def transform(b):
+        return ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=config.ssd.image_size)
+    transform_ms = time_cuda(torch, lambda: transform(batches[0]))
+    model = build_ssd(config.ssd, device)
+    model.load_state_dict(restore_for_inference(ckpt, "c1"))
+    state = TrainState(model=model, optimizer=None, rng=None)
+    eval_step = make_ssd_eval_step(config.train, config.ssd)
+    metric = MeanAveragePrecision(num_cls=C1_NUM_CLS)
+    m_state, update_ms, step_ms = metric.init_state(), [], []
+    for b in batches:
+        batch = transform(b)
+        step_ms.append(time_cuda(torch, lambda: eval_step(state, batch)))
+        _, _, detections = eval_step(state, batch)
+        targets = {"boxes": cxcyhw_to_xyxy(batch["boxes"]), "labels": batch["labels"], "valid": batch["valid"]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_state = metric.update(m_state, detections, targets)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    parts_map = metric.compute(m_state)
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    no_launches(kernels, "sweep parts")
+    if abs(parts_map - record["mAP"]) > 1e-6:
+        raise AssertionError(f"{C1_LABEL}: the split sweep's map {parts_map} differs from the driver's {record['mAP']}")
+    sweep_s = record["seconds"][0]
+    out = {"map": evaluated["map"], "val_loss": evaluated["val_loss"], "eval_s": eval_s, "sweep_s": sweep_s,
+           "sweep_images_per_sec": C1_VALID_IMAGES / sweep_s, "host_decode_resize_ms": host_ms,
+           "eval_transform_ms": transform_ms, "eval_step_ms": statistics.median(step_ms),
+           "map_update_ms": statistics.median(update_ms), "map_compute_ms": compute_ms}
+    log(f"{C1_LABEL} validation: the driver's sweep of {C1_VALID_IMAGES} COCO images (2 batches of {C1_B}) "
+        f"mAP={record['mAP']:.6f} loss={loss:.4f} in {sweep_s:.3f} s ({out['sweep_images_per_sec']:.1f} images/s, host "
+        f"clock); infer.evaluate --model ssd --dataset coco --num_cls {C1_NUM_CLS} on its checkpoint "
+        f"map={evaluated['map']:.6f} val_loss={evaluated['val_loss']:.4f} in {eval_s:.1f} s (model build and "
+        f"checkpoint read inside); a batch's parts: host decode and stretch to {C1_CANVAS} {host_ms:.2f} ms (the "
+        f"loader, host clock), eval transform {C1_CANVAS} -> 300 {transform_ms:.3f} ms, eval step (forward, "
+        f"criterion, decode) {out['eval_step_ms']:.2f} ms (CUDA events), MeanAveragePrecision over {C1_NUM_CLS} "
+        f"classes update {out['map_update_ms']:.2f} ms a batch (host clock; {C1_NUM_CLS} device-to-host copies) and "
+        f"compute {compute_ms:.2f} ms")
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def c1_score_thresh(scores, n_images):
+    """A score threshold for the CLI and the service, from the B=8
+    forward's kept scores (one array an image, ``score_thresh`` 0): the
+    middle of the widest gap between two neighbouring pooled scores such
+    that every image keeps a detection and at most 25 an image are kept on
+    average. A detection then lies no nearer the threshold than half that
+    gap, so a float32 difference between the batched and the B=1 forward
+    cannot move one across it. Returns (threshold, gap)."""
+    import numpy as np
+
+    pooled = np.sort(np.concatenate(scores))[::-1]
+    floor = min(float(s.max()) for s in scores)  # every image keeps one above the threshold
+    cuts = [k for k in range(1, len(pooled)) if pooled[k - 1] <= floor]
+    cuts = [k for k in cuts if k <= max(25 * n_images, cuts[0])]
+    gap, k = max((float(pooled[k - 1] - pooled[k]), k) for k in cuts)
+    return float(pooled[k - 1] + pooled[k]) / 2, gap
+
+
+def c1_cli_and_service(torch, kernels, seed, ckpt, files):
+    """infer.cli --model ssd --num_cls 80 on the ``files`` in one invocation
+    (one float32 forward at B=8), and phase 10's serving on a captured SSD
+    DetectionService that infer.server.build_service builds from the same
+    flags, its requests 4 of the images (four aspects) twice; each image's
+    CLI detections held to the service's: the same number, each matched by
+    one of the same label within 1e-5 (boxes and scores; cuDNN sums the
+    B=8 and B=1 forwards in other orders). The score threshold of both
+    (c1_score_thresh) is read off the CLI's own forward at threshold 0."""
+    import numpy as np
+
+    from object_detection_destr_tpu_torch.infer import cli
+    from object_detection_destr_tpu_torch.infer.server import build_model, get_parser, load_weights
+
+    images = [cli._load_image(f) for f in files]
+    args = get_parser().parse_args(["--model", "ssd", "--checkpoint_dir", ckpt, "--weights", "c1", "--num_cls",
+                                    str(C1_NUM_CLS)])
+    model, size = build_model(args, torch.device("cuda"))
+    load_weights(model, ckpt, "c1")
+    dets = cli.predict_arrays(model, "ssd", images, size, score_thresh=0.0)
+    thresh, gap = c1_score_thresh([dets["scores"][i][dets["valid"][i]] for i in range(len(images))], len(images))
+    del model
+    torch.cuda.empty_cache()
+    flags = ["--checkpoint_dir", ckpt, "--weights", "c1", "--num_cls", str(C1_NUM_CLS), "--score_thresh", repr(thresh)]
+    t0 = time.perf_counter()
+    records = cli.main(["--model", "ssd", *flags, "--images", *files, "--output", os.path.join(ckpt, "dets.json")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    no_launches(kernels, "cli")
+    aspects = [images[i] for i in (0, 1, 2, 4)]  # 480x640, 640x480, 427x640, 640x427
+    service, timing = phase_ssd_serving(torch, kernels, seed, aspects, service_args=flags, label=f"{C1_LABEL} serving")
+    served = [service.predict_image(image) for image in images]
+    del service
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for f, rec, ref in zip(files, records, served):
+        if not 0 < len(rec["boxes"]) == len(ref["boxes"]) or sorted(rec["labels"]) != sorted(ref["labels"]):
+            raise AssertionError(f"{C1_LABEL} cli {f}: labels {rec['labels']}, the service's {ref['labels']}")
+        rows = np.concatenate([np.asarray(ref["boxes"]), np.asarray(ref["scores"])[:, None]], 1)
+        for box, score, label in zip(rec["boxes"], rec["scores"], rec["labels"]):
+            gaps = np.abs(rows - np.asarray(box + [score])).max(1)
+            gaps[np.asarray(ref["labels"]) != label] = np.inf
+            if int((gaps <= C1_CLI_TOL).sum()) != 1:
+                raise AssertionError(f"{C1_LABEL} cli {f}: detection {box} {score} {label} has "
+                                     f"{int((gaps <= C1_CLI_TOL).sum())} matches in the service's within {C1_CLI_TOL}")
+            worst = max(worst, float(gaps.min()))
+    counts = [len(r["boxes"]) for r in records]
+    log(f"{C1_LABEL} cli: infer.cli --model ssd --num_cls {C1_NUM_CLS} on {len(files)} COCO images "
+        f"({', '.join('x'.join(map(str, im.shape[:2])) for im in images)}) in one invocation in {cli_s:.2f} s (model "
+        f"build, checkpoint, decode and one B={len(files)} float32 forward), score threshold {thresh:.6f} (the widest "
+        f"gap {gap:.3e} of the forward's scores), detections an image {counts} over "
+        f"{len({c for r in records for c in r['labels']})} labels; each held to the captured service's (labels "
+        f"equal, boxes and scores within {C1_CLI_TOL:g}): largest gap {worst:.3e}; request median "
+        f"{timing['captured_ms']:.2f} ms captured (eager {timing['eager_ms']:.2f}, idle "
+        f"{timing['captured_idle_share']:.4f})")
+    return {"cli_s": cli_s, "score_thresh": thresh, "thresh_gap": gap, "cli_worst": worst, "detections": counts,
+            **timing}
+
+
+def phase_config1(torch, kernels, seed, card):
+    """Phase 21: BASELINE.json's config 1 (SSD300 over COCO's 80 classes)
+    through the port's entry points on a COCO-layout tree: train_ssd.main
+    with the SSD trainer's defaults (4 steps and a validation sweep,
+    checkpoints), the captured step held bit-equal to eager samples under
+    deterministic cuDNN, the evaluator and the sweep's parts, the batch CLI
+    against a captured service. SSD launches none of the nine kernels: their
+    counts stay 0 through the phase."""
+    from object_detection_destr_tpu_torch.data.datasets import CocoDetection
+    from object_detection_destr_tpu_torch.train import train_ssd
+
+    t0 = time.perf_counter()
+    seconds, last = {}, [t0]
+
+    def lap(name):
+        """The seconds since the previous lap, as ``name``'s."""
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_c1_",
+                            dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build"))
+    reset_counts(kernels)  # the config-1 path starts here
+    try:
+        root = os.path.join(work, "coco")
+        written = write_coco_tree(root, seed, n_train=C1_TRAIN_IMAGES, n_valid=C1_VALID_IMAGES)
+        for split in ("train2017", "val2017"):
+            reader = CocoDetection(root, split)
+            classes = {int(c) for i in range(len(reader)) for c in reader[i][2]}
+            if len(reader) != written[split][0] or len(classes) != C1_NUM_CLS:
+                raise AssertionError(f"{C1_LABEL}: the reader gives {len(reader)} {split} images over "
+                                     f"{len(classes)} classes, the tree holds {written[split]}")
+        lap("tree")
+        base = c1_args(root, seed, work)
+        config = c1_config(base)
+        cfg, ssd_cfg = config.train, config.ssd
+        if (cfg.batch_size, ssd_cfg.image_size, ssd_cfg.compute_dtype, ssd_cfg.hard_neg_mining, cfg.lr) != (
+                C1_B, 300, "bfloat16", "reference", 1e-5):
+            raise AssertionError(f"{C1_LABEL}: the trainer's defaults changed: {cfg}, {ssd_cfg}")
+        t1 = time.perf_counter()
+        result = train_ssd.main(base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        no_launches(kernels, "train_ssd.main")
+        state, record = result["state"], result["history"][0]
+        files = sorted(f for f in os.listdir(work) if f.startswith("c1"))
+        scalars = [record["mAP"], *record["valid"].values(), *result["metrics"].values()]
+        if (state.step != TRAIN_STEPS or state.optimizer.count != TRAIN_STEPS or files != ["c1", "c1_last"]
+                or not all(math.isfinite(v) for v in scalars)):
+            raise AssertionError(f"{C1_LABEL}: {state.step} steps, {state.optimizer.count} updates, checkpoints "
+                                 f"{files}, scalars {scalars}")
+        step_ms = statistics.median(result["step_ms"][1:])
+        log(f"{C1_LABEL}: COCO-layout tree {json.dumps(written)} (images, boxes kept), all 80 classes in each "
+            f"split; train_ssd.main --dataset coco --num_cls {C1_NUM_CLS} (B={cfg.batch_size}, "
+            f"{ssd_cfg.image_size} px, {ssd_cfg.compute_dtype}, {ssd_cfg.hard_neg_mining} mining, lr {cfg.lr:g}): "
+            f"{state.step} steps and {C1_VALID_IMAGES} validation images in {wall:.1f} s, checkpoints {files}; last "
+            f"losses " + " ".join(f"{k}={v:.4f}" for k, v in result["metrics"].items())
+            + f"; mAP={record['mAP']:.6f} valid {record['valid']}; step ms (CUDA events) "
+            + ", ".join(f"{t:.1f}" for t in result["step_ms"]) + f", median after the first {step_ms:.2f}")
+        del state, result
+        torch.cuda.empty_cache()
+        lap("train, validate")
+        captured = phase_captured_train(torch, kernels, ssd_capture_setup(torch, seed, config), NO_LAUNCHES,
+                                        C1_LABEL, exact=True, eager_runs=3)
+        no_launches(kernels, "captured step")
+        torch.cuda.empty_cache()
+        lap("captured")
+        evaluated = c1_evaluate(torch, kernels, base, record, work)
+        lap("evaluate")
+        requests = [os.path.join(root, "val2017", f"{i + 1:012d}.jpg") for i in range(C1_REQUESTS)]
+        served = c1_cli_and_service(torch, kernels, seed, work, requests)
+        no_launches(kernels, "cli and serving")
+        lap("cli, serve")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"step_ms": step_ms, "record": {k: record[k] for k in ("mAP", "valid", "seconds")},
+           "captured": {k: v for k, v in captured.items() if k != "spread"}, "evaluate": evaluated,
+           "serving": served, "launches": list(NO_LAUNCHES), "seconds": time.perf_counter() - t0,
+           "seconds_by_part": seconds}
+    log(f"{C1_LABEL} ({card}): train step eager median {step_ms:.2f} ms ({C1_B * 1e3 / step_ms:.1f} images/s), "
+        f"captured {captured['captured_ms']:.2f} ms ({C1_B * 1e3 / captured['captured_ms']:.1f} images/s; eager "
+        f"{captured['eager_ms']:.2f}), captured busy {captured['captured_step_busy_ms']:.2f} ms, idle share "
+        f"{captured['captured_idle_share']:.4f}, peak above the state: eager step {captured['eager_step_peak_gb']:.2f} "
+        f"GB, warm-up and capture {captured['captured_peak_gb']:.2f} GB; validation sweep "
+        f"{evaluated['sweep_images_per_sec']:.1f} images/s; request captured {served['captured_ms']:.2f} ms (eager "
+        f"{served['eager_ms']:.2f}); launches of the nine kernels {list(NO_LAUNCHES)}; phase {out['seconds']:.1f} s, "
+        f"by part {json.dumps(_rounded(seconds))}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5354,13 +5684,16 @@ def main(argv=None) -> int:
                fa.flash_attention_unpacked_dq, fa.flash_attention_unpacked_dkv]
 
     t_start = time.perf_counter()
-    phase_seconds, last = {}, [t_start]
+    phase_seconds, part_seconds, last = {}, {}, [t_start]
     val_ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")  # phase 6b's checkpoints, read again in phase 17
 
-    def clock(name):
-        """The seconds since the previous clock, added to ``name``'s."""
+    def clock(name, part=None):
+        """The seconds since the previous clock, added to ``name``'s (and
+        to its ``part``'s)."""
         now = time.perf_counter()
         phase_seconds[name] = phase_seconds.get(name, 0.0) + now - last[0]
+        if part is not None:
+            part_seconds[f"{name} {part}"] = now - last[0]
         last[0] = now
 
     try:
@@ -5370,18 +5703,23 @@ def main(argv=None) -> int:
         clock("device and build")
         phase_plan(torch, fa)
         warm_clocks(torch)
+        kernels_clock = functools.partial(clock, "kernels (3-5)")
         flash_rows = phase_flash(torch, args.seed)
+        kernels_clock("3")
         beyond_rows, beyond_unpacked = phase_beyond_1024(torch, args.seed)
+        kernels_clock("3d")
         shares = phase_dropout_share(torch, args.seed, flash_rows + beyond_rows)
         f32_shares = phase_dropout_share(torch, args.seed, flash_rows + beyond_rows, torch.float32,
                                          PATH_SITES + WIDE_SITES + [H1024_CROSS])
+        kernels_clock("dropout shares")
         seed_checks = phase_seed_replay(torch, args.seed)
         split_rows = phase_split(torch, args.seed, one_bf16)
         unpacked_rows = phase_unpacked(torch, args.seed)
         api_counts = phase_unpacked_api(torch, kernels, args.seed)
+        kernels_clock("seed, split, head-major")
         auction_rows, l2 = phase_auction(torch, args.seed)
         assign_rows, assign_counts = phase_assignment(torch, kernels, args.seed, l2)
-        clock("kernels (3-5)")
+        kernels_clock("auctions")
         runs = {}
         for label, extra, per_step_launches in (("hidden 256", [], (18, 18, 0, 0, 1, 0, 0, 0, 0)),
                                                 ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0, 0, 0, 0)),
@@ -5397,18 +5735,19 @@ def main(argv=None) -> int:
             runs[label] = (counts, step_ms)
             del state
             torch.cuda.empty_cache()
-            clock("train (6)")
+            clock("train (6)", label)
         captured = {}
-        for label, extra, per_step_launches, eager_runs in (
-                ("hidden 256", [], (18, 18, 0, 0, 1, 0), EAGER_RUNS),
-                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0), EAGER_RUNS),
-                ("hidden 1024", H1024_ARGS, H1024_PER_STEP[:6], 3),
-                ("hidden 256 float32", F32_ARGS, (18, 18, 0, 0, 1, 0), F32_EAGER_RUNS),
-                ("hidden 512 float32", WIDE_ARGS + F32_ARGS, (18, 12, 6, 6, 1, 0), F32_EAGER_RUNS)):
+        for label, extra, per_step_launches, eager_runs, held in (
+                ("hidden 256", [], (18, 18, 0, 0, 1, 0), EAGER_RUNS, HELD_STEPS),
+                ("hidden 512", WIDE_ARGS, (18, 12, 6, 6, 1, 0), EAGER_RUNS, HELD_STEPS),
+                ("hidden 1024", H1024_ARGS, H1024_PER_STEP[:6], 3, HELD_STEPS),
+                ("hidden 256 float32", F32_ARGS, (18, 18, 0, 0, 1, 0), F32_EAGER_RUNS, HELD_STEPS),
+                ("hidden 512 float32", WIDE_ARGS + F32_ARGS, (18, 12, 6, 6, 1, 0), F32_EAGER_RUNS,
+                 HELD_STEPS)):
             captured[label] = phase_captured_train(torch, kernels, destr_capture_setup(torch, args.seed, extra),
-                                                   per_step_launches, label, eager_runs=eager_runs)
+                                                   per_step_launches, label, eager_runs=eager_runs, held_steps=held)
             torch.cuda.empty_cache()  # the runner's graph pool
-        clock("captured train (6a)")
+            clock("captured train (6a)", label)
         val_counts, val_timing = phase_validation(torch, kernels, args.seed, val_ckpt)
         clock("validation (6b)")
         torch.cuda.empty_cache()
@@ -5460,6 +5799,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         c2 = phase_config2(torch, kernels, args.seed, card)
         clock("config 2 (20)")
+        torch.cuda.empty_cache()
+        c1 = phase_config1(torch, kernels, args.seed, card)
+        clock("config 1 (21)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5576,10 +5918,13 @@ def main(argv=None) -> int:
                                         "captured_ms": h1024["captured_ms"], "eager_ms": h1024["eager_ms"]},
                             "sites": {r["site"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                                       for r in h1024_rows},
-                            "per": "hidden-1024 train step: 18 launches (d 128, 256 and the cross-attention's d "
+                            "per": f"launches: train.main at hidden 1024 cut to {H1024_BLOCKS} + {H1024_BLOCKS} blocks "
+                                   f"({H1024_PER_STEP[0]} a step); ms ...: a full-depth hidden-1024 train step's "
+                                   "18 launches (d 128, 256 and the cross-attention's d "
                                    "2048, dv 1024), B=16, bfloat16, dropout 0.3, eager calls; validation_launches: "
-                                   "2 steps and a validation batch; serving: a request's 18 float32 B=1 launches "
-                                   "(CUDA graph), its latency (host clock, median of 8)"},
+                                   "2 steps and a validation batch; serving: a full-depth request's 18 float32 B=1 "
+                                   "launches (CUDA graph), the latency (host clock, median of 8) of the service at "
+                                   f"{H1024_BLOCKS} + {H1024_BLOCKS} blocks"},
             "validation": {"launches": val_counts[0], "per": "4 train steps and 4 validation batches, 18 each"},
             "captured_step": {label: {k: v for k, v in c.items() if k != "spread"} for label, c in captured.items()},
             "seed_replay": seed_checks,
@@ -5630,7 +5975,8 @@ def main(argv=None) -> int:
             "hidden_1024": {"launches": h1024_counts[1], "max_abs_err": abs_err(h1024_fused, "fused"),
                             **timed(h1024_fused, "bwd"), "library_ms": per_step(h1024_fused, "bwd_library_ms"),
                             **device_rates(share_h1024, "bwd"),
-                            "per": "12 launches: encoder (d 128) and decoder (d 256) self-attention"},
+                            "per": "ms ...: a full-depth step's 12 launches, encoder (d 128) and decoder (d 256) "
+                                   f"self-attention; launches: train.main at {H1024_BLOCKS} + {H1024_BLOCKS} blocks"},
         },
         {
             "name": "flash_attention_dq", "route": "cuda",
@@ -5644,8 +5990,9 @@ def main(argv=None) -> int:
                             "max_abs_err": abs_err(h1024_cross, "two_pass", ("dq",)), **timed(h1024_cross, "dq"),
                             "library_ms": per_step(h1024_cross, "bwd_library_ms"),
                             **device_rates(share_h1024, "dq"),
-                            "per": "6 launches at the cross-attention (d 2048, dv 1024; the wide kernel, gradient "
-                                   "columns in slices across grid.y), B=16, bfloat16, dropout 0.3, eager calls"},
+                            "per": "ms ...: a full-depth step's 6 launches at the cross-attention (d 2048, dv 1024; "
+                                   "the wide kernel, gradient columns in slices across grid.y), B=16, bfloat16, dropout "
+                                   f"0.3, eager calls; launches: train.main at {H1024_BLOCKS} + {H1024_BLOCKS} blocks"},
             "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
                    f"B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; device_ms_rate_* the "
                    f"same launches from CUDA-graph replay; rel_err at both cross sites; {sdpa}",
@@ -5662,8 +6009,9 @@ def main(argv=None) -> int:
                             "max_abs_err": abs_err(h1024_cross, "two_pass", ("dk", "dv")), **timed(h1024_cross, "dkv"),
                             "library_ms": per_step(h1024_cross, "bwd_library_ms"),
                             **device_rates(share_h1024, "dkv"),
-                            "per": "6 launches at the cross-attention (d 2048, dv 1024; the wide kernel, gradient "
-                                   "columns in slices across grid.y), B=16, bfloat16, dropout 0.3, eager calls"},
+                            "per": "ms ...: a full-depth step's 6 launches at the cross-attention (d 2048, dv 1024; "
+                                   "the wide kernel, gradient columns in slices across grid.y), B=16, bfloat16, dropout "
+                                   f"0.3, eager calls; launches: train.main at {H1024_BLOCKS} + {H1024_BLOCKS} blocks"},
             "per": f"hidden-512 train step: 6 launches at the merged cross-attention (d 1024, dv 512), "
                    f"B={TRAIN_B}, bfloat16 (tensor cores), dropout {RATE}, eager calls; device_ms_rate_* the "
                    f"same launches from CUDA-graph replay; rel_err at both cross sites; {sdpa}",
@@ -5874,9 +6222,12 @@ def main(argv=None) -> int:
         f"{c4['seconds']:.1f} s; {C2_LABEL}: step ms eager {c2['step_ms']:.2f}, captured "
         f"{c2['captured']['captured_ms']:.2f}, request ms {c2['serving']['captured_ms']:.2f}, batched bf16 forward "
         f"ms {c2['forward']['captured_ms']:.2f} ({c2['forward']['images_per_sec']:.1f} images/s), validation "
-        f"{c2['evaluate']['sweep_images_per_sec']:.1f} images/s, phase {c2['seconds']:.1f} s; total "
+        f"{c2['evaluate']['sweep_images_per_sec']:.1f} images/s, phase {c2['seconds']:.1f} s; {C1_LABEL}: step ms "
+        f"eager {c1['step_ms']:.2f}, captured {c1['captured']['captured_ms']:.2f}, request ms "
+        f"{c1['serving']['captured_ms']:.2f}, validation {c1['evaluate']['sweep_images_per_sec']:.1f} images/s, "
+        f"phase {c1['seconds']:.1f} s; total "
         f"{time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
-        f"{json.dumps(_rounded(phase_seconds))}")
+        f"{json.dumps(_rounded(phase_seconds))}; by part {json.dumps(_rounded(part_seconds))}")
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
         entry["data_parallel"] = {
             "launches_per_rank": [rank[index] for rank in dp["two_ranks"]["launches_per_rank"]],
