@@ -14,8 +14,9 @@ served and profiled; BASELINE.json's config 2 (DESTR-R50 over COCO's 80
 classes at 800 px) trained on a COCO-layout tree, evaluated, batch-inferred,
 served and its batched bf16 forward timed; BASELINE.json's config 1 (SSD300
 over COCO's 80 classes) trained, captured, evaluated, batch-inferred and
-served; and hold each hand-written CUDA kernel against its plain PyTorch
-version.
+served; and validation run as the JAX package runs it (the eval steps captured, both
+metrics on the device through the greedy-match kernel); and hold each
+hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -137,12 +138,15 @@ Phases (any failure exits non-zero and prints no result):
   6b. the validation path: train.train.main with the production recipe, a
      32-image validation split, --ema_decay 0.999, --coco_eval and
      checkpoints for 4 steps: exactly 18 / 18 / 0 / 0 / 1 launches of #1 /
-     #2 / #3 / #4 / #9 a step and 18 of #1 and 1 of #9 a validation batch
-     (live and EMA sweeps, 2 batches each); smoke, smoke_ema and smoke_last
-     written; infer.evaluate.main on smoke reproduces the driver's mAP within
-     1e-6; a resume from smoke_last runs steps 5-8; the eval step's time a
-     batch, the sweep's images/s, the EMA update and a checkpoint's size and
-     write time;
+     #2 / #3 / #4 / #9 a step and 18 of #1 and 1 of #9 in each of the
+     captured eval step's warm-up and capture (the live and EMA sweeps, 2
+     batches each, replay one graph), one greedy-match launch a batch and
+     metric; smoke, smoke_ema and smoke_last written; infer.evaluate.main on
+     smoke reproduces the trainer's mAP within 1e-6 (36 #1 launches: its
+     captured forward's warm-up and capture); a resume from smoke_last runs
+     steps 5-8; the eval step's time a batch eager and captured, the
+     sweep's images/s, the metric updates on the device, the EMA update and
+     a checkpoint's size and write time;
   6c. train.train.main with --device_cache --epoch_scan, 2 epochs on 64
      samples, against five --device_cache runs (the per-step path, the
      first with --profile_dir): final parameters and logged losses no
@@ -164,9 +168,10 @@ Phases (any failure exits non-zero and prints no result):
   8a. hidden 1024 (phase_h1024_service): train.main with the recipe and
      --hidden_dim 1024 at 2 + 2 blocks (H1024_BLOCKS), 2 steps and a
      16-image validation batch (6 / 4 / 2 / 2 / 1 launches a step, 6 / 0 /
-     0 / 0 / 1 the batch, COCO AP beside the mAP), its checkpoint;
-     infer.evaluate.main on it reproduces the driver's mAP and COCO AP
-     (1e-6, 6 #1 launches); build_service
+     0 / 0 / 1 in each of the captured eval step's warm-up and capture,
+     COCO AP beside the mAP), its checkpoint; infer.evaluate.main on it
+     reproduces the trainer's mAP and COCO AP (1e-6, 12 #1 launches: its
+     captured forward's warm-up and capture); build_service
      restores it and serves phase 8's requests, every #1 call float32, the
      cross-attention's at d 2048, dv 1024;
   9. whole model forward, kernel against plain, discrete choices
@@ -207,8 +212,8 @@ Phases (any failure exits non-zero and prints no result):
      --moment_dtype bfloat16 --opt_layout grouped --rng_impl threefry at the
      production width, one epoch (4 mini-steps, 2 updates) and its
      validation batch, eager and with --device_cache --epoch_scan: launches
-     18 / 18 / 1 of #1 / #2 / #9 a mini-step and 18 / 0 / 1 a validation
-     batch, moments bfloat16, TensorBoard events; mini-steps 1 and 2 from a
+     18 / 18 / 1 of #1 / #2 / #9 a mini-step and 18 / 0 / 1 in each of the
+     captured eval step's warm-up and capture, moments bfloat16, TensorBoard events; mini-steps 1 and 2 from a
      fresh state (parameters held, then moved); (e) one float32 update of
      each optimizer layout from one state, the parameters bit-equal, and the
      update's time by layout and moment dtype; (d) DestrConfig(remat=True):
@@ -262,7 +267,8 @@ Phases (any failure exits non-zero and prints no result):
      tools/*_torch.py in this process): (a) val_noise on phase 6b's best
      checkpoint (32 images, 2 valid-loader orders, 200 resamples): the
      metric state the same in both orders, the per-image rows summing back
-     to the sweep's mAP and COCO AP, 18 #1 and 1 #9 launches a batch; (b)
+     to the sweep's mAP and COCO AP, 18 #1 and 1 #9 launches in each of the
+     captured eval step's warm-up and capture (its 4 batches replay); (b)
      the production recipe (hidden 256, B=16, bf16, dropout 0.3) trained an
      epoch of 2 steps to pm_last and resumed from it 10 times for 2 more,
      logging every step; postmortem_divergence replays those 2 steps from
@@ -286,12 +292,13 @@ Phases (any failure exits non-zero and prints no result):
      the nine wrappers' launches in that process: exit code 0; the recipes'
      tags in metrics.jsonl (Metric/coco_mAP, Metric/ema_mAP, ...) and train
      records at steps 1 and 2; the best, _ema (DESTR) and _last
-     checkpoints; 108 / 36 / 6 launches of #1 / #2 / #9 in DESTR's run (the
-     epoch runner's warm-up step and capture, 18 / 18 / 1 each, and 4
-     validation batches, 18 / 0 / 1 each), none of the nine in SSD's; the
-     evaluator's one JSON line with map and coco_map equal to the trainer's
-     logged values (within 1e-5, its printing's rounding) and 18 #1
-     launches a batch.
+     checkpoints; 72 / 36 / 4 launches of #1 / #2 / #9 in DESTR's run (the
+     epoch runner's warm-up step and capture, 18 / 18 / 1 each, and the
+     sweeps' captured eval step's warm-up and capture, 18 / 0 / 1 each),
+     none of the nine in SSD's; the evaluator's one JSON line with map and
+     coco_map equal to the trainer's logged values (within 1e-5, its
+     printing's rounding) and 36 #1 launches (its captured forward's
+     warm-up and capture).
  19. BASELINE.json's config 4, train-1333-r101-dc5: DESTR-R101 with the
      dilated C5 (layer4 at stride 1) at 1333 px, B=1, bf16, on synthetic
      1399 px canvases, so the encoder takes 84 x 84 = 7056 tokens and the
@@ -299,11 +306,13 @@ Phases (any failure exits non-zero and prints no result):
      bf16, dropout 0.3) and #9 on its 2 problems of N = 7056 against their
      plain versions; train.train.main for 4 steps and a 2-image validation
      split (exactly 18 / 18 / 0 / 0 / 1 launches of #1 / #2 / #3 / #4 / #9
-     a step and 18 / 0 / 0 / 0 / 1 a validation batch, finite losses, the
+     a step and 18 / 0 / 0 / 0 / 1 in each of the captured eval step's
+     warm-up and capture, finite losses, the
      updates as the parameter groups say, its best checkpoint written), the
      parts of 3 more steps; the captured step against 3 eager samples a
      step (phase 6a's check, times, traces and peak memory);
-     infer.evaluate on the checkpoint (the driver's mAP, 18 #1 a batch);
+     infer.evaluate on the checkpoint (the trainer's mAP; 36 #1, its captured
+     forward's warm-up and capture);
      four requests of four aspects at 1333 px in float32 through infer.cli
      (one invocation a request, 18 #1 each) and phase 8's serving on a
      DetectionService built with infer.server.build_model (the server's
@@ -323,8 +332,11 @@ Phases (any failure exits non-zero and prints no result):
      for 4 steps and 2 validation batches with COCO AP (18 / 18 / 0 / 0 / 1
      a step); the captured step on the tree's batches against 3 eager
      samples a step; infer.evaluate on its checkpoint (the driver's map and
-     coco_map within 1e-6, 18 #1 a batch) and the sweep split into host
-     decode and letterbox, the eval transform, the forward and the metrics;
+     coco_map within 1e-6; 36 #1, its captured forward's warm-up and
+     capture; one greedy-match launch a batch and metric) and the sweep
+     split into host decode and letterbox, the eval transform, the forward
+     eager and captured, the metrics' updates on the device and compute,
+     and the trainer's sweep again on its graph;
      infer.cli on 8 of the tree's images in one invocation, letterboxed and
      stretched (18 #1 each); phase 8's serving on a captured DetectionService
      at --num_cls 81 --image_size 800, the CLI's letterboxed detections
@@ -342,18 +354,39 @@ Phases (any failure exits non-zero and prints no result):
      under deterministic cuDNN (phase 12's check; times, traces and peak
      memory with the default engines); infer.evaluate --model ssd on the
      checkpoint (the driver's mAP within 1e-6) and the sweep split into host
-     decode and stretch, the eval transform, the eval step and the 80-class
-     mAP update; infer.cli --model ssd --num_cls 80 on 8 of the tree's images
+     decode and stretch, the eval transform, the eval step eager and
+     captured, the 80-class mAP update on the device, and the trainer's
+     sweep again on its graph; infer.cli --model ssd --num_cls 80 on 8 of the tree's images
      in one invocation against phase 10's serving on a captured SSD
      DetectionService (the same detections within 1e-5, at a score threshold
      read off the CLI's forward). The nine kernels' counts stay 0.
+ 22. validation as the JAX package runs it (phase_val_device): (a) the
+     greedy-match kernel (csrc/greedy_match.cu, both metrics' walk) against
+     its plain version, hits bit-equal, at the path's three launches:
+     config 2's COCO records (B=8 x 80 classes, 100 ranks, T=300, 10
+     thresholds), config 1's 11-point metric (B=12 x 80, R=300) and DESTR's
+     one-class metric (B=16, R=300), on operands with ties, rows at exactly
+     0.5, NaN rows and problems without a target; device ms beside the
+     plain version's and the bound; (b) both metrics on the card against the
+     plain version on CPU copies (states, hits and APs exact, COCO's
+     sigmoid scores within 1e-6 relative) on seeded detections at config 2's
+     and config 1's shapes and on the eval steps' outputs of (c); (c) the
+     trainers' eval steps captured (train/steps.py::CapturedEvalStep)
+     against eager for DESTR at config 2's shapes and SSD at config 1's on a
+     COCO-layout tree: bit-equal outputs and losses under deterministic
+     cuDNN, within the eager spread with the default engines, the trainers'
+     sweeps captured and eager equal before and after two train steps, with
+     an EMA swapped in and after a checkpoint restore (one graph, which
+     reads the live weights), and a traced replayed DESTR batch with both
+     metric updates: 18 #1, 1 #9 and 2 greedy-match launches.
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors, #3's and #4's
 errors at the cross sites and each kernel's float32 entry; #1's serving
 entry with its float32 B=1 sites; #8's and #9's rounds and bids beside the
 plain version's; #1's, #2's and #9's config_4 entries, phase 19's, and config_2 entries,
-phase 20's); the last line is {"ok": true, "device": {...}}.
+phase 20's; the greedy-match kernel's entry, phase 22's cells and phase 6b's
+launches); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1483,8 +1516,22 @@ def recipe_train_config(extra=()):
     return recipe_config(extra).train
 
 
+# a captured eval step (train/steps.py::CapturedEvalStep) calls the kernels'
+# wrappers in its warm-up and in its capture, once each an input shape; its
+# replays call none (count a replayed batch's launches from a trace)
+EVAL_CAPTURE_CALLS = 2
+
+
+def greedy_kernel():
+    """The greedy-match wrapper: both metrics' walk, one launch a metric
+    update (port-only; it replaces a lax.scan, not a pallas_call)."""
+    from object_detection_destr_tpu_torch.ops.cuda.greedy_match import greedy_match_kernel
+
+    return greedy_match_kernel
+
+
 def reset_counts(kernels) -> None:
-    for k in kernels:
+    for k in [*kernels, greedy_kernel()]:
         k.launches = 0
 
 
@@ -1494,8 +1541,10 @@ def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0,
     point, with an empty validation split (phase 8 validates) or ``valid``
     images, and its checkpoints in a temporary directory or in
     ``checkpoints`` (saved as "train"); ``per_step`` the launches of each
-    kernel a step, 18 #1 and 1 #9 a validation batch beside them. Returns
-    (the state, the launches, the median step ms, the epoch's record)."""
+    kernel a step, and beside them 18 #1 and 1 #9 in each of the captured
+    eval step's warm-up and capture, and one greedy-match launch a
+    validation batch and metric. Returns (the state, the launches, the
+    median step ms, the epoch's record)."""
     from object_detection_destr_tpu_torch.models.destr.model import build_destr
     from object_detection_destr_tpu_torch.train import train as train_cli
 
@@ -1513,15 +1562,19 @@ def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]  # read just after the main path
+        greedy = greedy_kernel().launches
     state = result["state"]
     steps = state.step
-    valid_batches = -(-valid // batch)
+    valid_batches = valid // batch
+    captures = EVAL_CAPTURE_CALLS if valid_batches else 0
     want = [n * steps for n in per_step]
-    want[0] += 18 * valid_batches
-    want[4] += valid_batches
-    if steps != TRAIN_STEPS or counts != want:
+    want[0] += 18 * captures
+    want[4] += captures
+    greedy_want = valid_batches * (2 if config.train.coco_eval else 1)
+    if steps != TRAIN_STEPS or counts != want or greedy != greedy_want:
         raise AssertionError(f"{steps} steps and {valid_batches} validation batches launched "
-                             f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
+                             f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}, and the greedy match "
+                             f"{greedy} times, not {greedy_want}")
     metrics = result["metrics"]
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite or missing losses: {metrics}")
@@ -1546,7 +1599,8 @@ def phase_train(torch, kernels, seed, extra=(), per_step=(18, 18, 0, 0, 1, 0, 0,
         f"dropout {RATE}, hidden {config.destr.hidden_dim}) and {valid_batches} validation batches in {wall:.1f} s "
         f"(with a _last checkpoint); launches "
         f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} "
-        f"({'/'.join(str(n) for n in per_step)} a step); last losses "
+        f"({'/'.join(str(n) for n in per_step)} a step, the eval step's warm-up and capture), greedy match "
+        f"{greedy}; last losses "
         + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     log(f"train {label}: the matcher's bidding rounds in the last step ({batch} model problems, then {batch} "
         f"mini-detector problems): {kernels[4].last_rounds.tolist()}")
@@ -1818,7 +1872,7 @@ def phase_validation(torch, kernels, seed, ckpt):
     from object_detection_destr_tpu_torch.train import train as train_cli
     from object_detection_destr_tpu_torch.train.checkpoint import save_checkpoint
     from object_detection_destr_tpu_torch.train.driver import _eval_batch, _make_ema, _make_loaders
-    from object_detection_destr_tpu_torch.train.steps import make_destr_eval_step
+    from object_detection_destr_tpu_torch.train.steps import CapturedEvalStep, make_destr_eval_step
 
     base = TRAIN_ARGS + ["--seed", str(seed), "--num_valid_samples", str(VALID_SAMPLES), "--checkpoint_dir", ckpt,
                          "--log_dir", os.path.join(ckpt, "runs")]
@@ -1829,12 +1883,16 @@ def phase_validation(torch, kernels, seed, ckpt):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = [k.launches for k in kernels]  # read just after the path
+    greedy = greedy_kernel().launches
     state, history = result["state"], result["history"]
     batches = 2 * (VALID_SAMPLES // TRAIN_B)  # the live and the EMA sweep
-    want = [18 * TRAIN_STEPS + 18 * batches, 18 * TRAIN_STEPS, 0, 0, TRAIN_STEPS + batches, 0, 0, 0, 0]
-    if state.step != TRAIN_STEPS or counts != want:
+    # the sweeps share one captured eval step: its warm-up and capture call the wrappers
+    want = [18 * (TRAIN_STEPS + EVAL_CAPTURE_CALLS), 18 * TRAIN_STEPS, 0, 0, TRAIN_STEPS + EVAL_CAPTURE_CALLS,
+            0, 0, 0, 0]
+    if state.step != TRAIN_STEPS or counts != want or greedy != 2 * batches:
         raise AssertionError(f"{state.step} steps and {batches} validation batches launched "
-                             f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}")
+                             f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} times, not {want}, and the greedy match "
+                             f"{greedy} times, not {2 * batches}")
     files = sorted(f for f in os.listdir(ckpt) if f.startswith("smoke"))
     if files != ["smoke", "smoke_ema", "smoke_last"]:
         raise AssertionError(f"checkpoints {files}, not smoke, smoke_ema and smoke_last")
@@ -1848,9 +1906,10 @@ def phase_validation(torch, kernels, seed, ckpt):
     before = kernels[0].launches
     evaluated = evaluate.main(base + ["--resume_from", "smoke"])
     eval_launches = kernels[0].launches - before
-    if abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != VALID_SAMPLES:
-        raise AssertionError(f"evaluate: map {evaluated['map']} over {evaluated['n_images']} images, the "
-                             f"driver's epoch-0 mAP {record['mAP']}")
+    if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != VALID_SAMPLES
+            or eval_launches != 18 * EVAL_CAPTURE_CALLS):
+        raise AssertionError(f"evaluate: map {evaluated['map']} over {evaluated['n_images']} images with "
+                             f"{eval_launches} #1 launches, the trainer's epoch-0 mAP {record['mAP']}")
 
     # where a validation batch goes (the host loader, the transform, the
     # eval step, the metrics), the EMA update and a checkpoint
@@ -1863,16 +1922,21 @@ def phase_validation(torch, kernels, seed, ckpt):
     batch = _eval_batch(raws[0], torch.device("cuda"), 672, 640)
     eval_step = make_destr_eval_step(config.train)
     val_batch_ms = time_cuda(torch, lambda: eval_step(state, batch))
-    outputs, _ = eval_step(state, batch)
+    captured_step = CapturedEvalStep(eval_step)
+    val_captured_ms = time_cuda(torch, lambda: captured_step(state, batch))
+    outputs, _ = captured_step(state, batch)
     targets = {k: batch[k] for k in ("boxes", "labels", "valid")}
     metric, coco = MeanAveragePrecision(1, num_pred=300), CocoAveragePrecision(1)
+    m_state = metric.init_state("cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metric.update(metric.init_state(), outputs, targets)
+    metric.update(m_state, outputs, targets)
+    torch.cuda.synchronize()
     map_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     coco.update(outputs, targets)
     coco_ms = (time.perf_counter() - t0) * 1e3
+    del captured_step, outputs
     init, update = _make_ema(0.999)
     ema = init(state.model)
     ema_ms = time_cuda(torch, lambda: update(ema, state.model))
@@ -1893,23 +1957,29 @@ def phase_validation(torch, kernels, seed, ckpt):
         raise AssertionError(f"the resumed run ended at step {resumed['state'].step}, not {2 * TRAIN_STEPS}")
     del resumed
     sweep_s = record["seconds"]
-    timing = {"val_batch_ms": val_batch_ms, "val_images_per_sec": VALID_SAMPLES / sweep_s[0],
+    timing = {"val_batch_ms": val_batch_ms, "val_captured_ms": val_captured_ms,
+              "val_images_per_sec": VALID_SAMPLES / sweep_s[0], "greedy_launches": greedy,
               "sweep_seconds": sweep_s, "ema_update_ms": ema_ms, "checkpoint_mb": size_mb,
               "checkpoint_save_s": save_s, "eval_launches": eval_launches, "loader_s": loader_s,
               "transform_ms": transform_ms, "map_update_ms": map_ms, "coco_update_ms": coco_ms}
     log(f"validation: {TRAIN_STEPS} steps and {VALID_SAMPLES} validation images (live and EMA sweeps) through "
-        f"train.main in {wall:.1f} s; launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}; checkpoints {files}; epoch 0 "
+        f"train.main in {wall:.1f} s; launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} (the eval step's warm-up and "
+        f"capture; its replays call no wrapper), greedy match {greedy} (a batch and metric); checkpoints {files}; "
+        f"epoch 0 "
         f"mAP={record['mAP']:.6f} coco_mAP={record['coco_mAP']:.6f} ema_mAP={record['ema_mAP']:.6f} "
         f"ema_coco_mAP={record['ema_coco_mAP']:.6f} valid {record['valid']} valid_ema {record['valid_ema']}")
     log(f"validation: infer.evaluate on smoke: map={evaluated['map']:.6f} (driver {record['mAP']:.6f}) "
         f"coco_map={evaluated['coco_map']:.6f}, #1 launched {eval_launches} times; resume from smoke_last went on "
         f"from step {TRAIN_STEPS} to {2 * TRAIN_STEPS} OK")
-    log(f"validation: eval step ms a batch of {TRAIN_B}={val_batch_ms:.2f} (CUDA events, eager); sweep seconds "
-        f"{', '.join(f'{t:.2f}' for t in sweep_s)} (host clock, loader + transform + step + metrics) = "
+    log(f"validation: eval step ms a batch of {TRAIN_B}={val_batch_ms:.2f} eager, {val_captured_ms:.2f} captured "
+        f"(CUDA events, copy-in and replay); sweep seconds "
+        f"{', '.join(f'{t:.2f}' for t in sweep_s)} (host clock, loader + transform + step + metrics, the first "
+        f"with the capture) = "
         f"{timing['val_images_per_sec']:.1f} images/s; by part: the host loader {loader_s:.2f} s for "
         f"{VALID_SAMPLES} letterboxed images (host clock), the eval transform {transform_ms:.2f} ms a batch "
-        f"(copy and resample, CUDA events), the mAP update {map_ms:.2f} ms and the COCO update {coco_ms:.2f} ms a "
-        f"batch (host clock, device work and the copies to the host inside); EMA update ms={ema_ms:.3f} "
+        f"(copy and resample, CUDA events), the mAP update {map_ms:.2f} ms (host clock to a synchronize, on the "
+        f"device) and the COCO update {coco_ms:.2f} ms a batch (host clock, its one copy to the host inside); EMA "
+        f"update ms={ema_ms:.3f} "
         f"({n_params / 1e6:.1f} M parameters); checkpoint "
         f"{size_mb:.1f} MB written in {save_s:.2f} s")
     return counts, timing
@@ -2172,8 +2242,8 @@ def phase_h1024_service(torch, kernels, seed, images):
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]  # read just after the path
         want = [n * steps for n in H1024_PER_STEP]
-        want[0] += 3 * H1024_BLOCKS
-        want[4] += 1
+        want[0] += 3 * H1024_BLOCKS * EVAL_CAPTURE_CALLS  # the captured eval step's warm-up and capture
+        want[4] += EVAL_CAPTURE_CALLS
         record = result["history"][0]
         if result["state"].step != steps or counts != want or not math.isfinite(record["mAP"]):
             raise AssertionError(f"hidden 1024: {result['state'].step} steps and a validation batch launched "
@@ -2185,7 +2255,7 @@ def phase_h1024_service(torch, kernels, seed, images):
         evaluated = evaluate.main(base + ["--resume_from", "h1024"])
         eval_launches = kernels[0].launches - before
         if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or abs(evaluated["coco_map"] - record["coco_mAP"]) > 1e-6
-                or evaluated["n_images"] != TRAIN_B or eval_launches != 3 * H1024_BLOCKS):
+                or evaluated["n_images"] != TRAIN_B or eval_launches != 3 * H1024_BLOCKS * EVAL_CAPTURE_CALLS):
             raise AssertionError(f"evaluate hidden 1024: map {evaluated['map']} coco_map {evaluated['coco_map']} over "
                                  f"{evaluated['n_images']} images with {eval_launches} #1 launches, the driver's mAP "
                                  f"{record['mAP']} coco_mAP {record['coco_mAP']}")
@@ -3329,9 +3399,10 @@ def phase_real_cli(torch, kernels, seed, root):
     production width: one epoch of 4 mini-steps (2 updates) and the
     validation sweep (1 batch), eager, then the same with --device_cache
     --epoch_scan. Counts set to 0 just before each run and read just after:
-    eager, 18 / 18 / 1 of #1 / #2 / #9 a mini-step and 18 / 0 / 1 a validation
-    batch; captured, the runner's warm-up step and its capture call the
-    wrappers (a replay does not) and the sweep. Moments bfloat16, 2 updates
+    eager, 18 / 18 / 1 of #1 / #2 / #9 a mini-step; captured, the runner's
+    warm-up step and its capture call the wrappers (a replay does not); in
+    both, the sweep's captured eval step's warm-up and capture, 18 / 0 / 1
+    each. Moments bfloat16, 2 updates
     applied, the accumulation closed, finite losses."""
     from object_detection_destr_tpu_torch.train import train as train_cli
 
@@ -3350,7 +3421,8 @@ def phase_real_cli(torch, kernels, seed, root):
             state, opt = result["state"], result["state"].optimizer
             steps = state.step
             calls = steps if name == "eager" else 2  # the scan's replays call no wrapper
-            want = [18 * calls + 18, 18 * calls, 0, 0, calls + 1, 0, 0, 0, 0]
+            # and the sweep's captured eval step: its warm-up and its capture
+            want = [18 * (calls + EVAL_CAPTURE_CALLS), 18 * calls, 0, 0, calls + EVAL_CAPTURE_CALLS, 0, 0, 0, 0]
             moments = {m.dtype for m in opt.m.values()}
             metrics = result["metrics"]
             if (steps, opt.count, opt.mini_step) != (REAL_TRAIN_IMAGES // TRAIN_B, steps // ACCUM, 0):
@@ -4328,13 +4400,15 @@ def tools_val_noise(torch, kernels, ckpt, card):
     seconds = time.perf_counter() - t0
     counts = [k.launches for k in kernels]
     batches = NOISE_ORDERS * (VALID_SAMPLES // TRAIN_B)
-    want = [18 * batches, 0, 0, 0, batches, 0, 0, 0, 0]
+    # the orders' sweeps share one captured eval step: its warm-up and capture
+    want = [18 * EVAL_CAPTURE_CALLS, 0, 0, 0, EVAL_CAPTURE_CALLS, 0, 0, 0, 0]
     if not (out["order_invariant"] and out["per_image_rows_reproduce_sweep"]) or counts != want \
             or out["n_images"] != VALID_SAMPLES:
         raise AssertionError(f"val_noise: {out}; launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts}, not {want}")
     log(f"tools ({card}): val_noise on smoke, {VALID_SAMPLES} images x {NOISE_ORDERS} orders in {seconds:.1f} s: "
         f"order_invariant {out['order_invariant']}, per_image_rows_reproduce_sweep "
-        f"{out['per_image_rows_reproduce_sweep']}, launches {counts} (18 #1 and 1 #9 a batch, {batches} batches)")
+        f"{out['per_image_rows_reproduce_sweep']}, launches {counts} (18 #1 and 1 #9 in the eval step's warm-up "
+        f"and capture; {batches} batches replayed)")
     return {**out, "launches": counts, "seconds": seconds}
 
 
@@ -4552,9 +4626,10 @@ def phase_launchers(card):
                                      f"train steps logged {train_steps}, values {values}")
             # DESTR: the epoch runner's eager warm-up step and its capture (a
             # replay calls no wrapper), 18 / 18 / 1 each, and the live and
-            # EMA sweeps, 18 #1 and 1 #9 a batch; SSD: none of the nine
-            sweeps = 2 * (LAUNCHER_VALID // TRAIN_B)
-            want = ([18 * (2 + sweeps), 18 * 2, 0, 0, 2 + sweeps, 0, 0, 0, 0]
+            # EMA sweeps' captured eval step, its warm-up and capture 18 #1
+            # and 1 #9 each; SSD: none of the nine
+            calls = 2 + EVAL_CAPTURE_CALLS
+            want = ([18 * calls, 18 * 2, 0, 0, calls, 0, 0, 0, 0]
                     if script == "train_prod_synth_torch.sh" else list(NO_LAUNCHES))
             if counts != want:
                 raise AssertionError(f"launchers: {script} launches {counts}, not {want}")
@@ -4570,13 +4645,13 @@ def phase_launchers(card):
              "--num_valid_samples", str(LAUNCHER_VALID), "--checkpoint_dir", os.path.join(work, script + ".ckpt"),
              "--resume_from", "prod_r4"], work, "evaluate", card)
         result = json.loads(printed.strip().splitlines()[-1])
-        batches = LAUNCHER_VALID // TRAIN_B
         # the evaluator prints to 5 places; the trainer's sweep on the same weights is the same computation
         gaps = [abs(result["map"] - logged[script]["Metric/mAP"]),
                 abs(result["coco_map"] - logged[script]["Metric/coco_mAP"])]
-        if result["n_images"] != LAUNCHER_VALID or counts != [18 * batches] + [0] * 8 or max(gaps) > 1e-5:
-            raise AssertionError(f"launchers: evaluate printed {result}, launches {counts} (18 #1 a batch "
-                                 f"expected), gaps to the trainer's mAP / COCO AP {gaps}")
+        if (result["n_images"] != LAUNCHER_VALID or counts != [18 * EVAL_CAPTURE_CALLS] + [0] * 8
+                or max(gaps) > 1e-5):
+            raise AssertionError(f"launchers: evaluate printed {result}, launches {counts} (18 #1 in the captured "
+                                 f"forward's warm-up and capture expected), gaps to the trainer's mAP / COCO AP {gaps}")
         out["evaluate"] = {"seconds": seconds, "launches": counts, "map": result["map"],
                            "coco_map": result["coco_map"]}
     finally:
@@ -4804,7 +4879,7 @@ def phase_config4(torch, kernels, seed, card):
         eval_s = time.perf_counter() - start
         eval_counts = [k.launches for k in kernels]
         if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != C4_VALID
-                or eval_counts != [18 * C4_VALID] + [0] * 8):
+                or eval_counts != [18 * EVAL_CAPTURE_CALLS] + [0] * 8):
             raise AssertionError(f"evaluate {C4_LABEL}: map {evaluated['map']} over {evaluated['n_images']} images "
                                  f"with launches {eval_counts}, the driver's mAP {record['mAP']}")
         config = recipe_config(C4_ARGS + ["--num_valid_samples", str(C4_VALID)])
@@ -4816,7 +4891,8 @@ def phase_config4(torch, kernels, seed, card):
         log(f"{C4_LABEL} validation: the driver's sweep of {C4_VALID} images mAP={record['mAP']:.6f}; infer.evaluate "
             f"--backbone resnet101 --dilation --image_size {C4_IMAGE} on its checkpoint ({size_mb:.1f} MB) "
             f"map={evaluated['map']:.6f} in {eval_s:.1f} s (host clock, model build and checkpoint read inside), "
-            f"launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {eval_counts} (18 #1 a batch); the trainer's eval step "
+            f"launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {eval_counts} (18 #1 in the captured forward's warm-up and "
+            f"capture); the trainer's eval step "
             f"{eval_ms:.2f} ms a batch of 1 (CUDA events, matcher and losses inside)")
         del state, batch, raw
         torch.cuda.empty_cache()
@@ -5073,16 +5149,22 @@ def c2_cli_against_service(torch, model, images, records, served):
 
 def c2_evaluate(torch, kernels, base, record, ckpt):
     """infer.evaluate on the step's checkpoint (map and coco_map within 1e-6
-    of the driver's sweep, 18 #1 launches a batch), then the sweep's parts
-    on the same checkpoint and split: the loader's host decode and
-    letterbox (canvas 840), the eval transform on the device (840 -> 800),
-    the model's forward as the evaluator runs it (CUDA events), and the two
-    metrics' update and compute (host clock)."""
+    of the trainer's sweep; 18 #1 launches in its captured forward's warm-up
+    and capture, one greedy-match launch a batch and metric), then the
+    sweep's parts on the same checkpoint and split: the loader's host decode
+    and letterbox (canvas 840), the eval transform on the device (840 ->
+    800), the model's forward as the evaluator runs it, eager and captured
+    (CUDA events), the two metrics' update on the device (host clock to a
+    synchronize; COCO's with its one copy to the host) and compute, and the
+    trainer's sweep (driver._val_sweep with the captured eval step) run
+    twice on the split, the second time on the captured graph."""
     from object_detection_destr_tpu_torch.infer import evaluate
     from object_detection_destr_tpu_torch.losses.metrics import CocoAveragePrecision, MeanAveragePrecision
     from object_detection_destr_tpu_torch.models.destr.model import build_destr
     from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference
-    from object_detection_destr_tpu_torch.train.driver import _eval_batch, _make_loaders
+    from object_detection_destr_tpu_torch.train.driver import _eval_batch, _make_loaders, _val_sweep
+    from object_detection_destr_tpu_torch.train.state import TrainState
+    from object_detection_destr_tpu_torch.train.steps import CapturedEvalStep, make_destr_eval_step
 
     reset_counts(kernels)
     start = time.perf_counter()
@@ -5090,12 +5172,14 @@ def c2_evaluate(torch, kernels, base, record, ckpt):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - start
     counts = [k.launches for k in kernels]
+    greedy = greedy_kernel().launches
     batches = C2_VALID_IMAGES // C2_B
     if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or abs(evaluated["coco_map"] - record["coco_mAP"]) > 1e-6
-            or evaluated["n_images"] != C2_VALID_IMAGES or counts != [18 * batches] + [0] * 8):
+            or evaluated["n_images"] != C2_VALID_IMAGES or counts != [18 * EVAL_CAPTURE_CALLS] + [0] * 8
+            or greedy != 2 * batches):
         raise AssertionError(f"evaluate {C2_LABEL}: map {evaluated['map']} coco_map {evaluated['coco_map']} over "
-                             f"{evaluated['n_images']} images with launches {counts}, the driver's mAP "
-                             f"{record['mAP']} coco_mAP {record['coco_mAP']}")
+                             f"{evaluated['n_images']} images with launches {counts} and {greedy} greedy matches, "
+                             f"the trainer's mAP {record['mAP']} coco_mAP {record['coco_mAP']}")
     config = recipe_config(base)
     valid_loader = _make_loaders(config, C2_CANVAS, "destr")[1]
     t0 = time.perf_counter()
@@ -5106,43 +5190,65 @@ def c2_evaluate(torch, kernels, base, record, ckpt):
     model = build_destr(config.destr, device)
     model.load_state_dict(restore_for_inference(ckpt, "train"))
     model.eval()
+    state = TrainState(model=model, optimizer=None, rng=None)
+    forward = CapturedEvalStep(lambda st, b: st.model(b["images"], b.get("pixel_valid"))[0])
     metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
     coco = CocoAveragePrecision(num_cls=C2_NUM_CLS - 1)
-    m_state, update_ms, forward_ms = metric.init_state(), [], []
+    m_state, map_ms, coco_ms, forward_ms, captured_ms = metric.init_state(device), [], [], [], []
     with torch.no_grad():
         for raw in raws:
             batch = _eval_batch(raw, device, C2_CANVAS, C2_IMAGE)
             forward_ms.append(time_cuda(torch, lambda: model(batch["images"], batch.get("pixel_valid"))))
-            outputs, _ = model(batch["images"], batch.get("pixel_valid"))
+            captured_ms.append(time_cuda(torch, lambda: forward(state, batch)))
+            outputs = forward(state, batch)
             targets = {k: batch[k] for k in ("boxes", "labels", "valid")}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m_state = metric.update(m_state, outputs, targets)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
             coco.update(outputs, targets)
-            update_ms.append((time.perf_counter() - t0) * 1e3)
+            t2 = time.perf_counter()
+            map_ms.append((t1 - t0) * 1e3)
+            coco_ms.append((t2 - t1) * 1e3)
     t0 = time.perf_counter()
     parts_map, parts_coco = metric.compute(m_state), coco.compute()
     compute_ms = (time.perf_counter() - t0) * 1e3
     if abs(parts_map - record["mAP"]) > 1e-6 or abs(parts_coco - record["coco_mAP"]) > 1e-6:
         raise AssertionError(f"{C2_LABEL}: the split sweep's map {parts_map} / coco_map {parts_coco} differ from the "
                              f"driver's {record['mAP']} / {record['coco_mAP']}")
+    del forward
+    # the trainer's sweep on this checkpoint: the first pass captures, the second replays
+    eval_step = CapturedEvalStep(make_destr_eval_step(config.train))
+    sweeps = [_val_sweep(state, _make_loaders(config, C2_CANVAS, "destr")[1], eval_step, metric, coco, device,
+                         C2_CANVAS, C2_IMAGE) for _ in range(2)]
+    if any(abs(sw[1] - record["mAP"]) > 1e-6 or abs(sw[2] - record["coco_mAP"]) > 1e-6 for sw in sweeps):
+        raise AssertionError(f"{C2_LABEL}: the captured sweeps' map / coco_map {[sw[1:3] for sw in sweeps]} differ "
+                             f"from the trainer's {record['mAP']} / {record['coco_mAP']}")
     sweep_s = record["seconds"][0]
-    out = {"map": evaluated["map"], "coco_map": evaluated["coco_map"], "counts": counts, "eval_s": eval_s,
-           "sweep_s": sweep_s, "sweep_images_per_sec": C2_VALID_IMAGES / sweep_s,
+    warm_s = sweeps[1][3]
+    out = {"map": evaluated["map"], "coco_map": evaluated["coco_map"], "counts": counts, "greedy_launches": greedy,
+           "eval_s": eval_s, "sweep_s": sweep_s, "sweep_images_per_sec": C2_VALID_IMAGES / sweep_s,
+           "warm_sweep_s": warm_s, "warm_sweep_images_per_sec": C2_VALID_IMAGES / warm_s,
            "host_decode_letterbox_ms": host_ms, "eval_transform_ms": transform_ms,
-           "forward_ms": statistics.median(forward_ms), "metrics_update_ms": statistics.median(update_ms),
+           "forward_ms": statistics.median(forward_ms), "captured_forward_ms": statistics.median(captured_ms),
+           "map_update_ms": statistics.median(map_ms), "coco_update_ms": statistics.median(coco_ms),
+           "metrics_update_ms": statistics.median(a + b for a, b in zip(map_ms, coco_ms)),
            "metrics_compute_ms": compute_ms}
     log(f"{C2_LABEL} validation: the driver's sweep of {C2_VALID_IMAGES} COCO images (2 batches of {C2_B}) map="
         f"{record['mAP']:.6f} coco_map={record['coco_mAP']:.6f} in {sweep_s:.2f} s ({out['sweep_images_per_sec']:.1f} "
-        f"images/s, host clock); infer.evaluate --dataset coco --num_cls {C2_NUM_CLS} --image_size {C2_IMAGE} "
-        f"--batch_size {C2_B} --compute_dtype bfloat16 on its checkpoint map={evaluated['map']:.6f} coco_map="
-        f"{evaluated['coco_map']:.6f} in {eval_s:.1f} s (model build and checkpoint read inside), launches "
-        f"#1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} (18 #1 a batch); a batch's parts: host decode and letterbox to "
-        f"{C2_CANVAS} {host_ms:.2f} ms (the loader, host clock), eval transform {C2_CANVAS} -> {C2_IMAGE} "
-        f"{transform_ms:.2f} ms, forward {out['forward_ms']:.2f} ms (CUDA events), reference mAP and COCO AP over "
-        f"{C2_NUM_CLS - 1} classes update {out['metrics_update_ms']:.2f} ms a batch and compute {compute_ms:.2f} ms "
-        f"(host clock)")
-    del model
+        f"images/s, host clock, the eval step's capture inside); the same sweep again on its graph {warm_s:.3f} s "
+        f"({out['warm_sweep_images_per_sec']:.1f} images/s); infer.evaluate --dataset coco --num_cls {C2_NUM_CLS} "
+        f"--image_size {C2_IMAGE} --batch_size {C2_B} --compute_dtype bfloat16 on its checkpoint "
+        f"map={evaluated['map']:.6f} coco_map={evaluated['coco_map']:.6f} in {eval_s:.1f} s (model build and "
+        f"checkpoint read inside), launches #1/#2/#3/#4/#9/#8/#5/#6/#7 {counts} (18 #1 in the captured forward's "
+        f"warm-up and capture), greedy match {greedy}; a batch's parts: host decode and letterbox to {C2_CANVAS} "
+        f"{host_ms:.2f} ms (the loader, host clock), eval transform {C2_CANVAS} -> {C2_IMAGE} {transform_ms:.2f} ms, "
+        f"forward {out['forward_ms']:.2f} ms eager, {out['captured_forward_ms']:.2f} ms captured (CUDA events), "
+        f"the reference mAP update {out['map_update_ms']:.2f} ms and COCO AP over {C2_NUM_CLS - 1} classes "
+        f"{out['coco_update_ms']:.2f} ms a batch (on the device, host clock to a synchronize; COCO's one copy to the "
+        f"host inside), compute {compute_ms:.2f} ms")
+    del model, state, eval_step
     torch.cuda.empty_cache()
     return out
 
@@ -5374,7 +5480,8 @@ def phase_config2(torch, kernels, seed, card):
         f"{captured['eager_ms']:.2f}), captured busy {captured['captured_step_busy_ms']:.2f} ms, idle share "
         f"{captured['captured_idle_share']:.4f}, peak above the state: eager step {captured['eager_step_peak_gb']:.2f} "
         f"GB, warm-up and capture {captured['captured_peak_gb']:.2f} GB; validation sweep "
-        f"{evaluated['sweep_images_per_sec']:.1f} images/s; request captured {served['captured_ms']:.2f} ms (eager "
+        f"{evaluated['sweep_images_per_sec']:.1f} images/s with the capture, {evaluated['warm_sweep_images_per_sec']:.1f} "
+        f"on the graph; request captured {served['captured_ms']:.2f} ms (eager "
         f"{served['eager_ms']:.2f}; the 640 px budget {SERVE_BUDGET_MS:g} ms); batched bf16 forward captured "
         f"{batched['captured_ms']:.2f} ms = {batched['images_per_sec']:.1f} images/s (eager {batched['eager_ms']:.2f}; "
         f"JAX's {JAX_C2_IMAGES_PER_SEC} images/s: TPU v5e, num_cls 2, not the port's); phase {out['seconds']:.1f} s, "
@@ -5418,31 +5525,35 @@ def no_launches(kernels, label):
 
 def c1_evaluate(torch, kernels, base, record, ckpt):
     """infer.evaluate --model ssd on the trainer's best checkpoint (map
-    within 1e-6 of the driver's sweep, the val loss within 1e-5 relative),
-    then the sweep's parts on the same checkpoint and split: the loader's
-    host decode and stretch to the canvas (384), the eval transform on the
-    device (384 -> 300), the eval step (forward, criterion, decode; CUDA
-    events) and MeanAveragePrecision(num_cls=80)'s update and compute (host
-    clock)."""
+    within 1e-6 of the trainer's sweep, the val loss within 1e-5 relative;
+    one greedy-match launch a batch), then the sweep's parts on the same
+    checkpoint and split: the loader's host decode and stretch to the canvas
+    (384), the eval transform on the device (384 -> 300), the eval step
+    (forward, criterion, decode) eager and captured (CUDA events),
+    MeanAveragePrecision(num_cls=80)'s update on the device (host clock to a
+    synchronize) and compute, and the trainer's sweep (driver._ssd_val_sweep
+    with the captured eval step) run twice, the second on the graph."""
     from object_detection_destr_tpu_torch.data.transforms import ssd_eval_transform
     from object_detection_destr_tpu_torch.geometry.boxes import cxcyhw_to_xyxy
     from object_detection_destr_tpu_torch.infer import evaluate
     from object_detection_destr_tpu_torch.losses.metrics import MeanAveragePrecision
     from object_detection_destr_tpu_torch.models.ssd import build_ssd
     from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference
-    from object_detection_destr_tpu_torch.train.driver import _make_loaders, _to_device
+    from object_detection_destr_tpu_torch.train.driver import _make_loaders, _ssd_val_sweep, _to_device
     from object_detection_destr_tpu_torch.train.state import TrainState
-    from object_detection_destr_tpu_torch.train.steps import make_ssd_eval_step
+    from object_detection_destr_tpu_torch.train.steps import CapturedEvalStep, make_ssd_eval_step
 
+    reset_counts(kernels)
     start = time.perf_counter()
     evaluated = evaluate.main(["--model", "ssd"] + base + ["--resume_from", "c1"])
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - start
     no_launches(kernels, "evaluate")
+    greedy = greedy_kernel().launches
     loss = record["valid"]["loss"]
     if (abs(evaluated["map"] - record["mAP"]) > 1e-6 or evaluated["n_images"] != C1_VALID_IMAGES
-            or abs(evaluated["val_loss"] - loss) > 1e-5 * abs(loss)):
-        raise AssertionError(f"evaluate {C1_LABEL}: {evaluated}, the driver's sweep {record}")
+            or abs(evaluated["val_loss"] - loss) > 1e-5 * abs(loss) or greedy != C1_VALID_IMAGES // C1_B):
+        raise AssertionError(f"evaluate {C1_LABEL}: {evaluated}, {greedy} greedy matches; the trainer's sweep {record}")
     config = c1_config(base)
     valid_loader = _make_loaders(config, C1_CANVAS, "ssd")[1]
     t0 = time.perf_counter()
@@ -5458,38 +5569,48 @@ def c1_evaluate(torch, kernels, base, record, ckpt):
     model.load_state_dict(restore_for_inference(ckpt, "c1"))
     state = TrainState(model=model, optimizer=None, rng=None)
     eval_step = make_ssd_eval_step(config.train, config.ssd)
+    captured = CapturedEvalStep(eval_step)
     metric = MeanAveragePrecision(num_cls=C1_NUM_CLS)
-    m_state, update_ms, step_ms = metric.init_state(), [], []
+    m_state, update_ms, step_ms, captured_ms = metric.init_state(device), [], [], []
     for b in batches:
         batch = transform(b)
         step_ms.append(time_cuda(torch, lambda: eval_step(state, batch)))
-        _, _, detections = eval_step(state, batch)
+        captured_ms.append(time_cuda(torch, lambda: captured(state, batch)))
+        _, _, detections = captured(state, batch)
         targets = {"boxes": cxcyhw_to_xyxy(batch["boxes"]), "labels": batch["labels"], "valid": batch["valid"]}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m_state = metric.update(m_state, detections, targets)
+        torch.cuda.synchronize()
         update_ms.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
     parts_map = metric.compute(m_state)
     compute_ms = (time.perf_counter() - t0) * 1e3
+    sweeps = [_ssd_val_sweep(state, _make_loaders(config, C1_CANVAS, "ssd")[1], captured, metric, device,
+                             config.ssd.image_size) for _ in range(2)]
     no_launches(kernels, "sweep parts")
-    if abs(parts_map - record["mAP"]) > 1e-6:
-        raise AssertionError(f"{C1_LABEL}: the split sweep's map {parts_map} differs from the driver's {record['mAP']}")
-    sweep_s = record["seconds"][0]
+    if abs(parts_map - record["mAP"]) > 1e-6 or any(abs(sw[1] - record["mAP"]) > 1e-6 for sw in sweeps):
+        raise AssertionError(f"{C1_LABEL}: the split sweeps' map {parts_map}, {[sw[1] for sw in sweeps]} differ from "
+                             f"the trainer's {record['mAP']}")
+    sweep_s, warm_s = record["seconds"][0], sweeps[1][3]
     out = {"map": evaluated["map"], "val_loss": evaluated["val_loss"], "eval_s": eval_s, "sweep_s": sweep_s,
-           "sweep_images_per_sec": C1_VALID_IMAGES / sweep_s, "host_decode_resize_ms": host_ms,
+           "sweep_images_per_sec": C1_VALID_IMAGES / sweep_s, "warm_sweep_s": warm_s,
+           "warm_sweep_images_per_sec": C1_VALID_IMAGES / warm_s, "host_decode_resize_ms": host_ms,
            "eval_transform_ms": transform_ms, "eval_step_ms": statistics.median(step_ms),
-           "map_update_ms": statistics.median(update_ms), "map_compute_ms": compute_ms}
+           "captured_eval_step_ms": statistics.median(captured_ms), "map_update_ms": statistics.median(update_ms),
+           "map_compute_ms": compute_ms, "greedy_launches": greedy}
     log(f"{C1_LABEL} validation: the driver's sweep of {C1_VALID_IMAGES} COCO images (2 batches of {C1_B}) "
         f"mAP={record['mAP']:.6f} loss={loss:.4f} in {sweep_s:.3f} s ({out['sweep_images_per_sec']:.1f} images/s, host "
-        f"clock); infer.evaluate --model ssd --dataset coco --num_cls {C1_NUM_CLS} on its checkpoint "
-        f"map={evaluated['map']:.6f} val_loss={evaluated['val_loss']:.4f} in {eval_s:.1f} s (model build and "
-        f"checkpoint read inside); a batch's parts: host decode and stretch to {C1_CANVAS} {host_ms:.2f} ms (the "
-        f"loader, host clock), eval transform {C1_CANVAS} -> 300 {transform_ms:.3f} ms, eval step (forward, "
-        f"criterion, decode) {out['eval_step_ms']:.2f} ms (CUDA events), MeanAveragePrecision over {C1_NUM_CLS} "
-        f"classes update {out['map_update_ms']:.2f} ms a batch (host clock; {C1_NUM_CLS} device-to-host copies) and "
+        f"clock, the eval step's capture inside); the same sweep again on its graph {warm_s:.3f} s "
+        f"({out['warm_sweep_images_per_sec']:.1f} images/s); infer.evaluate --model ssd --dataset coco --num_cls "
+        f"{C1_NUM_CLS} on its checkpoint map={evaluated['map']:.6f} val_loss={evaluated['val_loss']:.4f} in "
+        f"{eval_s:.1f} s (model build and checkpoint read inside), greedy match {greedy}; a batch's parts: host "
+        f"decode and stretch to {C1_CANVAS} {host_ms:.2f} ms (the loader, host clock), eval transform {C1_CANVAS} -> "
+        f"300 {transform_ms:.3f} ms, eval step (forward, criterion, decode) {out['eval_step_ms']:.2f} ms eager, "
+        f"{out['captured_eval_step_ms']:.2f} ms captured (CUDA events), MeanAveragePrecision over {C1_NUM_CLS} "
+        f"classes update {out['map_update_ms']:.2f} ms a batch (on the device, host clock to a synchronize) and "
         f"compute {compute_ms:.2f} ms")
-    del model, state
+    del model, state, captured
     torch.cuda.empty_cache()
     return out
 
@@ -5655,9 +5776,421 @@ def phase_config1(torch, kernels, seed, card):
         f"{captured['eager_ms']:.2f}), captured busy {captured['captured_step_busy_ms']:.2f} ms, idle share "
         f"{captured['captured_idle_share']:.4f}, peak above the state: eager step {captured['eager_step_peak_gb']:.2f} "
         f"GB, warm-up and capture {captured['captured_peak_gb']:.2f} GB; validation sweep "
-        f"{evaluated['sweep_images_per_sec']:.1f} images/s; request captured {served['captured_ms']:.2f} ms (eager "
+        f"{evaluated['sweep_images_per_sec']:.1f} images/s with the capture, {evaluated['warm_sweep_images_per_sec']:.1f} "
+        f"on the graph; request captured {served['captured_ms']:.2f} ms (eager "
         f"{served['eager_ms']:.2f}); launches of the nine kernels {list(NO_LAUNCHES)}; phase {out['seconds']:.1f} s, "
         f"by part {json.dumps(_rounded(seconds))}")
+    return out
+
+
+# ---- slice 18: validation as the JAX package runs it (the eval step captured, both metrics on the device)
+V_LABEL = "validate-captured"
+V_TRAIN_IMAGES = 24  # two steps of config 1's B=12, three of config 2's B=8
+V_VALID_IMAGES = 24  # three validation batches of config 2, two of config 1
+V_EAGER_RUNS = 3  # eager samples a captured one is held against with cuDNN's default engines
+# the greedy walk at the path's launches: (cell, problems (B x C), ranks, targets, thresholds, COCO's rule)
+GREEDY_CELLS = [("coco-800 COCO records", C2_B * (C2_NUM_CLS - 1), 100, 300, 10, True),
+                ("coco-ssd-300 11-point", C1_B * C1_NUM_CLS, 300, 300, 1, False),
+                ("destr 11-point", TRAIN_B, 300, 300, 1, False)]
+GREEDY_SOURCE = f"{PKG}/csrc/greedy_match.cu"
+# it replaces no pallas_call: the lax.scan of the JAX package's metrics
+GREEDY_REPLACES = ("object_detection_destr_tpu/losses/metrics.py:83 (lax.scan in _update_one_class) and :276 "
+                   "(lax.scan in _coco_batch_records); no pallas_call")
+
+
+def greedy_inputs(torch, seed, p, r, t, skip):
+    """One launch's operands on the card as the path makes them: per
+    problem 0-20 valid targets of T (every 7th problem none; the other
+    columns -1), IoUs on a 1/16 grid (ties, and every 9th rank's row at
+    exactly 0.5), 60 % of them 0, every 37th rank's row NaN (a NaN forward);
+    ``n_use`` all R ranks under COCO's rule, else 0-R (0 without a target)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_valid = torch.randint(0, 21, (p,), generator=gen, device="cuda")
+    n_valid[::7] = 0
+    valid = torch.arange(t, device="cuda")[None, :] < n_valid[:, None]
+    iou = torch.randint(0, 17, (p, r, t), generator=gen, device="cuda").float() / 16
+    iou = torch.where(torch.rand((p, r, t), generator=gen, device="cuda") < 0.6, 0.0, iou)
+    iou[:, 4::9] = 0.5
+    iou[:, 11::37] = float("nan")
+    iou = torch.where(valid[:, None, :], iou, -1.0).contiguous()
+    if skip:
+        n_use = torch.full((p,), r, dtype=torch.int32, device="cuda")
+    else:
+        n_use = torch.randint(0, r + 1, (p,), generator=gen, device="cuda", dtype=torch.int32)
+        n_use = torch.where(n_valid > 0, n_use, 0).to(torch.int32)
+    return iou, n_use
+
+
+def greedy_cell(torch, seed, label, p, r, t, j, skip):
+    """The kernel against its plain version on one cell's operands: hits
+    bit-equal; the kernel's device ms (CUDA-graph replay), the plain
+    version's (eager, CUDA events) and the bound: the IoU rows the ranks in
+    use read (4 bytes each), n_use and the (P, R, J) hits written, over HBM's
+    rate, against one compare a (rank in use, target, threshold) over the
+    float32 rate."""
+    from object_detection_destr_tpu_torch.losses.metrics import CocoAveragePrecision
+    from object_detection_destr_tpu_torch.ops.cuda.greedy_match import greedy_match_kernel, greedy_match_reference
+
+    thresholds = list(CocoAveragePrecision.IOU_THRESHOLDS) if skip else [0.5]
+    if len(thresholds) != j:
+        raise AssertionError(f"greedy {label}: {len(thresholds)} thresholds, the cell says {j}")
+    iou, n_use = greedy_inputs(torch, seed, p, r, t, skip)
+    hits = greedy_match_kernel(iou, n_use, thresholds, skip)
+    plain = greedy_match_reference(iou, n_use, thresholds, skip)
+    torch.cuda.synchronize()
+    if hits.shape != (p, r, j) or not torch.equal(hits, plain):
+        raise AssertionError(f"greedy {label}: the kernel's hits differ from the plain version's in "
+                             f"{int((hits != plain).sum())} of {plain.numel()}")
+    ms = device_ms(torch, lambda: greedy_match_kernel(iou, n_use, thresholds, skip))
+    plain_ms = time_cuda(torch, lambda: greedy_match_reference(iou, n_use, thresholds, skip), reps=3, warmup=1)
+    used = int(n_use.clamp(max=r).sum())
+    nbytes, ops = 4 * t * used + 4 * p + p * r * j, used * t * j
+    bound_s = {"bytes": nbytes / HBM_RATE, "operations": ops / F32_PEAK}
+    bound_by = max(bound_s, key=bound_s.get)
+    cell = {"label": label, "problems": p, "ranks": r, "targets": t, "thresholds": j, "skip_matched": skip,
+            "hits": int(hits.sum()), "ranks_used": used, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s[bound_by] * 1e3, "bound_by": bound_by, "max_abs_err": 0.0}
+    log(f"greedy match {label}: P={p} R={r} T={t} J={j} {'COCO' if skip else '11-point'} rule, {used} ranks in "
+        f"use, {cell['hits']} hits bit-equal to the plain version's; ms={ms:.4f} (device, CUDA graph) "
+        f"plain_ms={plain_ms:.2f} (eager) bound_ms={cell['bound_ms']:.6f} ({bound_by}); no library call computes it")
+    return cell
+
+
+def synth_detections(seed, b, n, channels, t, classes):
+    """Seeded outputs at a path's shapes with hits at every threshold: per
+    image 1-20 valid targets of T over ``classes`` classes (the first image
+    none), each prediction a jittered copy of a target whose class leads
+    its logits, a duplicated box and score row; numpy (pred_class,
+    pred_boxes cxcyhw, boxes xyxy, labels, valid)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0.05, 0.6, (b, t, 2))
+    gt = np.concatenate([xy, xy + rng.uniform(0.05, 0.35, (b, t, 2))], -1).astype(np.float32)
+    valid = np.arange(t)[None, :] < rng.integers(1, 21, (b, 1))
+    valid[0] = False
+    labels = rng.integers(0, classes, (b, t)).astype(np.int32)
+    src = rng.integers(0, 20, (b, n))
+    rows = np.arange(b)[:, None]
+    centre = (gt[rows, src, :2] + gt[rows, src, 2:]) / 2 + rng.normal(0, 0.02, (b, n, 2))
+    size = (gt[rows, src, 2:] - gt[rows, src, :2]) * rng.uniform(0.8, 1.2, (b, n, 2))
+    boxes = np.stack([centre[..., 0], centre[..., 1], size[..., 1], size[..., 0]], -1).astype(np.float32)
+    boxes[:, 1] = boxes[:, 0]
+    logits = rng.normal(0, 2, (b, n, channels)).astype(np.float32)
+    logits[rows, np.arange(n)[None, :], labels[rows, src]] += 3.0
+    logits[:, 3] = logits[:, 2]
+    return {"pred_class": logits, "pred_boxes": np.clip(boxes, 0.0, 1.0)}, {"boxes": gt, "labels": labels,
+                                                                            "valid": valid}
+
+
+def metric_states_equal(torch, label, batches, metric, coco=None):
+    """Both metrics over ``batches`` ((outputs, targets) on the card), on the
+    card and as the plain version runs them on CPU copies: the 11-point
+    state, COCO's hit records and ground-truth counts and both APs exactly
+    equal, COCO's scores (sigmoids of the two devices' libraries) within
+    1e-6 relative. Returns the card's update ms a batch (host clock to a
+    synchronize; COCO's copy inside), mAP, COCO AP and the scores' gap."""
+    import copy
+
+    import numpy as np
+
+    on = {"cuda": (metric.init_state("cuda"), copy.deepcopy(coco)), "cpu": (metric.init_state("cpu"),
+                                                                          copy.deepcopy(coco))}
+    warm = {k: v.cuda() for k, v in batches[0][0].items()}, {k: v.cuda() for k, v in batches[0][1].items()}
+    metric.update(metric.init_state("cuda"), *warm)  # the first call's lazy kernel loads, untimed
+    if coco is not None:
+        copy.deepcopy(coco).update(*warm)
+    update_ms = []
+    for outputs, targets in batches:
+        for dev, (state, c) in list(on.items()):
+            o = {k: v.to(dev) for k, v in outputs.items()}
+            tg = {k: v.to(dev) for k, v in targets.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = metric.update(state, o, tg)
+            if c is not None:
+                c.update(o, tg)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                update_ms.append((time.perf_counter() - t0) * 1e3)
+            on[dev] = (state, c)
+    (dev_state, dev_coco), (cpu_state, cpu_coco) = on["cuda"], on["cpu"]
+    if dev_state["tp"].device.type != "cuda":
+        raise AssertionError(f"{label}: the 11-point state left the card")
+    bad = [k for k in ("tp", "fp", "num_gts") if not torch.equal(dev_state[k].cpu(), cpu_state[k])]
+    score_gap = 0.0
+    if coco is not None:
+        bad += ["coco _tp"] if not all(np.array_equal(a, b) for a, b in zip(dev_coco._tp, cpu_coco._tp)) else []
+        bad += ["coco _num_gts"] if not np.array_equal(dev_coco._num_gts, cpu_coco._num_gts) else []
+        # the scores are sigmoids of two devices' libraries: an ulp or two apart (1e-6 relative, as the CPU
+        # tests hold the port's against JAX's); the hits they rank are exact
+        score_gap = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+                        for a, b in zip(dev_coco._scores, cpu_coco._scores))
+        bad += ["coco _scores"] if score_gap > 1e-6 else []
+    ap = (metric.compute(dev_state), metric.compute(cpu_state))
+    coco_ap = (dev_coco.compute(), cpu_coco.compute()) if coco is not None else (None, None)
+    if bad or ap[0] != ap[1] or coco_ap[0] != coco_ap[1]:
+        raise AssertionError(f"{label}: the card's metric states differ from the plain version's in {bad}; mAP "
+                             f"{ap}, COCO AP {coco_ap}")
+    return {"update_ms": statistics.median(update_ms), "map": ap[0], "coco_map": coco_ap[0],
+            "tp": float(dev_state["tp"].sum()), "fp": float(dev_state["fp"].sum()), "coco_score_gap": score_gap}
+
+
+def _cloned(x):
+    """A nested return with every tensor cloned."""
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cloned(v) for v in x)
+    return x.clone()
+
+
+def _tensors(x):
+    """The tensors of a nested return, in order."""
+    if isinstance(x, dict):
+        return [t for k in x for t in _tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return [x]
+
+
+def _sample(torch, out):
+    """An eval step's return as a spread sample: its losses and its outputs."""
+    tensors = _tensors(out)
+    scalars = [t.detach().float().reshape(1) for t in tensors if t.numel() == 1]
+    return {"losses": torch.cat(scalars), "outputs": torch.cat([t.detach().float().reshape(-1)
+                                                                for t in tensors if t.numel() > 1])}
+
+
+def v_hold(torch, label, state, eager_step, batches, sweep, train_two_steps, work):
+    """The captured eval step against the eager one on one model:
+    (1) under deterministic cuDNN, every batch's outputs and losses
+    bit-equal; (2) with cuDNN's default engines, a captured batch within the
+    spread of V_EAGER_RUNS eager ones (_hold_to_spread); (3) under
+    deterministic cuDNN, the trainer's sweep captured and eager equal (loss
+    means, mAP, COCO AP), then again after two train steps (the means must
+    move), with an EMA swapped in by copy, and after the checkpoint of the
+    first sweep's weights restored (equal to the first sweep): one graph,
+    which reads the live weights. ``sweep(step)`` runs the trainer's sweep
+    with ``step``; ``train_two_steps()`` trains. Returns the captured steps,
+    times and checks."""
+    from object_detection_destr_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from object_detection_destr_tpu_torch.train.driver import _make_ema, _parameters_swapped
+    from object_detection_destr_tpu_torch.train.steps import CapturedEvalStep
+
+    captured = CapturedEvalStep(eager_step)
+    outputs = []
+    with _cudnn_deterministic(torch, True):
+        for i, batch in enumerate(batches):
+            want = _tensors(_cloned(eager_step(state, batch)))
+            out = captured(state, batch)
+            got = _tensors(out)
+            if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{label}: batch {i}'s captured outputs and losses differ from the eager "
+                                     f"step's under deterministic cuDNN")
+            outputs.append(_cloned(out))
+    default = CapturedEvalStep(eager_step)
+    spread = _hold_to_spread(f"{label} default cuDNN", [_sample(torch, eager_step(state, batches[0]))
+                                                        for _ in range(V_EAGER_RUNS)],
+                             _sample(torch, default(state, batches[0])))
+    eager_ms = time_cuda(torch, lambda: eager_step(state, batches[0]))
+    captured_ms = time_cuda(torch, lambda: default(state, batches[0]))
+    del default
+
+    def both(note):
+        cap, eag = sweep(captured), sweep(eager_step)
+        if cap[:3] != eag[:3]:
+            raise AssertionError(f"{label} {note}: the captured sweep {cap[:3]} differs from the eager {eag[:3]}")
+        return cap
+
+    with _cudnn_deterministic(torch, True):
+        first = both("first sweep")
+        save_checkpoint(work, "v_hold", state, {}, 0.0)
+        ema_init, ema_update = _make_ema(0.5)
+        ema = ema_init(state.model)
+        train_two_steps(lambda: ema_update(ema, state.model))
+        trained = both("after two train steps")
+        if trained[0] == first[0]:
+            raise AssertionError(f"{label}: two train steps left the sweep's losses {trained[0]} as they were")
+        with _parameters_swapped(state.model, ema):
+            swapped = both("with the EMA swapped in")
+        restore_checkpoint(work, "v_hold", state)
+        restored = sweep(captured)
+        if restored[:3] != first[:3]:
+            raise AssertionError(f"{label}: after the restore the captured sweep gives {restored[:3]}, the first "
+                                 f"{first[:3]}")
+    if len(captured._graphs) != 1:
+        raise AssertionError(f"{label}: {len(captured._graphs)} graphs for one input shape")
+    log(f"{label}: the captured eval step bit-equal to the eager on {len(batches)} batches (outputs and losses, "
+        f"deterministic cuDNN); with cuDNN's default engines a captured batch {spread['losses']['captured']:.3g} / "
+        f"{spread['outputs']['captured']:.3g} from the eager mean (losses / outputs; the eager pairs' largest "
+        f"distance {spread['losses']['limit']:.3g} / {spread['outputs']['limit']:.3g}); eval step {eager_ms:.2f} ms "
+        f"eager, {captured_ms:.2f} ms captured (CUDA events, copy-in and replay); the trainer's sweep captured = "
+        f"eager: first {first[:3]}, after two train steps {trained[:3]}, EMA swapped in {swapped[:3]}, the first "
+        f"weights restored {restored[:3]}; one graph, {captured.replays} replays")
+    return captured, outputs, {"eager_ms": eager_ms, "captured_ms": captured_ms, "first": first[:3],
+                               "trained": trained[:3], "swapped": swapped[:3], "replays": captured.replays,
+                               "spread": {k: {"captured": v["captured"], "limit": v["limit"]}
+                                          for k, v in spread.items()}}
+
+
+def phase_val_device(torch, kernels, seed, card):
+    """Phase 22: validation as the JAX package runs it. (a) The greedy-match
+    kernel against its plain version, hits bit-equal, at the path's three
+    launches (config 2's COCO records B=8 C=80 K=100 T=300 J=10; config 1's
+    11-point metric B=12 C=80 R=300 T=300; DESTR's one-class metric B=16
+    R=300) with planted ties, rows at exactly 0.5, NaN rows and problems
+    without a target; times beside the plain version's and the bound. (b)
+    Both metrics on the card against the plain version on CPU copies, states
+    and APs exactly equal: on seeded detections at config 2's and config 1's
+    shapes, and on the captured eval steps' outputs below. (c) The captured
+    eval step against the eager one for DESTR at config 2's shapes (800 px,
+    81 classes, B=8, bf16) and SSD at config 1's (300 px, 80 classes, B=12,
+    bf16), on a COCO-layout tree (v_hold); a traced replayed DESTR batch
+    with both metric updates: 18 #1, 1 #9 and 2 greedy-match launches."""
+    import itertools
+    import re
+
+    from object_detection_destr_tpu_torch.data.transforms import ssd_eval_transform, ssd_train_transform
+    from object_detection_destr_tpu_torch.geometry.boxes import cxcyhw_to_xyxy
+    from object_detection_destr_tpu_torch.losses.metrics import CocoAveragePrecision, MeanAveragePrecision
+    from object_detection_destr_tpu_torch.models.ssd import build_ssd
+    from object_detection_destr_tpu_torch.train.driver import (
+        _destr_run,
+        _eval_batch,
+        _make_loaders,
+        _mesh_of,
+        _ssd_val_sweep,
+        _to_device,
+        _val_sweep,
+    )
+    from object_detection_destr_tpu_torch.train.state import create_ssd_state
+    from object_detection_destr_tpu_torch.train.steps import make_destr_eval_step, make_ssd_eval_step, \
+        make_ssd_train_step
+
+    t0 = time.perf_counter()
+    seconds, last = {}, [t0]
+
+    def lap(name):
+        """The seconds since the previous lap, as ``name``'s."""
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
+    cells = [greedy_cell(torch, seed + i, *cell) for i, cell in enumerate(GREEDY_CELLS)]
+    lap("kernel")
+    as_torch = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+    synth = {
+        C2_LABEL: metric_states_equal(
+            torch, f"{C2_LABEL} seeded detections", [tuple(as_torch(d) for d in synth_detections(
+                seed + i, C2_B, 300, C2_NUM_CLS, 300, C2_NUM_CLS - 1)) for i in range(2)],
+            MeanAveragePrecision(1, num_pred=300), CocoAveragePrecision(C2_NUM_CLS - 1)),
+        C1_LABEL: metric_states_equal(
+            torch, f"{C1_LABEL} seeded detections", [tuple(as_torch(d) for d in synth_detections(
+                seed + 10 + i, C1_B, 8732, C1_NUM_CLS + 1, 300, C1_NUM_CLS)) for i in range(2)],
+            MeanAveragePrecision(C1_NUM_CLS)),
+    }
+    for name, s in synth.items():
+        log(f"{V_LABEL} metrics on seeded detections at {name}'s shapes: the card's states and APs equal the plain "
+            f"version's on CPU copies (tp {s['tp']:.0f}, fp {s['fp']:.0f}, mAP {s['map']:.6f}, COCO AP "
+            f"{s['coco_map']}; COCO's scores within {s['coco_score_gap']:.2e} relative, hits exact); update "
+            f"{s['update_ms']:.2f} ms a batch on the card (host clock to a synchronize)")
+    lap("metrics")
+    work = tempfile.mkdtemp(prefix="chip_smoke_v_",
+                            dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG, "_build"))
+    try:
+        root = os.path.join(work, "coco")
+        write_coco_tree(root, seed, n_train=V_TRAIN_IMAGES, n_valid=V_VALID_IMAGES)
+        device = torch.device("cuda")
+        # DESTR at config 2's shapes, the trainer's own run (random weights from the seed)
+        config = recipe_config(c2_args(root) + ["--seed", str(seed), "--num_train_samples", str(V_TRAIN_IMAGES),
+                                                "--num_valid_samples", str(V_VALID_IMAGES)])
+        mesh, step_mesh, device = _mesh_of(config, device, None)
+        run, train_loader, _ = _destr_run(config, mesh, step_mesh, device)
+        state = run.state
+        valid = lambda: _make_loaders(config, C2_CANVAS, "destr")[1]
+        batches = [_eval_batch(raw, device, C2_CANVAS, C2_IMAGE) for raw in valid()]
+        metric, coco = MeanAveragePrecision(1, num_pred=300), CocoAveragePrecision(C2_NUM_CLS - 1)
+        gen = torch.Generator(device=device)
+
+        def destr_steps(after):
+            for raw in itertools.islice(train_loader, 2):
+                run.eager_step(raw, device, gen, seed)
+                after()
+
+        captured, outs, destr = v_hold(
+            torch, f"{V_LABEL} {C2_LABEL}", state, make_destr_eval_step(config.train), batches,
+            lambda step: _val_sweep(state, valid(), step, metric, coco, device, C2_CANVAS, C2_IMAGE),
+            destr_steps, work)
+        targets = [{k: b[k] for k in ("boxes", "labels", "valid")} for b in batches]
+        pairs = [({k: o[0][k] for k in ("pred_class", "pred_boxes")}, tg) for o, tg in zip(outs, targets)]
+        destr["metrics"] = metric_states_equal(torch, f"{C2_LABEL} eval outputs", pairs, metric, coco)
+
+        def one_batch(scope):
+            with scope(0):
+                outputs, _ = captured(state, batches[0])
+                metric.update(metric.init_state(device), outputs, targets[0])
+                coco.update(outputs, targets[0])
+
+        window = traced(torch, "v_destr_eval", 1, one_batch)
+        greedy_traced = sum(n for name, n in window["launches"].items() if re.search(r"greedy_match_kernel", name))
+        if window["per_step"] != [18, 0, 0, 0, 1, 0] or greedy_traced != 2:
+            raise AssertionError(f"{V_LABEL}: a traced replayed DESTR eval batch launched #1/#2/#3/#4/#9/#8 "
+                                 f"{window['per_step']} and the greedy match {greedy_traced} times")
+        destr["traced"] = {"per_step": window["per_step"], "greedy": greedy_traced,
+                           "busy_ms": window["step_busy_ms"], "period_ms": window["step_period_ms"]}
+        log(f"{V_LABEL} {C2_LABEL}: a traced replayed eval batch with both metric updates: #1/#2/#3/#4/#9/#8 "
+            f"{window['per_step']}, greedy match {greedy_traced}; device busy {window['step_busy_ms']:.2f} ms of "
+            f"{window['step_period_ms']:.2f}")
+        del run, state, captured, batches, outs, train_loader
+        torch.cuda.empty_cache()
+        lap("destr")
+
+        # SSD at config 1's shapes
+        base = c1_args(root, seed, work) + ["--num_train_samples", str(V_TRAIN_IMAGES), "--num_valid_samples",
+                                            str(V_VALID_IMAGES)]
+        config = c1_config(base)
+        cfg, ssd_cfg = config.train, config.ssd
+        train_loader, valid_loader = _make_loaders(config, C1_CANVAS, "ssd")
+        torch.manual_seed(seed)
+        state = create_ssd_state(build_ssd(ssd_cfg, device), cfg, steps_per_epoch=len(train_loader))
+        valid = lambda: _make_loaders(config, C1_CANVAS, "ssd")[1]
+
+        def ssd_batch(raw):
+            b = _to_device(raw, device)
+            return ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=ssd_cfg.image_size)
+
+        batches = [ssd_batch(raw) for raw in valid()]
+        train_step = make_ssd_train_step(cfg, ssd_cfg)
+        metric = MeanAveragePrecision(C1_NUM_CLS)
+
+        def ssd_steps(after):
+            for raw in itertools.islice(train_loader, 2):
+                b = _to_device(raw, device)
+                gen.manual_seed(seed + state.step)
+                train_step(state, ssd_train_transform(b["images"], b["boxes"], b["labels"], b["valid"], gen,
+                                                      out_size=ssd_cfg.image_size))
+                after()
+
+        captured, outs, ssd = v_hold(
+            torch, f"{V_LABEL} {C1_LABEL}", state, make_ssd_eval_step(cfg, ssd_cfg), batches,
+            lambda step: _ssd_val_sweep(state, valid(), step, metric, device, ssd_cfg.image_size), ssd_steps, work)
+        pairs = [(o[2], {"boxes": cxcyhw_to_xyxy(b["boxes"]), "labels": b["labels"], "valid": b["valid"]})
+                 for o, b in zip(outs, batches)]
+        ssd["metrics"] = metric_states_equal(torch, f"{C1_LABEL} eval detections", pairs, metric)
+        del state, captured, batches, outs
+        torch.cuda.empty_cache()
+        lap("ssd")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"greedy_cells": cells, "synthetic": synth, "destr": destr, "ssd": ssd,
+           "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
+    greedy_ms = ", ".join(f"{c['label']} {c['ms']:.4f}" for c in cells)
+    log(f"{V_LABEL} ({card}): greedy match device ms {greedy_ms}; "
+        f"DESTR eval step at {C2_LABEL} {destr['eager_ms']:.2f} ms eager, {destr['captured_ms']:.2f} captured; SSD "
+        f"at {C1_LABEL} {ssd['eager_ms']:.2f} eager, {ssd['captured_ms']:.2f} captured; metric update at "
+        f"{C2_LABEL} {synth[C2_LABEL]['update_ms']:.2f} ms, at {C1_LABEL} {synth[C1_LABEL]['update_ms']:.2f} ms a batch; "
+        f"phase {out['seconds']:.1f} s, by part {json.dumps(_rounded(seconds))}")
     return out
 
 
@@ -5675,6 +6208,7 @@ def main(argv=None) -> int:
     try:
         from object_detection_destr_tpu_torch.ops.cuda import auction
         from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa
+        from object_detection_destr_tpu_torch.ops.cuda import greedy_match as gm
     except ImportError as exc:
         print(f"chip_smoke: the port package is missing beside this script: {exc}", file=sys.stderr)
         return 1
@@ -5699,7 +6233,8 @@ def main(argv=None) -> int:
     try:
         card = phase_device(torch)
         one_bf16 = one_bf16_backward(fa)
-        phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, fa.TWO_PASS_LIBRARY, auction.LIBRARY, one_bf16.library])
+        phase_build([fa.FWD_LIBRARY, fa.BWD_LIBRARY, fa.TWO_PASS_LIBRARY, auction.LIBRARY, gm.LIBRARY,
+                     one_bf16.library])
         clock("device and build")
         phase_plan(torch, fa)
         warm_clocks(torch)
@@ -5802,6 +6337,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         c1 = phase_config1(torch, kernels, args.seed, card)
         clock("config 1 (21)")
+        torch.cuda.empty_cache()
+        v = phase_val_device(torch, kernels, args.seed, card)
+        clock("validation captured (22)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6052,7 +6590,9 @@ def main(argv=None) -> int:
             "dense": {k: auction_rows[1][k] for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
                                                       "bound_by", "bids", "plain_bids", "differ")},
             "hidden_512": {"launches": wide_counts[4]},
-            "validation": {"launches": val_counts[4], "per": "4 train steps and 4 validation batches"},
+            "validation": {"launches": val_counts[4],
+                           "per": "4 train steps, and the captured eval step's warm-up and capture (its 4 replayed "
+                                  "validation batches call no wrapper)"},
             "import": {"launches": imported["destr"]["launches"][4], "profile_per_step": imported["profile"]["per_step"][4]},
         },
     ]
@@ -6222,10 +6762,13 @@ def main(argv=None) -> int:
         f"{c4['seconds']:.1f} s; {C2_LABEL}: step ms eager {c2['step_ms']:.2f}, captured "
         f"{c2['captured']['captured_ms']:.2f}, request ms {c2['serving']['captured_ms']:.2f}, batched bf16 forward "
         f"ms {c2['forward']['captured_ms']:.2f} ({c2['forward']['images_per_sec']:.1f} images/s), validation "
-        f"{c2['evaluate']['sweep_images_per_sec']:.1f} images/s, phase {c2['seconds']:.1f} s; {C1_LABEL}: step ms "
+        f"{c2['evaluate']['sweep_images_per_sec']:.1f} images/s ({c2['evaluate']['warm_sweep_images_per_sec']:.1f} on "
+        f"the graph), phase {c2['seconds']:.1f} s; {C1_LABEL}: step ms "
         f"eager {c1['step_ms']:.2f}, captured {c1['captured']['captured_ms']:.2f}, request ms "
-        f"{c1['serving']['captured_ms']:.2f}, validation {c1['evaluate']['sweep_images_per_sec']:.1f} images/s, "
-        f"phase {c1['seconds']:.1f} s; total "
+        f"{c1['serving']['captured_ms']:.2f}, validation {c1['evaluate']['sweep_images_per_sec']:.1f} images/s "
+        f"({c1['evaluate']['warm_sweep_images_per_sec']:.1f} on the graph), phase {c1['seconds']:.1f} s; "
+        f"{V_LABEL}: DESTR eval step {v['destr']['eager_ms']:.2f} ms eager, {v['destr']['captured_ms']:.2f} captured, "
+        f"SSD {v['ssd']['eager_ms']:.2f} / {v['ssd']['captured_ms']:.2f}, phase {v['seconds']:.1f} s; total "
         f"{time.perf_counter() - t_start:.0f} s ({card}); seconds by phase "
         f"{json.dumps(_rounded(phase_seconds))}; by part {json.dumps(_rounded(part_seconds))}")
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
@@ -6240,7 +6783,8 @@ def main(argv=None) -> int:
                            "postmortem_per_step": pm["per_step"][0],
                            "probe_flash": {k: probe[k] for k in ("sq", "b", "heads", "rate", "fwd_ms", "fwd_bound_ms",
                                                                  "sdpa_fwd_ms")},
-                           "per": "phase 17: val_noise's sweeps (18 a batch), a post-mortem replayed step; "
+                           "per": "phase 17: val_noise's sweeps (their captured eval step's warm-up and capture, "
+                                  "18 each), a post-mortem replayed step; "
                                   "probe_flash's device ms of one launch (CUDA graph, best of 3) at Sk = Sq, no mask"}
     entries[1]["tools"] = {"postmortem_per_step": pm["per_step"][1],
                            "probe_flash": {k: probe[k] for k in ("sq", "b", "heads", "rate", "backward_plan",
@@ -6253,7 +6797,8 @@ def main(argv=None) -> int:
         entry["launchers"] = {"train_prod_synth_torch": prod[index], "evaluate": launchers["evaluate"]["launches"][index],
                               "per": "phase 18, counted in the subprocesses: scripts/train_prod_synth_torch.sh, one "
                                      "epoch of 2 steps with --epoch_scan (eager warm-up and capture) and its live and "
-                                     "EMA sweeps; infer.evaluate on its checkpoint, 2 batches"}
+                                     "EMA sweeps' captured eval step (warm-up and capture); infer.evaluate on its "
+                                     "checkpoint (its captured forward's warm-up and capture)"}
     c4_cap, c4_sites = c4["captured"], c4["profile"]["sites"]
     for entry, index in ((entries[0], 0), (entries[1], 1), (entries[5], 4)):
         entry["config_4"] = {
@@ -6261,8 +6806,8 @@ def main(argv=None) -> int:
             "per_step": C4_PER_STEP[index], "captured_device_ms": c4_cap["captured_kernel_ms"][index],
             "eager_device_ms": c4_cap["eager_kernel_ms"][index],
             "per": f"{C4_LABEL} (ResNet-101, dilated C5, {C4_IMAGE} px, B=1, bfloat16, 7056 encoder tokens): "
-                   f"launches of train.main's 4 steps and {C4_VALID} validation batches; *_device_ms a step from "
-                   f"traces of 3 steps"}
+                   f"launches of train.main's 4 steps and its captured eval step's warm-up and capture; "
+                   f"*_device_ms a step from traces of 3 steps"}
     for entry, kernel in ((entries[0], "#1"), (entries[1], "#2")):
         entry["config_4"]["replayed_site_ms"] = c4_sites[kernel]
     c4_flash = c4["flash_cells"]
@@ -6288,8 +6833,8 @@ def main(argv=None) -> int:
             "captured_device_ms": c2_cap["captured_kernel_ms"][index],
             "eager_device_ms": c2_cap["eager_kernel_ms"][index],
             "per": f"{C2_LABEL} (DESTR-R50, --num_cls {C2_NUM_CLS}, {C2_IMAGE} px, B={C2_B}, bfloat16, a COCO-layout "
-                   f"tree, {C2_TOKENS} encoder tokens): launches of train.main's 4 steps and "
-                   f"{C2_VALID_IMAGES // C2_B} validation batches; *_device_ms a step from traces of 3 steps"}
+                   f"tree, {C2_TOKENS} encoder tokens): launches of train.main's 4 steps and its captured eval "
+                   f"step's warm-up and capture; *_device_ms a step from traces of 3 steps"}
     entries[0]["config_2"].update(
         max_abs_err=max(r["max_abs_err"] for r in c2_step), ms=per_step(c2_step, "ms"),
         plain_ms=per_step(c2_step, "plain_ms"), bound_ms=per_step(c2_step, "bound_ms"),
@@ -6308,12 +6853,36 @@ def main(argv=None) -> int:
     for entry in (entries[0], entries[1]):
         entry["config_2"]["per"] += ("; ms, plain_ms, bound_ms, library_ms: a step's 18 launches at the three sites "
                                      "(B=8, bfloat16, dropout 0.3, eager calls; SDPA for library_ms)")
-    entries[0]["config_2"]["per"] += ("; evaluate_launches: infer.evaluate's 2 batches; cli_launches: one infer.cli "
+    entries[0]["config_2"]["per"] += ("; evaluate_launches: infer.evaluate's captured forward (warm-up and "
+                                      "capture); cli_launches: one infer.cli "
                                       "invocation on 8 images; forward: bench.py's infer mode (B=8, bfloat16, "
                                       "replayed), 18 launches a forward; sites: one launch each, device ms (CUDA "
                                       "graph), dropout 0")
     entries[5]["config_2"]["per"] += (f"; ms ... classes: one launch at C={C2_NUM_CLS} on a step's "
                                       f"{2 * C2_B} problems of N={C2_TOKENS}, rows equal to the plain version's")
+    for entry, index in ((entries[0], 0), (entries[5], 4)):
+        entry["validation_captured"] = {
+            "traced_replayed_batch": v["destr"]["traced"]["per_step"][index],
+            "per": f"phase 22: launches in a traced replayed {C2_LABEL} eval batch (CUDA graph)"}
+    cell = v["greedy_cells"][0]
+    entries.append({
+        "name": "greedy_match", "route": "cuda", "source": GREEDY_SOURCE, "replaces": GREEDY_REPLACES,
+        "launches": val_timing["greedy_launches"], "max_abs_err": max(c["max_abs_err"] for c in v["greedy_cells"]),
+        "ms": cell["ms"], "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+        "library_ms": None,
+        "per": f"one launch at {cell['label']} (P={cell['problems']} problems, R={cell['ranks']}, T={cell['targets']}, "
+               f"J={cell['thresholds']}, COCO's rule), device ms from CUDA-graph replay; launches from the "
+               f"validation path (phase 6b: one a batch and metric, 2 sweeps of 2 batches, mAP and COCO AP); "
+               f"max_abs_err 0: hits bit-equal to the plain version's; library_ms null: no PyTorch call computes "
+               f"the greedy walk",
+        "others": [{k: c[k] for k in ("label", "problems", "ranks", "targets", "thresholds", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "hits", "ranks_used")} for c in v["greedy_cells"][1:]],
+        "config_2": {"launches": c2["evaluate"]["greedy_launches"],
+                     "per": f"infer.evaluate at {C2_LABEL}: {C2_VALID_IMAGES // C2_B} batches, mAP and COCO AP"},
+        "config_1": {"launches": c1["evaluate"]["greedy_launches"],
+                     "per": f"infer.evaluate --model ssd at {C1_LABEL}: {C1_VALID_IMAGES // C1_B} batches"},
+        "traced_replayed_batch": v["destr"]["traced"]["greedy"],
+    })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

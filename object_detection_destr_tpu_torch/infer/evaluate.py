@@ -23,6 +23,11 @@ cpu``)::
 sweep, with the SSD trainer's flags. Prints one JSON line with metrics and
 diagnostics.
 
+Both sweeps run their step as CUDA-graph replays on the GPU
+(``train/steps.py::CapturedEvalStep``, the counterpart of JAX's ``jax.jit``
+of the forward and the eval step) and update the metrics on the device
+(``losses/metrics.py``).
+
 Under a launcher (``torchrun``; ``parallel/mesh.py::launched``) the sweep
 runs over ``auto_mesh(batch_size)`` (evaluate.py:83-111, 175-206): each rank
 evaluates its rows of every batch and the outputs and targets are gathered
@@ -50,7 +55,7 @@ from ..train.arg_parser import config_from_args, get_parser
 from ..train.checkpoint import restore_for_inference
 from ..train.driver import _eval_batch, _gathered_targets, _make_loaders, _to_device
 from ..train.state import TrainState
-from ..train.steps import _gathered, make_ssd_eval_step
+from ..train.steps import CapturedEvalStep, _gathered, make_ssd_eval_step
 
 __all__ = ["evaluate_destr", "evaluate_ssd", "main"]
 
@@ -112,14 +117,18 @@ def evaluate_destr(config, checkpoint_name: str, device: str | torch.device | No
     model = build_destr(config.destr, device)
     model.load_state_dict(restore_for_inference(cfg_t.checkpoint_dir, checkpoint_name))
 
+    # the forward alone, captured (evaluate.py:95-100 jits it); it holds no
+    # collective, so it is captured on any mesh
+    forward = CapturedEvalStep(lambda state, batch: state.model(batch["images"], batch.get("pixel_valid"))[0])
+    state = TrainState(model=model, optimizer=None, rng=None)
+
     metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
     coco = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1))
-    m_state = metric.init_state()
+    m_state = metric.init_state(device)
     totals: dict = {}
     for raw in valid_loader:
         batch = _eval_batch(raw, device, canvas, cfg_t.image_size)
-        outputs, _ = model(batch["images"], batch.get("pixel_valid"))
-        outputs, targets = _gathered(outputs, mesh), _gathered_targets(batch, mesh)
+        outputs, targets = _gathered(forward(state, batch), mesh), _gathered_targets(batch, mesh)
         m_state = metric.update(m_state, outputs, targets)
         coco.update(outputs, targets)
         d = _batch_diagnostics({k: v.cpu().numpy() for k, v in outputs.items()},
@@ -172,16 +181,16 @@ def evaluate_ssd(config, checkpoint_name: str, device: str | torch.device | None
     model = build_ssd(config.ssd, device)
     model.load_state_dict(restore_for_inference(cfg_t.checkpoint_dir, checkpoint_name))
     state = TrainState(model=model, optimizer=None, rng=None)  # the eval step reads the model only
-    eval_step = make_ssd_eval_step(cfg_t, config.ssd, mesh)
+    eval_step = CapturedEvalStep(make_ssd_eval_step(cfg_t, config.ssd, mesh), mesh)
 
     metric = MeanAveragePrecision(num_cls=config.ssd.num_cls)
-    m_state = metric.init_state()
+    m_state = metric.init_state(device)
     losses, totals = [], {"n_gt": 0, "sum_best_iou": 0.0, "n_gt_localized": 0, "n_images": 0}
     for raw in valid_loader:
         b = _to_device(raw, device)
         batch = ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=config.ssd.image_size)
         _, batch_losses, detections = eval_step(state, batch)
-        losses.append(batch_losses["loss"])
+        losses.append(batch_losses["loss"].clone())  # the captured step's output is overwritten by the next
         targets = _gathered_targets(batch, mesh)
         gt_xyxy = cxcyhw_to_xyxy(targets["boxes"])
         m_state = metric.update(m_state, detections, {**targets, "boxes": gt_xyxy})

@@ -16,69 +16,81 @@ top 100 of each class per image (``lax.top_k``'s tie order), matches greedily
 in score order at each of the IoU thresholds 0.5:0.95:0.05 and interpolates
 101 recall points over the dataset; padded slots carry score -1.
 
-The selection, sort, gather and IoU run as batched tensor ops on the
-outputs' device. The greedy matches are sequential by definition: each batch
-copies its (B, ranks, T) IoU block to the host once, and numpy walks the
-ranks with every image (and every IoU threshold) at once, stopping at the
-last rank any image selected.
+As in JAX, a batch's update is one device program over every class at once:
+one softmax (sigmoid) and one stable sort (top-k) over (B, C, N), cut to the
+ranks that count before the gather, one IoU over (B, C, R, T), and one
+launch of the greedy walk over the B x C problems
+(``ops/cuda/greedy_match.py``: the CUDA kernel on the GPU, its plain version
+on the CPU). The 11-point state (``tp``, ``fp``, ``num_gts``) stays on the
+outputs' device and its update copies nothing to the host; COCO's update
+copies the batch's records to the host once (metrics.py:209-211). Only
+``compute`` runs on the host.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..geometry.boxes import cxcyhw_to_xyxy, pairwise_iou
+from ..ops.cuda.greedy_match import greedy_match
 from ..ops.topk import stable_topk
 
 __all__ = ["CocoAveragePrecision", "MeanAveragePrecision"]
 
 
-def _greedy_ranks(iou: np.ndarray, n_use: np.ndarray, threshold: np.ndarray, skip_matched: bool) -> np.ndarray:
-    """Greedy first-match-wins over the ranks of a batch, every image and
-    every threshold at once.
+def _inputs(outputs: Mapping, targets: Mapping, num_cls: int):
+    """(logits (B, N, C') float32, predicted xyxy (B, N, 4), targets' xyxy
+    (B, T, 4), gt_valid (B, C, T): the valid targets of each of the first
+    ``num_cls`` classes), all on the outputs' device."""
+    logits = torch.as_tensor(outputs["pred_class"]).float()
+    dev = logits.device
+    pred_xyxy = cxcyhw_to_xyxy(torch.as_tensor(outputs["pred_boxes"]).float())
+    gt_xyxy = torch.as_tensor(targets["boxes"], device=dev).float()
+    labels = torch.as_tensor(targets["labels"], device=dev)
+    valid = torch.as_tensor(targets["valid"], device=dev)
+    classes = torch.arange(num_cls, device=dev)
+    gt_valid = valid[:, None, :] & (labels[:, None, :] == classes[None, :, None])
+    return logits, pred_xyxy, gt_xyxy, gt_valid
 
-    Args:
-        iou: (B, R, T) float32, -1 where the target is not a valid one.
-        n_use: (B,) ranks that count in each image (later ones miss).
-        threshold: (J,) float32 IoU thresholds, each matched on its own.
-        skip_matched: False is the 11-point metric's rule: the best-IoU
-            valid target, a miss if it is taken already (metrics.py:83-92);
-            True is COCO's: the best-IoU target not yet taken (l.265-275).
 
-    Returns:
-        (B, R, J) bool hits.
-    """
-    b, r, t = iou.shape
-    j = threshold.shape[0]
-    hits = np.zeros((b, r, j), bool)
-    matched = np.zeros((b, j, t), bool)
-    rows, cols = np.arange(b)[:, None], np.arange(j)[None, :]
-    for i in range(min(int(n_use.max(initial=0)), r)):
-        row = np.broadcast_to(iou[:, None, i, :], (b, j, t))  # (B, J, T)
-        if skip_matched:
-            row = np.where(matched, np.float32(-1.0), row)
-        best = row.argmax(-1)  # (B, J)
-        best_iou = np.take_along_axis(row, best[..., None], -1)[..., 0]
-        hit = (best_iou >= threshold[None, :]) & ~matched[rows, cols, best] & (i < n_use)[:, None]
-        matched[rows, cols, best] |= hit
-        hits[:, i] = hit
-    return hits
+def _host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """The tensors on the host in one copy, each in its own shape: float32
+    ones as they are, integer counts (below 2^24, exact in float32) back as
+    int64."""
+    tensors = [torch.as_tensor(x) for x in tensors]
+    flat = torch.cat([x.reshape(-1).float() for x in tensors]).cpu().numpy()
+    out, at = [], 0
+    for x in tensors:
+        n = x.numel()
+        part = flat[at:at + n].reshape(tuple(x.shape))
+        out.append(part if x.dtype == torch.float32 else part.astype(np.int64))
+        at += n
+    return out
+
+
+def _ranked_iou(pred_xyxy, order, gt_xyxy, gt_valid):
+    """(B, C, R, T) IoU of the ranked predictions (``order`` (B, C, R)
+    indices into N) against every target, -1 where the target is not a
+    valid one of the class."""
+    b, c, r = order.shape
+    boxes = torch.gather(pred_xyxy[:, None].expand(b, c, -1, 4), 2, order[..., None].expand(b, c, r, 4))
+    return torch.where(gt_valid[:, :, None, :], pairwise_iou(boxes, gt_xyxy[:, None]), -1.0)
 
 
 class MeanAveragePrecision:
     """The 11-point mAP accumulator (state in, state out), as in JAX::
 
         metric = MeanAveragePrecision(num_cls=1)
-        state = metric.init_state()
+        state = metric.init_state(device)
         for batch in loader:
-            state = metric.update(state, outputs, targets)
-        ap = metric.compute(state)
+            state = metric.update(state, outputs, targets)  # on the device
+        ap = metric.compute(state)  # on the host
 
-    The state is host numpy: tp, fp (num_cls, num_pred) float32 by rank and
-    num_gts (num_cls,) int64.
+    The state is tensors on the outputs' device: tp, fp (num_cls, num_pred)
+    float32 by rank and num_gts (num_cls,) int64.
     """
 
     def __init__(self, num_cls: int = 1, threshold: float = 0.5, num_pred: int = 300):
@@ -86,43 +98,40 @@ class MeanAveragePrecision:
         self.threshold = threshold
         self.num_pred = num_pred
 
-    def init_state(self) -> dict:
-        z = np.zeros((self.num_cls, self.num_pred), np.float32)
-        return {"tp": z, "fp": z.copy(), "num_gts": np.zeros((self.num_cls,), np.int64)}
+    def init_state(self, device: Optional[torch.device | str] = None) -> dict:
+        z = torch.zeros((self.num_cls, self.num_pred), dtype=torch.float32, device=device)
+        return {"tp": z, "fp": z.clone(), "num_gts": torch.zeros((self.num_cls,), dtype=torch.int64, device=device)}
 
     @torch.no_grad()
     def update(self, state: dict, outputs: Mapping, targets: Mapping) -> dict:
-        logits = torch.as_tensor(outputs["pred_class"]).float()  # (B, N, C)
-        pred_xyxy = cxcyhw_to_xyxy(torch.as_tensor(outputs["pred_boxes"]).float())
-        gt_xyxy = torch.as_tensor(targets["boxes"], device=logits.device).float()  # (B, T, 4)
-        labels = torch.as_tensor(targets["labels"], device=logits.device)
-        valid = torch.as_tensor(targets["valid"], device=logits.device)
+        """The state after one batch; nothing is copied to the host."""
+        logits, pred_xyxy, gt_xyxy, gt_valid = _inputs(outputs, targets, self.num_cls)
+        b, n = logits.shape[:2]
+        c, dev = self.num_cls, logits.device
         probs = torch.softmax(logits, dim=-1)
-        top = probs.argmax(-1)  # (B, N)
-        n_ranks = min(logits.shape[1], self.num_pred)
-        tp, fp, num_gts = state["tp"].copy(), state["fp"].copy(), state["num_gts"].copy()
-        thr = np.asarray([self.threshold], np.float32)
-        for cls in range(self.num_cls):
-            gt_valid = valid & (labels == cls)  # (B, T)
-            pred_is_cls = top == cls
-            sort_key = torch.where(pred_is_cls, probs[..., cls], -torch.inf)
-            order = torch.sort(-sort_key, dim=-1, stable=True).indices[:, :n_ranks]
-            boxes_sorted = torch.gather(pred_xyxy, 1, order[..., None].expand(-1, -1, 4))
-            iou = torch.where(gt_valid[:, None, :], pairwise_iou(boxes_sorted, gt_xyxy), -1.0)
-            n_gt = gt_valid.sum(-1)
-            active = n_gt > 0  # the reference skips images without ground truth
-            n_use = torch.where(active, pred_is_cls.sum(-1), 0)
-            iou_h, n_use_h, n_gt_h = (x.cpu().numpy() for x in (iou, n_use, n_gt))
-            hit = _greedy_ranks(iou_h, n_use_h, thr, skip_matched=False)[..., 0]  # (B, R)
-            used = np.arange(n_ranks)[None, :] < n_use_h[:, None]
-            tp[cls, :n_ranks] += (hit & used).sum(0, dtype=np.float32)
-            fp[cls, :n_ranks] += (~hit & used).sum(0, dtype=np.float32)
-            num_gts[cls] += int(n_gt_h[n_gt_h > 0].sum())
-        return {"tp": tp, "fp": fp, "num_gts": num_gts}
+        classes = torch.arange(c, device=dev)
+        pred_is_cls = probs.argmax(-1)[:, None, :] == classes[None, :, None]  # (B, C, N)
+        sort_key = torch.where(pred_is_cls, probs[..., :c].transpose(1, 2), -torch.inf)
+        # only the top n_ranks ever count: cut the order before the gather and
+        # the IoU (metrics.py:66-72)
+        n_ranks = min(n, self.num_pred)
+        order = torch.sort(-sort_key, dim=-1, stable=True).indices[..., :n_ranks]  # (B, C, R)
+        iou = _ranked_iou(pred_xyxy, order, gt_xyxy, gt_valid)
+        n_gt = gt_valid.sum(-1)  # (B, C)
+        # the reference skips images without ground truth of the class
+        n_use = torch.where(n_gt > 0, pred_is_cls.sum(-1), 0)
+        hit = greedy_match(iou.reshape(b * c, n_ranks, -1), n_use.reshape(-1), [self.threshold],
+                           skip_matched=False).reshape(b, c, n_ranks)
+        used = torch.arange(n_ranks, device=dev) < n_use[..., None]  # (B, C, R)
+        tp, fp = state["tp"].to(dev).clone(), state["fp"].to(dev).clone()
+        tp[:, :n_ranks] += (hit & used).sum(0, dtype=torch.float32)
+        fp[:, :n_ranks] += (~hit & used).sum(0, dtype=torch.float32)
+        return {"tp": tp, "fp": fp, "num_gts": state["num_gts"].to(dev) + n_gt.sum(0)}
 
     def compute(self, state: dict) -> float:
-        """11-point interpolated AP, averaged over classes (metrics.py:152-174)."""
-        tp, fp, num_gts = (np.asarray(state[k]) for k in ("tp", "fp", "num_gts"))
+        """11-point interpolated AP, averaged over classes (metrics.py:152-174);
+        the state comes to the host in one copy."""
+        tp, fp, num_gts = _host(state["tp"], state["fp"], state["num_gts"])
         aps = []
         for cls in range(self.num_cls):
             if num_gts[cls] == 0:
@@ -162,9 +171,11 @@ class CocoAveragePrecision:
 
     def update(self, outputs: Mapping, targets: Mapping) -> None:
         """Per image and class, the top ``max_dets`` records: (score, hit at
-        each IoU threshold) (metrics.py:200-211)."""
-        scores, tps, n_gt = _coco_batch_records(outputs, targets, num_cls=self.num_cls, max_dets=self.max_dets,
-                                                iou_thresholds=self.IOU_THRESHOLDS)
+        each IoU threshold), copied to the host in one copy
+        (metrics.py:200-211)."""
+        records = _coco_batch_records(outputs, targets, num_cls=self.num_cls, max_dets=self.max_dets,
+                                      iou_thresholds=self.IOU_THRESHOLDS)
+        scores, tps, n_gt = _host(*records)
         self._scores.append(scores)
         self._tp.append(tps)
         self._num_gts += n_gt.sum(axis=0)
@@ -202,30 +213,22 @@ class CocoAveragePrecision:
 
 @torch.no_grad()
 def _coco_batch_records(outputs: Mapping, targets: Mapping, *, num_cls: int, max_dets: int,
-                        iou_thresholds) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+                        iou_thresholds) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-image, per-class top-``max_dets`` detection records for COCO AP
-    (metrics.py:245-291): host numpy (scores (B, C, K) float32, -1 in padded
-    slots; tp (B, C, K, n_iou) float32 hit flags; n_gt (B, C) int64 valid
-    ground truths of the class in each image)."""
-    logits = torch.as_tensor(outputs["pred_class"]).float()
-    pred_xyxy = cxcyhw_to_xyxy(torch.as_tensor(outputs["pred_boxes"]).float())
-    gt_xyxy = torch.as_tensor(targets["boxes"], device=logits.device).float()
-    labels = torch.as_tensor(targets["labels"], device=logits.device).int()
-    valid = torch.as_tensor(targets["valid"], device=logits.device)
-    probs = torch.sigmoid(logits)
-    b, n = probs.shape[:2]
+    (metrics.py:245-291), on the outputs' device: scores (B, C, K) float32,
+    -1 in padded slots; tp (B, C, K, n_iou) float32 hit flags; n_gt (B, C)
+    int64 valid ground truths of the class in each image."""
+    logits, pred_xyxy, gt_xyxy, gt_valid = _inputs(outputs, targets, num_cls)
+    b, n = logits.shape[:2]
+    dev = logits.device
+    probs = torch.sigmoid(logits[..., :num_cls]).transpose(1, 2)  # (B, C, N)
     k = min(max_dets, n)
-    thresholds = np.asarray(iou_thresholds, np.float32)
-    scores = np.full((b, num_cls, max_dets), -1.0, np.float32)
-    tps = np.zeros((b, num_cls, max_dets, len(thresholds)), np.float32)
-    n_gt = np.zeros((b, num_cls), np.int64)
-    for cls in range(num_cls):
-        top_s, top_i = stable_topk(probs[..., cls], k)  # lax.top_k's tie order
-        top_boxes = torch.gather(pred_xyxy, 1, top_i[..., None].expand(-1, -1, 4))
-        gvalid = valid & (labels == cls)
-        iou = torch.where(gvalid[:, None, :], pairwise_iou(top_boxes, gt_xyxy), -1.0)
-        hits = _greedy_ranks(iou.cpu().numpy(), np.full((b,), k), thresholds, skip_matched=True)
-        scores[:, cls, :k] = top_s.cpu().numpy()
-        tps[:, cls, :k] = hits
-        n_gt[:, cls] = gvalid.sum(-1).cpu().numpy()
-    return scores, tps, n_gt
+    top_s, top_i = stable_topk(probs, k)  # lax.top_k's tie order
+    iou = _ranked_iou(pred_xyxy, top_i, gt_xyxy, gt_valid)  # (B, C, K, T)
+    n_use = torch.full((b * num_cls,), k, dtype=torch.int32, device=dev)
+    hits = greedy_match(iou.reshape(b * num_cls, k, -1), n_use, iou_thresholds, skip_matched=True)
+    scores = torch.full((b, num_cls, max_dets), -1.0, dtype=torch.float32, device=dev)
+    scores[..., :k] = top_s
+    tps = torch.zeros((b, num_cls, max_dets, len(iou_thresholds)), dtype=torch.float32, device=dev)
+    tps[:, :, :k] = hits.reshape(b, num_cls, k, -1)
+    return scores, tps, gt_valid.sum(-1)

@@ -90,6 +90,7 @@ from .logging_utils import MetricLogger
 from .profiler import StepTimer, StepTrace, parse_trace
 from .state import TrainState, create_destr_state, create_ssd_state
 from .steps import (
+    CapturedEvalStep,
     make_destr_eval_step,
     make_destr_step_core,
     make_destr_train_step,
@@ -261,22 +262,34 @@ def _gathered_targets(batch: dict, mesh) -> dict:
     return {k: batch[k] if mesh is None else mesh.all_gather(batch[k]) for k in ("boxes", "labels", "valid")}
 
 
+def _loss_means(val_metrics: list, keys: list) -> dict:
+    """The means over the sweep of each batch's stacked losses."""
+    if not val_metrics:
+        return {}
+    return dict(zip(keys, torch.stack(val_metrics).float().mean(0).tolist()))
+
+
 def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
                coco_metric: Optional[CocoAveragePrecision], device: torch.device, resize_to: int,
                out_size: int, mesh=None, on_batch: Optional[Callable[[dict, dict, dict], None]] = None
                ) -> tuple[dict, float, Optional[float], float]:
     """One validation pass over ``loader``'s raw batches (driver.py:298-323):
     (the means of the eval step's metrics, mAP, COCO AP or None, host
-    seconds; the last batch's metric update waits for the device). On a
+    seconds). The metrics update on the device (the 11-point state stays
+    there; COCO's records come to the host once a batch), and ``compute``
+    reads the state at the end, which waits for the device. ``eval_step`` may
+    be a :class:`CapturedEvalStep`: its outputs are read before the next
+    batch is copied in, and the batch's losses are kept as a copy. On a
     ``mesh`` the eval step gives the global batch's outputs and the targets
     are gathered, so the metrics are one process's. ``on_batch(outputs,
     targets, metric_state)``, where given, sees each batch after the metrics'
-    updates (``tools/val_noise_torch.py`` reads per-image records there)."""
+    updates (``tools/val_noise_torch.py`` reads per-image records there); the
+    outputs are valid during the call only."""
     t0 = time.perf_counter()
-    metric_state = metric.init_state()
+    metric_state = metric.init_state(device)
     if coco_metric is not None:
         coco_metric.reset()
-    val_metrics: list = []
+    val_metrics, keys = [], []
     for raw in loader:
         batch = _eval_batch(raw, device, resize_to, out_size)
         outputs, m = eval_step(state, batch)
@@ -286,9 +299,9 @@ def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
             coco_metric.update(outputs, targets)
         if on_batch is not None:
             on_batch(outputs, targets, metric_state)
-        val_metrics.append(m)
-    val_means = {k: float(torch.stack([m[k] for m in val_metrics]).float().mean())
-                 for k in val_metrics[0]} if val_metrics else {}
+        keys = list(m)
+        val_metrics.append(torch.stack([m[k].float() for k in keys]))
+    val_means = _loss_means(val_metrics, keys)
     coco_val = coco_metric.compute() if coco_metric is not None else None
     return val_means, metric.compute(metric_state), coco_val, time.perf_counter() - t0
 
@@ -296,22 +309,22 @@ def _val_sweep(state, loader, eval_step, metric: MeanAveragePrecision,
 def _ssd_val_sweep(state, loader, eval_step, metric: MeanAveragePrecision, device: torch.device,
                    out_size: int, mesh=None) -> tuple[dict, float, None, float]:
     """SSD's validation pass (driver.py:529-554): the stretch eval transform,
-    the eval step, and the reference mAP of its decoded detections against
-    the targets in xyxy, gathered over a ``mesh``; (loss means, mAP, None,
-    host seconds)."""
+    the eval step (or a :class:`CapturedEvalStep`, as :func:`_val_sweep`),
+    and the reference mAP of its decoded detections against the targets in
+    xyxy, gathered over a ``mesh``, updated on the device; (loss means, mAP,
+    None, host seconds)."""
     t0 = time.perf_counter()
-    metric_state = metric.init_state()
-    val_metrics: list = []
+    metric_state = metric.init_state(device)
+    val_metrics, keys = [], []
     for raw in loader:
         b = _to_device(raw, device)
         batch = ssd_eval_transform(b["images"], b["boxes"], b["labels"], b["valid"], out_size=out_size)
         _, m, detections = eval_step(state, batch)
         targets = _gathered_targets(batch, mesh)
         metric_state = metric.update(metric_state, detections, {**targets, "boxes": cxcyhw_to_xyxy(targets["boxes"])})
-        val_metrics.append(m)
-    val_means = {k: float(torch.stack([m[k] for m in val_metrics]).float().mean())
-                 for k in val_metrics[0]} if val_metrics else {}
-    return val_means, metric.compute(metric_state), None, time.perf_counter() - t0
+        keys = list(m)
+        val_metrics.append(torch.stack([m[k].float() for k in keys]))
+    return _loss_means(val_metrics, keys), metric.compute(metric_state), None, time.perf_counter() - t0
 
 
 @dataclasses.dataclass
@@ -527,8 +540,8 @@ def _destr_run(config: Config, mesh: Mesh, step_mesh: Optional[Mesh], device: to
     metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
     coco_metric = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1)) if cfg_t.coco_eval else None
     out_size = cfg_t.image_size
-    sweep = (state, valid_loader, make_destr_eval_step(cfg_t, step_mesh), metric, coco_metric, device, canvas,
-             out_size, step_mesh)
+    eval_step = CapturedEvalStep(make_destr_eval_step(cfg_t, step_mesh), step_mesh)
+    sweep = (state, valid_loader, eval_step, metric, coco_metric, device, canvas, out_size, step_mesh)
     run = _Run(
         state, make_destr_train_step(cfg_t, step_mesh, observer), make_destr_step_core(cfg_t, step_mesh),
         lambda raw, gen, mesh=None: destr_train_transform(
@@ -560,7 +573,7 @@ def train_ssd(config: Config, device: str | torch.device | None = None, mesh: Op
     torch.manual_seed(cfg_t.seed)  # the model's initial weights, the same on every rank
     model = build_ssd(ssd_cfg, device, mesh=step_mesh)
     state = create_ssd_state(model, cfg_t, steps_per_epoch=len(train_loader))
-    eval_step = make_ssd_eval_step(cfg_t, ssd_cfg, step_mesh)
+    eval_step = CapturedEvalStep(make_ssd_eval_step(cfg_t, ssd_cfg, step_mesh), step_mesh)
     metric = MeanAveragePrecision(num_cls=ssd_cfg.num_cls)
     out_size = ssd_cfg.image_size
     run = _Run(

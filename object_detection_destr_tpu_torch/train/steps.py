@@ -2,7 +2,9 @@
 ``object_detection_destr_tpu/train/steps.py``: ``_match_pair`` l.86-152,
 ``make_destr_train_step`` l.155-209, ``_guard_stats`` l.212-223,
 ``make_destr_eval_step`` l.226-252, ``flat_anchors`` l.255-261,
-``make_ssd_train_step`` l.264-305, ``make_ssd_eval_step`` l.308-339).
+``make_ssd_train_step`` l.264-305, ``make_ssd_eval_step`` l.308-339;
+``_wrap_step``'s ``jax.jit`` of the eval steps, l.45-61, is
+:class:`CapturedEvalStep`).
 
 One step: forward in train mode (batch-statistics BatchNorm, dropout from
 the state's stream), one matcher launch for both criteria, the two set
@@ -50,6 +52,7 @@ from ..ops.cuda.auction import hungarian_match_fused
 from .state import TrainState
 
 __all__ = [
+    "CapturedEvalStep",
     "flat_anchors",
     "make_destr_eval_step",
     "make_destr_step_core",
@@ -330,3 +333,86 @@ def make_ssd_eval_step(cfg: TrainConfig, ssd_cfg: SSDConfig, mesh=None) -> Calla
         return _gathered(outputs, mesh), _pmean_metrics(losses, mesh), _gathered(detections, mesh)
 
     return eval_step
+
+
+class CapturedEvalStep:
+    """An eval step (:func:`make_destr_eval_step`, :func:`make_ssd_eval_step`,
+    or any ``step(state, batch)`` that reads the model and the batch's
+    tensors and returns tensors) with the same call and the same return, run
+    as CUDA-graph replays on the GPU: the counterpart of ``_wrap_step``'s
+    ``jax.jit`` (steps.py:45-61).
+
+    As jit compiles one program per shape, the wrapper keeps one
+    ``torch.cuda.CUDAGraph`` per input signature (the model, and the shapes
+    and dtypes of the batch's tensors). The first batch of a signature is
+    copied into static input tensors; the step runs once on a side stream
+    (the warm-up a capture needs), is captured, and is replayed; each later
+    batch is copied into the static inputs and replayed. The graph reads the
+    model's parameter and buffer storage as it is at the replay, so weights
+    updated in place (the optimizer, an EMA swapped in by copy, a checkpoint
+    restored by ``load_state_dict``) are the ones it uses.
+
+    The returned tensors are the graph's static outputs: the next call
+    overwrites them. A caller reads them, or enqueues work on them on the
+    current stream, before its next call, and copies what it keeps.
+
+    On the CPU the step runs eagerly. Over a mesh (the step's collectives)
+    an NCCL group is captured after the eager warm-up, as ``EpochRunner``
+    does; a gloo group on the GPU cannot be captured, and there the step
+    runs eagerly (said once on stdout). ``replays`` counts the replays.
+    """
+
+    def __init__(self, step: Callable, mesh=None):
+        self.step = step
+        self.mesh = mesh
+        self.replays = 0
+        self._graphs: dict = {}
+        self._said_eager = False
+
+    def _eager(self, device: torch.device) -> bool:
+        if device.type != "cuda":
+            return True
+        mesh = self.mesh
+        if mesh is not None and mesh.group is not None and mesh.backend != "nccl":
+            if not self._said_eager:
+                print(f"eval step: a {mesh.backend} group on the GPU cannot be captured; the eval step runs eagerly",
+                      flush=True)
+                self._said_eager = True
+            return True
+        return False
+
+    def _capture(self, state: TrainState, static: dict):
+        """The warm-up on a side stream, then the capture: (graph, outputs)."""
+        device = static["images"].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.step(state, static)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        if self.mesh is None or self.mesh.group is None:
+            with torch.cuda.graph(graph):
+                outputs = self.step(state, static)
+        else:
+            # the warm-up's collectives have made the communicator; with them
+            # finished, no other thread touches the device while this one captures
+            torch.cuda.synchronize(device)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self.step(state, static)
+        return graph, outputs
+
+    def __call__(self, state: TrainState, batch: dict):
+        if self._eager(batch["images"].device):
+            return self.step(state, batch)
+        inputs = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+        signature = (state.model,) + tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in inputs.items())
+        entry = self._graphs.get(signature)
+        if entry is None:
+            static = {k: v.clone() for k, v in inputs.items()}
+            entry = self._graphs[signature] = (static, *self._capture(state, static))
+        static, graph, outputs = entry
+        for k, v in inputs.items():
+            static[k].copy_(v)
+        graph.replay()
+        self.replays += 1
+        return outputs

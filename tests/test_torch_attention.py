@@ -23,6 +23,7 @@ from object_detection_destr_tpu_torch.ops.cuda.flash_attention import (  # noqa:
     flash_attention_packed,
     flash_attention_packed_reference,
 )
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TOL = 1e-5
 

@@ -41,6 +41,7 @@ from object_detection_destr_tpu_torch.ops.cuda.flash_attention import (  # noqa:
     flash_attention_packed_reference,
     flash_attention_reference,
 )
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 CASES = {
     # the self-attentions' geometry: several heads

@@ -45,6 +45,7 @@ from object_detection_destr_tpu_torch.ops.cuda.auction import (  # noqa: E402
     hungarian_match_fused,
     hungarian_match_fused_reference,
 )
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 EPS_FRAC = 0.001
 

@@ -42,6 +42,7 @@ from object_detection_destr_tpu_torch.models.convert import save_variables_npz  
 
 from test_torch_modules import _random_variables  # noqa: E402
 from test_torch_server import FLAGS as DESTR_FLAGS, SIZE, TINY  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 
 def _png(path, h, w, seed):

@@ -81,6 +81,7 @@ from test_torch_train_step import _mu_tree  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 NUM_CLS = 81
 SIZE = 100  # C5 4 x 4 (100 -> 50 -> 25 -> 13 -> 7 -> 4)

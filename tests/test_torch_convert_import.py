@@ -51,6 +51,7 @@ from tools.ref_torch_models import TorchResNet, torch_vgg16_features  # noqa: E4
 import reference_layout as layout  # noqa: E402
 from test_torch_model import TINY, _close, _topk  # noqa: E402
 from test_torch_modules import _random_variables  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 SIZE = 64
 NUM_CLS = 3

@@ -19,6 +19,7 @@ from object_detection_destr_tpu.losses.criterion import set_criterion as jax_set
 from object_detection_destr_tpu.ops.pallas.auction import hungarian_match_pallas  # noqa: E402
 from object_detection_destr_tpu_torch.losses.criterion import set_criterion  # noqa: E402
 from object_detection_destr_tpu_torch.ops.cuda.auction import hungarian_match_fused  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TOL = 1e-5
 

@@ -25,6 +25,7 @@ from object_detection_destr_tpu.data.loader import DetectionLoader as JaxLoader 
 from object_detection_destr_tpu.data.transforms import destr_train_transform as jax_transform  # noqa: E402
 from object_detection_destr_tpu_torch.data import DetectionLoader, build_dataset  # noqa: E402
 from object_detection_destr_tpu_torch.data.transforms import crop_flip, destr_train_transform  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 
 def test_synthetic_items_equal():

@@ -18,6 +18,7 @@ jax = pytest.importorskip("jax")
 
 from object_detection_destr_tpu.data import datasets as jax_ds  # noqa: E402
 from object_detection_destr_tpu_torch.data import datasets as ds  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 
 def write_widerface(root, split="train", sizes=((40, 60), (50, 30), (36, 36)), seed=0, quality=92):

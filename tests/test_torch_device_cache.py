@@ -21,6 +21,7 @@ from object_detection_destr_tpu.data.device_cache import DeviceCachedLoader as J
 from object_detection_destr_tpu_torch.data import DetectionLoader, build_dataset  # noqa: E402
 from object_detection_destr_tpu_torch.data import device_cache  # noqa: E402
 from object_detection_destr_tpu_torch.data.device_cache import DeviceCachedLoader  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 SET = dict(split="train", image_size=32, num_samples=9, max_items_per_img=4, seed=2)
 LOADER = dict(batch_size=3, canvas_size=32, max_targets=4, shuffle=True, seed=5, prefetch=0, num_workers=0)

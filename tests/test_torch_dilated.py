@@ -54,6 +54,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 from object_detection_destr_tpu_torch.models.convert import flax_variables_from_state_dict  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 STAGE_TOL = 1e-5
 DET_TOL = 2e-4

@@ -23,6 +23,7 @@ from object_detection_destr_tpu.config import TrainConfig as JaxTrainConfig  # n
 from object_detection_destr_tpu.train.driver import _make_loaders as jax_make_loaders  # noqa: E402
 from object_detection_destr_tpu_torch.config import Config, DataConfig, TrainConfig  # noqa: E402
 from object_detection_destr_tpu_torch.train.driver import _make_loaders  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TRAIN = dict(image_size=64, batch_size=4, seed=3)
 DATA = dict(image_size=67, num_train_samples=8, num_valid_samples=8, augment_factor=2)

@@ -24,6 +24,7 @@ from object_detection_destr_tpu_torch.ops.cuda.flash_attention import (
     philox_keep_bits,
     seed_tensor,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _qkv(seed=0, b=2, sq=5, sk=7, h=2, d=4):

@@ -25,6 +25,7 @@ from object_detection_destr_tpu_torch.train import train as train_cli
 from object_detection_destr_tpu_torch.train.driver import _make_ema
 from object_detection_destr_tpu_torch.train.epoch_scan import EpochRunner
 from object_detection_destr_tpu_torch.train.state import TrainState
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class _Model(nn.Module):

@@ -35,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from tests.test_torch_tf32_split import matmul_1xtf32  # noqa: E402
 from tools.profile_step_torch import category  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 BWD_TOL_FLOAT32 = 1e-4  # chip_smoke.py's BWD_TOL["float32"], which the kernel is held to on the card
 

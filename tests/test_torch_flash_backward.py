@@ -38,6 +38,7 @@ from object_detection_destr_tpu_torch.ops.cuda.flash_attention import (  # noqa:
     flash_attention_packed_backward_reference,
     flash_attention_packed_reference,
 )
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TOL = 1e-5
 BLOCK_Q, BLOCK_K = 8, 128

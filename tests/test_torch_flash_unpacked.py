@@ -33,6 +33,7 @@ from object_detection_destr_tpu.ops.pallas.flash_attention import (  # noqa: E40
 )
 from object_detection_destr_tpu_torch.ops import flash_attention, flash_attention_trainable  # noqa: E402
 from object_detection_destr_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TOL = 1e-5
 BLOCK_Q, BLOCK_K = 8, 128

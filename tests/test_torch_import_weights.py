@@ -44,6 +44,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 from tools.profile_step_torch import summarize  # noqa: E402
 from tools.ref_torch_models import TorchResNet, torch_vgg16_features  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 MODEL = ["--hidden_dim", "32", "--ffn_dim", "64", "--num_heads", "4", "--num_encoder_blocks", "2",
          "--num_decoder_blocks", "2", "--top_k", "4"]

@@ -22,6 +22,7 @@ import pytest
 
 from object_detection_destr_tpu.train import arg_parser as jax_args
 from object_detection_destr_tpu_torch.train import arg_parser as port_args
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")

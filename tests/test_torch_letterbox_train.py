@@ -23,6 +23,7 @@ from object_detection_destr_tpu.data.transforms import destr_train_transform as 
 from object_detection_destr_tpu_torch.data import DetectionLoader, build_dataset  # noqa: E402
 from object_detection_destr_tpu_torch.data.transforms import crop_flip, destr_train_transform  # noqa: E402
 from test_torch_data import _jax_draws  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEYS = ("images", "boxes", "labels", "valid")
 

@@ -27,6 +27,7 @@ from object_detection_destr_tpu_torch.losses.metrics import (  # noqa: E402
     CocoAveragePrecision,
     MeanAveragePrecision,
 )
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 
 def _batch(rng, b=4, n=24, t=6, num_cls=2):

@@ -33,6 +33,7 @@ from object_detection_destr_tpu_torch.models.destr.model import build_destr  # n
 from object_detection_destr_tpu_torch.ops.topk import masked_topk_with_recycle  # noqa: E402
 
 from test_torch_modules import _random_variables  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TINY = dict(hidden_dim=32, num_heads=4, ffn_dim=64, num_encoder_blocks=2,
             num_decoder_blocks=2, top_k=4, dropout=0.0)

@@ -41,6 +41,7 @@ from object_detection_destr_tpu_torch.models.destr import layers as tlayers  # n
 from object_detection_destr_tpu_torch.models.destr import mini_detector as tmini  # noqa: E402
 from object_detection_destr_tpu_torch.models.destr import pair_attention as tpair  # noqa: E402
 from object_detection_destr_tpu_torch.ops.topk import masked_topk_with_recycle as t_topk  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TOL = 1e-4
 

@@ -31,6 +31,7 @@ from object_detection_destr_tpu_torch.data import DetectionLoader, build_dataset
 from object_detection_destr_tpu_torch.runtime import native  # noqa: E402
 
 from test_torch_datasets import _write_coco, write_widerface  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 pytestmark = pytest.mark.skipif(not (native.is_available() and native.jpeg_available()),
                                 reason="g++ or libjpeg's headers missing: the native pool cannot be built")

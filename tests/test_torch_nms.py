@@ -22,6 +22,7 @@ from object_detection_destr_tpu.ops.nms import (  # noqa: E402
 )
 from object_detection_destr_tpu_torch.infer.predict import ssd_predict  # noqa: E402
 from object_detection_destr_tpu_torch.ops.nms import nms_greedy, nms_triangular  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 
 def _boxes(rng, b, s):

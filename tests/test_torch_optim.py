@@ -25,6 +25,7 @@ from object_detection_destr_tpu.config import TrainConfig as JaxTrainConfig  # n
 from object_detection_destr_tpu_torch.config import TrainConfig  # noqa: E402
 from object_detection_destr_tpu_torch.train.optim import AdamW, param_labels  # noqa: E402
 from object_detection_destr_tpu_torch.train.state import _lr_specs  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 # (path, shape): stem conv, a FrozenBN tensor, layer1 (frozen), layer2 conv
 # (backbone), a layer2 FrozenBN tensor (frozen), main weights

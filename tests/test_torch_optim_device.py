@@ -25,6 +25,7 @@ from object_detection_destr_tpu.train.state import _lr_specs as jax_lr_specs  # 
 from object_detection_destr_tpu_torch.config import TrainConfig  # noqa: E402
 from object_detection_destr_tpu_torch.train.optim import AdamW  # noqa: E402
 from object_detection_destr_tpu_torch.train.state import _lr_specs  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 # a main leaf, a backbone leaf and a frozen one (the global norm counts it)
 SHAPES = {("encoder", "w"): (4, 3), ("backbone", "layer3_0", "conv1", "weight"): (5,),

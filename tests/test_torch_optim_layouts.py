@@ -32,6 +32,7 @@ from object_detection_destr_tpu_torch.train.optim import AdamW  # noqa: E402
 from object_detection_destr_tpu_torch.train.state import _lr_specs  # noqa: E402
 
 from test_torch_optim import Tree, _get, _nest  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 # (path, shape): stem conv, FrozenBN and layer1 tensors (frozen), a layer2
 # conv (backbone), main leaves, two of one shape (one stacked group)

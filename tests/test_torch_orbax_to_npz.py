@@ -37,6 +37,7 @@ from object_detection_destr_tpu_torch.models.ssd import build_ssd  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 import orbax_to_npz  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TINY = dict(hidden_dim=32, num_heads=4, ffn_dim=64, num_encoder_blocks=2, num_decoder_blocks=2, top_k=4,
             dropout=0.0)

@@ -74,6 +74,7 @@ from object_detection_destr_tpu_torch.train.steps import (  # noqa: E402
 )
 
 from test_torch_train_step import _mu_tree  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TINY = dict(hidden_dim=32, num_heads=4, num_encoder_blocks=1, num_decoder_blocks=1, top_k=4, ffn_dim=64,
             dropout=0.0)

@@ -21,6 +21,7 @@ import subprocess
 import sys
 
 from object_detection_destr_tpu_torch.infer import evaluate
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN = ["--device", "cpu", "--epochs", "1", "--batch_size", "2", "--image_size", "64", "--synthetic_size", "67",

@@ -13,6 +13,7 @@ from object_detection_destr_tpu_torch.ops.cuda.flash_attention import (
     dropout_threshold,
     philox_keep_bits,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 M = 0xFFFFFFFF
 

@@ -23,6 +23,7 @@ from object_detection_destr_tpu_torch.train.profiler import (
     StepTrace,
     parse_trace,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _x(cat, name, ts, dur, pid=1, tid=1, **args):

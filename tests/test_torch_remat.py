@@ -40,6 +40,7 @@ from object_detection_destr_tpu_torch.train.steps import make_destr_train_step  
 
 from test_torch_modules import _random_variables  # noqa: E402
 from test_torch_train_step import _mu_tree  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TINY = dict(hidden_dim=32, num_heads=4, ffn_dim=64, num_encoder_blocks=2, num_decoder_blocks=2, top_k=4)
 TRAIN = dict(lr=1e-4, lr_backbone=1e-5, batch_size=2, set_cost_class=1.0, set_cost_bbox=2.5,

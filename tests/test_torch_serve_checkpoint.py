@@ -22,6 +22,7 @@ from object_detection_destr_tpu_torch.data.transforms import letterbox_infer_tra
 from object_detection_destr_tpu_torch.infer.predict import destr_predict
 from object_detection_destr_tpu_torch.infer.server import build_service, get_parser
 from object_detection_destr_tpu_torch.train import train as train_cli
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = 64
 MODEL = ["--hidden_dim", "32", "--ffn_dim", "64", "--num_heads", "4", "--num_encoder_blocks", "2",

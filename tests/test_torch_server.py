@@ -39,6 +39,7 @@ from object_detection_destr_tpu_torch.infer.server import (  # noqa: E402
 from object_detection_destr_tpu_torch.models.convert import save_variables_npz  # noqa: E402
 
 from test_torch_modules import _random_variables  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 SIZE = 64
 TINY = dict(hidden_dim=32, num_heads=4, ffn_dim=64, num_encoder_blocks=2,

@@ -96,6 +96,7 @@ from test_torch_train_step import _mu_tree  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 NUM_CLS = 80  # COCO's classes; the heads add the background channel
 SIZE = 300

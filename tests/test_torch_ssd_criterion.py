@@ -30,6 +30,7 @@ from object_detection_destr_tpu_torch.losses.criterion import _flatten_scales, s
 from object_detection_destr_tpu_torch.losses.matcher import decode_ssd_boxes, ssd_match  # noqa: E402
 
 from test_criterion import _tiny_ssd_problem  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TOL = 1e-5
 

@@ -24,6 +24,7 @@ import torch
 
 from object_detection_destr_tpu_torch.infer import evaluate
 from object_detection_destr_tpu_torch.train import train_ssd
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLAGS = ["--device", "cpu", "--batch_size", "1", "--num_train_samples", "1", "--num_valid_samples", "1",
          "--augment_factor", "1", "--synthetic_size", "96", "--compute_dtype", "float32", "--log_interval", "1",

@@ -37,6 +37,7 @@ from object_detection_destr_tpu_torch.train.optim import param_labels  # noqa: E
 from object_detection_destr_tpu_torch.train.steps import flat_anchors  # noqa: E402
 
 from test_torch_modules import _close, _random_variables  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 SIZE = 300
 

@@ -48,6 +48,7 @@ from object_detection_destr_tpu_torch.train.steps import make_ssd_train_step  # 
 
 from test_torch_modules import _random_variables  # noqa: E402
 from test_torch_train_step import _mu_tree  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TRAIN = dict(lr=1e-4, lr_backbone=1e-4, batch_size=2, lr_warmup_steps=500, skip_nonfinite_updates=100)
 SSD = dict(hard_neg_mining="paper")

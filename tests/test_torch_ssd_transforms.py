@@ -27,6 +27,7 @@ from object_detection_destr_tpu_torch.data.transforms import (  # noqa: E402
     ssd_patch_flip,
     ssd_train_transform,
 )
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEYS = ("images", "boxes", "labels", "valid")
 

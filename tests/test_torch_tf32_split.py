@@ -21,6 +21,7 @@ import torch
 
 from object_detection_destr_tpu_torch.ops.attention import NEG_INF
 from object_detection_destr_tpu_torch.ops.cuda.flash_attention import flash_attention_reference
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL_FLOAT32 = 5e-5  # chip_smoke.py's TOL["float32"], which the kernel is held to on the card
 

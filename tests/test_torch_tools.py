@@ -60,6 +60,7 @@ from object_detection_destr_tpu_torch.train.state import create_destr_state  # n
 from object_detection_destr_tpu_torch.train.steps import make_destr_train_step  # noqa: E402
 
 from test_torch_modules import _random_variables  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -26,6 +26,7 @@ from object_detection_destr_tpu_torch.train import train as train_cli
 from object_detection_destr_tpu_torch.train.checkpoint import _load
 
 from test_torch_datasets import write_widerface
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = ((48, 64), (64, 40), (56, 56), (40, 60), (60, 52), (44, 44))
 RUN = ["--device", "cpu", "--dataset", "widerface", "--letterbox", "--grad_accum_steps", "2",

@@ -55,6 +55,7 @@ from object_detection_destr_tpu_torch.train.state import create_destr_state  # n
 from object_detection_destr_tpu_torch.train.steps import make_destr_train_step  # noqa: E402
 
 from test_torch_modules import _random_variables  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401
 
 TINY = dict(hidden_dim=32, num_heads=4, ffn_dim=64, num_encoder_blocks=2,
             num_decoder_blocks=2, top_k=4, dropout=0.0)

@@ -26,10 +26,11 @@ The bootstrap's spread is the metric noise of the split's size; what the
 epoch-to-epoch curve shows beyond it is the model moving.
 
 The sweep is the trainer's (``train/driver.py::_make_loaders``,
-``_val_sweep``, ``_eval_batch`` and ``train/steps.py::make_destr_eval_step``):
-on the GPU it launches flash-attention kernel #1 18 times and the matcher
-#9 once a batch at 6+6 blocks. It runs on the GPU unless ``--device cpu``
-is given, on one device. Usage (the trainer's flags, plus the two knobs)::
+``_val_sweep``, ``_eval_batch`` and ``train/steps.py::make_destr_eval_step``
+captured by ``CapturedEvalStep``): on the GPU a replayed batch runs
+flash-attention kernel #1 18 times and the matcher #9 once at 6+6 blocks,
+and the metrics update on the device (the greedy-match kernel). It runs on
+the GPU unless ``--device cpu`` is given, on one device. Usage (the trainer's flags, plus the two knobs)::
 
     python tools/val_noise_torch.py --resume_from prod --checkpoint_dir ckpt \\
         --dataset synthetic --synthetic_size 672 --num_valid_samples 256 \\
@@ -62,7 +63,7 @@ from object_detection_destr_tpu_torch.train.arg_parser import config_from_args, 
 from object_detection_destr_tpu_torch.train.checkpoint import restore_for_inference  # noqa: E402
 from object_detection_destr_tpu_torch.train.driver import _make_loaders, _val_sweep  # noqa: E402
 from object_detection_destr_tpu_torch.train.state import TrainState  # noqa: E402
-from object_detection_destr_tpu_torch.train.steps import make_destr_eval_step  # noqa: E402
+from object_detection_destr_tpu_torch.train.steps import CapturedEvalStep, make_destr_eval_step  # noqa: E402
 
 ROW_KEYS = ("tp", "fp", "n_gt", "coco_scores", "coco_tp", "coco_ngt")
 
@@ -72,23 +73,23 @@ def image_rows(rows: dict, metric: MeanAveragePrecision, coco: CocoAveragePrecis
     """Append one batch's per-image records to ``rows``: the reference
     metric's tp / fp rank rows and ground-truth count of each image (the
     metric's own ``update`` on a batch of one), and its COCO records
-    (scores (C, K), hits (C, K, n_iou), ground truths (C,))."""
+    (scores (C, K), hits (C, K, n_iou), ground truths (C,)), as numpy."""
     for i in range(outputs["pred_class"].shape[0]):
-        one = metric.update(metric.init_state(),
+        one = metric.update(metric.init_state(outputs["pred_class"].device),
                             {k: outputs[k][i:i + 1] for k in ("pred_class", "pred_boxes")},
                             {k: v[i:i + 1] for k, v in targets.items()})
-        rows["tp"].append(one["tp"][0])
-        rows["fp"].append(one["fp"][0])
+        rows["tp"].append(one["tp"][0].cpu().numpy())
+        rows["fp"].append(one["fp"][0].cpu().numpy())
         rows["n_gt"].append(int(one["num_gts"][0]))
-    scores, tp, n_gt = _coco_batch_records(outputs, targets, num_cls=coco.num_cls, max_dets=coco.max_dets,
-                                           iou_thresholds=coco.IOU_THRESHOLDS)
-    rows["coco_scores"].append(scores)
-    rows["coco_tp"].append(tp)
-    rows["coco_ngt"].append(n_gt)
+    records = _coco_batch_records(outputs, targets, num_cls=coco.num_cls, max_dets=coco.max_dets,
+                                  iou_thresholds=coco.IOU_THRESHOLDS)
+    for key, x in zip(("coco_scores", "coco_tp", "coco_ngt"), records):
+        rows[key].append(x.cpu().numpy())
 
 
-def sweep(config, state: TrainState, device: torch.device, loader_seed: int, collect: bool):
-    """One whole validation sweep with the valid loader's order reseeded:
+def sweep(config, state: TrainState, device: torch.device, loader_seed: int, collect: bool, eval_step):
+    """One whole validation sweep with the valid loader's order reseeded,
+    through ``eval_step`` (the trainer's, captured once for every sweep):
     (the final metric state, the COCO metric, the per-image rows or None,
     the metric)."""
     cfg_t = config.train
@@ -98,15 +99,14 @@ def sweep(config, state: TrainState, device: torch.device, loader_seed: int, col
     metric = MeanAveragePrecision(num_cls=1, num_pred=config.destr.top_k)
     coco = CocoAveragePrecision(num_cls=max(config.destr.num_cls - 1, 1))
     rows = {k: [] for k in ROW_KEYS} if collect else None
-    final = {"state": metric.init_state()}
+    final = {"state": metric.init_state(device)}
 
     def on_batch(outputs, targets, metric_state):
         final["state"] = metric_state
         if rows is not None:
             image_rows(rows, metric, coco, outputs, targets)
 
-    _val_sweep(state, valid_loader, make_destr_eval_step(cfg_t), metric, coco, device, canvas, cfg_t.image_size,
-               on_batch=on_batch)
+    _val_sweep(state, valid_loader, eval_step, metric, coco, device, canvas, cfg_t.image_size, on_batch=on_batch)
     return final["state"], coco, rows, metric
 
 
@@ -163,14 +163,17 @@ def main(argv=None) -> dict:
     model.load_state_dict(restore_for_inference(config.train.checkpoint_dir, args.resume_from))
     state = TrainState(model=model, optimizer=None, rng=None)  # the eval step reads the model only
 
-    # order invariance: the whole sweep under several valid-loader seeds
+    # order invariance: the whole sweep under several valid-loader seeds, the
+    # eval step captured once on the GPU (as the trainer runs it)
+    eval_step = CapturedEvalStep(make_destr_eval_step(config.train))
     states, rows, metric, coco0 = [], None, None, None
     for k in range(max(args.orders, 1)):
-        st, coco, pi, metric = sweep(config, state, device, loader_seed=1000 + 17 * k, collect=k == 0)
+        st, coco, pi, metric = sweep(config, state, device, loader_seed=1000 + 17 * k, collect=k == 0,
+                                     eval_step=eval_step)
         states.append(st)
         if k == 0:
             rows, coco0 = pi, coco
-    order_same = all(np.array_equal(s[key], states[0][key]) for s in states[1:] for key in ("tp", "fp", "num_gts"))
+    order_same = all(torch.equal(s[key], states[0][key]) for s in states[1:] for key in ("tp", "fp", "num_gts"))
     point_map = metric.compute(states[0])
     point_coco = coco0.compute()
 
