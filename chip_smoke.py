@@ -379,6 +379,14 @@ Phases (any failure exits non-zero and prints no result):
      an EMA swapped in and after a checkpoint restore (one graph, which
      reads the live weights), and a traced replayed DESTR batch with both
      metric updates: 18 #1, 1 #9 and 2 greedy-match launches.
+ 23. the span stamp (csrc/span_stamp.cu, phase_span_stamp) against its
+     plain version on the host at a span recorder's shape (32 rows of 64
+     columns, 28 stamps a row out of the columns' order), eagerly and from
+     one captured graph replayed a row a replay, with slots outside the
+     rows: the same cells written and no others, stamps rising along the
+     stream, a stamp pair around a spin kernel within 0.02 ms + 0.5 % of
+     CUDA events inside it, launches counted from 0 (the earlier phases,
+     which run every DESTR path without a recorder, launched none).
 
 The line before the last lists the kernels as JSON (#1-#4 also with
 their device times at dropout 0 and 0.3, #2's split errors, #3's and #4's
@@ -386,7 +394,7 @@ errors at the cross sites and each kernel's float32 entry; #1's serving
 entry with its float32 B=1 sites; #8's and #9's rounds and bids beside the
 plain version's; #1's, #2's and #9's config_4 entries, phase 19's, and config_2 entries,
 phase 20's; the greedy-match kernel's entry, phase 22's cells and phase 6b's
-launches); the last line is {"ok": true, "device": {...}}.
+launches; the span stamp's entry, phase 23's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -6194,6 +6202,130 @@ def phase_val_device(torch, kernels, seed, card):
     return out
 
 
+# phase 23, the span stamp (csrc/span_stamp.cu): the rows of a recorder's
+# buffer (runtime/spans.py::SpanRecorder, 64 columns) stamped a row a replay,
+# a step's 28 boundaries in an order that is not the columns' own, the slots
+# outside the rows, and the spin kernels (cycles) a stamp pair is held to
+# CUDA events around
+SPAN_ROWS = 32
+SPAN_BOUNDARIES = 28
+SPAN_OUTSIDE = (-1, SPAN_ROWS, SPAN_ROWS + 7)
+SPAN_SPINS = (200_000, 1_000_000, 10_000_000)
+SPAN_HEAD = 4_000_000  # cycles of spin ahead of each pair (about 2 ms), so no host launch gap falls inside it
+SPAN_SOURCE = f"{PKG}/csrc/span_stamp.cu"
+
+
+def span_rows_rise(label, stamps, plan):
+    """Each row's stamps rise in the plan's (stream) order, and each row
+    begins after the row before ends."""
+    rows = stamps[:, plan]
+    if not bool((rows.diff(dim=1) >= 0).all()) or not bool((rows[1:, 0] >= rows[:-1, -1]).all()):
+        raise AssertionError(f"span stamp {label}: stamps do not rise along the stream")
+
+
+def phase_span_stamp(torch) -> dict:
+    """The span stamp on the card against its plain version on the host,
+    with the same slots and columns at the recorder's shape: eagerly a row
+    at a time, then one replay's stamps captured and replayed a row a
+    replay; both also with the slots outside the rows, which write
+    nothing. The same cells are written, and no others; the stamps rise
+    along the stream. A stamp pair around a spin kernel agrees with CUDA
+    events recorded just inside it. Launches counted from 0 at the phase's
+    start (every earlier phase ran without a recorder: none)."""
+    from object_detection_destr_tpu_torch.ops.cuda.span_stamp import span_stamp_kernel, span_stamp_reference
+    from object_detection_destr_tpu_torch.runtime.spans import SpanRecorder
+
+    columns = SpanRecorder.COLUMNS
+    plan = [(7 * k + 3) % columns for k in range(SPAN_BOUNDARIES)]
+    path_launches = span_stamp_kernel.launches
+    if path_launches:
+        raise AssertionError(f"span stamp: {path_launches} launches on the paths of the earlier phases, none "
+                             f"expected without a recorder")
+    span_stamp_kernel.launches = 0  # the phase's launches start here
+    host = torch.zeros((SPAN_ROWS, columns), dtype=torch.int64)
+    host_slot = torch.zeros((1,), dtype=torch.int64)
+    for row in [*range(SPAN_ROWS), *SPAN_OUTSIDE]:
+        host_slot.fill_(row)
+        for column in plan:
+            span_stamp_reference(host, host_slot, column)
+    written = host != 0
+    if int(written.sum()) != SPAN_ROWS * SPAN_BOUNDARIES:
+        raise AssertionError("span stamp: the plain version wrote other cells than the plan's")
+
+    eager = torch.zeros((SPAN_ROWS, columns), dtype=torch.int64, device="cuda")
+    slot = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    for row in [*range(SPAN_ROWS), *SPAN_OUTSIDE]:
+        slot.fill_(row)
+        for column in plan:
+            span_stamp_kernel(eager, slot, column)
+    torch.cuda.synchronize()
+    eager_launches = span_stamp_kernel.launches
+    captured = torch.zeros_like(eager)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for column in plan:
+            span_stamp_kernel(captured, slot, column)
+    capture_launches = span_stamp_kernel.launches - eager_launches
+    for row in [*range(SPAN_ROWS), *SPAN_OUTSIDE]:
+        slot.fill_(row)
+        graph.replay()
+    torch.cuda.synchronize()
+    replay_launches = span_stamp_kernel.launches - eager_launches - capture_launches
+    for label, stamps in (("eager", eager.cpu()), ("captured", captured.cpu())):
+        if not torch.equal(stamps != 0, written):
+            raise AssertionError(f"span stamp {label}: {int(((stamps != 0) != written).sum())} cells differ from "
+                                 f"the plain version's written cells")
+        span_rows_rise(label, stamps, plan)
+    span_rows_rise("plain", host, plan)
+    expected = (SPAN_ROWS + len(SPAN_OUTSIDE)) * SPAN_BOUNDARIES
+    if (eager_launches, capture_launches, replay_launches) != (expected, SPAN_BOUNDARIES, 0):
+        raise AssertionError(f"span stamp launches: eager {eager_launches}, capture {capture_launches}, replays "
+                             f"{replay_launches}; expected {expected}, {SPAN_BOUNDARIES}, 0")
+    del graph
+
+    # a stamp pair around a spin kernel against CUDA events just inside it
+    pair = torch.zeros((1, columns), dtype=torch.int64, device="cuda")
+    pair_slot = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    spins = []
+    for cycles in SPAN_SPINS:
+        diffs = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPAN_HEAD)  # the host enqueues the rest while the device spins
+            span_stamp_kernel(pair, pair_slot, 0)
+            start.record()
+            torch.cuda._sleep(cycles)
+            end.record()
+            span_stamp_kernel(pair, pair_slot, 1)
+            torch.cuda.synchronize()
+            stamp_ms = (int(pair[0, 1]) - int(pair[0, 0])) / 1e6
+            diffs.append((stamp_ms, start.elapsed_time(end)))
+        stamp_ms, event_ms = max(diffs, key=lambda d: abs(d[0] - d[1]))
+        spins.append({"cycles": cycles, "event_ms": event_ms, "stamp_ms": stamp_ms, "gap_ms": stamp_ms - event_ms})
+        if not -0.002 <= stamp_ms - event_ms <= 0.02 + 0.005 * event_ms:  # the timer ticks by up to 1 us
+            raise AssertionError(f"span stamp: a stamp pair around a {cycles}-cycle spin reads {stamp_ms:.4f} ms, "
+                                 f"CUDA events inside it {event_ms:.4f}")
+
+    ms = device_ms(torch, lambda: span_stamp_kernel(pair, pair_slot, 2))
+    t0 = time.perf_counter()
+    for _ in range(200):
+        span_stamp_reference(host, host_slot, 0)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 200
+    bound_ms = 16 / HBM_RATE * 1e3  # the slot read and the stamp written
+    out = {"path_launches": path_launches, "launches": eager_launches + capture_launches + replay_launches,
+           "eager_launches": eager_launches, "capture_launches": capture_launches,
+           "replay_launches": replay_launches, "spins": spins, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms}
+    log(f"span stamp: {SPAN_ROWS} rows x {columns} columns, {SPAN_BOUNDARIES} stamps a row in stream order and "
+        f"slots {list(SPAN_OUTSIDE)} outside the rows, eager and captured (a row a replay): the plain version's "
+        f"cells and no others, rising along the stream; launches from 0: {eager_launches} eager, "
+        f"{capture_launches} captured, {replay_launches} from {SPAN_ROWS + len(SPAN_OUTSIDE)} replays (the "
+        f"earlier phases' paths {path_launches}); a stamp pair around a spin against CUDA events inside it: "
+        + "; ".join(f"{s['cycles']} cycles {s['stamp_ms']:.4f} ms against {s['event_ms']:.4f}" for s in spins)
+        + f"; ms={ms:.5f} (device, CUDA graph) plain_ms={plain_ms:.5f} (host) bound_ms={bound_ms:.2e} (bytes)")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6340,6 +6472,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         v = phase_val_device(torch, kernels, args.seed, card)
         clock("validation captured (22)")
+        stamp = phase_span_stamp(torch)
+        clock("span stamp (23)")
     except Exception:  # noqa: BLE001 — report the failing phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6882,6 +7016,19 @@ def main(argv=None) -> int:
         "config_1": {"launches": c1["evaluate"]["greedy_launches"],
                      "per": f"infer.evaluate --model ssd at {C1_LABEL}: {C1_VALID_IMAGES // C1_B} batches"},
         "traced_replayed_batch": v["destr"]["traced"]["greedy"],
+    })
+    entries.append({
+        "name": "span_stamp", "route": "cuda", "source": SPAN_SOURCE,
+        "replaces": "none: the JAX package has no spans inside its compiled step",
+        "launches": stamp["launches"], "max_abs_err": None, "ms": stamp["ms"], "plain_ms": stamp["plain_ms"],
+        "bound_ms": stamp["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "path_launches": stamp["path_launches"], "spins": stamp["spins"],
+        "per": f"phase 23: launches from 0 at the phase's start ({stamp['eager_launches']} eager, "
+               f"{stamp['capture_launches']} captured, {stamp['replay_launches']} from the replays), "
+               f"path_launches: the earlier phases' (every DESTR path without a recorder); ms: one stamp, device "
+               f"ms from CUDA-graph replay; plain_ms: the host's stamp; bound_ms: 16 bytes over HBM's rate, "
+               f"the kernel is bound by latency; max_abs_err null: the two clocks differ, the written cells are "
+               f"compared; spins: a stamp pair around a spin kernel against CUDA events inside it",
     })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

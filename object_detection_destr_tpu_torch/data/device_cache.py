@@ -33,6 +33,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..runtime.spans import host_range
+
 __all__ = ["DeviceCachedLoader"]
 
 _BUILD_CHUNK = 64  # items decoded and uploaded at a time
@@ -117,16 +119,18 @@ class DeviceCachedLoader:
         it leaves the loader at the epoch's start with the state."""
         if not self.drop_last and self.num_samples % self.batch_size:
             raise ValueError("epoch_scan needs whole batches: enable drop_last or size the set by batch_size")
-        order = self._epoch_order() % len(self.base.dataset)
-        n_batches, start = len(self), self._start_step
-        idx = order[start * self.batch_size: n_batches * self.batch_size]
-        return start, idx.reshape(n_batches - start, self.batch_size).astype(np.int64)
+        with host_range("epoch_index"):
+            order = self._epoch_order() % len(self.base.dataset)
+            n_batches, start = len(self), self._start_step
+            idx = order[start * self.batch_size: n_batches * self.batch_size]
+            return start, idx.reshape(n_batches - start, self.batch_size).astype(np.int64)
 
     def advance_epoch(self) -> None:
         """Book one completed scanned epoch."""
-        self._start_step = 0
-        self._step = 0
-        self.epoch += 1
+        with host_range("epoch_index"):
+            self._start_step = 0
+            self._step = 0
+            self.epoch += 1
 
     def gather(self, idx: torch.Tensor) -> dict[str, torch.Tensor]:
         """The batch of set indices ``idx`` (an int64 tensor on the device)."""

@@ -32,6 +32,7 @@ from torch import nn
 
 from ...config import DestrConfig, resolve_device
 from ...geometry.embeddings import inverse_sigmoid, sine_embed_centers, sine_position_map
+from ...runtime.spans import span, split_at_grad
 from ..resnet import downsample_mask, resnet50, resnet101
 from .decoder import Decoder
 from .encoder import Encoder
@@ -100,40 +101,49 @@ class DESTR(nn.Module):
         if valid_mask is None:
             valid_mask = torch.ones((b, h_img, w_img), dtype=torch.bool, device=images.device)
 
-        c5 = self.backbone(images.float())["layer4"]  # (B, H/32, W/32, 2048)
-        _, h, w, _ = c5.shape
-        c5_valid = downsample_mask(valid_mask, (h, w))
-        x_map = self.reduce_dim(c5.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # (B, h, w, C)
+        # spans of the layers (runtime/spans.py); with a recorder active the
+        # gradient hooks mark where the backward reaches the encoder's output
+        # and the backbone's
+        with span("backbone"):
+            c5 = self.backbone(images.float())["layer4"]  # (B, H/32, W/32, 2048)
+            split_at_grad(c5, "backward.backbone")
+            _, h, w, _ = c5.shape
+            c5_valid = downsample_mask(valid_mask, (h, w))
+            x_map = self.reduce_dim(c5.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # (B, h, w, C)
 
-        if cfg.pos_embed == "learned":
-            pos_map = self.pos_embedding(h, w)[None].expand(b, h, w, c)
-        else:
-            pos_map = sine_position_map(c5_valid, num_pos_feats=c // 2)
-        pos_map = pos_map.to(x_map.dtype)
+            if cfg.pos_embed == "learned":
+                pos_map = self.pos_embedding(h, w)[None].expand(b, h, w, c)
+            else:
+                pos_map = sine_position_map(c5_valid, num_pos_feats=c // 2)
+            pos_map = pos_map.to(x_map.dtype)
 
-        # row-major (h, w) token order, as x_map.reshape at model.py:136
-        tokens = x_map.reshape(b, h * w, c)
-        pos_tokens = pos_map.reshape(b, h * w, c)
-        flat_valid = c5_valid.reshape(b, h * w)
+            # row-major (h, w) token order, as x_map.reshape at model.py:136
+            tokens = x_map.reshape(b, h * w, c)
+            pos_tokens = pos_map.reshape(b, h * w, c)
+            flat_valid = c5_valid.reshape(b, h * w)
 
-        enc_tokens = self.encoder(tokens, pos_tokens, flat_valid, rng)
-        # fine positional embedding: pos * encoder.pos_scale(encoder output)
-        fine_pos = pos_tokens * self.encoder.pos_scale(enc_tokens)
+        with span("encoder"):
+            enc_tokens = self.encoder(tokens, pos_tokens, flat_valid, rng)
+            split_at_grad(enc_tokens, "backward.encoder")
+            # fine positional embedding: pos * encoder.pos_scale(encoder output)
+            fine_pos = pos_tokens * self.encoder.pos_scale(enc_tokens)
 
-        selected_objects, selected_centers, det_output = self.mini_detector(
-            enc_tokens.reshape(b, h, w, c), fine_pos.reshape(b, h, w, c), c5_valid,
-            self.cls_embed, self.bbox_embed, self.pos_head, train,
-        )
-        obj_pos_embed = sine_embed_centers(selected_centers, d_model=c).to(x_map.dtype)
+        with span("mini_detector"):
+            selected_objects, selected_centers, det_output = self.mini_detector(
+                enc_tokens.reshape(b, h, w, c), fine_pos.reshape(b, h, w, c), c5_valid,
+                self.cls_embed, self.bbox_embed, self.pos_head, train,
+            )
+            obj_pos_embed = sine_embed_centers(selected_centers, d_model=c).to(x_map.dtype)
 
-        x = self.decoder(
-            selected_objects, enc_tokens, flat_valid, fine_pos, obj_pos_embed,
-            selected_centers, self.bbox_embed, rng,
-        )
-        cls_output = f32_head(self.cls_embed, x[..., :c])
-        tmp = f32_head(self.bbox_embed, x[..., c:])
-        tmp = torch.cat([tmp[..., :2] + inverse_sigmoid(selected_centers), tmp[..., 2:]], dim=-1)
-        model_output = {"pred_class": cls_output, "pred_boxes": torch.sigmoid(tmp)}
+        with span("decoder"):
+            x = self.decoder(
+                selected_objects, enc_tokens, flat_valid, fine_pos, obj_pos_embed,
+                selected_centers, self.bbox_embed, rng,
+            )
+            cls_output = f32_head(self.cls_embed, x[..., :c])
+            tmp = f32_head(self.bbox_embed, x[..., c:])
+            tmp = torch.cat([tmp[..., :2] + inverse_sigmoid(selected_centers), tmp[..., 2:]], dim=-1)
+            model_output = {"pred_class": cls_output, "pred_boxes": torch.sigmoid(tmp)}
         return model_output, det_output
 
 

@@ -87,7 +87,7 @@ from ..parallel.mesh import Mesh, auto_mesh, make_mesh
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .epoch_scan import EpochRunner
 from .logging_utils import MetricLogger
-from .profiler import StepTimer, StepTrace, parse_trace
+from .profiler import OTHER, StepTimer, StepTrace, parse_trace
 from .state import TrainState, create_destr_state, create_ssd_state
 from .steps import (
     CapturedEvalStep,
@@ -236,12 +236,19 @@ _PROFILE_STEPS = (2, 4)  # the first and last step of epoch 0 traced under profi
 
 def _profile_summary(path: str) -> dict:
     """The parsed trace, printed: device busy seconds and idle share of the
-    window and of each traced step."""
+    window and of each traced step, and each span's device ms a step with
+    its elementwise / reduction share."""
     parsed = parse_trace(path)
     steps = ", ".join(f"{s['label']}: busy {s['busy_s'] * 1e3:.2f} ms of {s['period_s'] * 1e3:.2f}"
                       for s in parsed["steps"])
     print(f"profile: {path}: device busy {parsed['busy_s'] * 1e3:.2f} ms of a {parsed['window_s'] * 1e3:.2f} ms "
           f"window, idle share {parsed['idle_share']:.4f}; steps {steps}", flush=True)
+    n = max(len(parsed["steps"]), 1)
+    families = parsed["span_families"]
+    spans = ", ".join(f"{name} {seconds * 1e3 / n:.2f} ms ({families[name].get(OTHER, 0.0) / seconds:.0%} "
+                      "elementwise / reduction)" for name, seconds in parsed["spans"].items() if seconds > 0)
+    if spans:
+        print(f"profile: device time a step by span: {spans}", flush=True)
     return {"path": path, **parsed}
 
 

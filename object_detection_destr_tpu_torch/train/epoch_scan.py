@@ -16,6 +16,16 @@ draws at that step), and replays. Each step writes its metrics into slot i
 of preallocated (steps,) device buffers, which the host reads once an epoch,
 as ``jax.device_get(stacked)`` does.
 
+The body is marked with spans (``runtime/spans.py``): ``step`` around it,
+holding ``augment`` (the gather and the transform), the step core's own
+(forward, match, criterion, backward, update), ``ema`` and ``metrics``. With
+a :class:`~..runtime.spans.SpanRecorder` active when the step is captured, the
+graph holds their stamps and each replay writes its step's row (the
+recorder's slot is the runner's metrics slot); without one the graph is
+the plain step. The host work of ``run`` sits in ``odtt.`` ranges while a
+profiler records: ``run`` around the call, holding ``index_upload``,
+``enqueue`` for each step and ``metrics_read``.
+
 The first step the runner takes is the warm-up PyTorch asks for before a
 capture: the body runs eagerly on a side stream (a real step, counted as
 one), then one step is captured (nothing runs) and replayed from the second
@@ -46,6 +56,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import fold_seed
+from ..runtime.spans import active_recorder, host_range, span
 from .state import TrainState
 
 __all__ = ["EpochRunner"]
@@ -88,16 +99,21 @@ class EpochRunner:
 
     def _body(self) -> None:
         """One step on the static index row, its metrics into the static slot."""
-        raw = {k: v.index_select(0, self._idx) for k, v in self.data.items()}
-        metrics = self.core(self.state, self.transform(raw, self.aug_generator))
-        if self.ema is not None:
-            ema_params, update = self.ema
-            update(ema_params, self.state.model)
-        if self._metrics is None:  # the first step, eager: the buffers the graph will write
-            self._metrics = {k: torch.zeros((self.steps_per_epoch,), dtype=torch.float32, device=self.device)
-                             for k in metrics}
-        for k, v in metrics.items():
-            self._metrics[k].index_copy_(0, self._slot, v.detach().float().reshape(1))
+        with span("step"):
+            with span("augment"):
+                raw = {k: v.index_select(0, self._idx) for k, v in self.data.items()}
+                batch = self.transform(raw, self.aug_generator)
+            metrics = self.core(self.state, batch)
+            if self.ema is not None:
+                with span("ema"):
+                    ema_params, update = self.ema
+                    update(ema_params, self.state.model)
+            with span("metrics"):
+                if self._metrics is None:  # the first step, eager: the buffers the graph will write
+                    self._metrics = {k: torch.zeros((self.steps_per_epoch,), dtype=torch.float32,
+                                                    device=self.device) for k in metrics}
+                for k, v in metrics.items():
+                    self._metrics[k].index_copy_(0, self._slot, v.detach().float().reshape(1))
 
     def _warm_up_and_capture(self) -> None:
         """Run the body once on a side stream, then capture it."""
@@ -140,24 +156,34 @@ class EpochRunner:
             self._idx = torch.zeros((idx.shape[1],), dtype=torch.int64, device=self.device)
         if self._idx.shape[0] != idx.shape[1]:
             raise ValueError(f"batches of {idx.shape[1]}, the runner's are {self._idx.shape[0]}")
-        order = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(self.device)
-        for i in range(n):
-            step = base_step + i
-            with step_scope(step):
-                self._idx.copy_(order[i])
-                self._slot.fill_(i)
-                self.state.rng.begin_step(step, rank)
-                self.aug_generator.manual_seed(fold_seed(self.aug_seed(step), rank))
-                if self.device.type != "cuda":
-                    self._body()
-                elif self.graph is None:
-                    self._warm_up_and_capture()
-                else:
-                    self.graph.replay()
-            self.state.step = step + 1
-            if after_step is not None:
-                after_step()
-        if self._metrics is None:
-            return {}
-        return {k: v[:n].cpu().numpy() for k, v in self._metrics.items()}
+        # "run" names the call's host time between the finer ranges (under a
+        # profiler, mostly the ranges' own entry and exit)
+        with host_range("run"):
+            with host_range("index_upload"):
+                order = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(self.device)
+            recorder = active_recorder()
+            if recorder is not None:
+                recorder.slot = self._slot
+            for i in range(n):
+                step = base_step + i
+                if recorder is not None:
+                    recorder.steps[i] = step
+                with host_range("enqueue"), step_scope(step):
+                    self._idx.copy_(order[i])
+                    self._slot.fill_(i)
+                    self.state.rng.begin_step(step, rank)
+                    self.aug_generator.manual_seed(fold_seed(self.aug_seed(step), rank))
+                    if self.device.type != "cuda":
+                        self._body()
+                    elif self.graph is None:
+                        self._warm_up_and_capture()
+                    else:
+                        self.graph.replay()
+                self.state.step = step + 1
+                if after_step is not None:
+                    after_step()
+            if self._metrics is None:
+                return {}
+            with host_range("metrics_read"):
+                return {k: v[:n].cpu().numpy() for k, v in self._metrics.items()}
 

@@ -22,6 +22,12 @@ step's period from its first device event to the next step's first (to its
 own last for the last step), so the periods add up to the window and
 ``1 - busy / period`` is the share of the step the device sat idle, waiting
 for the host.
+
+Spans and host ranges (``runtime/spans.py``) open ``record_function``
+ranges named ``odtt.<name>`` while a profiler records: :func:`parse_trace`
+puts each device event of the marked steps under the innermost such range
+that holds its launch (``spans``), by the same correlation rule that puts
+it under its step.
 """
 
 from __future__ import annotations
@@ -30,14 +36,47 @@ import contextlib
 import glob
 import json
 import os
+import re
 import time
 
 import torch
 
-__all__ = ["StepTimer", "StepTrace", "parse_trace"]
+from ..runtime.spans import SPAN_PREFIX
+
+__all__ = ["StepTimer", "StepTrace", "category", "parse_trace"]
 
 STEP_PREFIX = "odtt_step "  # the name of a step's record_function range: prefix + label
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+# the port's CUDA kernels as the trace names them; #5, #6 and #7 launch the
+# kernels of #1, #3 and #4 with head-major strides
+PORT_KERNELS = (
+    ("flash_attention_fwd #1/#5", r"flash_fwd_(tc|f32)_kernel"),
+    ("flash_attention_bwd #2", r"flash_bwd_(tc|f32)_kernel"),
+    ("flash_attention_dq #3/#6", r"flash_two_pass_(tc|f32)(_wide)?_kernel(<false|ILb0E)"),
+    ("flash_attention_dkv #4/#7", r"flash_two_pass_(tc|f32)(_wide)?_kernel(<true|ILb1E)"),
+    ("fused_auction #9", r"fused_auction_kernel"),
+    ("auction_kernel #8", r"(?<!fused_)auction_kernel"),
+)
+# the library kernels by family, tried in this order after the port's
+# (cuDNN's implicit-GEMM convolutions and its layout transposes before GEMM)
+LIBRARY_KERNELS = (
+    ("convolution", r"conv|fprop|dgrad|wgrad|implicit_gemm|nchwToNhwc|nhwcToNchw|cudnn"),
+    ("GEMM", r"gemm|gemv|nvjet|cutlass|cublas|splitK"),
+)
+COPIES = "copies and memsets"
+OTHER = "elementwise / reduction"
+
+
+def category(name: str, trace_category: str) -> str:
+    """The family of one device event: a port kernel by name, convolution,
+    GEMM, copies and memsets, or elementwise / reduction (everything else)."""
+    if trace_category in ("gpu_memcpy", "gpu_memset"):
+        return COPIES
+    for label, pattern in PORT_KERNELS + LIBRARY_KERNELS:
+        if re.search(pattern, name):
+            return label
+    return OTHER
 
 
 class StepTimer:
@@ -154,13 +193,19 @@ def parse_trace(path: str) -> dict:
          "device_time": {name: {"category", "count", "seconds"}},
          "unattributed": device events of no marked step,
          "launch_lead_s": the least time from a runtime call to the start of
-                          a device event it launched (None without one)}
+                          a device event it launched (None without one),
+         "spans": {span name: device seconds},
+         "span_families": {span name: {family: device seconds}}}
 
     ``launches`` counts the kernels of the marked steps; ``device_time``
     holds every device event of the marked steps (kernels, copies and
     memsets; ``category`` is the trace's) by name, with the sum of their
     durations. Events that overlap are each counted whole there, so its sum
-    is at least the busy time."""
+    is at least the busy time. ``spans`` holds the same events by the
+    innermost ``odtt.`` range (``runtime/spans.py``; the name
+    without the prefix) that holds their launch, and ``span_families`` the
+    same by :func:`category` too; an event launched in no such range is in
+    neither."""
     with open(_newest_trace(path)) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
@@ -168,6 +213,10 @@ def parse_trace(path: str) -> dict:
     spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
              and str(e.get("name", "")).startswith(STEP_PREFIX)]
     spans.sort(key=lambda e: float(e["ts"]))
+    # the program's ranges, shortest first: the first that holds a launch is the innermost
+    ranges = sorted(((float(e.get("dur", 0.0)), float(e["ts"]), e["name"][len(SPAN_PREFIX):]) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                     and str(e.get("name", "")).startswith(SPAN_PREFIX)))
     launches_at = {}  # correlation id -> host timestamp of its runtime call
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
@@ -177,6 +226,8 @@ def parse_trace(path: str) -> dict:
     bounds = [(float(s["ts"]), float(s["ts"]) + float(s.get("dur", 0.0))) for s in spans]
     unattributed = 0
     lead = None
+    span_seconds: dict[str, float] = {}
+    span_families: dict[str, dict[str, float]] = {}
     for e in device:
         at = launches_at.get(e.get("args", {}).get("correlation"))
         if at is not None:
@@ -184,8 +235,15 @@ def parse_trace(path: str) -> dict:
         owner = None if at is None else next((i for i, (a, b) in enumerate(bounds) if a <= at <= b), None)
         if owner is None:
             unattributed += 1
-        else:
-            steps[owner]["events"].append(e)
+            continue
+        steps[owner]["events"].append(e)
+        inner = next((name for dur, ts, name in ranges if ts <= at <= ts + dur), None)
+        if inner is not None:
+            seconds = float(e.get("dur", 0.0)) / 1e6
+            span_seconds[inner] = span_seconds.get(inner, 0.0) + seconds
+            families = span_families.setdefault(inner, {})
+            family = category(e["name"], e["cat"])
+            families[family] = families.get(family, 0.0) + seconds
     firsts = [min((float(e["ts"]) for e in s["events"]), default=None) for s in steps]
     launches: dict[str, int] = {}
     device_time: dict[str, dict] = {}
@@ -211,4 +269,5 @@ def parse_trace(path: str) -> dict:
     return {"steps": steps, "window_s": window, "busy_s": busy,
             "idle_share": 1.0 - busy / window if window > 0 else 0.0,
             "launches": launches, "device_time": device_time, "unattributed": unattributed,
-            "launch_lead_s": None if lead is None else lead / 1e6}
+            "launch_lead_s": None if lead is None else lead / 1e6,
+            "spans": span_seconds, "span_families": span_families}

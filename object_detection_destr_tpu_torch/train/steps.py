@@ -49,6 +49,7 @@ from ..geometry.boxes import default_boxes
 from ..losses.criterion import _flatten_scales, set_criterion, ssd_criterion
 from ..losses.matcher import decode_ssd_boxes
 from ..ops.cuda.auction import hungarian_match_fused
+from ..runtime.spans import span
 from .state import TrainState
 
 __all__ = [
@@ -162,24 +163,31 @@ def make_destr_step_core(cfg: TrainConfig, mesh=None,
 
     def core(state: TrainState, batch: dict) -> dict:
         model = state.model
-        old_stats = (
-            {k: v.clone() for k, v in _bn_stats(model).items()} if cfg.skip_nonfinite_updates else None
-        )
-        state.optimizer.zero_grad()
-        model_out, det_out = model(batch["images"], batch.get("pixel_valid"), train=True, rng=state.rng)
+        with span("forward"):
+            old_stats = (
+                {k: v.clone() for k, v in _bn_stats(model).items()} if cfg.skip_nonfinite_updates else None
+            )
+            state.optimizer.zero_grad()
+            model_out, det_out = model(batch["images"], batch.get("pixel_valid"), train=True, rng=state.rng)
         targets = _destr_targets(batch)
-        rows_model, rows_det = _match_pair(model_out, det_out, targets)
-        l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm, mesh=mesh)
-        l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm, mesh=mesh)
-        loss_model = _weighted(l_model, cfg)
-        loss_det = _weighted(l_det, cfg)
-        loss = cfg.model_loss_weight * loss_model + cfg.det_loss_weight * loss_det
-        loss.backward()
-        if mesh is not None:
-            # each rank's gradient is its data's share of the global loss'
-            mesh.all_reduce_grads(model.parameters())
-        _guard_stats(model, old_stats, cfg)
-        update = state.optimizer.step()
+        with span("match"):
+            rows_model, rows_det = _match_pair(model_out, det_out, targets)
+        with span("criterion"):
+            l_model = set_criterion(model_out, targets, rows=rows_model, class_norm=cfg.class_norm, mesh=mesh)
+            l_det = set_criterion(det_out, targets, rows=rows_det, class_norm=cfg.class_norm, mesh=mesh)
+            loss_model = _weighted(l_model, cfg)
+            loss_det = _weighted(l_det, cfg)
+            loss = cfg.model_loss_weight * loss_model + cfg.det_loss_weight * loss_det
+        # the model's gradient hooks cut the backward into its segments
+        # (models/destr/model.py): heads and criterion, encoder, backbone
+        with span("backward", first="backward.heads"):
+            loss.backward()
+            if mesh is not None:
+                # each rank's gradient is its data's share of the global loss'
+                mesh.all_reduce_grads(model.parameters())
+        with span("update"):
+            _guard_stats(model, old_stats, cfg)
+            update = state.optimizer.step()
         if observer is not None:
             detached = lambda tree: {k: v.detach() for k, v in tree.items()}
             observer({"model_out": detached(model_out), "targets": targets, "l_model": detached(l_model),

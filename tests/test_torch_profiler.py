@@ -17,6 +17,7 @@ import json
 import pytest
 import torch
 
+from object_detection_destr_tpu_torch.runtime.spans import SPAN_PREFIX
 from object_detection_destr_tpu_torch.train.profiler import (
     STEP_PREFIX,
     StepTimer,
@@ -70,6 +71,28 @@ def test_parse_trace_fixture(tmp_path):
                                "void flash_bwd_tc_kernel<32, 1, 64>(...)": 1}
     assert out["unattributed"] == 2
     assert parse_trace(str(path))["steps"][1]["label"] == "8"  # a file as well as a directory
+
+
+def test_parse_trace_spans(tmp_path):
+    """The same trace with the program's ``odtt.`` ranges: each device event
+    of a marked step goes to the innermost range that holds its launch;
+    events launched outside every range, or in no marked step, to none."""
+    trace = _fixture()
+    trace["traceEvents"] += [
+        _x("user_annotation", SPAN_PREFIX + "step", 1002.0, 290.0),
+        _x("user_annotation", SPAN_PREFIX + "forward", 1005.0, 10.0),  # holds launch 11
+        _x("user_annotation", SPAN_PREFIX + "backward", 1018.0, 20.0),  # holds 12 and the memcpy's 13
+        _x("user_annotation", SPAN_PREFIX + "enqueue", 1405.0, 20.0),  # holds the graph launch 21
+        _x("user_annotation", SPAN_PREFIX + "metrics_read", 1990.0, 20.0),  # 31: after the steps
+    ]
+    path = tmp_path / "trace_spans.json"
+    path.write_text(json.dumps(trace))
+    out = parse_trace(str(path))
+    assert out["spans"] == pytest.approx({"forward": 40e-6, "backward": 60e-6, "enqueue": 250e-6})
+    assert out["span_families"]["backward"] == pytest.approx({"fused_auction #9": 40e-6, "copies and memsets": 20e-6})
+    assert out["span_families"]["enqueue"] == pytest.approx(
+        {"flash_attention_fwd #1/#5": 100e-6, "flash_attention_bwd #2": 100e-6, "fused_auction #9": 50e-6})
+    assert out["steps"][0]["busy_s"] == pytest.approx(80e-6) and out["unattributed"] == 2  # the steps as before
 
 
 def test_step_trace_on_the_cpu(tmp_path):

@@ -22,41 +22,14 @@ from __future__ import annotations
 
 import argparse
 import os
-import re
 import statistics
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-# the port's CUDA kernels as the trace names them; #5, #6 and #7 launch the
-# kernels of #1, #3 and #4 with head-major strides
-PORT_KERNELS = (
-    ("flash_attention_fwd #1/#5", r"flash_fwd_(tc|f32)_kernel"),
-    ("flash_attention_bwd #2", r"flash_bwd_(tc|f32)_kernel"),
-    ("flash_attention_dq #3/#6", r"flash_two_pass_(tc|f32)(_wide)?_kernel(<false|ILb0E)"),
-    ("flash_attention_dkv #4/#7", r"flash_two_pass_(tc|f32)(_wide)?_kernel(<true|ILb1E)"),
-    ("fused_auction #9", r"fused_auction_kernel"),
-    ("auction_kernel #8", r"(?<!fused_)auction_kernel"),
-)
-# the library kernels by family, tried in this order after the port's
-# (cuDNN's implicit-GEMM convolutions and its layout transposes before GEMM)
-LIBRARY_KERNELS = (
-    ("convolution", r"conv|fprop|dgrad|wgrad|implicit_gemm|nchwToNhwc|nhwcToNchw|cudnn"),
-    ("GEMM", r"gemm|gemv|nvjet|cutlass|cublas|splitK"),
-)
-COPIES = "copies and memsets"
-OTHER = "elementwise / reduction"
-
-
-def category(name: str, trace_category: str) -> str:
-    """The summary's category of one device event."""
-    if trace_category in ("gpu_memcpy", "gpu_memset"):
-        return COPIES
-    for label, pattern in PORT_KERNELS + LIBRARY_KERNELS:
-        if re.search(pattern, name):
-            return label
-    return OTHER
+# the trace's families (tools/trace_window_check.py reads PORT_KERNELS here)
+from object_detection_destr_tpu_torch.train.profiler import PORT_KERNELS, category  # noqa: E402,F401
 
 
 def summarize(parsed: dict, steps: int, top: int = 40) -> dict:
